@@ -2,16 +2,21 @@
 """Chip smoke for the PyTorch/CUDA port (k_llms_tpu_torch) on one NVIDIA card.
 
 Builds the port's CUDA kernels from ``k_llms_tpu_torch/csrc``, holds each one
-against its plain PyTorch version at the shapes the main path gives it,
-drives ``tiny`` in fp32 through the kernels and through the plain paths, then
-serves Llama-3-8B at full published width (seeded random weights, the byte
-tokenizer) through ``KLLMs(backend="cuda").chat.completions.create``, with
-every kernel launch counter reset just before and read just after.
+against its plain PyTorch version at the shapes the main paths give it (with
+mutants of the plain version that each limit must catch), drives ``tiny`` in
+fp32 through the kernels and through the plain paths (paged, dense with the
+decode-prefix kernel, and an int4-eligible small config), then serves
+Llama-3-8B at full published width (seeded random weights, the byte
+tokenizer) through ``KLLMs(backend="cuda").chat.completions.create`` twice:
+bf16 weights on the paged path (``8b``: K2, K1), and int4 weights on the
+dense path with flash decode (``8b_int4``: K2, K3, K4). Every kernel launch
+counter is reset just before each of those two paths and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
-subset (for quick checks); the default runs every phase of the contract.
-``--phases 8b,profile`` adds a device-time breakdown of one 8B request.
+subset (for quick checks, e.g. ``--phases build,k3,k4,tiny``); the default
+runs every phase of the contract. ``--phases 8b,profile`` adds a device-time
+breakdown of one 8B request.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -21,6 +26,7 @@ name and power limit from nvidia-smi, and last
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -28,13 +34,14 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "k2", "k1", "tiny", "8b")
+PHASES = ("build", "k2", "k1", "k4", "k3", "tiny", "8b", "8b_int4")
 # Opt-in: a torch.profiler breakdown of one 8B request (needs "8b").
 EXTRA_PHASES = ("profile",)
 
-# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate
-# and HBM3 bandwidth.
+# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate,
+# f32 rate outside the tensor cores, and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -300,78 +307,304 @@ def main(argv=None) -> int:
             "library_ms": None,
         }
 
+    # 5. K4 w4a16 matmul against its plain version
+    if "k4" in phases:
+        from k_llms_tpu_torch.ops import w4matmul as w4
+
+        def group_sums(x, w, *, scale=None, swap_halves=False, absolute=False):
+            """Plain w4 arithmetic with knobs for the limit and the mutants:
+            sum_g (x_g . ints_g) * scale_g, optionally on |x| and |ints| (the
+            scale of the f32 summation error) or with the nibble halves
+            swapped."""
+            scale = w.scale if scale is None else scale
+            x32 = x.float().abs() if absolute else x.float()
+            acc = torch.zeros((x.shape[0], w.q.shape[1]), dtype=torch.float32, device=dev)
+            for g in range(x.shape[1] // w4.GROUP):
+                ints = w4._unpack_ints(w.q[g * 64: (g + 1) * 64])[0].float()
+                if swap_halves:
+                    ints = torch.cat([ints[64:], ints[:64]])
+                if absolute:
+                    ints = ints.abs()
+                acc += (x32[:, g * 128: (g + 1) * 128] @ ints) * scale[g]
+            return acc
+
+        def k4_case(name, rows, K, N, dtype, *, timed=False, mutants=False):
+            # Random packed bytes (every nibble value, -8 included, as the
+            # random int4 init makes them) and per-group scales around the
+            # init's 1 / (4.61 sqrt(K)).
+            q = torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev, dtype=torch.int8)
+            scale = (torch.rand((K // 128, N), generator=gen, device=dev) + 0.5) / (4.61 * math.sqrt(K))
+            w = w4.Q4Tensor(q, scale)
+            x = randn(rows, K, dtype=dtype)
+            out = w4.w4_matmul(x, w)
+            torch.cuda.synchronize()
+            ref = w4.w4_matmul_plain(x, w)
+            # f32 sums taken in another order differ by far less than 1e-5 of
+            # the sum of |terms| (|x| @ |W|); a bf16 output adds its rounding,
+            # at most two ulps of |ref|.
+            rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 0.0
+            abs_terms = group_sums(x, w, absolute=True)
+
+            def over(o):
+                return ((o.float() - ref.float()).abs()
+                        / (rtol * ref.float().abs() + 1e-5 * abs_terms + 1e-30)).max().item()
+
+            err = (out.float() - ref.float()).abs().max().item()
+            ratio = over(out)
+            ok = bool(torch.isfinite(out).all().item()) and ratio <= 1.0 and out.dtype == dtype
+            rec = {"phase": "k4", "case": name, "rows": rows, "K": K, "N": N,
+                   "dtype": str(dtype).replace("torch.", ""), "ksplit": w4.split_k(rows, K, N),
+                   "max_abs_err": err, "mean_abs_ref": ref.float().abs().mean().item(),
+                   "limit": f"{rtol:g}*|ref| + 1e-5*(|x| @ |W|)", "max_err_over_limit": ratio,
+                   "ok": ok}
+            if mutants:
+                dropped = scale.clone()
+                dropped[0] = 0.0
+                rec["mutant_err_over_limit"] = {
+                    "one_group_scale_dropped": over(group_sums(x, w, scale=dropped).to(dtype)),
+                    "nibble_halves_swapped": over(group_sums(x, w, swap_halves=True).to(dtype)),
+                }
+            if timed:
+                rec["ms"] = time_ms(lambda: w4.w4_matmul(x, w), iters=20)
+                rec["plain_ms"] = time_ms(lambda: w4.w4_matmul_plain(x, w), iters=3, warmup=1)
+                # Yardstick only (the port never calls it): cuBLAS on bf16
+                # activations and a bf16 copy of the dequantized weight.
+                w_bf16 = w4.unpack_int4(w).to(torch.bfloat16)
+                x_bf16 = x.to(torch.bfloat16)
+                rec["library_ms"] = time_ms(lambda: torch.matmul(x_bf16, w_bf16), iters=20)
+                del w_bf16
+                flops = 2.0 * rows * K * N
+                nbytes = (x.numel() * x.element_size() + q.numel() + scale.numel() * 4
+                          + out.numel() * out.element_size())
+                peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+                rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, peak)
+            log(rec)
+            if not ok:
+                raise AssertionError(f"w4_matmul case {name}: error {ratio} x the limit")
+            if not all(r > 1.0 for r in rec.get("mutant_err_over_limit", {}).values()):
+                raise AssertionError(f"w4_matmul case {name}: the limit misses a mutant: {rec}")
+            return rec, err
+
+        # The Llama-3-8B weights at every row count the main path gives
+        # them: last-token logits (1), decode at n=8 (8), the short prompts'
+        # 64-token prefill bucket (64, the GEMV path's widest: eight row
+        # chunks, split-K), the embeddings forward of 8 samples x 64 tokens
+        # (512, tiled) and the long prompt's 2048-token bucket (tiled).
+        shapes = {"w_gate_up": (4096, 14336), "w_down": (14336, 4096), "wq_wo": (4096, 4096),
+                  "wk_wv": (4096, 1024), "lm_head": (4096, 128256)}
+        recs, errs = {}, []
+        for sname, (K, N) in shapes.items():
+            for rows in (1, 8, 64, 512, 2048):
+                rec, e = k4_case(f"{sname}_rows{rows}", rows, K, N, torch.bfloat16, timed=True,
+                                 mutants=rows in (8, 64))
+                recs[(sname, rows)] = rec
+                errs.append(e)
+        errs.append(k4_case("f32_rows40", 40, 1024, 768, torch.float32, mutants=True)[1])
+        errs.append(k4_case("f32_rows300", 300, 512, 384, torch.float32, mutants=True)[1])
+        main_rec = recs[("w_gate_up", 8)]
+        kernels["w4_matmul"] = {
+            "name": "w4_matmul", "route": "cuda",
+            "source": "k_llms_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "k_llms_tpu/ops/w4matmul.py:136",
+            "launches": None, "held": True, "max_abs_err": max(errs),
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"], "timed_case": "w_gate_up_rows8",
+        }
+
+    # 6. K3 decode-prefix attention against its plain version
+    if "k3" in phases:
+        # Both compute in f32 from the same inputs and differ only in the
+        # order of their sums: out, m and l are each held per element at
+        # 2e-5 |ref| + 2e-5 (the JAX test's bound, made relative for l, which
+        # grows with the key count).
+        def k3_over(o, r):
+            return ((o - r).abs() / (2e-5 * r.abs() + 2e-5)).max().item()
+
+        def k3_case(name, R, n_per, QH, KVH, D, P, plens, dtype, *, timed=False, mutants=True):
+            B = R * n_per
+            q = randn(B, QH, D, dtype=dtype)
+            pk = randn(R, P, KVH, D, dtype=dtype)
+            pv = randn(R, P, KVH, D, dtype=dtype)
+            lens = torch.tensor(plens, dtype=torch.int32, device=dev)
+            sc = 1.0 / math.sqrt(D)
+            got = att.decode_prefix_attention(q, pk, pv, lens, sm_scale=sc)
+            torch.cuda.synchronize()
+            ref = att.decode_prefix_attention_plain(q, pk, pv, lens, sm_scale=sc)
+            ratios = {k: k3_over(o, r) for k, o, r in zip(("out", "m", "l"), got, ref)}
+            err = max((o - r).abs().max().item() for o, r in zip(got, ref))
+            ok = all(bool(torch.isfinite(o).all().item()) for o in got) and max(ratios.values()) <= 1.0
+            rec = {"phase": "k3", "case": name, "R": R, "n_per": n_per, "heads": [QH, KVH, D],
+                   "P": P, "plens": plens, "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": err, "err_over_limit": ratios, "ok": ok}
+            if mutants:
+                # One key past the prompt admitted; the max taken before the
+                # mask (then l is the denominator at that max).
+                late = att.decode_prefix_attention_plain(q, pk, pv, lens + 1, sm_scale=sc)
+                qg = q.float().reshape(R, n_per, KVH, QH // KVH, D)
+                s_all = torch.einsum("rnhgd,rkhd->rnhgk", qg, pk.float()) * sc
+                valid = torch.arange(P, device=dev)[None, :] < lens.long()[:, None]
+                m_early = s_all.amax(-1)
+                p = torch.exp(torch.where(valid[:, None, None, None], s_all,
+                                          torch.full_like(s_all, att.NEG_INF)) - m_early[..., None])
+                l_early = p.sum(-1).reshape(B, QH)
+                rec["mutant_err_over_limit"] = {
+                    "key_past_prompt_len_admitted": max(k3_over(o, r) for o, r in zip(late, ref)),
+                    "max_before_masking": max(k3_over(m_early.reshape(B, QH), ref[1]),
+                                              k3_over(l_early, ref[2])),
+                }
+            if timed:
+                rec["ms"] = time_ms(lambda: att.decode_prefix_attention(q, pk, pv, lens, sm_scale=sc), iters=50)
+                rec["plain_ms"] = time_ms(
+                    lambda: att.decode_prefix_attention_plain(q, pk, pv, lens, sm_scale=sc), iters=10)
+                rec["library_ms"] = None
+                # The valid keys of each request read once, q read once, out,
+                # m and l written once.
+                keys = sum(plens)
+                flops = 4.0 * D * QH * n_per * keys
+                esz = pk.element_size()
+                nbytes = 2 * keys * KVH * D * esz + q.numel() * esz + (B * QH * (D + 2)) * 4
+                rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            log(rec)
+            if not ok:
+                raise AssertionError(f"decode_prefix_attention case {name} failed: {rec}")
+            for mname, r in rec.get("mutant_err_over_limit", {}).items():
+                caught[mname] = max(caught.get(mname, 0.0), r)
+            return rec, err
+
+        # Each mutant must be caught by some case (a case whose masked keys
+        # never hold a row's largest score cannot show the max-before-mask
+        # mutant).
+        caught = {}
+
+        main_rec, e0 = k3_case("llama3_8b_long_prompt", 1, 8, 32, 8, 128, 2048, [1490],
+                               torch.bfloat16, timed=True)
+        errs = [e0]
+        errs.append(k3_case("llama3_8b_short_prompt", 1, 8, 32, 8, 128, 64, [51], torch.bfloat16)[1])
+        errs.append(k3_case("two_requests_ragged", 2, 8, 32, 8, 128, 2048, [1500, 437],
+                            torch.bfloat16)[1])
+        errs.append(k3_case("P_not_key_block_multiple", 1, 8, 32, 8, 128, 1001, [1000],
+                            torch.bfloat16)[1])
+        errs.append(k3_case("n16_two_row_tiles", 1, 16, 32, 8, 128, 512, [300], torch.bfloat16)[1])
+        errs.append(k3_case("tiny_f32", 3, 4, 4, 2, 16, 96, [45, 20, 95], torch.float32)[1])
+        errs.append(k3_case("head_dim_64_f32", 2, 8, 4, 2, 64, 128, [77, 127], torch.float32)[1])
+        errs.append(k3_case("head_dim_256", 1, 8, 8, 4, 256, 200, [129], torch.bfloat16)[1])
+        log({"phase": "k3", "mutants_caught_max_err_over_limit": caught})
+        if len(caught) != 2 or min(caught.values()) <= 1.0:
+            raise AssertionError(f"decode_prefix_attention: the limit misses a mutant: {caught}")
+        kernels["decode_prefix_attention"] = {
+            "name": "decode_prefix_attention", "route": "cuda",
+            "source": "k_llms_tpu_torch/csrc/decode_prefix.cu",
+            "replaces": "k_llms_tpu/ops/attention.py:145",
+            "launches": None, "held": True, "max_abs_err": max(errs),
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+            "library_ms": None,
+        }
+
     from k_llms_tpu_torch.engine.engine import LocalEngine
     from k_llms_tpu_torch.engine.tokenizer import ByteTokenizer
     from k_llms_tpu_torch.models.config import get_config
     from k_llms_tpu_torch.models.llama import init_params
 
-    # 5. tiny fp32: greedy tokens through the kernels == through the plain paths
+    # 7. tiny fp32: greedy tokens through the kernels == through the plain paths
     if "tiny" in phases:
+        from k_llms_tpu_torch.models.quant import quantize_params
+
         tiny = get_config("tiny")
-        params = init_params(tiny, torch.Generator(device=dev).manual_seed(args.seed), dev)
         tok = ByteTokenizer()
         prompt = tok.apply_chat_template(
             [{"role": "user", "content": "Extract the invoice total from: total due 41.20 EUR"}])
-        runs = {}
-        for label, cfg, impl in (("kernels", tiny.with_(attention_impl="flash"), "cuda"),
-                                 ("plain", tiny, "xla")):
-            eng = LocalEngine(cfg, params=params, device="cuda", paged_attention_impl=impl,
-                              kv_page_size=16)
-            _ext.reset_launch_counts()
-            res = eng.generate(prompt, n=4, seed=1, max_new_tokens=32, temperature=0.0,
-                               eos_ids=tok.stop_ids)
-            runs[label] = (res, dict(_ext.LAUNCH_COUNTS))
-        same = bool((runs["kernels"][0].tokens == runs["plain"][0].tokens).all())
-        lp_err = float(abs(runs["kernels"][0].logprobs - runs["plain"][0].logprobs).max())
-        counts = runs["kernels"][1]
-        log({"phase": "tiny_fp32", "greedy_tokens_equal": same, "logprob_max_abs_diff": lp_err,
-             "kernel_launches": counts, "plain_launches": runs["plain"][1]})
-        if not same or min(counts.values()) == 0 or max(runs["plain"][1].values()) != 0:
-            raise AssertionError("tiny fp32: kernel path disagrees with the plain path")
+        flash = dict(attention_impl="flash", decode_attention_impl="flash")
+        # An int4-eligible small config (every matmul K % 256 == 0, N % 128 == 0).
+        eligible = tiny.with_(hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2,
+                              head_dim=64, vocab_size=384, max_seq_len=128)
+        gen_tiny = torch.Generator(device=dev).manual_seed(args.seed)
+        params = init_params(tiny, gen_tiny, dev)
+        q4_params = quantize_params(init_params(eligible, gen_tiny, dev), bits=4)
+        cpu_q4 = {k: ({kk: vv.to("cpu") for kk, vv in v.items()} if isinstance(v, dict)
+                      else v.to("cpu")) for k, v in q4_params.items()}
+        # (label, kernel-path engine, plain-path engine, kernels that must run)
+        cases = [
+            ("paged",
+             dict(config=tiny.with_(attention_impl="flash"), params=params, device="cuda",
+                  paged_attention_impl="cuda"),
+             dict(config=tiny, params=params, device="cuda", paged_attention_impl="xla"),
+             ("flash_attention", "paged_decode_attention")),
+            ("dense_flash_decode",
+             dict(config=tiny.with_(**flash), params=params, device="cuda", kv_layout="dense"),
+             dict(config=tiny, params=params, device="cuda", kv_layout="dense"),
+             ("flash_attention", "decode_prefix_attention")),
+            # The plain versions of K2, K3 and K4 run where the wrappers send
+            # CPU tensors.
+            ("int4_dense_flash_decode",
+             dict(config=eligible.with_(**flash), params=q4_params, device="cuda",
+                  kv_layout="dense"),
+             dict(config=eligible.with_(**flash), params=cpu_q4, device="cpu", kv_layout="dense"),
+             ("flash_attention", "decode_prefix_attention", "w4_matmul")),
+        ]
+        for label, kernel_kw, plain_kw, needed in cases:
+            runs = {}
+            for run, kw in (("kernels", kernel_kw), ("plain", plain_kw)):
+                eng = LocalEngine(kw.pop("config"), kv_page_size=16, **kw)
+                _ext.reset_launch_counts()
+                res = eng.generate(prompt, n=4, seed=1, max_new_tokens=32, temperature=0.0,
+                                   eos_ids=tok.stop_ids)
+                runs[run] = (res, dict(_ext.LAUNCH_COUNTS), eng.quantized)
+            same = bool((runs["kernels"][0].tokens == runs["plain"][0].tokens).all())
+            lp_err = float(abs(runs["kernels"][0].logprobs - runs["plain"][0].logprobs).max())
+            counts = runs["kernels"][1]
+            log({"phase": "tiny_fp32", "case": label, "quantized": runs["kernels"][2],
+                 "greedy_tokens_equal": same, "logprob_max_abs_diff": lp_err,
+                 "kernel_launches": counts, "plain_launches": runs["plain"][1]})
+            unused = [k for k in counts if k not in needed]
+            if (not same or min(counts[k] for k in needed) == 0 or any(counts[k] for k in unused)
+                    or max(runs["plain"][1].values()) != 0):
+                raise AssertionError(f"tiny fp32 {label}: kernel path disagrees with the plain path")
 
-    # 6. Llama-3-8B, bf16, full width, seeded random weights, through KLLMs
-    if "8b" in phases:
-        from k_llms_tpu_torch import KLLMs
+    # 8. Llama-3-8B at full width, seeded random weights, through KLLMs:
+    # bf16 weights on the paged path, then int4 weights on the dense path
+    # with flash decode. Random weights spread their mass over the whole 128k
+    # vocabulary, which the byte tokenizer decodes to nothing; a logit bias
+    # on the printable bytes gives consensus text to vote on.
+    printable = {str(t): 10.0 for t in range(32, 127)}
+    long_text = ("Invoice 2024-0117 from Acme GmbH, Berlin. Line items: 12 widgets at "
+                 "3.40 EUR, 4 gadgets at 17.95 EUR, shipping 9.00 EUR. ") * 12
+    long_text = long_text[:1450]
+    requests = [
+        dict(messages=[{"role": "user", "content": "What is the capital of France?"}],
+             n=8, temperature=0.0, max_tokens=32, seed=1, logit_bias=printable),
+        # Answers over 50 characters take the consensus's embeddings
+        # similarity: one encoder forward (K2, and K4 on int4 weights) over
+        # the distinct samples.
+        dict(messages=[{"role": "user", "content": "Name three prime numbers."}],
+             n=8, temperature=0.8, top_p=0.95, seed=3, max_tokens=64, logit_bias=printable),
+        dict(messages=[{"role": "user", "content": long_text + "\nWhat is the total?"}],
+             n=8, temperature=0.0, max_tokens=32, seed=5, logit_bias=printable),
+    ]
 
-        t0 = time.perf_counter()
-        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed)
-        torch.cuda.synchronize()
+    def serve_8b(label, client):
+        """Warm up, then the three requests with every launch count reset
+        just before and read just after. Returns (counts, engine launches
+        [(requests, rows per request, decode steps)], embeddings forwards)."""
         engine = client.backend.engine
-        log({"phase": "8b_init", "seconds": time.perf_counter() - t0,
-             "param_bytes": engine.param_footprint_bytes(),
-             "paged_attention_impl": engine.paged_attention_impl,
-             "attention_impl": engine.config.attention_impl})
-        # Random weights spread their mass over the whole 128k vocabulary,
-        # which the byte tokenizer decodes to nothing; a logit bias on the
-        # printable bytes gives consensus text to vote on.
-        printable = {str(t): 10.0 for t in range(32, 127)}
-        # Warm-up outside the counted window (library handles, allocator).
         client.chat.completions.create(messages=[{"role": "user", "content": "warm up"}],
                                        n=2, max_tokens=4, temperature=0.0, seed=0,
                                        logit_bias=printable)
-        long_text = ("Invoice 2024-0117 from Acme GmbH, Berlin. Line items: 12 widgets at "
-                     "3.40 EUR, 4 gadgets at 17.95 EUR, shipping 9.00 EUR. ") * 12
-        long_text = long_text[:1450]
-        requests = [
-            dict(messages=[{"role": "user", "content": "What is the capital of France?"}],
-                 n=8, temperature=0.0, max_tokens=32, seed=1, logit_bias=printable),
-            # Answers over 50 characters take the consensus's embeddings
-            # similarity: one encoder forward (K2 again) over the distinct
-            # samples.
-            dict(messages=[{"role": "user", "content": "Name three prime numbers."}],
-                 n=8, temperature=0.8, top_p=0.95, seed=3, max_tokens=64, logit_bias=printable),
-            dict(messages=[{"role": "user", "content": long_text + "\nWhat is the total?"}],
-                 n=8, temperature=0.0, max_tokens=32, seed=5, logit_bias=printable),
-        ]
-        # Record the embeddings forwards the consensus asks for.
-        embed_batches = []
-        embed_tokens = engine.embed_tokens
+        launches, embed_batches = [], []
+        generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
+
+        def counted_generate_many(items, **kw):
+            out = generate_many(items, **kw)
+            st = engine.last_launch_stats
+            launches.append((len(items), st["n_per"], st["decode_steps"]))
+            return out
 
         def counted_embed_tokens(token_lists, *a, **kw):
             embed_batches.append([len(t) for t in token_lists])
             return embed_tokens(token_lists, *a, **kw)
 
-        engine.embed_tokens = counted_embed_tokens
+        engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
         _ext.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         for i, req in enumerate(requests):
@@ -382,63 +615,130 @@ def main(argv=None) -> int:
             st = dict(engine.last_launch_stats)
             n = req["n"]
             if len(resp.choices) != n + 1 or resp.likelihoods is None:
-                raise AssertionError(f"8b request {i}: {len(resp.choices)} choices, "
+                raise AssertionError(f"{label} request {i}: {len(resp.choices)} choices, "
                                      f"likelihoods={resp.likelihoods}")
             lps = [c.sample_logprob for c in resp.choices[1:]]
             if not all(math.isfinite(x) for x in lps):
-                raise AssertionError(f"8b request {i}: non-finite sample logprobs {lps}")
+                raise AssertionError(f"{label} request {i}: non-finite sample logprobs {lps}")
             gen_tokens = resp.usage.completion_tokens
-            log({"phase": "8b_request", "index": i, "n": n, "temperature": req["temperature"],
+            log({"phase": f"{label}_request", "index": i, "n": n, "temperature": req["temperature"],
                  "prompt_tokens": resp.usage.prompt_tokens, "completion_tokens": gen_tokens,
                  "prefill_ms": st["prefill_s"] * 1e3,
                  "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
-                 "decode_steps": st["decode_steps"], "wall_s": wall,
+                 "decode_steps": st["decode_steps"], "kv_layout": st["kv_layout"], "wall_s": wall,
                  "tokens_per_s": gen_tokens / wall, "choices": len(resp.choices),
                  "embeddings_forwards": embed_batches[n_embeds:],
                  "consensus": resp.choices[0].message.content, "likelihoods": resp.likelihoods})
-        engine.embed_tokens = embed_tokens
+        del engine.generate_many, engine.embed_tokens
         counts = dict(_ext.LAUNCH_COUNTS)
-        L = engine.config.num_layers
-        log({"phase": "8b_main_path", "launches": counts, "embeddings_forwards": len(embed_batches),
+        log({"phase": f"{label}_main_path", "launches": counts, "engine_launches": launches,
+             "embeddings_forwards": len(embed_batches),
              "peak_memory_bytes": torch.cuda.max_memory_allocated()})
-        for name, rec in kernels.items():
-            rec["launches"] = counts[name]
-        if min(counts.values()) == 0:
-            raise AssertionError(f"a kernel of the main path was never launched: {counts}")
-        if not embed_batches or counts["flash_attention"] != L * (len(requests) + len(embed_batches)):
-            raise AssertionError(f"the embeddings forward did not run through K2: "
-                                 f"{len(embed_batches)} forwards, launches {counts}")
+        return counts, launches, embed_batches
 
-        if "profile" in phases:
-            from torch.profiler import ProfilerActivity, profile
+    def profile_one(label, client):
+        from torch.profiler import ProfilerActivity, profile
 
-            req = dict(requests[0])
+        engine = client.backend.engine
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            client.chat.completions.create(**requests[0])
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                client.chat.completions.create(**req)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            st = dict(engine.last_launch_stats)
-            # Kernel events only: an operator's entry repeats the device time
-            # of the kernels it launched.
-            rows = []
-            for e in prof.key_averages():
-                if e.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                dev_us = getattr(e, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = getattr(e, "self_cuda_time_total", 0.0)
-                if dev_us > 0:
-                    rows.append((dev_us, e.key, e.count))
-            rows.sort(reverse=True)
-            busy_us = sum(r[0] for r in rows)
-            log({"phase": "8b_profile", "request": 0, "wall_s": wall,
-                 "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-                 "decode_steps": st["decode_steps"], "device_busy_s": busy_us / 1e6,
-                 "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-                 "top_device_time": [{"name": k[:80], "ms": us / 1e3, "calls": c}
-                                     for us, k, c in rows[:12]]})
+            wall = time.perf_counter() - t0
+        st = dict(engine.last_launch_stats)
+        # Kernel events only: an operator's entry repeats the device time of
+        # the kernels it launched.
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                rows.append((dev_us, e.key, e.count))
+        rows.sort(reverse=True)
+        busy_us = sum(r[0] for r in rows)
+        log({"phase": f"{label}_profile", "request": 0, "wall_s": wall,
+             "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+             "decode_steps": st["decode_steps"], "device_busy_s": busy_us / 1e6,
+             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+             "top_device_time": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                                 for us, k, c in rows[:12]]})
+
+    from k_llms_tpu_torch import KLLMs
+
+    # 8a. bf16 weights, paged decode: K2 and K1.
+    if "8b" in phases:
+        t0 = time.perf_counter()
+        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed)
+        torch.cuda.synchronize()
+        engine = client.backend.engine
+        log({"phase": "8b_init", "seconds": time.perf_counter() - t0,
+             "param_bytes": engine.param_footprint_bytes(),
+             "paged_attention_impl": engine.paged_attention_impl,
+             "attention_impl": engine.config.attention_impl})
+        counts, launches, embeds = serve_8b("8b", client)
+        L = engine.config.num_layers
+        for name in ("flash_attention", "paged_decode_attention"):
+            if name in kernels:
+                kernels[name]["launches"] = counts[name]
+        steps = sum(s for _, _, s in launches)
+        prefills = sum(r for r, _, _ in launches)
+        expected = {"flash_attention": L * (prefills + len(embeds)),
+                    "paged_decode_attention": L * steps,
+                    "decode_prefix_attention": 0, "w4_matmul": 0}
+        if not embeds or counts != expected:
+            raise AssertionError(f"8b launch counts {counts} != expected {expected}")
+        if "profile" in phases:
+            profile_one("8b", client)
+        del client, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 8b. int4 weights, dense decode with the decode-prefix kernel: K2, K3
+    # and K4 (no K1).
+    if "8b_int4" in phases:
+        t0 = time.perf_counter()
+        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed,
+                       quantization="int4", paged_kv=False, decode_attention_impl="flash")
+        torch.cuda.synchronize()
+        engine = client.backend.engine
+        log({"phase": "8b_int4_init", "seconds": time.perf_counter() - t0,
+             "param_bytes": engine.param_footprint_bytes(), "quantized": engine.quantized,
+             "kv_layout": engine.kv_layout,
+             "decode_attention_impl": engine.config.decode_attention_impl,
+             "attention_impl": engine.config.attention_impl})
+        counts, launches, embeds = serve_8b("8b_int4", client)
+        cfg8 = engine.config
+        L = cfg8.num_layers
+        G = cfg8.num_heads // cfg8.num_kv_heads
+        for name in ("decode_prefix_attention", "w4_matmul"):
+            if name in kernels:
+                kernels[name]["launches"] = counts[name]
+        steps = sum(s for _, _, s in launches)
+        prefills = sum(r for r, _, _ in launches)
+        # K3 runs where the gate holds: at least 8 query rows per request
+        # and kv head (n * G >= 8).
+        gated_steps = sum(s for _, n_per, s in launches if n_per * G >= 8)
+        expected = {
+            "flash_attention": L * (prefills + len(embeds)),
+            "paged_decode_attention": 0,
+            "decode_prefix_attention": L * gated_steps,
+            # Seven block matmuls a layer, plus lm_head for each prefill's
+            # last token and each decode step (the embeddings forward skips
+            # lm_head).
+            "w4_matmul": (7 * L + 1) * (prefills + steps) + 7 * L * len(embeds),
+        }
+        log({"phase": "8b_int4_expected_launches", "expected": expected, "counts": counts})
+        if not embeds or gated_steps == 0 or counts != expected:
+            raise AssertionError(f"8b_int4 launch counts {counts} != expected {expected}")
+        if "profile" in phases:
+            profile_one("8b_int4", client)
+        del client, engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)

@@ -2,10 +2,14 @@
 
 Counterpart of ``k_llms_tpu/backends/tpu.py``: the chat template, stop
 strings, per-sample logprobs and usage of ``chat_completion`` are carried
-over; the request goes straight to ``LocalEngine.generate_many``. The
-scheduler, supervisor, continuous loop, grammar-constrained decoding,
-streaming and the device consensus scorer are not ported yet (``parse()``
-validates after the fact).
+over; the request goes straight to ``LocalEngine.generate_many``. The model
+overrides (dtype, max_seq_len, attention impls), weight quantization and the
+KV-layout knobs of the JAX package's ``BackendConfig`` are carried over under
+the same names and defaults. The scheduler, supervisor, continuous loop,
+grammar-constrained decoding, streaming and the device consensus scorer are
+not ported yet (``parse()`` validates after the fact); a keyword that names
+one of the JAX package's other ``BackendConfig`` fields raises
+``NotImplementedError`` rather than being dropped.
 """
 
 from __future__ import annotations
@@ -41,15 +45,50 @@ def _visible_token_count(tok, ids: List[int], pos: int, text: str) -> int:
 
 
 class BackendConfig(BaseModel):
-    """The part of the JAX package's BackendConfig this backend uses."""
+    """The part of the JAX package's BackendConfig this backend serves, with
+    its names and defaults."""
 
     model: str = "tiny"
     tokenizer_path: Optional[str] = None
     max_new_tokens: int = 256
     param_seed: int = 0
+    # Model-config overrides.
+    dtype: Optional[str] = None  # e.g. "bfloat16" | "float32"
+    max_seq_len: Optional[int] = None
+    attention_impl: Optional[str] = None  # prefill: "xla" | "flash"
+    decode_attention_impl: Optional[str] = None  # dense decode: "xla" | "flash"
+    # Weight quantization: None (model dtype), "int8" (per-channel) or
+    # "int4" (group-wise, the w4a16 kernel).
+    quantization: Optional[str] = None
+    # KV layout: paged (pool pages, block tables) or dense (a stacked shared
+    # prefix plus per-row generated caches).
+    paged_kv: bool = True
+    kv_page_size: int = 64
+    paged_attention_impl: str = "auto"  # "auto" | "cuda" | "xla"
+    paged_generate_many: bool = True
     # Where the engine runs: None = the CUDA card (raises without one);
     # "cpu" runs the kernels' plain PyTorch versions.
     device: Optional[str] = None
+
+
+#: Fields of the JAX package's BackendConfig that this backend has not
+#: ported. A keyword naming one raises NotImplementedError.
+UNPORTED_FIELDS = frozenset({
+    "checkpoint_path", "model_parallel", "sp_prefill_min_tokens", "sp_attention",
+    "sp_decode", "prefix_cache_size", "prefix_cache_min_reuse", "speculative",
+    "spec_lookahead", "batch_window", "max_queue_weight", "max_batch_rows", "hbm_bytes",
+    "hbm_headroom", "drain_timeout", "sse_ping_interval_s", "debug_endpoints",
+    "watchdog_base_s", "watchdog_per_token_s", "watchdog_multiplier",
+    "watchdog_min_budget_s", "watchdog_max_budget_s", "max_rebuilds", "poison_threshold",
+    "poison_window", "continuous_batching", "continuous_width", "continuous_max_prompt",
+    "continuous_max_new", "prefill_chunk_tokens", "kv_pool_pages", "device_consensus",
+    "constrained_decoding", "tenant_default_weight", "tenant_default_slo",
+    "tenant_default_requests_per_s", "tenant_default_rows_per_s", "tenants",
+    "tenant_api_keys", "brownout_high_water", "batch_store_dir", "batch_max_in_flight",
+    "batch_item_retries", "jobstore_ttl_s",
+})
+
+_MODEL_OVERRIDES = ("dtype", "max_seq_len", "attention_impl", "decode_attention_impl")
 
 
 class CudaBackend(Backend):
@@ -60,19 +99,42 @@ class CudaBackend(Backend):
         engine: Optional[LocalEngine] = None,
         **kwargs: Any,
     ):
+        unported = sorted(UNPORTED_FIELDS.intersection(kwargs))
+        if unported:
+            raise NotImplementedError(
+                f"BackendConfig field(s) {unported} of the JAX package are not ported "
+                "to k_llms_tpu_torch yet"
+            )
+        unknown = sorted(set(kwargs) - set(BackendConfig.model_fields))
+        if unknown:
+            raise TypeError(f"CudaBackend got unknown keyword argument(s) {unknown}")
         if config is not None and model is not None and model != config.model:
             raise ValueError(
                 f"model={model!r} conflicts with config.model={config.model!r}; "
                 "pass one or make them agree"
             )
-        cfg = config or BackendConfig(model=model or "tiny", **{
-            k: v for k, v in kwargs.items() if k in BackendConfig.model_fields
-        })
+        cfg = config or BackendConfig(model=model or "tiny", **kwargs)
         self.backend_config = cfg
         self.model_name = cfg.model
+        model_config = get_config(cfg.model)
+        overrides = {k: getattr(cfg, k) for k in _MODEL_OVERRIDES if getattr(cfg, k) is not None}
+        if overrides:
+            model_config = model_config.with_(**overrides)
+        if cfg.quantization not in (None, "int8", "int4"):
+            raise ValueError(
+                f"Unsupported quantization {cfg.quantization!r}; use 'int8' or 'int4'"
+            )
         self.tokenizer = get_tokenizer(cfg.tokenizer_path)
         self.engine = engine if engine is not None else LocalEngine(
-            get_config(cfg.model), param_seed=cfg.param_seed, device=cfg.device
+            model_config,
+            param_seed=cfg.param_seed,
+            device=cfg.device,
+            quantize=cfg.quantization,
+            # The port has no continuous loop, so paged_generate_many=False
+            # leaves generate_many the dense body, as the JAX engine does.
+            kv_layout="paged" if cfg.paged_kv and cfg.paged_generate_many else "dense",
+            kv_page_size=cfg.kv_page_size,
+            paged_attention_impl=cfg.paged_attention_impl,
         )
         self.default_max_new_tokens = cfg.max_new_tokens
 

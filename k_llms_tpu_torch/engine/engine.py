@@ -1,19 +1,30 @@
 """Local inference engine: n-way consensus sampling as one batched decode.
 
-Counterpart of ``k_llms_tpu/engine/engine.py``, on the paged path: each
-request's prompt is prefilled once at batch=1 (the flash kernel), its KV is
-copied into pool pages, and the n samples of every request decode together
-as one batch against shared block tables (the paged-decode kernel), rows
-request-major (``B = r_pad * n_per``). Padding rows and dead rows point their
-gen slots at the trash page. The decode loop is a host loop of steps that
-ends when every row is done: EOS and stop sequences, pad after done,
-per-token logprobs, frequency/presence penalties and logit bias, optional
-top logprobs, and quarantine of rows whose logits go non-finite.
+Counterpart of ``k_llms_tpu/engine/engine.py``. Each request's prompt is
+prefilled once at batch=1 (the flash kernel), and the n samples of every
+request decode together as one batch, rows request-major
+(``B = r_pad * n_per``), in one of two KV layouts:
 
-Not ported yet: the dense-cache decode path, the prefix cache, meshes,
-sequence-parallel and ring prefill, speculative decoding, grammar
-constraints, the continuous loop, device-OOM splitting, the abort poller and
-the streaming token tap.
+- ``kv_layout="paged"`` (this engine's default): the prompt's KV is copied
+  into pool pages and rows decode against shared block tables (the
+  paged-decode kernel). Padding rows and dead rows point their gen slots at
+  the trash page.
+- ``kv_layout="dense"`` (the JAX engine's default): the prompts' KV are
+  padded to one bucket and stacked into a shared ``[L, R, P, KVH, D]``
+  prefix, each row keeps a dense cache of its generated tokens, and
+  ``models.llama.decode_step`` attends both (with
+  ``decode_attention_impl="flash"``, the decode-prefix kernel).
+
+Both run the same host loop of steps (``_decode``, parameterized by a step
+function) that ends when every row is done: EOS and stop sequences, pad
+after done, per-token logprobs, frequency/presence penalties and logit bias,
+optional top logprobs, and quarantine of rows whose logits go non-finite.
+Weights may be quantized (``quantize="int8"|"int4"``; int4 matmuls run the
+w4a16 kernel).
+
+Not ported yet: the prefix cache, meshes, sequence-parallel and ring
+prefill, speculative decoding, grammar constraints, the continuous loop,
+device-OOM splitting, the abort poller and the streaming token tap.
 """
 
 from __future__ import annotations
@@ -27,7 +38,17 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig, get_config
-from ..models.llama import check_supported, encode, init_params, paged_verify_step, prefill
+from ..models.llama import (
+    KVCache,
+    check_supported,
+    decode_step,
+    encode,
+    init_cache,
+    init_params,
+    paged_verify_step,
+    prefill,
+)
+from ..models.quant import init_params_quantized, quantize_params, stored_quant_layout
 from ..ops.paged_attention import resolve_paged_attention_impl
 from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
 from ..reliability.deadline import RequestBudget
@@ -110,6 +131,10 @@ class GenRequestSpec(NamedTuple):
     budget: Optional[RequestBudget] = None
 
 
+KV_LAYOUTS = ("dense", "paged")
+QUANTIZATIONS = (None, "int8", "int4")
+
+
 class LocalEngine:
     """Owns the parameters on one device, the page pool, and the decode."""
 
@@ -119,16 +144,37 @@ class LocalEngine:
         params: Optional[Dict[str, Any]] = None,
         param_seed: int = 0,
         device=None,
+        quantize: "bool | str | None" = None,
+        kv_layout: str = "paged",
         kv_page_size: int = 64,
         paged_attention_impl: str = "auto",
     ):
         self.config = get_config(config) if isinstance(config, str) else config
         check_supported(self.config)
         self.device = resolve_device(device)
+        if quantize is True:
+            quantize = "int8"
+        quantize = quantize or None
+        if quantize not in QUANTIZATIONS:
+            raise ValueError(f"Unknown quantize {quantize!r}; use 'int8' or 'int4'")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"Unknown kv_layout {kv_layout!r}; use 'dense' or 'paged'")
+        if params is not None:
+            # A pre-quantized tree keeps its stored layout whatever was asked.
+            quantize = stored_quant_layout(params) or quantize
+        bits = 4 if quantize == "int4" else 8
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(param_seed))
-            params = init_params(self.config, gen, self.device)
+            if quantize:
+                # Built directly: an 8B bf16 tree never exists beside its copy.
+                params = init_params_quantized(self.config, gen, self.device, bits=bits)
+            else:
+                params = init_params(self.config, gen, self.device)
+        elif quantize and stored_quant_layout(params) is None:
+            params = quantize_params(params, bits=bits)
         self.params = params
+        self.quantized = quantize
+        self.kv_layout = kv_layout
         self.kv_page_size = int(kv_page_size)
         self.paged_attention_impl = resolve_paged_attention_impl(
             paged_attention_impl, device=self.device
@@ -140,12 +186,16 @@ class LocalEngine:
         self.last_launch_stats: Dict[str, Any] = {}
 
     def param_footprint_bytes(self) -> int:
-        total = 0
-        for t in [self.params["embed"], self.params["final_norm"], self.params["lm_head"]]:
-            total += t.numel() * t.element_size()
-        for t in self.params["layers"].values():
-            total += t.numel() * t.element_size()
-        return total
+        """Bytes of the resident parameters, quantized payloads and scales
+        included."""
+
+        def size(t) -> int:
+            if hasattr(t, "nbytes") and callable(t.nbytes):
+                return t.nbytes()
+            return t.numel() * t.element_size()
+
+        leaves = [self.params["embed"], self.params["final_norm"], self.params["lm_head"]]
+        return sum(size(t) for t in leaves + list(self.params["layers"].values()))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -262,9 +312,9 @@ class LocalEngine:
         logit_bias: Optional[Dict[int, float]] = None,
         stop_sequences: Optional[Sequence[Sequence[int]]] = None,
     ) -> List[Any]:
-        """Decode several same-config requests as one batch against the page
-        pool. Returns one GenerationResult per item (or the exception a
-        member's spent budget raised)."""
+        """Decode several same-config requests as one batch, in the engine's
+        KV layout. Returns one GenerationResult per item
+        (or the exception a member's spent budget raised)."""
         if not items:
             return []
         config = self.config
@@ -274,14 +324,84 @@ class LocalEngine:
             if it.budget is not None:
                 it.budget.check("engine prefill")
         eos = list(eos_ids or [config.eos_token_id])[:MAX_EOS_IDS]
-        eos_t = torch.as_tensor(eos, device=device)
         preps = [self._prep_prompt(it.prompt_ids) for it in items]
         n_per = max(max(1, it.n) for it in items)
         r_pad = _bucket(len(items), minimum=1)
         extra = r_pad - len(items)
         B = r_pad * n_per
-        bucket_max = max(bucket for _, _, bucket in preps)
         live = [i for j, it in enumerate(items) for i in range(j * n_per, j * n_per + max(1, it.n))]
+        seeds = [
+            it.seed if it.seed is not None else int.from_bytes(os.urandom(4), "little")
+            for it in items
+        ]
+        generators = None
+        if temperature != 0.0:
+            generators = [
+                torch.Generator(device=device).manual_seed(int(s)) for s in seeds
+            ] + [None] * extra
+        stops, use_stops = self._stop_array(stop_sequences)
+
+        def run_loop(step_fn, first_logits):
+            return self._decode(
+                step_fn, first_logits, n_per, r_pad,
+                [max(1, it.n) for it in items] + [0] * extra, generators,
+                max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+                top_k=top_k, eos_t=torch.as_tensor(eos, device=device),
+                top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
+                presence_penalty=presence_penalty,
+                bias=self._bias_array(logit_bias) if logit_bias else None,
+                stops=stops if use_stops else None,
+            )
+
+        if self.kv_layout == "paged":
+            out, t_prefill = self._generate_paged(preps, n_per, r_pad, live, max_new_tokens, run_loop)
+        else:
+            out, t_prefill = self._generate_dense(preps, n_per, r_pad, max_new_tokens, run_loop)
+        toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps = out
+        t_end = time.perf_counter()
+        self.last_launch_stats = {
+            "prefill_s": t_prefill - t_start,
+            "decode_s": t_end - t_prefill,
+            "decode_steps": steps,
+            "rows": B,
+            "n_per": n_per,
+            "live_rows": len(live),
+            "kv_layout": self.kv_layout,
+        }
+
+        results: List[Any] = []
+        for j, (it, (_, prompt_len, _)) in enumerate(zip(items, preps)):
+            lo, n_j = j * n_per, max(1, it.n)
+            t = toks_np[lo: lo + n_j]
+            res = GenerationResult(
+                tokens=t,
+                logprobs=lps_np[lo: lo + n_j],
+                lengths=(t != config.pad_token_id).sum(axis=1).astype(np.int32),
+                finish_reasons=["stop" if d else "length" for d in done_np[lo: lo + n_j]],
+                prompt_len=prompt_len,
+                top_tokens=tt_np[lo: lo + n_j] if top_logprobs else None,
+                top_logprobs=tl_np[lo: lo + n_j] if top_logprobs else None,
+            )
+            res = self._quarantine_result(res, pois_np[lo: lo + n_j])
+            if it.budget is not None and it.budget.should_abort():
+                results.append(it.budget.error("engine decode"))
+            else:
+                results.append(res)
+        poisoned = int(pois_np[np.asarray(live, np.int64)].sum())
+        if poisoned:
+            self.quarantine_stats["samples"] += poisoned
+            self.quarantine_stats["launches"] += 1
+            logger.warning("numeric poison: %d/%d decode row(s) quarantined", poisoned, len(live))
+        return results
+
+    def _generate_paged(self, preps, n_per, r_pad, live, max_new_tokens, run_loop):
+        """The paged body: prompts into pool pages, rows decode through
+        block tables. Returns (loop output, prefill end time)."""
+        config = self.config
+        device = self.device
+        extra = r_pad - len(preps)
+        B = r_pad * n_per
+        bucket_max = max(bucket for _, _, bucket in preps)
         gp = pages_for(max_new_tokens, self.kv_page_size)
         pool = self._ensure_kv_pool(
             min_pages=sum(pages_for(p, self.kv_page_size) for _, p, _ in preps)
@@ -315,7 +435,7 @@ class LocalEngine:
                 row_idx[run.plen:] = trash[run.plen:]
                 prefix_np[j] = row_idx
             if extra:
-                prefix_np[len(items):] = prefix_np[len(items) - 1]
+                prefix_np[len(preps):] = prefix_np[len(preps) - 1]
             trash_gen = (np.arange(max_new_tokens) % ps + TRASH_PAGE * ps).astype(np.int64)
             gen_np = np.empty((B, max_new_tokens), np.int64)
             for row in range(B):
@@ -323,69 +443,74 @@ class LocalEngine:
                 gen_np[row] = flat_slots(pgs, np.arange(max_new_tokens), ps) if pgs else trash_gen
             first_list += [first_list[-1]] * extra
             first_logits = torch.cat(first_list, dim=0)  # [r_pad, V]
-            lens = [p for _, p, _ in preps] + [preps[-1][1]] * extra
-            seeds = [
-                it.seed if it.seed is not None else int.from_bytes(os.urandom(4), "little")
-                for it in items
-            ]
-            generators = None
-            if temperature != 0.0:
-                generators = [
-                    torch.Generator(device=device).manual_seed(int(s)) for s in seeds
-                ] + [None] * extra
-            stops, use_stops = self._stop_array(stop_sequences)
-            with pool.lock:
-                out = self._decode(
-                    pool, torch.as_tensor(prefix_np, device=device),
-                    torch.as_tensor(gen_np, device=device),
-                    torch.as_tensor(lens, device=device), first_logits, n_per, r_pad,
-                    [max(1, it.n) for it in items] + [0] * extra, generators,
-                    max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
-                    top_k=top_k, eos_t=eos_t, top_logprobs=top_logprobs,
-                    frequency_penalty=frequency_penalty, presence_penalty=presence_penalty,
-                    bias=self._bias_array(logit_bias) if logit_bias else None,
-                    stops=stops if use_stops else None,
+            prompt_lens = torch.as_tensor(
+                [p for _, p, _ in preps] + [preps[-1][1]] * extra, device=device
+            )
+            prefix_idx = torch.as_tensor(prefix_np, device=device)
+            gen_idx = torch.as_tensor(gen_np, device=device)
+
+            def step_fn(tok, step):
+                logits, k_cols, v_cols = paged_verify_step(
+                    config, self.params, tok[:, None],
+                    torch.full((B,), step, dtype=torch.int64, device=device),
+                    prompt_lens, pool.k, pool.v, prefix_idx, gen_idx,
+                    attn_impl=self.paged_attention_impl, page_size=ps,
                 )
+                # This step's column goes into the pool after the step, at
+                # gen slot ``step`` of every row (dead rows write the trash
+                # page).
+                slots = gen_idx[:, step]
+                pool.k[:, slots] = k_cols
+                pool.v[:, slots] = v_cols
+                return logits[:, 0]
+
+            with pool.lock:
+                out = run_loop(step_fn, first_logits)
         finally:
             for run in pinned:
                 pool.allocator.decref(run.pages)
             for pgs in gen_pages_rows:
                 if pgs is not None:
                     pool.allocator.decref(pgs)
-        toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps = out
-        t_end = time.perf_counter()
-        self.last_launch_stats = {
-            "prefill_s": t_prefill - t_start,
-            "decode_s": t_end - t_prefill,
-            "decode_steps": steps,
-            "rows": B,
-            "live_rows": len(live),
-        }
+        return out, t_prefill
 
-        results: List[Any] = []
-        for j, (it, (_, prompt_len, _)) in enumerate(zip(items, preps)):
-            lo, n_j = j * n_per, max(1, it.n)
-            t = toks_np[lo: lo + n_j]
-            res = GenerationResult(
-                tokens=t,
-                logprobs=lps_np[lo: lo + n_j],
-                lengths=(t != config.pad_token_id).sum(axis=1).astype(np.int32),
-                finish_reasons=["stop" if d else "length" for d in done_np[lo: lo + n_j]],
-                prompt_len=prompt_len,
-                top_tokens=tt_np[lo: lo + n_j] if top_logprobs else None,
-                top_logprobs=tl_np[lo: lo + n_j] if top_logprobs else None,
-            )
-            res = self._quarantine_result(res, pois_np[lo: lo + n_j])
-            if it.budget is not None and it.budget.should_abort():
-                results.append(it.budget.error("engine decode"))
-            else:
-                results.append(res)
-        poisoned = int(pois_np[np.asarray(live, np.int64)].sum())
-        if poisoned:
-            self.quarantine_stats["samples"] += poisoned
-            self.quarantine_stats["launches"] += 1
-            logger.warning("numeric poison: %d/%d decode row(s) quarantined", poisoned, len(live))
-        return results
+    def _generate_dense(self, preps, n_per, r_pad, max_new_tokens, run_loop):
+        """The dense body (the JAX engine's ``generate_many`` without the
+        speculative, sequence-parallel and prefix-cache arms): each prompt's
+        KV, zero-padded to the largest bucket, stacked into one shared
+        ``[L, r_pad, P, KVH, D]`` prefix; every row's generated KV in a dense
+        ``[L, B, max_new, KVH, D]`` cache. Returns (loop output, prefill end
+        time)."""
+        config = self.config
+        extra = r_pad - len(preps)
+        bucket_max = max(bucket for _, _, bucket in preps)
+        first_list, k_list, v_list = [], [], []
+        for ids, prompt_len, bucket in preps:
+            fl, (k, v) = self._prefill_full(ids, prompt_len, bucket)
+            if bucket < bucket_max:
+                pad = (0, 0, 0, 0, 0, bucket_max - bucket)  # masked by prompt_len
+                k = torch.nn.functional.pad(k, pad)
+                v = torch.nn.functional.pad(v, pad)
+            first_list.append(fl)
+            k_list.append(k)
+            v_list.append(v)
+        k_list += [k_list[-1]] * extra
+        v_list += [v_list[-1]] * extra
+        first_list += [first_list[-1]] * extra
+        prefix = KVCache(k=torch.cat(k_list, dim=1), v=torch.cat(v_list, dim=1))
+        del k_list, v_list
+        first_logits = torch.cat(first_list, dim=0)  # [r_pad, V]
+        prompt_lens = torch.as_tensor(
+            [p for _, p, _ in preps] + [preps[-1][1]] * extra, device=self.device
+        )
+        gen_cache = init_cache(config, r_pad * n_per, max_new_tokens, self.device)
+        self._sync()
+        t_prefill = time.perf_counter()
+
+        def step_fn(tok, step):
+            return decode_step(config, self.params, tok, step, prompt_lens, gen_cache, prefix)[0]
+
+        return run_loop(step_fn, first_logits), t_prefill
 
     def _quarantine_result(self, result: GenerationResult, pois_rows: np.ndarray) -> GenerationResult:
         killed = np.flatnonzero(pois_rows[: result.tokens.shape[0]])
@@ -401,18 +526,19 @@ class LocalEngine:
         return result._replace(tokens=toks, logprobs=lps, lengths=lengths, sample_errors=errs)
 
     def _decode(
-        self, pool, prefix_idx, gen_idx, prompt_lens, first_logits, n_per, r_pad, rows,
-        generators, *, max_new_tokens, temperature, top_p, top_k, eos_t, top_logprobs,
-        frequency_penalty, presence_penalty, bias, stops,
+        self, step_fn, first_logits, n_per, r_pad, rows, generators, *, max_new_tokens,
+        temperature, top_p, top_k, eos_t, top_logprobs, frequency_penalty,
+        presence_penalty, bias, stops,
     ):
-        """The decode loop over ``B = r_pad * n_per`` rows. Returns numpy
-        (tokens, logprobs, done, top ids, top logprobs, poisoned, steps)."""
+        """The decode loop over ``B = r_pad * n_per`` rows, the JAX engine's
+        ``_run_loop``: ``step_fn(tokens [B], step) -> logits [B, V]`` runs one
+        model step in the caller's KV layout. Returns numpy (tokens, logprobs,
+        done, top ids, top logprobs, poisoned, steps)."""
         config = self.config
         device = self.device
         pad_id = config.pad_token_id
         B = r_pad * n_per
         V = first_logits.shape[-1]
-        impl = self.paged_attention_impl
         # pad_id must never be sampled on a live row, unless it doubles as eos.
         pad_col = 0.0 if bool((eos_t == pad_id).any()) else -float("inf")
         penalized = frequency_penalty != 0.0 or presence_penalty != 0.0
@@ -462,18 +588,7 @@ class LocalEngine:
 
         step = 0
         while step < max_new_tokens - 1 and not bool(done.all()):
-            logits, k_cols, v_cols = paged_verify_step(
-                config, self.params, tok[:, None],
-                torch.full((B,), step, dtype=torch.int64, device=device),
-                prompt_lens, pool.k, pool.v, prefix_idx, gen_idx,
-                attn_impl=impl, page_size=pool.page_size,
-            )
-            # This step's column goes into the pool after the step, at gen
-            # slot ``step`` of every row (dead rows write the trash page).
-            slots = gen_idx[:, step]
-            pool.k[:, slots] = k_cols
-            pool.v[:, slots] = v_cols
-            logits, bad = prepare(logits[:, 0], done)
+            logits, bad = prepare(step_fn(tok, step), done)
             frozen = done | bad
             nxt, lp = sample(logits, counts)
             nxt = torch.where(frozen, torch.full_like(nxt, pad_id), nxt)

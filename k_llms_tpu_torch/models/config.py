@@ -38,9 +38,11 @@ class ModelConfig:
     # anywhere) or "flash" (ops/attention.py::flash_attention — the CUDA
     # kernel on a card, its plain version on the CPU).
     attention_impl: str = "xla"
-    # Decode-step attention of the dense path: "xla" (default) or "flash"
-    # (the shared-prefix decode kernel, not ported yet: the port decodes
-    # through the paged path and raises for "flash" here).
+    # Decode-step attention over the shared prompt prefix: "xla" (default,
+    # one softmax over prefix and generated tail) or "flash"
+    # (ops/attention.py::decode_prefix_attention on the prefix, merged with
+    # the tail; taken where n * G >= 8, on the dense step and the paged
+    # reference step).
     decode_attention_impl: str = "xla"
     # Architecture variants beyond Llama:
     # - qkv_bias: additive bias on q/k/v projections (Qwen2 family).

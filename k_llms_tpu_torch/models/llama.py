@@ -2,11 +2,14 @@
 
 Counterpart of ``k_llms_tpu/models/llama.py``, Llama family only: the
 prefill (``prefill``), the full-sequence ``forward``/``encode`` behind
-embeddings, and the paged decode step (``paged_verify_step`` at ``Sq == 1``).
-Parameters keep the JAX package's tree: a plain dict whose per-layer weights
-are stacked on a leading layer axis, laid out (features_in, features_out) so
-``params_from_numpy`` carries a JAX tree over as it is. The layer stack is a
-Python loop over that axis.
+embeddings, the dense shared-prefix decode step (``decode_step``) and the
+paged decode step (``paged_verify_step`` at ``Sq == 1``). Parameters keep the
+JAX package's tree: a plain dict whose per-layer weights are stacked on a
+leading layer axis, laid out (features_in, features_out) so
+``params_from_numpy`` carries a JAX tree over as it is, quantized leaves
+included. Every matmul weight goes through ``quant.qdot``, so a weight may be
+a tensor, an int8 ``QTensor`` or an int4 ``Q4Tensor`` (the w4a16 kernel).
+The layer stack is a Python loop over that axis.
 
 bf16 rounds where the JAX functions round: ``rms_norm`` casts the normalised
 activations to the model dtype before the weight multiply, ``_gqa_values``
@@ -14,22 +17,30 @@ casts the softmax weights to the value dtype, and RoPE rotates the two halves
 of each head. Score and value einsums accumulate in f32 (inputs widened to
 f32, which is exact for bf16).
 
-Not ported yet (raise ``NotImplementedError``): the dense-cache decode and
-verify steps, continuation and chunked prefill, mixture-of-experts MLPs,
-the Gemma variants (offset norms, post-block norms, softcaps, embedding
-scale, GeGLU) and sliding windows.
+The dense decode step updates its generated-token cache in place (the JAX
+function returns a new one). With ``decode_attention_impl="flash"`` its
+attention over the shared prompt prefix runs the decode-prefix kernel
+(``ops.attention.decode_prefix_attention``) and merges the per-row generated
+tail in plain tensor code, behind the JAX package's gate.
+
+Not ported yet (raise ``NotImplementedError``): the verify step at
+``Sq > 1``, continuation and chunked prefill, mixture-of-experts MLPs, the
+Gemma variants (offset norms, post-block norms, softcaps, embedding scale,
+GeGLU), sliding windows, the ring (sequence-parallel) decode arm.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.attention import NEG_INF, flash_attention
+from ..ops.attention import NEG_INF, decode_prefix_attention, flash_attention
+from ..ops.w4matmul import Q4Tensor
 from .config import ModelConfig
+from .quant import QTensor, qdot
 
 Params = Dict[str, Any]
 
@@ -48,7 +59,7 @@ def check_supported(config: ModelConfig) -> None:
         unsupported.append("softcaps")
     if config.norm_offset or config.embed_scale or config.post_block_norms or config.act != "silu":
         unsupported.append("Gemma variants")
-    if config.decode_attention_impl != "xla":
+    if config.decode_attention_impl not in ("xla", "flash"):
         unsupported.append(f"decode_attention_impl={config.decode_attention_impl!r}")
     if config.attention_impl not in ("xla", "flash"):
         unsupported.append(f"attention_impl={config.attention_impl!r}")
@@ -110,16 +121,29 @@ def init_params(
 
 def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cpu") -> Params:
     """Turn a JAX parameter tree (leaves as numpy arrays, e.g. from
-    ``jax.device_get``) into the port's parameters on ``device``, in the
-    config's dtype."""
+    ``jax.device_get``) into the port's parameters on ``device``. Plain
+    leaves take the config's dtype. Quantized leaves — the JAX package's
+    ``QTensor(q, scale)`` (int8, ``models/quant.py``) and ``Q4Tensor(q,
+    scale)`` (packed int4, ``ops/w4matmul.py``), recognised by class name so
+    that the JAX package is not imported — become the port's ``QTensor`` and
+    ``Q4Tensor`` with their bytes and f32 scales unchanged."""
     check_supported(config)
     dtype = config.torch_dtype
 
-    def conv(x):
+    def array(x, to_dtype=None):
         arr = np.asarray(x)
         if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: go through f32
             arr = arr.astype(np.float32)
-        return torch.from_numpy(np.array(arr, copy=True)).to(device=device, dtype=dtype)
+        t = torch.from_numpy(np.array(arr, copy=True))
+        return t.to(device=device, dtype=to_dtype) if to_dtype is not None else t.to(device)
+
+    def conv(x):
+        kind = type(x).__name__
+        if kind == "Q4Tensor":
+            return Q4Tensor(array(x.q, torch.int8), array(x.scale, torch.float32))
+        if kind == "QTensor":
+            return QTensor(array(x.q, torch.int8), array(x.scale, torch.float32))
+        return array(x, dtype)
 
     layer_keys = _LAYER_KEYS + (_BIAS_KEYS if config.qkv_bias else ())
     missing = [k for k in layer_keys if k not in tree["layers"]]
@@ -134,7 +158,30 @@ def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cpu") -
 
 
 def _layer(params: Params, i: int) -> Params:
+    """Layer ``i``'s weights; quantized leaves slice their payload and
+    scales together."""
     return {k: v[i] for k, v in params["layers"].items()}
+
+
+class KVCache(NamedTuple):
+    """Stacked per-layer cache: k/v are [num_layers, batch, max_len,
+    kv_heads, head_dim]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+def init_cache(config: ModelConfig, batch: int, max_len: int, device, dtype=None) -> KVCache:
+    dtype = dtype or config.torch_dtype
+    shape = (config.num_layers, batch, max_len, config.num_kv_heads, config.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +267,7 @@ def _attn_qkv(config: ModelConfig, layer: Params, x: torch.Tensor, positions: to
     """Pre-norm -> QKV projection (+ optional biases) -> head split -> RoPE."""
     B, Sq, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], config.rms_eps)
-    q, k, v = h @ layer["wq"], h @ layer["wk"], h @ layer["wv"]
+    q, k, v = qdot(h, layer["wq"]), qdot(h, layer["wk"]), qdot(h, layer["wv"])
     if "bq" in layer:  # Qwen2-family QKV biases
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     q = q.reshape(B, Sq, config.num_heads, config.head_dim)
@@ -234,12 +281,73 @@ def _attn_qkv(config: ModelConfig, layer: Params, x: torch.Tensor, positions: to
 def _mlp_sublayer(config: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
     """Post-attention SwiGLU MLP with its residual."""
     h = rms_norm(x, layer["mlp_norm"], config.rms_eps)
-    gate = torch.nn.functional.silu(h @ layer["w_gate"])
-    return x + (gate * (h @ layer["w_up"])) @ layer["w_down"]
+    gate = torch.nn.functional.silu(qdot(h, layer["w_gate"]))
+    return x + qdot(gate * qdot(h, layer["w_up"]), layer["w_down"])
 
 
 def _attn_residual(layer: Params, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    return x + attn @ layer["wo"]
+    return x + qdot(attn, layer["wo"])
+
+
+def _merge_prefix_tail(q, cache_k, cache_v, key_mask, scale, out_p, m_p, l_p):
+    """Exact logsumexp merge of a prefix-phase partial (normalized out
+    [B, QH, Sq, D], running max m and denominator l [B, QH, Sq]) with the
+    per-row generated-KV tail. Returns the merged attention [B, Sq, QH, D]
+    f32."""
+    s_g = _gqa_scores(q, cache_k) * scale  # [B, QH, Sq, G]
+    s_g = torch.where(key_mask[:, None], s_g, torch.full_like(s_g, NEG_INF))
+    m_g = s_g.amax(dim=-1)  # [B, QH, Sq]
+    p_g = torch.exp(s_g - m_g[..., None])
+    l_g = p_g.sum(dim=-1)
+    out_g = _gqa_values(p_g, cache_v).transpose(1, 2)  # [B, QH, Sq, D]
+
+    m = torch.maximum(m_p, m_g)
+    a_p = torch.exp(m_p - m)
+    a_g = torch.exp(m_g - m)
+    denom = l_p * a_p + l_g * a_g
+    merged = (out_p * (l_p * a_p)[..., None] + out_g * a_g[..., None]) / torch.where(
+        denom == 0.0, torch.ones_like(denom), denom
+    )[..., None]
+    return merged.transpose(1, 2)
+
+
+def flash_prefix_gate(config: ModelConfig, B: int, R: int, Sq: int) -> bool:
+    """Whether a decode step takes the decode-prefix kernel: the JAX
+    package's gate (``models/llama.py`` ``_block``), at least 8 query rows
+    per request and kv head."""
+    return (
+        config.decode_attention_impl == "flash"
+        and config.sliding_window is None
+        and config.attn_softcap is None
+        and Sq == 1
+        and (B // R) * (config.num_heads // config.num_kv_heads) >= 8
+    )
+
+
+def decode_attention(q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
+                     *, scale: float, flash_prefix: bool) -> torch.Tensor:
+    """Decode-step attention over a shared prefix (pk/pv [R, P, KVH, D],
+    prefix_mask [B, Sq, P], prefix_lengths [R]) and each row's own cache
+    (cache_k/cache_v [B, G, KVH, D], key_mask [B, Sq, G]) for queries q
+    [B, Sq, QH, D]. ``flash_prefix`` runs the decode-prefix kernel on the
+    prefix and merges the tail; otherwise one concatenated softmax. Returns
+    [B, Sq, QH, D] f32. Shared by the dense and the paged reference step, so
+    the two agree operation for operation."""
+    if flash_prefix:
+        out_p, m_p, l_p = decode_prefix_attention(
+            q[:, 0].contiguous(), pk, pv, prefix_lengths, sm_scale=scale
+        )
+        return _merge_prefix_tail(
+            q, cache_k, cache_v, key_mask, scale,
+            out_p[:, :, None], m_p[:, :, None], l_p[:, :, None],
+        )
+    scores = _gqa_scores(q, cache_k) * scale  # [B, QH, Sq, G] f32
+    scores = torch.where(key_mask[:, None], scores, torch.full_like(scores, NEG_INF))
+    p_scores = _gqa_scores_shared(q, pk) * scale  # [B, QH, Sq, P]
+    p_scores = torch.where(prefix_mask[:, None], p_scores, torch.full_like(p_scores, NEG_INF))
+    weights = torch.softmax(torch.cat([p_scores, scores], dim=-1), dim=-1)
+    P = pk.shape[1]
+    return _gqa_values_shared(weights[..., :P], pv) + _gqa_values(weights[..., P:], cache_v)
 
 
 def _block(
@@ -285,7 +393,7 @@ def _apply_stack(config, params, x, positions, key_mask, key_lengths):
 
 
 def _logits(params: Params, h: torch.Tensor) -> torch.Tensor:
-    return (h @ params["lm_head"]).float()
+    return qdot(h, params["lm_head"]).float()
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +440,77 @@ def prefill(config: ModelConfig, params: Params, tokens: torch.Tensor, prompt_le
     return _logits(params, h), (k, v)
 
 
+def _block_decode(
+    config: ModelConfig,
+    layer: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    write_index: int,
+    key_mask: torch.Tensor,
+    prefix_kv: Tuple[torch.Tensor, torch.Tensor],
+    prefix_mask: torch.Tensor,
+    prefix_lengths: torch.Tensor,
+) -> torch.Tensor:
+    """The dense decode branch of the JAX ``_block`` at ``Sq == 1``: this
+    step's k/v are written into the layer's cache (cache_k/cache_v [B, G,
+    KVH, D], updated in place) at ``write_index``, then the queries attend
+    the shared prefix (prefix_kv [R, P, KVH, D]) and the cache. Returns x."""
+    B, Sq, _ = x.shape
+    scale = config.query_scale or 1.0 / math.sqrt(config.head_dim)
+    q, k, v = _attn_qkv(config, layer, x, positions)
+    cache_k[:, write_index: write_index + Sq] = k.to(cache_k.dtype)
+    cache_v[:, write_index: write_index + Sq] = v.to(cache_v.dtype)
+    pk, pv = prefix_kv
+    attn = decode_attention(
+        q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
+        scale=scale, flash_prefix=flash_prefix_gate(config, B, pk.shape[0], Sq),
+    )
+    attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
+    return _mlp_sublayer(config, layer, _attn_residual(layer, x, attn))
+
+
+def decode_step(
+    config: ModelConfig,
+    params: Params,
+    token: torch.Tensor,
+    step: int,
+    prompt_len: torch.Tensor,
+    gen_cache: KVCache,
+    prefix: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step for all samples against their shared prefix(es).
+
+    token: [B] current tokens; step: decode index (0-based); prompt_len: [R]
+    per-request prompt lengths (rows request-major, B % R == 0); gen_cache:
+    [L, B, G, KVH, D], written in place at slot ``step``; prefix: [L, R, P,
+    KVH, D]. Returns (logits f32 [B, V], gen_cache)."""
+    check_supported(config)
+    B = token.shape[0]
+    device = token.device
+    G = gen_cache.max_len
+    P = prefix.max_len
+    pl = prompt_len.reshape(-1).to(device=device, dtype=torch.int64)
+    pl_row = pl.repeat_interleave(B // pl.shape[0])  # [B]
+    step = int(step)
+
+    positions = (pl_row + step)[:, None]
+    x = params["embed"][token.long()[:, None]]
+    # Generated slots 0..step are valid after this step's write.
+    self_mask = (torch.arange(G, device=device) <= step)[None, None, :].expand(B, 1, G)
+    prefix_mask = torch.arange(P, device=device)[None, None, :] < pl_row[:, None, None]
+    plen32 = pl.to(torch.int32)
+    for i in range(config.num_layers):
+        x = _block_decode(
+            config, _layer(params, i), x, positions, gen_cache.k[i], gen_cache.v[i],
+            step, self_mask, prefix_mask=prefix_mask, prefix_kv=(prefix.k[i], prefix.v[i]),
+            prefix_lengths=plen32,
+        )
+    h = rms_norm(x, params["final_norm"], config.rms_eps)
+    return _logits(params, h[:, 0]), gen_cache
+
+
 def _block_paged(
     config: ModelConfig,
     layer: Params,
@@ -347,12 +526,15 @@ def _block_paged(
     page_tables,
     page_size: int,
     attn_impl: str,
+    prefix_lengths: Optional[torch.Tensor],
 ):
     """Paged twin of the decode block at ``Sq == 1``: KV comes from one
     layer's flat page pool through block tables. "cuda" runs the fused
     kernel (its plain version for CPU tensors), "xla" the dense-equivalent
-    reference. Returns (x, (k_col, v_col)) with the cols [B, KVH, D] in pool
-    dtype — this step's column, which the caller scatters into the pool."""
+    reference, which takes the decode-prefix kernel behind the same gate as
+    the dense step. Returns (x, (k_col, v_col)) with the cols [B, KVH, D] in
+    pool dtype — this step's column, which the caller scatters into the
+    pool."""
     from ..ops.paged_attention import paged_decode_attention, paged_decode_attention_xla
 
     B, Sq, _ = x.shape
@@ -370,7 +552,8 @@ def _block_paged(
     else:
         attn = paged_decode_attention_xla(
             q, pool_k_l, pool_v_l, prefix_idx, gen_idx, k, v, write_index,
-            key_mask, prefix_mask, sm_scale=scale,
+            key_mask, prefix_mask, sm_scale=scale, prefix_lengths=prefix_lengths,
+            flash_prefix=flash_prefix_gate(config, B, prefix_idx.shape[0], Sq),
         )
     attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
     x = _attn_residual(layer, x, attn)
@@ -417,18 +600,21 @@ def paged_verify_step(
     self_mask = torch.arange(G, device=device)[None, None, :] <= lengths[:, None, None]
     prefix_mask = torch.arange(P, device=device)[None, None, :] < pl_row[:, None, None]
 
-    page_tables = None
+    # Layer-invariant arguments, built once per step: the kernel's tables,
+    # or the reference's prefix lengths.
+    page_tables = plen32 = None
     if attn_impl == "cuda":
-        # Layer-invariant kernel arguments, built once per step.
         page_tables = paged_attention_page_tables(prefix_idx, gen_idx, page_size) + (
             pl_row.to(torch.int32), lengths.to(torch.int32),
         )
+    else:
+        plen32 = pl.to(torch.int32)
     k_cols, v_cols = [], []
     for i in range(config.num_layers):
         x, (kc, vc) = _block_paged(
             config, _layer(params, i), x, positions, pool_k[i], pool_v[i],
             prefix_idx, gen_idx, lengths, self_mask, prefix_mask,
-            page_tables, page_size, attn_impl,
+            page_tables, page_size, attn_impl, plen32,
         )
         k_cols.append(kc)
         v_cols.append(vc)

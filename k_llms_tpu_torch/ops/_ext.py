@@ -46,10 +46,23 @@ KERNELS = {
         "paged_decode.cu",
         {"kllms_paged_decode_attention": [_P] * 11 + [_I] * 10 + [_F, _P]},
     ),
+    "decode_prefix": (
+        "decode_prefix.cu",
+        {"kllms_decode_prefix_attention": [_P] * 7 + [_I] * 7 + [_F, _P]},
+    ),
+    "w4_matmul": (
+        "w4_matmul.cu",
+        {"kllms_w4_matmul": [_P] * 5 + [_I] * 5 + [_P]},
+    ),
 }
 
 #: Launches per kernel wrapper since the last :func:`reset_launch_counts`.
-LAUNCH_COUNTS: Dict[str, int] = {"flash_attention": 0, "paged_decode_attention": 0}
+LAUNCH_COUNTS: Dict[str, int] = {
+    "flash_attention": 0,
+    "paged_decode_attention": 0,
+    "decode_prefix_attention": 0,
+    "w4_matmul": 0,
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,12 +1,14 @@
-"""Prefill flash attention: a hand-written CUDA kernel and its plain version.
+"""Attention kernels: prefill flash attention and shared-prefix decode
+attention, each a hand-written CUDA kernel beside its plain version.
 
 Counterpart of ``k_llms_tpu/ops/attention.py``. ``attention_xla`` is the
 always-available reference formulation (an explicit score matrix and a
 softmax). ``flash_attention`` keeps the Pallas kernel's contract and launches
 ``csrc/flash_attention.cu`` for tensors on a card; for tensors on the CPU it
 runs :func:`flash_attention_plain`, the same function written in plain
-PyTorch. The shared-prefix decode kernel (``decode_prefix_attention``) is not
-ported yet.
+PyTorch. ``decode_prefix_attention`` does the same for the decode step's
+attention over a shared prompt prefix (``csrc/decode_prefix.cu`` /
+:func:`decode_prefix_attention_plain`).
 """
 
 from __future__ import annotations
@@ -168,3 +170,90 @@ def flash_attention(
     _ext.check_status("flash_attention", status)
     _ext.note_launch("flash_attention")
     return out
+
+
+def decode_prefix_attention_plain(
+    q: torch.Tensor,
+    prefix_k: torch.Tensor,
+    prefix_v: torch.Tensor,
+    prompt_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+):
+    """The decode-prefix kernel's function in plain PyTorch (f32 scores,
+    one softmax over the valid keys). Same arguments and results as
+    :func:`decode_prefix_attention`."""
+    B, QH, D = q.shape
+    R, P, KVH, _ = prefix_k.shape
+    G = QH // KVH
+    n_per = B // R
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qg = q.float().reshape(R, n_per, KVH, G, D)
+    s = torch.einsum("rnhgd,rkhd->rnhgk", qg, prefix_k.float()) * scale
+    valid = torch.arange(P, device=q.device)[None, :] < prompt_lens.to(q.device).long()[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("rnhgk,rkhd->rnhgd", p, prefix_v.float())
+    out = out / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    return out.reshape(B, QH, D), m.reshape(B, QH), l.reshape(B, QH)
+
+
+def decode_prefix_attention(
+    q: torch.Tensor,
+    prefix_k: torch.Tensor,
+    prefix_v: torch.Tensor,
+    prompt_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+):
+    """Decode-step attention over the shared prompt prefix.
+
+    q: [B, QH, D] (rows request-major, B % R == 0); prefix_k/prefix_v:
+    [R, P, KVH, D]; prompt_lens: [R] valid key counts, each in [1, P].
+    Returns (out [B, QH, D] f32 normalized within the prefix, m [B, QH] f32
+    the max of the scaled scores over the valid keys, l [B, QH] f32 the
+    softmax denominator at m) for the caller's merge with the generated
+    tail.
+
+    Tensors on a card go to the CUDA kernel (or the call raises); tensors on
+    the CPU go to :func:`decode_prefix_attention_plain`.
+    """
+    if q.device.type == "cpu":
+        return decode_prefix_attention_plain(q, prefix_k, prefix_v, prompt_lens, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_prefix_attention: unsupported device {q.device}")
+    B, QH, D = q.shape
+    if prefix_k.dim() != 4 or prefix_k.shape != prefix_v.shape or prefix_k.shape[3] != D:
+        raise ValueError(
+            f"decode_prefix_attention: bad shapes q={tuple(q.shape)} "
+            f"k={tuple(prefix_k.shape)} v={tuple(prefix_v.shape)}"
+        )
+    R, P, KVH, _ = prefix_k.shape
+    if QH % KVH or B % R or P == 0:
+        raise ValueError(f"decode_prefix_attention: {B} rows / {QH} heads do not group over "
+                         f"{R} requests / {KVH} kv heads")
+    if D not in _SUPPORTED_DIMS:
+        raise ValueError(f"decode_prefix_attention: head dim {D} not in {_SUPPORTED_DIMS}")
+    dt = q.dtype
+    if dt not in (torch.bfloat16, torch.float32) or prefix_k.dtype != dt or prefix_v.dtype != dt:
+        raise ValueError(f"decode_prefix_attention: dtypes {dt}/{prefix_k.dtype}/{prefix_v.dtype} unsupported")
+    for name, t in (("q", q), ("prefix_k", prefix_k), ("prefix_v", prefix_v)):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"decode_prefix_attention: {name} must be contiguous, 16-byte aligned, on {q.device}")
+    lens = prompt_lens.to(device=q.device, dtype=torch.int32).reshape(R).contiguous()
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty((B, QH, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, QH), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, QH), dtype=torch.float32, device=q.device)
+    lib = _ext.load("decode_prefix")
+    status = lib.kllms_decode_prefix_attention(
+        q.data_ptr(), prefix_k.data_ptr(), prefix_v.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), B, QH, KVH, D, R, P,
+        int(dt == torch.bfloat16), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _ext.check_status("decode_prefix_attention", status)
+    _ext.note_launch("decode_prefix_attention")
+    return out, m, l

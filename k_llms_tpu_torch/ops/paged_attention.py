@@ -25,7 +25,7 @@ the softmax max, so they contribute an exact 0.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,19 +65,18 @@ def paged_decode_attention_xla(
     prefix_mask: torch.Tensor,
     *,
     sm_scale: float,
+    prefix_lengths: Optional[torch.Tensor] = None,
+    flash_prefix: bool = False,
 ) -> torch.Tensor:
     """Reference paged decode attention, the dense decode math on gathered
     pages. q/new_k/new_v: ``[B, Sq, QH|KVH, D]``; pool_k/pool_v: one layer's
     pool ``[pages * page_size, KVH, D]``; prefix_idx ``[B|R, P]`` / gen_idx
     ``[B, G]``: flat pool slots per logical position; write_index ``[B]``:
     each row's offset into its gen slots; key_mask ``[B, Sq, G]`` /
-    prefix_mask ``[B, Sq, P]``. Returns ``[B, Sq, QH, D]`` f32."""
-    from ..models.llama import (
-        _gqa_scores,
-        _gqa_scores_shared,
-        _gqa_values,
-        _gqa_values_shared,
-    )
+    prefix_mask ``[B, Sq, P]``. ``flash_prefix`` (with ``prefix_lengths``
+    [R]) runs the decode-prefix kernel on the gathered prefix and merges the
+    tail, as the dense step does. Returns ``[B, Sq, QH, D]`` f32."""
+    from ..models.llama import decode_attention
 
     pk, pv = pool_k[prefix_idx.long()], pool_v[prefix_idx.long()]  # [B|R, P, KVH, D]
     gk, gv = pool_k[gen_idx.long()], pool_v[gen_idx.long()]  # [B, G, KVH, D]
@@ -88,16 +87,10 @@ def paged_decode_attention_xla(
     cols = write_index.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
     gk[rows, cols] = new_k.to(gk.dtype)
     gv[rows, cols] = new_v.to(gv.dtype)
-
-    scores = _gqa_scores(q, gk) * sm_scale  # [B, QH, Sq, G] f32
-    scores = torch.where(key_mask[:, None], scores, torch.full_like(scores, NEG_INF))
-    p_scores = _gqa_scores_shared(q, pk) * sm_scale  # [B, QH, Sq, P]
-    p_scores = torch.where(
-        prefix_mask[:, None], p_scores, torch.full_like(p_scores, NEG_INF)
+    return decode_attention(
+        q, gk, gv, key_mask, pk, pv, prefix_mask, prefix_lengths,
+        scale=sm_scale, flash_prefix=flash_prefix,
     )
-    weights = torch.softmax(torch.cat([p_scores, scores], dim=-1), dim=-1)
-    P = pk.shape[1]
-    return _gqa_values_shared(weights[..., :P], pv) + _gqa_values(weights[..., P:], gv)
 
 
 def paged_attention_page_tables(

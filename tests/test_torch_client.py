@@ -77,6 +77,59 @@ def test_parse_validates_after_the_fact(clients):
     assert len(out.choices) == 3
 
 
+def test_backend_knobs_reach_the_engine(monkeypatch):
+    """quantization, paged_kv and decode_attention_impl (with the other model
+    overrides) reach the engine under the JAX package's names: int4 leaves
+    on an int4-eligible config, the dense layout, flash decode."""
+    from k_llms_tpu_torch.models import config as config_mod
+
+    eligible = config_mod.get_config("tiny").with_(
+        name="tiny-int4-eligible", hidden_size=256, intermediate_size=512, num_heads=4,
+        num_kv_heads=2, head_dim=64, vocab_size=384, max_seq_len=128,
+    )
+    monkeypatch.setitem(config_mod._REGISTRY, eligible.name, eligible)
+    port = KLLMs(backend="cuda", model=eligible.name, device="cpu", quantization="int4",
+                 paged_kv=False, decode_attention_impl="flash", attention_impl="flash",
+                 max_seq_len=96)
+    engine = port.backend.engine
+    assert engine.quantized == "int4" and engine.kv_layout == "dense"
+    assert engine.config.decode_attention_impl == "flash"
+    assert engine.config.attention_impl == "flash" and engine.config.max_seq_len == 96
+    assert {type(engine.params["layers"][k]).__name__ for k in ("wq", "wk", "w_down")} == {"Q4Tensor"}
+    assert type(engine.params["lm_head"]).__name__ == "Q4Tensor"
+    out = port.chat.completions.create(messages=MESSAGES, n=4, temperature=0, seed=1, max_tokens=4)
+    assert len(out.choices) == 5 and engine.last_launch_stats["kv_layout"] == "dense"
+    with pytest.raises(ValueError, match="quantization"):
+        KLLMs(backend="cuda", model="tiny", device="cpu", quantization="int3")
+
+
+@pytest.mark.parametrize("field,value", [("speculative", "prompt_lookup"), ("prefix_cache_size", 4),
+                                         ("continuous_batching", True)])
+def test_unported_backend_field_raises(field, value):
+    """A keyword naming a JAX BackendConfig field the port has not ported
+    raises and names the field; it is never dropped."""
+    with pytest.raises(NotImplementedError, match=field):
+        KLLMs(backend="cuda", model="tiny", device="cpu", **{field: value})
+
+
+def test_unported_field_list_matches_the_jax_backend_config():
+    """The port's list of unported fields, with the fields it serves, is the
+    JAX package's BackendConfig (the port adds only ``device``)."""
+    from k_llms_tpu.backends.tpu import BackendConfig as JaxBackendConfig
+    from k_llms_tpu_torch.backends.cuda import UNPORTED_FIELDS, BackendConfig
+
+    port_fields = set(BackendConfig.model_fields) - {"device"}
+    assert not UNPORTED_FIELDS & port_fields
+    assert UNPORTED_FIELDS | port_fields == set(JaxBackendConfig.model_fields)
+
+
+def test_unknown_backend_kwarg_raises():
+    """A keyword that is no BackendConfig field at all (a misspelling) raises
+    and names itself; it is never dropped."""
+    with pytest.raises(TypeError, match="quantisation"):
+        KLLMs(backend="cuda", model="tiny", device="cpu", quantisation="int4")
+
+
 def test_no_card_raises_instead_of_running_on_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

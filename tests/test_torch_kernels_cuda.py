@@ -137,8 +137,99 @@ def test_tiny_greedy_tokens_through_kernels_equal_plain_paths(cuda_device):
         outs.append(eng.generate(prompt, n=3, seed=1, max_new_tokens=24, temperature=0.0))
         counts = dict(_ext.LAUNCH_COUNTS)
         if impl == "cuda":
-            assert min(counts.values()) > 0
+            assert counts["flash_attention"] > 0 and counts["paged_decode_attention"] > 0
         else:
             assert max(counts.values()) == 0
+    np.testing.assert_array_equal(outs[0].tokens, outs[1].tokens)
+    np.testing.assert_allclose(outs[0].logprobs, outs[1].logprobs, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_prefix_kernel_matches_plain(cuda_device, dtype):
+    """One request and ragged requests, P not a multiple of the kernel's
+    64-key block, two 32-row query tiles, every instantiated head dim. Both
+    compute in f32 from the same inputs: out, m and l agree per element to
+    2e-5 |ref| + 2e-5."""
+    cases = [
+        (1, 8, 32, 8, 128, 2048, [1490]),
+        (2, 8, 32, 8, 128, 130, [130, 51]),
+        (1, 16, 32, 8, 128, 300, [299]),
+        (3, 4, 4, 2, 16, 96, [45, 1, 96]),
+        (2, 8, 4, 2, 64, 128, [77, 128]),
+        (1, 8, 8, 4, 256, 200, [129]),
+    ]
+    rng = np.random.default_rng(2)
+    before = _ext.LAUNCH_COUNTS["decode_prefix_attention"]
+    for R, n_per, QH, KVH, D, P, lens in cases:
+        q = _normal(rng, R * n_per, QH, D).to(cuda_device, dtype)
+        pk = _normal(rng, R, P, KVH, D).to(cuda_device, dtype)
+        pv = _normal(rng, R, P, KVH, D).to(cuda_device, dtype)
+        kl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        got = att.decode_prefix_attention(q, pk, pv, kl, sm_scale=1 / math.sqrt(D))
+        ref = att.decode_prefix_attention_plain(q, pk, pv, kl, sm_scale=1 / math.sqrt(D))
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.float32 and g.shape == r.shape
+            assert ((g - r).abs() <= 2e-5 * r.abs() + 2e-5).all()
+    assert _ext.LAUNCH_COUNTS["decode_prefix_attention"] == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 2, 8, 40, 64, 65, 300])
+def test_w4_matmul_kernel_matches_plain(cuda_device, dtype, rows):
+    """Both kernel paths (GEMV with and without split K, tiled) on random
+    packed bytes: f32 sums in another order stay within 1e-5 of the sum of
+    |terms|, and a bf16 output within two ulps of |ref| beyond that."""
+    from k_llms_tpu_torch.ops import w4matmul as w4
+
+    rng = np.random.default_rng(rows)
+    before = _ext.LAUNCH_COUNTS["w4_matmul"]
+    for K, N in ((1024, 768), (512, 384), (4096, 1024)):
+        q = torch.from_numpy(rng.integers(-128, 128, (K // 2, N), dtype=np.int8)).to(cuda_device)
+        scale = torch.from_numpy((rng.random((K // 128, N), dtype=np.float32) + 0.5) / (4.6 * K ** 0.5))
+        w = w4.Q4Tensor(q, scale.to(cuda_device))
+        x = _normal(rng, rows, K).to(cuda_device, dtype)
+        out = w4.w4_matmul(x, w)
+        ref = w4.w4_matmul_plain(x, w).float()
+        ints = w4._unpack_ints(w.q).abs().float().reshape(K, N)
+        abs_terms = sum(
+            (x.float().abs()[:, g * 128:(g + 1) * 128] @ ints[g * 128:(g + 1) * 128]) * w.scale[g]
+            for g in range(K // 128)
+        )
+        torch.cuda.synchronize()
+        rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 0.0
+        assert out.dtype == dtype and out.shape == (rows, N)
+        assert ((out.float() - ref).abs() <= rtol * ref.abs() + 1e-5 * abs_terms).all()
+    assert _ext.LAUNCH_COUNTS["w4_matmul"] == before + 3
+    dense = torch.zeros((rows, 128), dtype=dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="not taken by the kernel"):
+        w4.w4_matmul(dense, w4.Q4Tensor(q[:64, :128].contiguous(), scale[:1, :128].to(cuda_device)))
+
+
+def test_tiny_int4_dense_flash_tokens_through_kernels_equal_plain(cuda_device):
+    """An int4-eligible small config in f32, dense layout, flash decode: the
+    card (K2, K3, K4) and the plain versions on the CPU emit the same greedy
+    tokens."""
+    from k_llms_tpu_torch.models.quant import quantize_params
+
+    cfg = get_config("tiny").with_(
+        hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2, head_dim=64,
+        vocab_size=384, max_seq_len=128, attention_impl="flash", decode_attention_impl="flash",
+    )
+    params = quantize_params(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), bits=4)
+    on_card = {k: ({kk: vv.to(cuda_device) for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.to(cuda_device)) for k, v in params.items()}
+    prompt = ByteTokenizer().apply_chat_template([{"role": "user", "content": "total due 41.20 EUR"}])
+    outs = []
+    for p, dev in ((on_card, cuda_device), (params, "cpu")):
+        eng = LocalEngine(cfg, params=p, device=dev, kv_layout="dense")
+        _ext.reset_launch_counts()
+        outs.append(eng.generate(prompt, n=4, seed=1, max_new_tokens=16, temperature=0.0))
+        counts = dict(_ext.LAUNCH_COUNTS)
+        if dev == "cpu":
+            assert max(counts.values()) == 0
+        else:
+            assert counts["w4_matmul"] > 0 and counts["decode_prefix_attention"] > 0
+            assert counts["paged_decode_attention"] == 0
     np.testing.assert_array_equal(outs[0].tokens, outs[1].tokens)
     np.testing.assert_allclose(outs[0].logprobs, outs[1].logprobs, atol=1e-4, rtol=0)
