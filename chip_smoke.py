@@ -15,8 +15,8 @@ counter is reset just before each of those two paths and read just after.
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
 subset (for quick checks, e.g. ``--phases build,k3,k4,tiny``); the default
-runs every phase of the contract. ``--phases 8b,profile`` adds a device-time
-breakdown of one 8B request.
+runs every phase of the contract. ``--phases 8b,profile`` adds device-time
+breakdowns of a short and the long 8B request.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -35,7 +35,8 @@ import sys
 import time
 
 PHASES = ("build", "k2", "k1", "k4", "k3", "tiny", "8b", "8b_int4")
-# Opt-in: a torch.profiler breakdown of one 8B request (needs "8b").
+# Opt-in: torch.profiler breakdowns of a short and the long 8B request
+# (needs "8b" or "8b_int4").
 EXTRA_PHASES = ("profile",)
 
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate,
@@ -120,6 +121,21 @@ def main(argv=None) -> int:
         for name in _ext.KERNELS:
             _ext.load(name)
         log({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": per})
+        # The tensor-core kernels must compile to tensor-core instructions.
+        cuobjdump = os.path.join(os.path.dirname(_ext.nvcc_path()), "cuobjdump")
+        mma_counts = {}
+        for lib, kernel in (("flash_attention", "flash_attention_tc"), ("w4_matmul", "w4_gemm_tc")):
+            sass = subprocess.run([cuobjdump, "-sass", _ext.library_path(lib)], check=True,
+                                  capture_output=True, text=True, timeout=300).stdout
+            fn = None
+            for line in sass.splitlines():
+                if "Function : " in line:
+                    fn = line.split("Function : ")[1].strip()
+                elif fn and kernel in fn and ("HMMA" in line or "HGMMA" in line):
+                    mma_counts[fn] = mma_counts.get(fn, 0) + 1
+            if not any(kernel in fn for fn in mma_counts):
+                raise AssertionError(f"{kernel}: no HMMA/HGMMA instruction in the SASS of {lib}")
+        log({"phase": "build_sass", "tensor_core_instructions": mma_counts})
 
     # 3. K2 flash attention against its plain version
     if "k2" in phases:
@@ -151,7 +167,8 @@ def main(argv=None) -> int:
             ok = bool(torch.isfinite(out).all().item()) and ratio <= 1.0
             rtol, atol = limits[dtype]
             rec = {"phase": "k2", "case": name, "shape": [B, QH, KVH, Sq, Sk, D],
-                   "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                   "dtype": str(dtype).replace("torch.", ""), "impl": att.flash_route(dtype, D),
+                   "key_lengths": key_lengths, "max_abs_err": err,
                    "mean_abs_ref": ref.float().abs().mean().item(),
                    "limit": f"{rtol:g}*|ref| + {atol:g}", "max_err_over_limit": ratio, "ok": ok}
             if timed:
@@ -162,17 +179,26 @@ def main(argv=None) -> int:
                 G = QH // KVH
                 k_rep = k.repeat_interleave(G, dim=1)
                 v_rep = v.repeat_interleave(G, dim=1)
+                if key_lengths is None or min(key_lengths) == Sk:
+                    lib_kw = dict(is_causal=True)
+                else:  # causal and key lengths as one boolean mask [B, 1, Sq, Sk]
+                    lib_kw = dict(attn_mask=att._flash_valid(
+                        B, Sq, Sk, kl, True, att.NO_WINDOW, 0, dev))
                 rec["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k_rep, v_rep, is_causal=True))
-                pairs = B * QH * Sq * (Sq + 1) / 2  # causal, full key lengths
+                    q, k_rep, v_rep, **lib_kw))
+                # What these inputs need: the valid (row, key) pairs, and K/V
+                # up to each key length read once.
+                lens = [Sk] * B if key_lengths is None else key_lengths
+                pairs = QH * sum(sum(min(r + 1, n) for r in range(Sq)) for n in lens)
                 flops = 4.0 * D * pairs
-                nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+                nbytes = (q.numel() + out.numel() + 2 * KVH * D * sum(lens)) * q.element_size()
                 rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
             # The limit must catch a kernel that is wrong by one key or one
             # tile: each such variant of the plain version has to break it.
             mutants = {}
             if timed:
-                keep = torch.ones(B, Sk, dtype=torch.bool, device=dev)
+                keep = torch.arange(Sk, device=dev)[None, :] < (
+                    Sk if kl is None else kl.long()[:, None])
                 keep[:, Sk // 2: Sk // 2 + 32] = False
                 mutants["causal_edge_one_key_late"] = att.flash_attention_plain(
                     q, k, v, **dict(kw, q_offset=1))
@@ -194,8 +220,17 @@ def main(argv=None) -> int:
         main_rec, e0 = k2_case("llama3_8b_prefill", 1, 32, 8, S, S, 128, torch.bfloat16,
                                key_lengths=[S], timed=True)
         errs = [e0]
+        # What the main path gives K2 for the 1490-token prompt: its 2048
+        # bucket with the key length (the padded query rows are computed
+        # too), timed beside the 1500 case. Neither the key length 1490 nor
+        # the q_offset cases' Sq (500, 1000) is a multiple of the query tile.
+        bucket_rec, e1 = k2_case("llama3_8b_prefill_bucket", 1, 32, 8, 2048, 2048, 128,
+                                 torch.bfloat16, key_lengths=[1490], timed=True)
+        errs.append(e1)
         errs.append(k2_case("q_offset", 1, 32, 8, 500, S, 128, torch.bfloat16,
                             key_lengths=[S], q_offset=S - 500)[1])
+        errs.append(k2_case("q_offset_1000", 1, 32, 8, 1000, S, 128, torch.bfloat16,
+                            key_lengths=[S], q_offset=S - 1000)[1])
         errs.append(k2_case("window", 1, 32, 8, S, S, 128, torch.bfloat16,
                             key_lengths=[S], window=256)[1])
         errs.append(k2_case("softcap", 1, 32, 8, S, S, 128, torch.bfloat16,
@@ -205,6 +240,10 @@ def main(argv=None) -> int:
         errs.append(k2_case("embeddings_encode", 8, 32, 8, 512, 512, 128, torch.bfloat16,
                             key_lengths=[512, 431, 300, 77, 1, 0, 0, 0])[1])
         errs.append(k2_case("head_dim_256", 1, 8, 4, 700, 700, 256, torch.bfloat16)[1])
+        errs.append(k2_case("head_dim_64", 2, 14, 2, 1000, 1000, 64, torch.bfloat16,
+                            key_lengths=[1000, 377], window=200, softcap=30.0)[1])
+        errs.append(k2_case("head_dim_16_simt", 1, 4, 2, 77, 77, 16, torch.bfloat16,
+                            key_lengths=[70])[1])
         errs.append(k2_case("all_masked_row", 2, 32, 8, 300, 300, 128, torch.bfloat16,
                             key_lengths=[300, 0])[1])
         errs.append(k2_case("tiny_f32", 1, 4, 2, 77, 77, 16, torch.float32,
@@ -218,7 +257,10 @@ def main(argv=None) -> int:
             "launches": None, "held": True, "max_abs_err": max(errs),
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-            "library_ms": main_rec["library_ms"],
+            "library_ms": main_rec["library_ms"], "impl": main_rec["impl"],
+            "timed_case": main_rec["case"],
+            "bucket_case": {k: bucket_rec[k] for k in
+                            ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
 
     # 4. K1 paged decode against its plain version
@@ -352,9 +394,12 @@ def main(argv=None) -> int:
             err = (out.float() - ref.float()).abs().max().item()
             ratio = over(out)
             ok = bool(torch.isfinite(out).all().item()) and ratio <= 1.0 and out.dtype == dtype
+            route = w4.w4_route(rows, K, N, dtype)
             rec = {"phase": "k4", "case": name, "rows": rows, "K": K, "N": N,
-                   "dtype": str(dtype).replace("torch.", ""), "ksplit": w4.split_k(rows, K, N),
-                   "max_abs_err": err, "mean_abs_ref": ref.float().abs().mean().item(),
+                   "dtype": str(dtype).replace("torch.", ""), "route": route,
+                   "impl": "tc" if route == "tc" else "simt",
+                   "ksplit": w4.split_k(rows, K, N, dtype), "max_abs_err": err,
+                   "mean_abs_ref": ref.float().abs().mean().item(),
                    "limit": f"{rtol:g}*|ref| + 1e-5*(|x| @ |W|)", "max_err_over_limit": ratio,
                    "ok": ok}
             if mutants:
@@ -378,6 +423,16 @@ def main(argv=None) -> int:
                           + out.numel() * out.element_size())
                 peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
                 rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, peak)
+                if dtype == torch.bfloat16 and rows <= 64:
+                    # Both bf16 routes at this shape, for the crossover; the
+                    # one the wrapper does not take is held to the same limit.
+                    other = "gemv" if route == "tc" else "tc"
+                    o = w4.w4_matmul(x, w, route=other)
+                    torch.cuda.synchronize()
+                    rec["other_route_err_over_limit"] = over(o)
+                    ok = rec["ok"] = ok and rec["other_route_err_over_limit"] <= 1.0
+                    rec["route_ms"] = {route: rec["ms"], other: time_ms(
+                        lambda: w4.w4_matmul(x, w, route=other), iters=20)}
             log(rec)
             if not ok:
                 raise AssertionError(f"w4_matmul case {name}: error {ratio} x the limit")
@@ -386,21 +441,44 @@ def main(argv=None) -> int:
             return rec, err
 
         # The Llama-3-8B weights at every row count the main path gives
-        # them: last-token logits (1), decode at n=8 (8), the short prompts'
-        # 64-token prefill bucket (64, the GEMV path's widest: eight row
-        # chunks, split-K), the embeddings forward of 8 samples x 64 tokens
-        # (512, tiled) and the long prompt's 2048-token bucket (tiled).
+        # them: last-token logits (1), the warm-up's and decode at n=2 and
+        # n=8 (2, 8), the short prompts' 64-token prefill bucket (64), the
+        # embeddings forward of 8 samples x 64 tokens (512) and the long
+        # prompt's 2048-token bucket; 4, 16 and 32 rows place the crossover
+        # between the GEMV and the tensor-core routes. Both mutants run at
+        # 8 and 64 rows and on both sides of the crossover.
         shapes = {"w_gate_up": (4096, 14336), "w_down": (14336, 4096), "wq_wo": (4096, 4096),
                   "wk_wv": (4096, 1024), "lm_head": (4096, 128256)}
+        cross = w4.TC_CROSSOVER_ROWS
+        mutant_rows = {8, 64, max(cross, 1), cross + 1}
+        timed_rows = (1, 2, 4, 8, 16, 32, 64, 512, 2048)
         recs, errs = {}, []
         for sname, (K, N) in shapes.items():
-            for rows in (1, 8, 64, 512, 2048):
+            for rows in timed_rows:
                 rec, e = k4_case(f"{sname}_rows{rows}", rows, K, N, torch.bfloat16, timed=True,
-                                 mutants=rows in (8, 64))
+                                 mutants=rows in mutant_rows)
                 recs[(sname, rows)] = rec
                 errs.append(e)
+        # Row counts whose last 64- or 128-row tile is ragged, on a weight
+        # split over CTAs (wk_wv) and one that is not (w_gate_up), and the
+        # crossover's rows that are not timed above.
+        for sname in ("w_gate_up", "wk_wv"):
+            for rows in sorted({17, 33, 65, 127, 128, 129} | (mutant_rows - set(timed_rows))):
+                errs.append(k4_case(f"{sname}_rows{rows}", rows, *shapes[sname], torch.bfloat16,
+                                    mutants=rows in mutant_rows or rows == 129)[1])
         errs.append(k4_case("f32_rows40", 40, 1024, 768, torch.float32, mutants=True)[1])
         errs.append(k4_case("f32_rows300", 300, 512, 384, torch.float32, mutants=True)[1])
+        # Crossover: the largest row count at which the GEMV route is faster
+        # over one layer's seven block matmuls (0: the tensor-core route
+        # is faster at every row count measured).
+        layer = {"w_gate_up": 2, "w_down": 1, "wq_wo": 2, "wk_wv": 2}
+        per_rows = {}
+        for rows in (1, 2, 4, 8, 16, 32, 64):
+            per_rows[rows] = {r: sum(c * recs[(sn, rows)]["route_ms"][r] for sn, c in layer.items())
+                              for r in ("gemv", "tc")}
+        measured = max([r for r, t in per_rows.items() if t["gemv"] < t["tc"]], default=0)
+        log({"phase": "k4_crossover", "layer_ms_by_rows": per_rows,
+             "crossover_rows_measured": measured, "crossover_rows_in_code": cross})
         main_rec = recs[("w_gate_up", 8)]
         kernels["w4_matmul"] = {
             "name": "w4_matmul", "route": "cuda",
@@ -410,6 +488,11 @@ def main(argv=None) -> int:
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"], "timed_case": "w_gate_up_rows8",
+            "impl": main_rec["impl"],
+            "prefill_cases": [{k: recs[(sn, rows)][k] for k in
+                               ("case", "impl", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
+                              for sn in ("w_gate_up", "w_down") for rows in (64, 2048)],
         }
 
     # 6. K3 decode-prefix attention against its plain version
@@ -636,14 +719,14 @@ def main(argv=None) -> int:
              "peak_memory_bytes": torch.cuda.max_memory_allocated()})
         return counts, launches, embed_batches
 
-    def profile_one(label, client):
+    def profile_one(label, client, index):
         from torch.profiler import ProfilerActivity, profile
 
         engine = client.backend.engine
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            client.chat.completions.create(**requests[0])
+            client.chat.completions.create(**requests[index])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         st = dict(engine.last_launch_stats)
@@ -660,7 +743,7 @@ def main(argv=None) -> int:
                 rows.append((dev_us, e.key, e.count))
         rows.sort(reverse=True)
         busy_us = sum(r[0] for r in rows)
-        log({"phase": f"{label}_profile", "request": 0, "wall_s": wall,
+        log({"phase": f"{label}_profile", "request": index, "wall_s": wall,
              "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
              "decode_steps": st["decode_steps"], "device_busy_s": busy_us / 1e6,
              "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -692,7 +775,8 @@ def main(argv=None) -> int:
         if not embeds or counts != expected:
             raise AssertionError(f"8b launch counts {counts} != expected {expected}")
         if "profile" in phases:
-            profile_one("8b", client)
+            for index in (0, 2):  # a short and the long prompt
+                profile_one("8b", client, index)
         del client, engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -735,7 +819,8 @@ def main(argv=None) -> int:
         if not embeds or gated_steps == 0 or counts != expected:
             raise AssertionError(f"8b_int4 launch counts {counts} != expected {expected}")
         if "profile" in phases:
-            profile_one("8b_int4", client)
+            for index in (0, 2):
+                profile_one("8b_int4", client, index)
         del client, engine
         gc.collect()
         torch.cuda.empty_cache()

@@ -12,36 +12,54 @@
 // f32; the output is rounded to x's dtype once.
 //
 // Device memory never holds a dequantized weight: nibbles are unpacked in
-// registers (small row counts) or into shared memory (large row counts). A
-// nibble becomes a float without an int-to-float conversion: OR-ing
-// (nibble ^ 8) into the mantissa of 2^23 and subtracting 2^23 + 8.
+// registers or shared memory on chip.
 //
 // What bounds it on this card: bytes at decode rows, operations at prefill
 // rows. At 1-8 rows every packed weight byte feeds 2-16 FMAs, far below the
 // card's balance point, so the 4-bit weights are the traffic (half of int8,
-// a quarter of bf16). At prefill rows (64-2048) the product is compute
-// bound, and this first version runs it on the CUDA cores in f32 (67 TFLOP/s
-// at most) rather than on the tensor cores: moving the unpacked nibbles to
-// bf16 `mma.sync`/`wgmma` operands is the redesign's work.
+// a quarter of bf16); at 512-2048 rows the product is compute bound. bf16
+// calls above the crossover run on the tensor cores.
 //
-// Two kernels, chosen by the wrapper from the row count:
-//   * w4_gemv (rows <= 64): one warp walks one 128-row group at a time for a
-//     256-column tile (8 columns per lane, one 8-byte load per packed row),
-//     with up to 8 rows in registers; the CTA's 4 warps take different
-//     groups and add their sums in shared memory. Long contractions with
-//     few column tiles are split over CTAs (`ksplit`), whose f32 partials a
-//     second small kernel adds in a fixed order, so the card is filled even
-//     at N = 1024.
-//   * w4_gemm (rows > 64): a 64-row x 128-column tile per CTA, one group per
-//     step: the x tile is widened to f32 in shared memory (k-major), the
-//     group's 8 KB of packed bytes are unpacked once into a [128, 128] f32
-//     tile, and each of 256 threads accumulates a 4 x 8 register tile.
+// Three kernels; the wrapper picks one from dtype and rows
+// (ops/w4matmul.py::w4_route) and passes it as `route`:
+//   * w4_gemv (route 0; bf16 rows up to the crossover, f32 rows <= 64): one
+//     warp walks one 128-row group at a time for a 256-column tile (8
+//     columns per lane, one 8-byte load per packed row), with up to 8 rows
+//     in registers, f32 on the CUDA cores (a nibble becomes a float by
+//     OR-ing nibble ^ 8 into the mantissa of 2^23 and subtracting 2^23 + 8);
+//     the CTA's 4 warps take different groups and add their sums in shared
+//     memory.
+//   * w4_gemm_tc (route 2; bf16 rows above the crossover): a 64- or
+//     128-row x 128-column CTA tile walks the groups. The x tile, the
+//     group's packed bytes and its scales stream through a three-stage
+//     shared-memory ring filled by cp.async. An ldmatrix.trans of the
+//     packed bytes hands each lane, in one register, byte rows 2t and
+//     2t + 1 of two neighbouring columns: both nibbles of those bytes are
+//     the B fragments of two k-steps (rows 64 apart) for two 8-column
+//     tiles (the tile's even and odd columns). A nibble becomes a bf16
+//     without a conversion: OR-ing (nibble ^ 8) into the mantissa of 128.0
+//     and subtracting 136 (exact). Each group's 8 k-steps of
+//     mma.sync.m16n8k16 (bf16 in, f32 accumulated) go into a fresh f32
+//     accumulator, which is then scaled per column and added to the
+//     output accumulator: the Pallas kernel's arithmetic, exactly.
+//   * w4_gemm (route 1; f32 rows > 64): a 64 x 128 tile on the CUDA cores
+//     (TF32 would change f32 results); the group's bytes are unpacked once
+//     into a [128, 128] f32 shared tile.
+// Long contractions with few output tiles are split over CTAs (`ksplit`,
+// routes 0 and 2), whose f32 partials w4_reduce adds in a fixed order, so
+// the card is filled even at N = 1024.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma.cuh"
+
 namespace {
+
+using namespace kllms;
 
 constexpr int kGroup = 128;
 constexpr int kHalf = kGroup / 2;
@@ -80,7 +98,6 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
 constexpr int kGemvWarps = 4;
 constexpr int kGemvThreads = kGemvWarps * 32;
 constexpr int kGemvCols = 256;  // 32 lanes x 8 columns
-constexpr int kGemvMaxRows = 8;
 
 // grid (ceil(N / 256), ksplit, ceil(rows / RT)). CTA (ct, ks, rc) sums the
 // groups [ks * G / ksplit, (ks + 1) * G / ksplit) for rows rc*RT .. +RT and
@@ -302,6 +319,217 @@ w4_gemm(const T* __restrict__ x, const uint8_t* __restrict__ q,
   }
 }
 
+// --- prefill rows on the tensor cores (bf16 x) -------------------------------
+
+constexpr int kTcBN = 128;                  // output columns per CTA
+constexpr int kTcStages = 3;                // shared-memory ring depth
+constexpr int kTcXStride = kGroup + 8;      // bf16 per x row in shared memory (pad:
+                                            // ldmatrix rows on distinct banks)
+constexpr int kTcQStride = kTcBN + 16;      // bytes per packed row (same reason)
+
+template <int BM>
+struct TcTile {
+  static constexpr int kWarpsM = BM / 64;   // each warp: 64 rows x 32 columns
+  static constexpr int kThreads = 32 * kWarpsM * 4;
+  static constexpr int kXBytes = BM * kTcXStride * 2;
+  static constexpr int kQBytes = kHalf * kTcQStride;
+  static constexpr int kStageBytes = kXBytes + kQBytes + kTcBN * 4;
+  static constexpr size_t kSmemBytes = (size_t)kTcStages * kStageBytes;
+};
+
+// Two nibbles (bits 0-3 and 16-19 of w, already XOR-ed with 8) -> two bf16
+// with their signed values, the low half first.
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t w) {
+  const uint32_t biased = (w & 0x000F000Fu) | 0x43004300u;  // 128 + (nibble ^ 8)
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                                   __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid (N / 128, ksplit, ceil(rows / BM)). Warp (wm, wn) owns rows
+// wm*64 .. +64 of the tile (4 m-tiles of 16) and columns wn*32 .. +32 (2
+// chunks of 16; in chunk c, 8-column tile 2c takes the even columns and
+// 2c + 1 the odd ones).
+template <int BM>
+__global__ void __launch_bounds__(TcTile<BM>::kThreads)
+w4_gemm_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+           const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+           float* __restrict__ partial, int rows, int K, int N, int ksplit) {
+  using Tile = TcTile<BM>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
+  const int col0 = blockIdx.x * kTcBN;
+  const int row0 = blockIdx.z * BM;
+  const int per_split = K / kGroup / ksplit;
+  const int g_begin = blockIdx.y * per_split;
+
+  auto stage_ptr = [&](int stage) { return smem_raw + stage * Tile::kStageBytes; };
+  // Group g_begin + i into stage i % kTcStages: the x tile (rows past the
+  // end zero-filled), the 64 x 128 packed bytes, the 128 scales.
+  auto load_group = [&](int i) {
+    unsigned char* base = stage_ptr(i % kTcStages);
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+    unsigned char* qs = base + Tile::kXBytes;
+    float* ss = reinterpret_cast<float*>(qs + Tile::kQBytes);
+    const int gg = g_begin + i;
+    for (int c = tid; c < BM * 16; c += Tile::kThreads) {
+      const int r = c >> 4;
+      const int ch = c & 15;
+      const bool ok = row0 + r < rows;
+      cp_async_16(xs + r * kTcXStride + ch * 8,
+                  x + (size_t)(ok ? row0 + r : 0) * K + (size_t)gg * kGroup + ch * 8, ok ? 16 : 0);
+    }
+    for (int c = tid; c < kHalf * 8; c += Tile::kThreads) {
+      const int r = c >> 3;
+      const int ch = c & 7;
+      cp_async_16(qs + r * kTcQStride + ch * 16, q + ((size_t)gg * kHalf + r) * N + col0 + ch * 16,
+                  16);
+    }
+    for (int c = tid; c < kTcBN / 4; c += Tile::kThreads) {
+      cp_async_16(ss + c * 4, scale + (size_t)gg * N + col0 + c * 4, 16);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (i < per_split) load_group(i);
+    cp_async_commit();
+  }
+
+  float acc[4][4][4];  // [m-tile][n-tile][fragment], the output accumulator
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
+
+  for (int i = 0; i < per_split; ++i) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // group i has landed; every warp is done with group i - 1's stage
+    if (i + kTcStages - 1 < per_split) load_group(i + kTcStages - 1);
+    cp_async_commit();
+
+    const unsigned char* base = stage_ptr(i % kTcStages);
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(base);
+    const unsigned char* qs = base + Tile::kXBytes;
+    const float* ss = reinterpret_cast<const float*>(qs + Tile::kQBytes);
+
+    float part[4][4][4];  // this group's f32 sums, started by its first k-step
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // Byte rows 16kk .. +15 (contraction rows 16kk .. +15 in the low
+      // nibbles, 64 + 16kk .. +15 in the high ones) of the warp's 32
+      // columns, as b16 pairs of neighbouring columns, transposed: raw[2c]
+      // holds rows 2t, 2t+1 and raw[2c+1] rows 8+2t, 9+2t of columns
+      // 16c + 2g and 16c + 2g + 1.
+      uint32_t raw[4];
+      ldmatrix_x4_trans(raw, qs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kTcQStride +
+                                 wn * 32 + (lane >> 4) * 16);
+      uint32_t bf[2][4][2];  // [low / high nibbles][n-tile][b0, b1]
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t w = raw[2 * c + j] ^ 0x88888888u;
+          bf[0][2 * c][j] = nibbles_to_bf16x2(w);            // even column, low nibble
+          bf[1][2 * c][j] = nibbles_to_bf16x2(w >> 4);       // even column, high nibble
+          bf[0][2 * c + 1][j] = nibbles_to_bf16x2(w >> 8);   // odd column, low nibble
+          bf[1][2 * c + 1][j] = nibbles_to_bf16x2(w >> 12);  // odd column, high nibble
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t a[4];
+          ldmatrix_x4(a, xs + (wm * 64 + mt * 16 + (lane & 15)) * kTcXStride + half * kHalf +
+                             kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (kk == 0 && half == 0) {
+              mma_bf16_zero(part[mt][nt], a, bf[half][nt][0], bf[half][nt][1]);
+            } else {
+              mma_bf16(part[mt][nt], a, bf[half][nt][0], bf[half][nt][1]);
+            }
+          }
+        }
+      }
+    }
+    // Fold the group in at its scales: lane (g, t) holds, in chunk c,
+    // columns 16c + 4t (even tile, fragment 0), + 1 (odd tile, 0), + 2
+    // (even, 1) and + 3 (odd, 1), for rows g and g + 8.
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float4 sv = *reinterpret_cast<const float4*>(ss + wn * 32 + c * 16 + 4 * t);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        acc[mt][2 * c][0] = fmaf(part[mt][2 * c][0], sv.x, acc[mt][2 * c][0]);
+        acc[mt][2 * c][1] = fmaf(part[mt][2 * c][1], sv.z, acc[mt][2 * c][1]);
+        acc[mt][2 * c][2] = fmaf(part[mt][2 * c][2], sv.x, acc[mt][2 * c][2]);
+        acc[mt][2 * c][3] = fmaf(part[mt][2 * c][3], sv.z, acc[mt][2 * c][3]);
+        acc[mt][2 * c + 1][0] = fmaf(part[mt][2 * c + 1][0], sv.y, acc[mt][2 * c + 1][0]);
+        acc[mt][2 * c + 1][1] = fmaf(part[mt][2 * c + 1][1], sv.w, acc[mt][2 * c + 1][1]);
+        acc[mt][2 * c + 1][2] = fmaf(part[mt][2 * c + 1][2], sv.y, acc[mt][2 * c + 1][2]);
+        acc[mt][2 * c + 1][3] = fmaf(part[mt][2 * c + 1][3], sv.w, acc[mt][2 * c + 1][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Four consecutive columns per (m-tile, chunk, row half) and lane.
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + wm * 64 + mt * 16 + g + hr * 8;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = col0 + wn * 32 + c * 16 + 4 * t;
+        const float v0 = acc[mt][2 * c][2 * hr];
+        const float v1 = acc[mt][2 * c + 1][2 * hr];
+        const float v2 = acc[mt][2 * c][2 * hr + 1];
+        const float v3 = acc[mt][2 * c + 1][2 * hr + 1];
+        if (ksplit == 1) {
+          uint2 packed;
+          packed.x = pack_bf16x2(v0, v1);
+          packed.y = pack_bf16x2(v2, v3);
+          *reinterpret_cast<uint2*>(out + (size_t)row * N + col) = packed;
+        } else {
+          *reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * rows + row) * N + col) =
+              make_float4(v0, v1, v2, v3);
+        }
+      }
+    }
+  }
+}
+
+template <int BM>
+int launch_tc(const __nv_bfloat16* x, const uint8_t* q, const float* scale, __nv_bfloat16* out,
+              float* partial, int rows, int K, int N, int ksplit, cudaStream_t stream) {
+  const size_t smem = TcTile<BM>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(w4_gemm_tc<BM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int row_tiles = (rows + BM - 1) / BM;
+  if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / kTcBN, ksplit, row_tiles);
+  w4_gemm_tc<BM><<<grid, TcTile<BM>::kThreads, smem, stream>>>(x, q, scale, out, partial, rows,
+                                                                K, N, ksplit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || ksplit == 1) return (int)err;
+  const size_t total = (size_t)rows * N;
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  w4_reduce<__nv_bfloat16><<<blocks, 256, 0, stream>>>(partial, out, rows, N, ksplit);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int RT>
 int launch_gemv(const T* x, const uint8_t* q, const float* scale, T* out, float* partial,
                 int rows, int K, int N, int ksplit, cudaStream_t stream) {
@@ -317,41 +545,58 @@ int launch_gemv(const T* x, const uint8_t* q, const float* scale, T* out, float*
 }
 
 template <typename T>
-int launch(const void* xv, const void* qv, const float* scale, void* outv, float* partial,
-           int rows, int K, int N, int ksplit, cudaStream_t stream) {
+int launch_simt(const void* xv, const void* qv, const float* scale, void* outv, float* partial,
+                int rows, int K, int N, int route, int ksplit, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const uint8_t* q = static_cast<const uint8_t*>(qv);
   T* out = static_cast<T*>(outv);
-  if (rows <= kGemvMaxRows * 8) {
+  if (route == 0) {
     // Row chunks of 8 (fewer registers for 1, 2 or 4 rows).
     if (rows == 1) return launch_gemv<T, 1>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
     if (rows == 2) return launch_gemv<T, 2>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
     if (rows <= 4) return launch_gemv<T, 4>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
     return launch_gemv<T, 8>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
   }
-  if (ksplit != 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(w4_gemm<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kGemmSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / kBN, (rows + kBM - 1) / kBM);
-  w4_gemm<T><<<grid, kGemmThreads, kGemmSmem, stream>>>(x, q, scale, out, rows, K, N);
-  return (int)cudaGetLastError();
+  // The tiled kernel takes f32 x only (bf16 rows above the crossover take
+  // the tensor cores).
+  if constexpr (std::is_same<T, float>::value) {
+    if (ksplit != 1) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(w4_gemm<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)kGemmSmem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(N / kBN, (rows + kBM - 1) / kBM);
+    w4_gemm<T><<<grid, kGemmThreads, kGemmSmem, stream>>>(x, q, scale, out, rows, K, N);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. `partial` is f32 scratch of
-// ksplit * rows * N floats (unused when ksplit == 1); rows <= 64 take the
-// GEMV kernel, more rows the tiled one (which needs ksplit == 1). Returns
-// the CUDA status of the launches (0 = success).
+// Plain C entry point for ctypes. `route` is the kernel the wrapper chose:
+// 0 the GEMV kernel, 1 the f32 tiled kernel (f32 x, ksplit == 1), 2 the
+// tensor-core kernel (bf16 x; 64-row tiles when rows <= 64, else 128).
+// `partial` is f32 scratch of ksplit * rows * N floats (unused when
+// ksplit == 1). Returns the CUDA status of the launches (0 = success).
 extern "C" int kllms_w4_matmul(const void* x, const void* q, const float* scale, void* out,
                                float* partial, int rows, int K, int N, int is_bf16,
-                               int ksplit, void* stream) {
+                               int route, int ksplit, void* stream) {
   if (rows <= 0 || K <= 0 || N <= 0 || K % (2 * kGroup) != 0 || N % kBN != 0 ||
-      ksplit <= 0 || (K / kGroup) % ksplit != 0 || (ksplit > 1 && partial == nullptr)) {
+      ksplit <= 0 || (K / kGroup) % ksplit != 0 || (ksplit > 1 && partial == nullptr) ||
+      route < 0 || route > 2 || (route == 2 && !is_bf16) || (route == 1 && is_bf16)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(x, q, scale, out, partial, rows, K, N, ksplit, s);
-  return launch<float>(x, q, scale, out, partial, rows, K, N, ksplit, s);
+  if (route == 2) {
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    const uint8_t* qb = static_cast<const uint8_t*>(q);
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+    if (rows <= 64) return launch_tc<64>(xb, qb, scale, ob, partial, rows, K, N, ksplit, s);
+    return launch_tc<128>(xb, qb, scale, ob, partial, rows, K, N, ksplit, s);
+  }
+  if (is_bf16) {
+    return launch_simt<__nv_bfloat16>(x, q, scale, out, partial, rows, K, N, route, ksplit, s);
+  }
+  return launch_simt<float>(x, q, scale, out, partial, rows, K, N, route, ksplit, s);
 }

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under the package's ignored
 ``_build/`` directory, at first use, then loaded with ``ctypes``. Libraries are
-named by a hash of their source and flags, so an edited source rebuilds and
-an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source,
-all together.
+named by a hash of their source, every shared ``csrc/*.cuh`` header and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. :func:`build_all` starts one ``nvcc`` per source, all together.
 
 Every kernel wrapper adds one to :data:`LAUNCH_COUNTS` where it launches its
 kernel and nowhere else, so a run can show that it went through the kernels.
@@ -40,7 +40,7 @@ _F = ctypes.c_float
 KERNELS = {
     "flash_attention": (
         "flash_attention.cu",
-        {"kllms_flash_attention": [_P] * 5 + [_I] * 7 + [_F, _I, _F, _I, _I, _P]},
+        {"kllms_flash_attention": [_P] * 5 + [_I] * 8 + [_F, _I, _F, _I, _I, _P]},
     ),
     "paged_decode": (
         "paged_decode.cu",
@@ -52,7 +52,7 @@ KERNELS = {
     ),
     "w4_matmul": (
         "w4_matmul.cu",
-        {"kllms_w4_matmul": [_P] * 5 + [_I] * 5 + [_P]},
+        {"kllms_w4_matmul": [_P] * 5 + [_I] * 6 + [_P]},
     ),
 }
 
@@ -92,10 +92,15 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, KERNELS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libkllms_{name}_{digest[:16]}.so")
+    """The library's path, named by a hash of its source, every header in
+    ``csrc/`` (any source may include them) and the compiler flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [KERNELS[name][0], *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libkllms_{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

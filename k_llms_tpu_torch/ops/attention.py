@@ -4,10 +4,11 @@ attention, each a hand-written CUDA kernel beside its plain version.
 Counterpart of ``k_llms_tpu/ops/attention.py``. ``attention_xla`` is the
 always-available reference formulation (an explicit score matrix and a
 softmax). ``flash_attention`` keeps the Pallas kernel's contract and launches
-``csrc/flash_attention.cu`` for tensors on a card; for tensors on the CPU it
-runs :func:`flash_attention_plain`, the same function written in plain
-PyTorch. ``decode_prefix_attention`` does the same for the decode step's
-attention over a shared prompt prefix (``csrc/decode_prefix.cu`` /
+``csrc/flash_attention.cu`` for tensors on a card (its tensor-core kernel for
+bf16, see :func:`flash_route`); for tensors on the CPU it runs
+:func:`flash_attention_plain`, the same function written in plain PyTorch.
+``decode_prefix_attention`` does the same for the decode step's attention
+over a shared prompt prefix (``csrc/decode_prefix.cu`` /
 :func:`decode_prefix_attention_plain`).
 """
 
@@ -108,6 +109,15 @@ def flash_attention_plain(
 
 
 _SUPPORTED_DIMS = (16, 64, 128, 256)
+_TC_DIMS = (64, 128, 256)
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel of ``csrc/flash_attention.cu`` a CUDA call takes: "tc"
+    (bf16 tensor cores, bf16 at head dims 64, 128 and 256) or "simt" (f32
+    on the CUDA cores: f32 inputs, which TF32 would change, and bf16 at
+    the other head dims)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in _TC_DIMS else "simt"
 
 
 def flash_attention(
@@ -164,7 +174,8 @@ def flash_attention(
     status = lib.kllms_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), key_lengths.data_ptr(),
         B, QH, KVH, Sq, Sk, D, int(q.dtype == torch.bfloat16),
-        float(scale), int(bool(causal)), float(softcap or 0.0), window, q_offset,
+        int(flash_route(q.dtype, D) == "tc"), float(scale), int(bool(causal)),
+        float(softcap or 0.0), window, q_offset,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _ext.check_status("flash_attention", status)

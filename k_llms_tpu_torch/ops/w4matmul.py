@@ -8,13 +8,16 @@ and rows 64..127 in the HIGH nibbles of the same 64 packed byte rows.
 
 ``w4_matmul`` launches ``csrc/w4_matmul.cu`` for tensors on a card (the
 nibbles are unpacked on chip; device memory only ever holds the 4-bit
-weights) and runs :func:`w4_matmul_plain`, the kernel's arithmetic in plain
-PyTorch, for tensors on the CPU. Unlike the JAX function, it has no
+weights; :func:`w4_route` picks its kernel) and runs
+:func:`w4_matmul_plain`, the kernel's arithmetic in plain PyTorch, for
+tensors on the CPU. Unlike the JAX function, it has no
 dequantize-then-matmul fallback: a CUDA call on a shape the kernel does not
 take raises (``quantize_weight_bits`` never builds a Q4Tensor of one).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -121,23 +124,53 @@ def w4_matmul_plain(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-# Decode-sized calls (rows <= 64) take the kernel's GEMV path, which splits
-# long contractions over CTAs so that about this many run at once.
+# Routes of ``csrc/w4_matmul.cu``: the GEMV kernel up to the crossover (f32
+# on the CUDA cores; split K over CTAs so that about _TARGET_CTAS run at
+# once), the tensor-core kernel above it for bf16 x (64-row tiles up to 64
+# rows, then 128), and the f32 tiled kernel for f32 x above 64 rows.
+ROUTES = {"gemv": 0, "tiled": 1, "tc": 2}
+_DTYPE_ROUTES = {torch.bfloat16: ("gemv", "tc"), torch.float32: ("gemv", "tiled")}
+# bf16 rows at or below which the GEMV kernel beats the tensor-core one over
+# a Llama-3-8B layer's block matmuls (chip_smoke.py phase k4 measures it at
+# 1-64 rows; see PERF.md): the last-token logits and n = 2 decode stay on
+# the GEMV kernel, n = 8 decode and every prefill bucket take the tensor cores.
+TC_CROSSOVER_ROWS = 2
+_F32_GEMV_MAX_ROWS = 64
 _TARGET_CTAS = 264
 _GEMV_COLS = 256
-_GEMV_MAX_ROWS = 64
+_TC_COLS = 128
+_SMS = 132
 
 
-def split_k(rows: int, K: int, N: int) -> int:
-    """How many CTAs share one column tile's contraction (the GEMV path):
-    doubled while the card has under ``_TARGET_CTAS`` CTAs and each keeps at
-    least 4 groups (one per warp). 1 for the tiled path (rows > 64)."""
-    if rows > _GEMV_MAX_ROWS:
-        return 1
+def w4_route(rows: int, K: int, N: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of ``rows`` x ``K`` @ int4 ``K`` x ``N`` takes:
+    "gemv", "tc" (bf16 tensor cores) or "tiled" (f32 CUDA cores)."""
+    del K, N  # one crossover: each 8B weight, lm_head included, agrees with it
+    if dtype == torch.bfloat16:
+        return "gemv" if rows <= TC_CROSSOVER_ROWS else "tc"
+    return "gemv" if rows <= _F32_GEMV_MAX_ROWS else "tiled"
+
+
+def split_k(rows: int, K: int, N: int, dtype: torch.dtype = torch.bfloat16,
+            route: Optional[str] = None) -> int:
+    """How many CTAs share one output tile's contraction, doubled while the
+    card is underfilled and each CTA keeps enough groups: on the GEMV route
+    until about ``_TARGET_CTAS`` run (at least 4 groups each, one per
+    warp), on the tensor-core route until every SM has a CTA (at least 2
+    groups each). 1 on the f32 tiled route, which does not split. ``route``
+    defaults to :func:`w4_route`'s choice."""
+    route = route or w4_route(rows, K, N, dtype)
     groups = K // GROUP
-    tiles = -(-N // _GEMV_COLS)
+    if route == "gemv":
+        tiles, target, min_groups = -(-N // _GEMV_COLS), _TARGET_CTAS, 4
+    elif route == "tc":
+        tiles = -(-N // _TC_COLS) * -(-rows // (64 if rows <= 64 else 128))
+        target, min_groups = _SMS, 2
+    else:
+        return 1
     ksplit = 1
-    while groups % (2 * ksplit) == 0 and groups // (2 * ksplit) >= 4 and tiles * ksplit < _TARGET_CTAS:
+    while (groups % (2 * ksplit) == 0 and groups // (2 * ksplit) >= min_groups
+           and tiles * ksplit < target):
         ksplit *= 2
     return ksplit
 
@@ -146,12 +179,14 @@ def kernel_supports(K: int, N: int) -> bool:
     return supports_int4(K) and N % 128 == 0
 
 
-def w4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
+def w4_matmul(x: torch.Tensor, w: Q4Tensor, *, route: Optional[str] = None) -> torch.Tensor:
     """``x @ dequant(w)`` with 4-bit weight traffic. x: [rows, K] (bf16 or
     f32); returns [rows, N] in x's dtype.
 
     Tensors on a card go to the CUDA kernel (or the call raises); tensors on
-    the CPU go to :func:`w4_matmul_plain`.
+    the CPU go to :func:`w4_matmul_plain`. ``route`` names the kernel
+    instead of :func:`w4_route` (to time the routes against each other at
+    one shape); a route that does not take x's dtype raises.
     """
     if x.device.type == "cpu":
         return w4_matmul_plain(x, w)
@@ -173,7 +208,11 @@ def w4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     for name, t in (("x", x), ("q", w.q), ("scale", w.scale)):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"w4_matmul: {name} must be contiguous, 16-byte aligned, on {x.device}")
-    ksplit = split_k(rows, K, N)
+    if route is None:
+        route = w4_route(rows, K, N, x.dtype)
+    if route not in _DTYPE_ROUTES[x.dtype]:
+        raise ValueError(f"w4_matmul: route {route!r} does not take {x.dtype} activations")
+    ksplit = split_k(rows, K, N, x.dtype, route)
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
     partial = (
         torch.empty((ksplit, rows, N), dtype=torch.float32, device=x.device) if ksplit > 1 else None
@@ -182,7 +221,7 @@ def w4_matmul(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     status = lib.kllms_w4_matmul(
         x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        rows, K, N, int(x.dtype == torch.bfloat16), ksplit,
+        rows, K, N, int(x.dtype == torch.bfloat16), ROUTES[route], ksplit,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _ext.check_status("w4_matmul", status)

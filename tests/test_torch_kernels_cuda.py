@@ -72,6 +72,46 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, rtol):
     assert _ext.LAUNCH_COUNTS["flash_attention"] == before + len(cases)
 
 
+# (B, QH, KVH, Sq, Sk, D, key_lengths, extra): query counts that leave the
+# last query tile (64 or 128 rows) ragged, q_offset with Sq != Sk, window + softcap, and an
+# all-masked row, at both head dims the main configs use.
+TC_RAGGED = [
+    (1, 8, 2, 65, 65, 64, [65], {}),
+    (1, 8, 2, 65, 65, 128, [60], {}),
+    (1, 8, 2, 1000, 1000, 128, [1000], {}),
+    (2, 8, 2, 1000, 1000, 64, [1000, 0], {}),
+    (1, 8, 2, 65, 1000, 128, [1000], {"q_offset": 935}),
+    (1, 8, 2, 1000, 1500, 64, [1400], {"q_offset": 500}),
+    (1, 8, 2, 1000, 1000, 128, [990], {"window": 100, "softcap": 30.0}),
+    (2, 8, 2, 65, 65, 64, [65, 40], {"window": 17, "softcap": 20.0}),
+]
+
+
+@pytest.mark.parametrize("case", TC_RAGGED, ids=[f"case{i}" for i in range(len(TC_RAGGED))])
+def test_flash_tc_ragged_tiles_match_plain(cuda_device, case):
+    """The bf16 tensor-core kernel at ragged query tiles, held to the same
+    limit as every K2 case: |out - ref| <= 2**-6 |ref| + 1e-5 per element
+    (two bf16 ulps; P is split into two bf16 halves, so only the output's
+    single rounding and the f32 sum order differ from the plain version)."""
+    B, QH, KVH, Sq, Sk, D, lens, extra = case
+    assert att.flash_route(torch.bfloat16, D) == "tc"
+    rng = np.random.default_rng(Sq + D)
+    q = _normal(rng, B, QH, Sq, D).to(cuda_device, torch.bfloat16)
+    k = _normal(rng, B, KVH, Sk, D).to(cuda_device, torch.bfloat16)
+    v = _normal(rng, B, KVH, Sk, D).to(cuda_device, torch.bfloat16)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = _ext.LAUNCH_COUNTS["flash_attention"]
+    out = att.flash_attention(q, k, v, key_lengths=kl, **extra)
+    ref = att.flash_attention_plain(q, k, v, key_lengths=kl, **extra).float()
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["flash_attention"] == before + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert ((out.float() - ref).abs() <= 2.0 ** -6 * ref.abs() + 1e-5).all()
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not out[b].any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shared", [True, False])
 def test_paged_decode_kernel_matches_plain(cuda_device, dtype, shared):
@@ -175,32 +215,37 @@ def test_decode_prefix_kernel_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 2, 8, 40, 64, 65, 300])
+@pytest.mark.parametrize("rows", [1, 2, 8, 16, 17, 33, 40, 64, 65, 127, 129, 300])
 def test_w4_matmul_kernel_matches_plain(cuda_device, dtype, rows):
-    """Both kernel paths (GEMV with and without split K, tiled) on random
+    """Every kernel route (GEMV with and without split K, f32 tiled, bf16
+    tensor cores with 64- and 128-row tiles, ragged and split) on random
     packed bytes: f32 sums in another order stay within 1e-5 of the sum of
     |terms|, and a bf16 output within two ulps of |ref| beyond that."""
     from k_llms_tpu_torch.ops import w4matmul as w4
 
     rng = np.random.default_rng(rows)
-    before = _ext.LAUNCH_COUNTS["w4_matmul"]
+    before, launches = _ext.LAUNCH_COUNTS["w4_matmul"], 0
     for K, N in ((1024, 768), (512, 384), (4096, 1024)):
         q = torch.from_numpy(rng.integers(-128, 128, (K // 2, N), dtype=np.int8)).to(cuda_device)
         scale = torch.from_numpy((rng.random((K // 128, N), dtype=np.float32) + 0.5) / (4.6 * K ** 0.5))
         w = w4.Q4Tensor(q, scale.to(cuda_device))
         x = _normal(rng, rows, K).to(cuda_device, dtype)
-        out = w4.w4_matmul(x, w)
         ref = w4.w4_matmul_plain(x, w).float()
         ints = w4._unpack_ints(w.q).abs().float().reshape(K, N)
         abs_terms = sum(
             (x.float().abs()[:, g * 128:(g + 1) * 128] @ ints[g * 128:(g + 1) * 128]) * w.scale[g]
             for g in range(K // 128)
         )
-        torch.cuda.synchronize()
         rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 0.0
-        assert out.dtype == dtype and out.shape == (rows, N)
-        assert ((out.float() - ref).abs() <= rtol * ref.abs() + 1e-5 * abs_terms).all()
-    assert _ext.LAUNCH_COUNTS["w4_matmul"] == before + 3
+        # At bf16 rows <= 64 both routes the crossover is measured between
+        # (the wrapper's own choice is one of them), else the wrapper's.
+        for route in ("gemv", "tc") if dtype == torch.bfloat16 and rows <= 64 else (None,):
+            out = w4.w4_matmul(x, w, route=route)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and out.shape == (rows, N)
+            assert ((out.float() - ref).abs() <= rtol * ref.abs() + 1e-5 * abs_terms).all()
+            launches += 1
+    assert _ext.LAUNCH_COUNTS["w4_matmul"] == before + launches
     dense = torch.zeros((rows, 128), dtype=dtype, device=cuda_device)
     with pytest.raises(ValueError, match="not taken by the kernel"):
         w4.w4_matmul(dense, w4.Q4Tensor(q[:64, :128].contiguous(), scale[:1, :128].to(cuda_device)))

@@ -116,12 +116,58 @@ def test_w4_matmul_plain_is_the_group_sum():
 
 
 def test_split_k_fills_the_card_at_decode_rows():
-    assert w4.split_k(8, 4096, 1024) == 8  # 4 column tiles x 8 splits of 4 groups
-    assert w4.split_k(8, 14336, 4096) == 16
-    assert w4.split_k(1, 4096, 128256) == 1  # 501 column tiles already
-    assert w4.split_k(2048, 4096, 14336) == 1  # the tiled path does not split
+    # The GEMV route: 256-column tiles, at least 4 groups per CTA.
+    assert w4.split_k(8, 4096, 1024, route="gemv") == 8  # 4 column tiles x 8 splits of 4 groups
+    assert w4.split_k(8, 14336, 4096, route="gemv") == 16
+    assert w4.split_k(1, 4096, 128256, route="gemv") == 1  # 501 column tiles already
+    # The tensor-core route: 128-column tiles, at least 2 groups per CTA.
+    assert w4.split_k(8, 4096, 1024) == 16  # 8 column tiles x 16 splits of 2 groups
+    assert w4.split_k(8, 14336, 4096) == 8  # 32 x 8 = 256 CTAs of 14 groups
+    assert w4.split_k(3, 4096, 128256) == 1  # 1002 column tiles already
+    assert w4.split_k(2048, 4096, 14336) == 1  # 112 x 16 tiles of 128 rows
+    assert w4.split_k(40, 1024, 768, torch.float32) == 2  # f32 at 40 rows: GEMV, 8 groups
+    assert w4.split_k(300, 512, 384, torch.float32) == 1  # f32 tiled: never split
     assert w4.kernel_supports(4096, 1024) and not w4.kernel_supports(128, 1024)
     assert not w4.kernel_supports(4096, 64)
+
+
+# Llama-3-8B's int4 weights (K, N): w_gate/w_up, w_down, wq/wo, wk/wv, lm_head.
+LLAMA3_8B_W4 = [(4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024), (4096, 128256)]
+
+
+@pytest.mark.parametrize("K,N", LLAMA3_8B_W4)
+def test_w4_route_and_split_k_at_8b_shapes(K, N):
+    """The route is a pure function of dtype and rows: bf16 takes the GEMV
+    up to the measured crossover (2 rows: the last-token logits, decode at
+    n = 2) and the tensor cores above it (decode at n = 8, every prefill
+    bucket); f32 the GEMV up to 64 rows and the tiled kernel above. Each
+    tensor-core split keeps at least 2 whole groups per CTA and stops once
+    the card's 132 SMs each have a CTA."""
+    assert w4.TC_CROSSOVER_ROWS == 2
+    for rows in (1, 2):
+        assert w4.w4_route(rows, K, N, torch.bfloat16) == "gemv"
+        assert w4.split_k(rows, K, N) == w4.split_k(rows, K, N, route="gemv")
+    for rows in (3, 8, 16, 32, 64, 65, 512, 2048):
+        assert w4.w4_route(rows, K, N, torch.bfloat16) == "tc"
+        ks = w4.split_k(rows, K, N)
+        groups, tiles = K // 128, N // 128 * -(-rows // (64 if rows <= 64 else 128))
+        assert groups % ks == 0 and groups // ks >= 2
+        if ks > 1:  # every doubling was needed ...
+            assert tiles * (ks // 2) < 132
+        # ... and the split stops once the card is full or the groups run out
+        assert tiles * ks >= 132 or groups % (2 * ks) or groups // (2 * ks) < 2
+    assert w4.w4_route(64, K, N, torch.float32) == "gemv"
+    assert w4.w4_route(65, K, N, torch.float32) == "tiled"
+    assert w4.split_k(2048, K, N, torch.float32) == 1
+
+
+def test_w4_matmul_route_must_take_the_dtype():
+    """A named route that does not take x's dtype raises before any launch
+    (on a CPU tensor the plain version runs whatever the route)."""
+    w = w4.pack_int4(torch.zeros(256, 128))
+    x = torch.zeros(4, 256)
+    assert torch.equal(w4.w4_matmul(x, w, route="tc"), w4.w4_matmul_plain(x, w))
+    assert set(w4.ROUTES) == {"gemv", "tiled", "tc"}
 
 
 def test_int8_quantize_and_qdot_equal_jax():
