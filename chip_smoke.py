@@ -18,6 +18,14 @@ subset (for quick checks, e.g. ``--phases build,k3,k4,tiny``); the default
 runs every phase of the contract. ``--phases 8b,profile`` adds device-time
 breakdowns of a short and the long 8B request.
 
+Timed kernel cases report ``ms`` (CUDA events around back-to-back wrapper
+calls: at decode shapes mostly the host's enqueue) and, at decode shapes,
+``device_ms``: the device time of one call, from a CUDA-graph replay of many
+calls timed with CUDA events (no host in it), each call on its own copy of
+the weights or KV pools, with enough copies that their rotation exceeds the
+card's 50 MB L2, as a model's layers do. Bounds are stated against
+``device_ms`` where it is measured.
+
 Output: one line per phase, then a ``{"kernels": [...]}`` line, the card's
 name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +52,9 @@ EXTRA_PHASES = ("profile",)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Bytes a device-time rotation spans at least: 2.5 times the H100's 50 MB L2,
+# so that every call reads its inputs from HBM.
+COLD_ROTATION_BYTES = 128e6
 
 
 def log(obj) -> None:
@@ -108,6 +119,41 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    # One stream captures every timing graph: PyTorch keeps a cuBLAS
+    # workspace for each stream it has run cuBLAS on, so a fresh stream per
+    # timing would leave one behind each time.
+    capture_stream = torch.cuda.Stream()
+
+    def device_ms(calls, reps=3):
+        """Device time of one call in ms: ``reps`` passes over ``calls``
+        (each a call on its own inputs) captured in one CUDA graph, one
+        replay timed with CUDA events, over the call count. The replay runs
+        the kernels back to back without the host, so this is their time
+        plus the launch gaps inside a graph."""
+        capture_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(capture_stream):  # warm up: builds, workspaces, semaphores
+            for c in calls:
+                c()
+        torch.cuda.current_stream().wait_stream(capture_stream)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture_stream):
+            for _ in range(reps):
+                for c in calls:
+                    c()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * len(calls))
+
+    def copies_for(nbytes):
+        """How many input copies a cold rotation needs."""
+        return max(2, min(64, math.ceil(COLD_ROTATION_BYTES / nbytes)))
+
     # 1. device
     log({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -124,7 +170,8 @@ def main(argv=None) -> int:
         # The tensor-core kernels must compile to tensor-core instructions.
         cuobjdump = os.path.join(os.path.dirname(_ext.nvcc_path()), "cuobjdump")
         mma_counts = {}
-        for lib, kernel in (("flash_attention", "flash_attention_tc"), ("w4_matmul", "w4_gemm_tc")):
+        for lib, kernel in (("flash_attention", "flash_attention_tc"), ("w4_matmul", "w4_gemm_tc"),
+                            ("w4_matmul", "w4_decode_tc"), ("paged_decode", "paged_decode_tc")):
             sass = subprocess.run([cuobjdump, "-sass", _ext.library_path(lib)], check=True,
                                   capture_output=True, text=True, timeout=300).stdout
             fn = None
@@ -135,7 +182,23 @@ def main(argv=None) -> int:
                     mma_counts[fn] = mma_counts.get(fn, 0) + 1
             if not any(kernel in fn for fn in mma_counts):
                 raise AssertionError(f"{kernel}: no HMMA/HGMMA instruction in the SASS of {lib}")
-        log({"phase": "build_sass", "tensor_core_instructions": mma_counts})
+        # Registers and local memory (spills) of each tensor-core kernel.
+        resources = {}
+        for lib in ("flash_attention", "w4_matmul", "paged_decode"):
+            usage = subprocess.run([cuobjdump, "-res-usage", _ext.library_path(lib)], check=True,
+                                   capture_output=True, text=True, timeout=300).stdout
+            fn = None
+            for line in usage.splitlines():
+                if "Function " in line:
+                    fn = line.split("Function ")[1].strip().rstrip(":")
+                elif fn and fn in mma_counts and "REG:" in line:
+                    fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+                    resources[fn] = {"registers": int(fields.get("REG", -1)),
+                                     "local_bytes": int(fields.get("LOCAL", -1)),
+                                     "shared_bytes": int(fields.get("SHARED", -1))}
+                    fn = None
+        log({"phase": "build_sass", "tensor_core_instructions": mma_counts,
+             "resource_usage": resources})
 
     # 3. K2 flash attention against its plain version
     if "k2" in phases:
@@ -301,6 +364,15 @@ def main(argv=None) -> int:
                 rec["ms"] = time_ms(lambda: pa.paged_decode_attention(*args_, **kw), iters=50)
                 rec["plain_ms"] = time_ms(lambda: pa.paged_decode_attention_plain(*args_, **kw), iters=10)
                 rec["library_ms"] = None
+                # Device time, cold: each call on its own pair of pools.
+                n_copies = copies_for(2 * pool_k.numel() * pool_k.element_size())
+                pools = [(pool_k, pool_v)] + [(randn(*pool_k.shape, dtype=dtype), randn(*pool_v.shape, dtype=dtype))
+                                              for _ in range(n_copies - 1)]
+                calls = [lambda pk=pk, pv=pv: pa.paged_decode_attention(
+                    q, pk, pv, prefix, gen_pages, phase, nk, nv, plen_row, glens, **kw) for pk, pv in pools]
+                rec["device_ms"] = device_ms(calls)
+                rec["rotation"] = n_copies
+                del pools, calls
                 esz = pool_k.element_size()
                 keys_per_row = [p + glen for p in plens for _ in range(n_per)]
                 flops = 4.0 * D * (QH // KVH) * KVH * (sum(keys_per_row) + B)
@@ -310,8 +382,32 @@ def main(argv=None) -> int:
                 nbytes = (2 * kv_tokens * KVH * D + q.numel() + nk.numel() + nv.numel()) * esz \
                     + out.numel() * 4
                 rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
-                per_row_bytes = (2 * (sum(keys_per_row)) * KVH * D) * esz
-                rec["bytes_read_by_kernel_over_bound"] = per_row_bytes / max(nbytes, 1)
+                rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
+                route, rpc, splits = pa.paged_split_plan(B, prefix.shape[0], QH, KVH, D,
+                                                          prefix.shape[1], dtype)
+                rec["plan"] = {"route": route, "rows_per_cta": rpc, "splits": splits,
+                               "ctas": prefix.shape[0] * -(-n_per // rpc) * KVH * (splits + rpc)}
+                # The limit must catch a split that is dropped from the merge
+                # or whose boundary is one page off: variants of the kernel's
+                # decomposition, each of which has to break it.
+                def dropped(n, k):
+                    ranges = pa.split_page_ranges(n, k)
+                    return [rg for i, rg in enumerate(ranges) if i != len(ranges) // 2]
+
+                def off_by_one(n, k):
+                    ranges = pa.split_page_ranges(n, k)
+                    i = next(i for i in range(len(ranges) - 1) if ranges[i][1] - ranges[i][0] > 1)
+                    ranges[i] = (ranges[i][0], ranges[i][1] - 1)
+                    return ranges
+
+                model = pa.paged_decode_attention_split(*args_, **kw)
+                rec["split_model_max_abs_err"] = (model - ref).abs().max().item()
+                ok = ok and rec["split_model_max_abs_err"] <= tol
+                rec["mutant_err_over_limit"] = {
+                    name: (pa.paged_decode_attention_split(*args_, **kw, page_ranges=f) - ref)
+                    .abs().max().item() / tol
+                    for name, f in (("merge_drops_one_split", dropped),
+                                    ("split_boundary_one_page_off", off_by_one))}
             if bad_page:
                 # A gen page id past the pool's end in row 1: the kernel reads
                 # nothing there and poisons that row alone with NaN. (The plain
@@ -328,11 +424,17 @@ def main(argv=None) -> int:
             log(rec)
             if not ok:
                 raise AssertionError(f"paged_decode_attention case {name} failed: {rec}")
+            if not all(r > 1.0 for r in rec.get("mutant_err_over_limit", {}).values()):
+                raise AssertionError(f"paged_decode_attention case {name}: the limit misses a mutant: {rec}")
             return rec, err
 
         main_rec, e0 = k1_case("llama3_8b_decode", 2, 8, 32, 8, 128, 64, [1500, 1437], 40,
                                torch.bfloat16, 1e-5, bucket=2048, timed=True)
-        errs = [e0]
+        # The main path's own shape: one request of n = 8 rows, the 1490-token
+        # prompt in its 2048 bucket, 16 tokens generated.
+        shape_rec, e1 = k1_case("llama3_8b_main_shape", 1, 8, 32, 8, 128, 64, [1490], 16,
+                                torch.bfloat16, 1e-5, bucket=2048, timed=True, bad_page=True)
+        errs = [e0, e1]
         errs.append(k1_case("per_row_table_phase0", 2, 8, 32, 8, 128, 64, [1500, 1437], 40,
                             torch.bfloat16, 1e-5, phase_on=False, shared=False)[1])
         errs.append(k1_case("tiny_f32_ps16", 3, 4, 4, 2, 16, 16, [45, 20, 33], 11,
@@ -346,7 +448,12 @@ def main(argv=None) -> int:
             "launches": None, "held": True, "max_abs_err": max(errs),
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "device_ms": main_rec["device_ms"],
+            "device_over_bound": main_rec["device_over_bound"], "impl": main_rec["plan"]["route"],
+            "timed_case": main_rec["case"],
+            "main_shape_case": {k: shape_rec[k] for k in
+                                ("case", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                                 "device_over_bound", "plan")},
         }
 
     # 5. K4 w4a16 matmul against its plain version
@@ -397,7 +504,7 @@ def main(argv=None) -> int:
             route = w4.w4_route(rows, K, N, dtype)
             rec = {"phase": "k4", "case": name, "rows": rows, "K": K, "N": N,
                    "dtype": str(dtype).replace("torch.", ""), "route": route,
-                   "impl": "tc" if route == "tc" else "simt",
+                   "impl": "simt" if route in ("gemv", "tiled") else "tc",
                    "ksplit": w4.split_k(rows, K, N, dtype), "max_abs_err": err,
                    "mean_abs_ref": ref.float().abs().mean().item(),
                    "limit": f"{rtol:g}*|ref| + 1e-5*(|x| @ |W|)", "max_err_over_limit": ratio,
@@ -423,16 +530,28 @@ def main(argv=None) -> int:
                           + out.numel() * out.element_size())
                 peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
                 rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, peak)
-                if dtype == torch.bfloat16 and rows <= 64:
-                    # Both bf16 routes at this shape, for the crossover; the
-                    # one the wrapper does not take is held to the same limit.
-                    other = "gemv" if route == "tc" else "tc"
-                    o = w4.w4_matmul(x, w, route=other)
-                    torch.cuda.synchronize()
-                    rec["other_route_err_over_limit"] = over(o)
-                    ok = rec["ok"] = ok and rec["other_route_err_over_limit"] <= 1.0
-                    rec["route_ms"] = {route: rec["ms"], other: time_ms(
-                        lambda: w4.w4_matmul(x, w, route=other), iters=20)}
+                if dtype == torch.bfloat16 and rows <= w4._DECODE_MAX_ROWS:
+                    # Decode rows: every bf16 route that takes them, each held
+                    # to the same limit, and each route's device time on cold
+                    # weights (a rotation of copies), beside cuBLAS's on cold
+                    # bf16 weights.
+                    others = [r for r in ("decode", "tc") if r != route]
+                    rec["other_route_err_over_limit"] = {}
+                    for other in others:
+                        o = w4.w4_matmul(x, w, route=other)
+                        torch.cuda.synchronize()
+                        rec["other_route_err_over_limit"][other] = over(o)
+                    ok = rec["ok"] = ok and max(rec["other_route_err_over_limit"].values()) <= 1.0
+                    cold = rotations(K, N)
+                    rec["route_device_ms"] = {
+                        r: device_ms([lambda wc=wc, r=r: w4.w4_matmul(x, wc, route=r)
+                                      for wc in cold["w4"]])
+                        for r in (route, *others)}
+                    rec["device_ms"] = rec["route_device_ms"][route]
+                    rec["library_device_ms"] = device_ms(
+                        [lambda wb=wb: torch.matmul(x_bf16, wb) for wb in cold["bf16"]])
+                    rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
+                    rec["rotation"] = {k: len(v) for k, v in cold.items()}
             log(rec)
             if not ok:
                 raise AssertionError(f"w4_matmul case {name}: error {ratio} x the limit")
@@ -449,6 +568,25 @@ def main(argv=None) -> int:
         # 8 and 64 rows and on both sides of the crossover.
         shapes = {"w_gate_up": (4096, 14336), "w_down": (14336, 4096), "wq_wo": (4096, 4096),
                   "wk_wv": (4096, 1024), "lm_head": (4096, 128256)}
+        cold_copies = {}
+
+        def rotations(K, N):
+            """Copies of a K x N weight, packed int4 and bf16, enough of each
+            that a pass over them exceeds the L2 (made once per shape; their
+            values do not matter to the time)."""
+            if (K, N) not in cold_copies:
+                cold_copies.clear()
+                n4 = copies_for(K * N // 2 + K // 128 * N * 4)
+                nb = copies_for(K * N * 2)
+                cold_copies[(K, N)] = {
+                    "w4": [w4.Q4Tensor(
+                        torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev, dtype=torch.int8),
+                        (torch.rand((K // 128, N), generator=gen, device=dev) + 0.5) / (4.61 * math.sqrt(K)))
+                        for _ in range(n4)],
+                    "bf16": [randn(K, N, scale=0.02) for _ in range(nb)],
+                }
+            return cold_copies[(K, N)]
+
         cross = w4.TC_CROSSOVER_ROWS
         mutant_rows = {8, 64, max(cross, 1), cross + 1}
         timed_rows = (1, 2, 4, 8, 16, 32, 64, 512, 2048)
@@ -468,16 +606,21 @@ def main(argv=None) -> int:
                                     mutants=rows in mutant_rows or rows == 129)[1])
         errs.append(k4_case("f32_rows40", 40, 1024, 768, torch.float32, mutants=True)[1])
         errs.append(k4_case("f32_rows300", 300, 512, 384, torch.float32, mutants=True)[1])
-        # Crossover: the largest row count at which the GEMV route is faster
-        # over one layer's seven block matmuls (0: the tensor-core route
-        # is faster at every row count measured).
+        cold_copies.clear()
+        # Crossover, in device time on cold weights: the largest row count at
+        # which the decode route is faster than the prefill tensor-core route
+        # over one layer's seven block matmuls, and for lm_head alone.
         layer = {"w_gate_up": 2, "w_down": 1, "wq_wo": 2, "wk_wv": 2}
-        per_rows = {}
-        for rows in (1, 2, 4, 8, 16, 32, 64):
-            per_rows[rows] = {r: sum(c * recs[(sn, rows)]["route_ms"][r] for sn, c in layer.items())
-                              for r in ("gemv", "tc")}
-        measured = max([r for r, t in per_rows.items() if t["gemv"] < t["tc"]], default=0)
-        log({"phase": "k4_crossover", "layer_ms_by_rows": per_rows,
+        per_rows, head_rows = {}, {}
+        for rows in (1, 2, 4, 8, 16, 32):
+            per_rows[rows] = {r: sum(c * recs[(sn, rows)]["route_device_ms"][r] for sn, c in layer.items())
+                              for r in ("decode", "tc")}
+            per_rows[rows]["cublas"] = sum(c * recs[(sn, rows)]["library_device_ms"] for sn, c in layer.items())
+            head_rows[rows] = dict(recs[("lm_head", rows)]["route_device_ms"],
+                                   cublas=recs[("lm_head", rows)]["library_device_ms"])
+        measured = max([r for r, t in per_rows.items() if t["decode"] < t["tc"]], default=0)
+        log({"phase": "k4_crossover", "layer_device_ms_by_rows": per_rows,
+             "lm_head_device_ms_by_rows": head_rows,
              "crossover_rows_measured": measured, "crossover_rows_in_code": cross})
         main_rec = recs[("w_gate_up", 8)]
         kernels["w4_matmul"] = {
@@ -488,7 +631,13 @@ def main(argv=None) -> int:
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"], "timed_case": "w_gate_up_rows8",
-            "impl": main_rec["impl"],
+            "impl": main_rec["impl"], "device_ms": main_rec["device_ms"],
+            "library_device_ms": main_rec["library_device_ms"],
+            "device_over_bound": main_rec["device_over_bound"],
+            "decode_cases": [{k: recs[(sn, rows)][k] for k in
+                              ("case", "impl", "ms", "device_ms", "library_device_ms", "bound_ms",
+                               "device_over_bound")}
+                             for sn in shapes for rows in (1, 8)],
             "prefill_cases": [{k: recs[(sn, rows)][k] for k in
                                ("case", "impl", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
@@ -690,6 +839,7 @@ def main(argv=None) -> int:
         engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
         _ext.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        allocated_before = torch.cuda.memory_allocated()
         for i, req in enumerate(requests):
             t0 = time.perf_counter()
             n_embeds = len(embed_batches)
@@ -716,7 +866,8 @@ def main(argv=None) -> int:
         counts = dict(_ext.LAUNCH_COUNTS)
         log({"phase": f"{label}_main_path", "launches": counts, "engine_launches": launches,
              "embeddings_forwards": len(embed_batches),
-             "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+             "allocated_before_requests_bytes": allocated_before})
         return counts, launches, embed_batches
 
     def profile_one(label, client, index):
@@ -743,12 +894,15 @@ def main(argv=None) -> int:
                 rows.append((dev_us, e.key, e.count))
         rows.sort(reverse=True)
         busy_us = sum(r[0] for r in rows)
+        port = ("paged_decode", "flash_attention", "decode_prefix", "w4_")
         log({"phase": f"{label}_profile", "request": index, "wall_s": wall,
              "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
              "decode_steps": st["decode_steps"], "device_busy_s": busy_us / 1e6,
              "device_idle_share": 1.0 - busy_us / 1e6 / wall,
              "top_device_time": [{"name": k[:80], "ms": us / 1e3, "calls": c}
-                                 for us, k, c in rows[:12]]})
+                                 for us, k, c in rows[:12]],
+             "port_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                              for us, k, c in rows if any(n in k for n in port)]})
 
     from k_llms_tpu_torch import KLLMs
 

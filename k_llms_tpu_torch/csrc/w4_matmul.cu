@@ -15,15 +15,34 @@
 // registers or shared memory on chip.
 //
 // What bounds it on this card: bytes at decode rows, operations at prefill
-// rows. At 1-8 rows every packed weight byte feeds 2-16 FMAs, far below the
-// card's balance point, so the 4-bit weights are the traffic (half of int8,
-// a quarter of bf16); at 512-2048 rows the product is compute bound. bf16
-// calls above the crossover run on the tensor cores.
+// rows. At 1-32 rows every packed weight byte feeds 2-64 multiply-adds, far
+// below the card's balance point, so the 4-bit weights are the traffic (half
+// of int8, a quarter of bf16); at 512-2048 rows the product is compute
+// bound. bf16 calls run on the tensor cores.
 //
-// Three kernels; the wrapper picks one from dtype and rows
+// Four kernels; the wrapper picks one from dtype and rows
 // (ops/w4matmul.py::w4_route) and passes it as `route`:
-//   * w4_gemv (route 0; bf16 rows up to the crossover, f32 rows <= 64): one
-//     warp walks one 128-row group at a time for a 256-column tile (8
+//   * w4_decode_tc (route 3; bf16 rows up to the crossover: decode at
+//     n <= 32 and the last-token logits): the operands are swapped so that
+//     a few rows fill an MMA, out^T = W^T x^T with mma.sync.m16n8k16: 16
+//     weight columns are M, up to 8 rows of x are N (1-7 rows pad the same
+//     n8 tile; 2 or 4 n8 tiles at 9-32 rows), the contraction is K. A CTA of
+//     4 warps owns 128 columns and streams its groups' packed bytes, scales
+//     and x slice through a four-stage cp.async ring (about 36 KB in flight
+//     a CTA, several CTAs an SM), reading each packed byte once. The same
+//     ldmatrix.trans of the packed bytes as the prefill kernel's gives a
+//     lane byte rows 2t, 2t + 1 (and 2t + 8, 2t + 9) of columns 2g and
+//     2g + 1: with the even column as A row g and the odd one as A row
+//     g + 8, their low and high nibbles are the A fragments of two k-steps
+//     (contraction rows 64 apart) of one m16 tile. x is the B operand,
+//     read by ldmatrix from shared memory. The per-column scale multiplies
+//     an accumulator row. Each group's 8 k-steps go into a fresh f32
+//     accumulator, which is scaled and added to the output accumulator.
+//     Split K fills the card at small N; the last CTA of each column tile
+//     (a counter in a semaphore array the wrapper keeps, reset by that
+//     CTA) adds the f32 partials in split order, so one launch does it all
+//     and the result does not depend on which CTA finishes last.
+//   * w4_gemv (route 0; f32 rows <= 64): one warp walks one 128-row group at a time for a 256-column tile (8
 //     columns per lane, one 8-byte load per packed row), with up to 8 rows
 //     in registers, f32 on the CUDA cores (a nibble becomes a float by
 //     OR-ing nibble ^ 8 into the mantissa of 2^23 and subtracting 2^23 + 8);
@@ -45,15 +64,12 @@
 //   * w4_gemm (route 1; f32 rows > 64): a 64 x 128 tile on the CUDA cores
 //     (TF32 would change f32 results); the group's bytes are unpacked once
 //     into a [128, 128] f32 shared tile.
-// Long contractions with few output tiles are split over CTAs (`ksplit`,
-// routes 0 and 2), whose f32 partials w4_reduce adds in a fixed order, so
-// the card is filled even at N = 1024.
+// Routes 0 and 2 split long contractions over CTAs too (`ksplit`); their
+// f32 partials w4_reduce adds in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "mma.cuh"
 
@@ -79,13 +95,6 @@ __device__ __forceinline__ float nibble_hi(uint32_t word, int byte) {
 // Four consecutive x values as f32.
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
@@ -530,6 +539,228 @@ int launch_tc(const __nv_bfloat16* x, const uint8_t* q, const float* scale, __nv
   return (int)cudaGetLastError();
 }
 
+// --- decode rows on the tensor cores (bf16 x, up to 32 rows) ---------------
+
+constexpr int kDecBN = 128;                // output columns per CTA
+constexpr int kDecThreads = kDecBN;        // one warp per 32 columns
+constexpr int kDecStages = 4;              // shared-memory ring depth
+constexpr int kDecQStride = kDecBN + 16;   // bytes per packed row in shared memory (pad:
+                                           // ldmatrix rows on distinct banks)
+constexpr int kDecXStride = kGroup + 8;    // bf16 per x row in shared memory (same reason)
+
+template <int NT>
+struct DecTile {
+  static constexpr int kRows = 8 * NT;     // x rows per n8 tile, padded
+  static constexpr int kQBytes = kHalf * kDecQStride;
+  static constexpr int kSBytes = kDecBN * 4;
+  static constexpr int kXBytes = kRows * kDecXStride * 2;
+  static constexpr int kStageBytes = kQBytes + kSBytes + kXBytes;
+  static constexpr size_t kSmemBytes = (size_t)kDecStages * kStageBytes;
+};
+
+// grid (N / 128, ksplit). CTA (ct, ks) sums the groups [ks * G / ksplit,
+// (ks + 1) * G / ksplit) for columns ct*128 .. +128 and every row. Warp w
+// owns columns ct*128 + 32w .. +32: m16 tile c (c = 0, 1) holds columns
+// 32w + 16c + 2i as A row i and 32w + 16c + 2i + 1 as A row i + 8.
+template <int NT>
+__global__ void __launch_bounds__(kDecThreads)
+w4_decode_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+             const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+             float* __restrict__ partial, int* __restrict__ sem, int rows, int K, int N,
+             int ksplit) {
+  using Tile = DecTile<NT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int col0 = blockIdx.x * kDecBN;
+  const int per_split = K / kGroup / ksplit;
+  const int g_begin = blockIdx.y * per_split;
+
+  auto stage_ptr = [&](int i) { return smem_raw + (i % kDecStages) * Tile::kStageBytes; };
+  // Group g_begin + i into its stage: 64 x 128 packed bytes, 128 scales and
+  // the group's 128 columns of x (rows past the end zero-filled).
+  auto load_group = [&](int i) {
+    unsigned char* qs = stage_ptr(i);
+    float* ss = reinterpret_cast<float*>(qs + Tile::kQBytes);
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(qs + Tile::kQBytes + Tile::kSBytes);
+    const int gg = g_begin + i;
+    for (int c = tid; c < kHalf * (kDecBN / 16); c += kDecThreads) {
+      const int r = c / (kDecBN / 16);
+      const int ch = c % (kDecBN / 16);
+      cp_async_16(qs + r * kDecQStride + ch * 16,
+                  q + ((size_t)gg * kHalf + r) * N + col0 + ch * 16, 16);
+    }
+    if (tid < kDecBN / 4) cp_async_16(ss + tid * 4, scale + (size_t)gg * N + col0 + tid * 4, 16);
+    for (int c = tid; c < Tile::kRows * (kGroup / 8); c += kDecThreads) {
+      const int r = c >> 4;
+      const int ch = c & 15;
+      const bool ok = r < rows;
+      cp_async_16(xs + r * kDecXStride + ch * 8,
+                  x + (size_t)(ok ? r : 0) * K + (size_t)gg * kGroup + ch * 8, ok ? 16 : 0);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < kDecStages - 1; ++i) {
+    if (i < per_split) load_group(i);
+    cp_async_commit();
+  }
+
+  float acc[2][NT][4];  // [m16 tile][n8 tile][fragment], the output accumulator
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[c][n][0] = acc[c][n][1] = acc[c][n][2] = acc[c][n][3] = 0.f;
+
+  for (int i = 0; i < per_split; ++i) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();  // group i has landed; every warp is done with group i - 1's stage
+    if (i + kDecStages - 1 < per_split) load_group(i + kDecStages - 1);
+    cp_async_commit();
+
+    const unsigned char* qs = stage_ptr(i);
+    const float* ss = reinterpret_cast<const float*>(qs + Tile::kQBytes);
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(qs + Tile::kQBytes + Tile::kSBytes);
+
+    float part[2][NT][4];  // this group's f32 sums, started by its first k-step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // Byte rows 16kk .. +15 of the warp's 32 columns: raw[2c] holds rows
+      // 2t, 2t+1 and raw[2c+1] rows 8+2t, 9+2t of columns 32w + 16c + 2g
+      // and + 1 (as in w4_gemm_tc).
+      uint32_t raw[4];
+      ldmatrix_x4_trans(raw, qs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kDecQStride +
+                                 warp * 32 + (lane >> 4) * 16);
+      uint32_t a[2][2][4];  // [m16 tile][low / high nibbles][a0..a3]
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t w0 = raw[2 * c] ^ 0x88888888u;
+        const uint32_t w1 = raw[2 * c + 1] ^ 0x88888888u;
+        a[c][0][0] = nibbles_to_bf16x2(w0);        // row g (even column), k 2t..
+        a[c][0][1] = nibbles_to_bf16x2(w0 >> 8);   // row g + 8 (odd column), k 2t..
+        a[c][0][2] = nibbles_to_bf16x2(w1);        // row g, k 2t + 8..
+        a[c][0][3] = nibbles_to_bf16x2(w1 >> 8);   // row g + 8, k 2t + 8..
+        a[c][1][0] = nibbles_to_bf16x2(w0 >> 4);   // the same, contraction rows + 64
+        a[c][1][1] = nibbles_to_bf16x2(w0 >> 12);
+        a[c][1][2] = nibbles_to_bf16x2(w1 >> 4);
+        a[c][1][3] = nibbles_to_bf16x2(w1 >> 12);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        // x rows 8n .. +7 at group columns 16kk .. +15 (xb[0], xb[1]) and
+        // 64 + 16kk .. +15 (xb[2], xb[3]): the B fragments of both k-steps.
+        uint32_t xb[4];
+        ldmatrix_x4(xb, xs + (n * 8 + (lane & 7)) * kDecXStride + 16 * kk +
+                            ((lane >> 3) & 1) * 8 + (lane >> 4) * kHalf);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (kk == 0) {
+            mma_bf16_zero(part[c][n], a[c][0], xb[0], xb[1]);
+          } else {
+            mma_bf16(part[c][n], a[c][0], xb[0], xb[1]);
+          }
+          mma_bf16(part[c][n], a[c][1], xb[2], xb[3]);
+        }
+      }
+    }
+    // Fold the group in at its scales: accumulator rows g and g + 8 are
+    // columns 32w + 16c + 2g and + 1.
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float2 sv = *reinterpret_cast<const float2*>(ss + warp * 32 + c * 16 + 2 * g);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[c][n][0] = fmaf(part[c][n][0], sv.x, acc[c][n][0]);
+        acc[c][n][1] = fmaf(part[c][n][1], sv.x, acc[c][n][1]);
+        acc[c][n][2] = fmaf(part[c][n][2], sv.y, acc[c][n][2]);
+        acc[c][n][3] = fmaf(part[c][n][3], sv.y, acc[c][n][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Lane (g, t) holds rows 8n + 2t (fragments 0, 2) and 8n + 2t + 1 (1, 3)
+  // at columns 32w + 16c + 2g and + 1.
+  float* my_part = partial + (size_t)blockIdx.y * rows * N;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = n * 8 + 2 * t + hr;
+        if (row >= rows) continue;
+        const int col = col0 + warp * 32 + c * 16 + 2 * g;
+        const float v0 = acc[c][n][hr];
+        const float v1 = acc[c][n][2 + hr];
+        if (ksplit == 1) {
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) = pack_bf16x2(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(my_part + (size_t)row * N + col) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+  if (ksplit == 1) return;
+
+  // The last CTA of the column tile adds the splits' partials in split order.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    is_last = atomicAdd(sem + blockIdx.x, 1) == ksplit - 1;
+    if (is_last) atomicExch(sem + blockIdx.x, 0);  // ready for the next launch
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int idx = tid; idx < rows * (kDecBN / 4); idx += kDecThreads) {
+    const int row = idx / (kDecBN / 4);
+    const int col = col0 + (idx % (kDecBN / 4)) * 4;
+    // The splits' loads are issued ahead of their (ordered) sum.
+    constexpr int kUnroll = 8;
+    const float4* src = reinterpret_cast<const float4*>(partial + (size_t)row * N + col);
+    const size_t stride = (size_t)rows * N / 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < ksplit; s0 += kUnroll) {
+      float4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        v[u] = s0 + u < ksplit ? __ldcg(src + (s0 + u) * stride) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        sum.x += v[u].x;
+        sum.y += v[u].y;
+        sum.z += v[u].z;
+        sum.w += v[u].w;
+      }
+    }
+    uint2 packed;
+    packed.x = pack_bf16x2(sum.x, sum.y);
+    packed.y = pack_bf16x2(sum.z, sum.w);
+    *reinterpret_cast<uint2*>(out + (size_t)row * N + col) = packed;
+  }
+}
+
+template <int NT>
+int launch_decode(const __nv_bfloat16* x, const uint8_t* q, const float* scale,
+                  __nv_bfloat16* out, float* partial, int* sem, int rows, int K, int N,
+                  int ksplit, cudaStream_t stream) {
+  const size_t smem = DecTile<NT>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(w4_decode_tc<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N / kDecBN, ksplit);
+  w4_decode_tc<NT><<<grid, kDecThreads, smem, stream>>>(x, q, scale, out, partial, sem, rows, K,
+                                                        N, ksplit);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int RT>
 int launch_gemv(const T* x, const uint8_t* q, const float* scale, T* out, float* partial,
                 int rows, int K, int N, int ksplit, cudaStream_t stream) {
@@ -544,59 +775,56 @@ int launch_gemv(const T* x, const uint8_t* q, const float* scale, T* out, float*
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_simt(const void* xv, const void* qv, const float* scale, void* outv, float* partial,
-                int rows, int K, int N, int route, int ksplit, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(xv);
-  const uint8_t* q = static_cast<const uint8_t*>(qv);
-  T* out = static_cast<T*>(outv);
+// f32 x on the CUDA cores: route 0 (GEMV, row chunks of 8; fewer registers
+// for 1, 2 or 4 rows) or route 1 (tiled, ksplit == 1).
+int launch_f32(const float* x, const uint8_t* q, const float* scale, float* out, float* partial,
+               int rows, int K, int N, int route, int ksplit, cudaStream_t stream) {
   if (route == 0) {
-    // Row chunks of 8 (fewer registers for 1, 2 or 4 rows).
-    if (rows == 1) return launch_gemv<T, 1>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
-    if (rows == 2) return launch_gemv<T, 2>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
-    if (rows <= 4) return launch_gemv<T, 4>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
-    return launch_gemv<T, 8>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
+    if (rows == 1) return launch_gemv<float, 1>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
+    if (rows == 2) return launch_gemv<float, 2>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
+    if (rows <= 4) return launch_gemv<float, 4>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
+    return launch_gemv<float, 8>(x, q, scale, out, partial, rows, K, N, ksplit, stream);
   }
-  // The tiled kernel takes f32 x only (bf16 rows above the crossover take
-  // the tensor cores).
-  if constexpr (std::is_same<T, float>::value) {
-    if (ksplit != 1) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(w4_gemm<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kGemmSmem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(N / kBN, (rows + kBM - 1) / kBM);
-    w4_gemm<T><<<grid, kGemmThreads, kGemmSmem, stream>>>(x, q, scale, out, rows, K, N);
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorInvalidValue;
+  if (ksplit != 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(w4_gemm<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kGemmSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N / kBN, (rows + kBM - 1) / kBM);
+  w4_gemm<float><<<grid, kGemmThreads, kGemmSmem, stream>>>(x, q, scale, out, rows, K, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. `route` is the kernel the wrapper chose:
-// 0 the GEMV kernel, 1 the f32 tiled kernel (f32 x, ksplit == 1), 2 the
-// tensor-core kernel (bf16 x; 64-row tiles when rows <= 64, else 128).
-// `partial` is f32 scratch of ksplit * rows * N floats (unused when
-// ksplit == 1). Returns the CUDA status of the launches (0 = success).
+// 0 the GEMV kernel (f32 x), 1 the tiled kernel (f32 x, ksplit == 1), 2 the
+// tensor-core kernel (bf16 x; 64-row tiles when rows <= 64, else 128), 3 the
+// decode kernel (bf16 x, rows <= 32). `partial` is f32 scratch of
+// ksplit * rows * N floats (unused when ksplit == 1); `sem` (route 3 with
+// ksplit > 1) is N / 128 ints, zero before the launch and zero after it.
+// Returns the CUDA status of the launches (0 = success).
 extern "C" int kllms_w4_matmul(const void* x, const void* q, const float* scale, void* out,
-                               float* partial, int rows, int K, int N, int is_bf16,
+                               float* partial, int* sem, int rows, int K, int N, int is_bf16,
                                int route, int ksplit, void* stream) {
   if (rows <= 0 || K <= 0 || N <= 0 || K % (2 * kGroup) != 0 || N % kBN != 0 ||
       ksplit <= 0 || (K / kGroup) % ksplit != 0 || (ksplit > 1 && partial == nullptr) ||
-      route < 0 || route > 2 || (route == 2 && !is_bf16) || (route == 1 && is_bf16)) {
+      route < 0 || route > 3 || (route >= 2) != (is_bf16 != 0) ||
+      (route == 3 && (rows > 32 || (ksplit > 1 && sem == nullptr)))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 2) {
+  if (route >= 2) {
     const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
     const uint8_t* qb = static_cast<const uint8_t*>(q);
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+    if (route == 3) {
+      if (rows <= 8) return launch_decode<1>(xb, qb, scale, ob, partial, sem, rows, K, N, ksplit, s);
+      if (rows <= 16) return launch_decode<2>(xb, qb, scale, ob, partial, sem, rows, K, N, ksplit, s);
+      return launch_decode<4>(xb, qb, scale, ob, partial, sem, rows, K, N, ksplit, s);
+    }
     if (rows <= 64) return launch_tc<64>(xb, qb, scale, ob, partial, rows, K, N, ksplit, s);
     return launch_tc<128>(xb, qb, scale, ob, partial, rows, K, N, ksplit, s);
   }
-  if (is_bf16) {
-    return launch_simt<__nv_bfloat16>(x, q, scale, out, partial, rows, K, N, route, ksplit, s);
-  }
-  return launch_simt<float>(x, q, scale, out, partial, rows, K, N, route, ksplit, s);
+  return launch_f32(static_cast<const float*>(x), static_cast<const uint8_t*>(q), scale,
+                    static_cast<float*>(out), partial, rows, K, N, route, ksplit, s);
 }

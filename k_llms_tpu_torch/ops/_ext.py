@@ -10,6 +10,11 @@ reused. :func:`build_all` starts one ``nvcc`` per source, all together.
 Every kernel wrapper adds one to :data:`LAUNCH_COUNTS` where it launches its
 kernel and nowhere else, so a run can show that it went through the kernels.
 There is no fallback: a failed build raises.
+
+Kernels that split a reduction over CTAs and let the last CTA of each tile
+finish it count arrivals in :func:`semaphores`: one int32 array per device,
+zero between launches (each tile's last CTA sets its counter back to 0).
+Launches that use it run in stream order; the port drives one stream.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ KERNELS = {
     ),
     "paged_decode": (
         "paged_decode.cu",
-        {"kllms_paged_decode_attention": [_P] * 11 + [_I] * 10 + [_F, _P]},
+        {"kllms_paged_decode_attention": [_P] * 13 + [_I] * 13 + [_F, _P]},
     ),
     "decode_prefix": (
         "decode_prefix.cu",
@@ -52,7 +57,7 @@ KERNELS = {
     ),
     "w4_matmul": (
         "w4_matmul.cu",
-        {"kllms_w4_matmul": [_P] * 5 + [_I] * 6 + [_P]},
+        {"kllms_w4_matmul": [_P] * 6 + [_I] * 6 + [_P]},
     ),
 }
 
@@ -66,6 +71,7 @@ LAUNCH_COUNTS: Dict[str, int] = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_semaphores: Dict[str, "torch.Tensor"] = {}
 
 
 def reset_launch_counts() -> None:
@@ -151,6 +157,20 @@ def load(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def semaphores(device, n: int):
+    """An int32 array of at least ``n`` zeros on ``device``, kept for the
+    process: the kernels that count arrivals in it leave it zero again."""
+    import torch
+
+    key = str(device)
+    with _lock:
+        sem = _semaphores.get(key)
+        if sem is None or sem.numel() < n:
+            sem = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            _semaphores[key] = sem
+        return sem
 
 
 def check_status(name: str, status: int) -> None:

@@ -10,6 +10,10 @@ functions:
   :func:`paged_decode_attention_plain`.
 - ``paged_decode_attention_plain``: the kernel's function in plain PyTorch,
   on the kernel's arguments (page tables, phases, lengths).
+- ``paged_decode_attention_split``: the kernel's decomposition in plain
+  PyTorch (the split plan of :func:`paged_split_plan`, per-split partials,
+  the ordered merge), for the tests: it takes the page ranges as an
+  argument so that a wrong split can be shown to break the limit.
 - ``paged_decode_attention_xla``: the reference on flat slot maps and masks,
   operation for operation the dense decode branch of ``models/llama.py`` —
   what the engine runs when the kernel is not selected.
@@ -25,7 +29,8 @@ the softmax max, so they contribute an exact 0.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -165,6 +170,152 @@ def paged_decode_attention_plain(
     return out.reshape(B, QH, D)
 
 
+#: SMs of the card the split plan fills (an H100 SXM has 132).
+_SMS = 132
+#: Rows of a request one CTA of the kernel serves at most.
+_MAX_CHUNK_ROWS = 32
+
+
+def paged_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel of ``csrc/paged_decode.cu`` a CUDA call takes: "tc" (bf16
+    on the tensor cores) at head dims 64, 128 and 256 in bf16, else "simt"
+    (f32 products on the CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else "simt"
+
+
+def paged_split_plan(B: int, R: int, QH: int, KVH: int, D: int, NP: int,
+                     dtype: torch.dtype) -> Tuple[str, int, int]:
+    """How the kernel cuts the work: ``(route, rows_per_cta, splits)``.
+
+    A CTA serves ``rows_per_cta`` rows of one request (all of them when
+    their ``rows * G`` query rows fit one or two m16 tiles on the tensor
+    cores, or ``rows * G * D <= 1024`` on the CUDA cores) for one kv head,
+    over one of ``splits`` contiguous ranges of the request's valid prefix
+    pages; each row's generated pages are one more split of that row alone.
+    ``splits`` is the fewest that put about one prefix CTA on each of the
+    card's 132 SMs, at most one per table page."""
+    n_per, G = B // R, QH // KVH
+    route = paged_route(dtype, D)
+    cap = 32 // G if route == "tc" else (128 * 8) // (G * D)
+    rpc = max(1, min(n_per, cap, _MAX_CHUNK_ROWS))
+    chunks = -(-n_per // rpc)
+    splits = max(1, min(NP, -(-_SMS // (R * chunks * KVH))))
+    return route, rpc, splits
+
+
+def split_page_ranges(n_pages: int, splits: int) -> List[Tuple[int, int]]:
+    """The pages ``[lo, hi)`` each prefix split walks, when the request has
+    ``n_pages`` pages with a valid slot: contiguous, in order, sizes within
+    one of each other (some empty when there are more splits than pages)."""
+    return [(s * n_pages // splits, (s + 1) * n_pages // splits) for s in range(splits)]
+
+
+def paged_work_items(
+    B: int, R: int, QH: int, KVH: int, D: int, NP: int, NG: int, page_size: int,
+    dtype: torch.dtype, prompt_lens: List[int], gen_lens: List[int], gen_phase: List[int],
+    page_ranges: Callable[[int, int], List[Tuple[int, int]]] = split_page_ranges,
+) -> Tuple[int, List[Tuple[str, int, List[int], int, range]]]:
+    """The kernel's CTAs for one kv head, in grid order, as
+    ``(kind, split, rows, table_row, pages)``: per request and row chunk,
+    a "prefix" item for each of :func:`paged_split_plan`'s splits (table row
+    = the request, pages from ``page_ranges`` over the pages where some row
+    of the chunk has a valid slot), then a "gen" item per row of the chunk
+    (table row = the row, its generated pages with a valid slot). Returns
+    ``(splits, items)``."""
+    ps = page_size
+    _, rpc, splits = paged_split_plan(B, R, QH, KVH, D, NP, dtype)
+    n_per = B // R
+    items = []
+    for r in range(R):
+        for c in range(-(-n_per // rpc)):
+            rows = list(range(r * n_per + c * rpc, r * n_per + min(n_per, (c + 1) * rpc)))
+            max_len = max(0, *(prompt_lens[b] for b in rows))
+            for z, (lo, hi) in enumerate(page_ranges(min(NP, -(-max_len // ps)), splits)):
+                items.append(("prefix", z, rows, r, range(lo, hi)))
+            for b in rows:
+                n_gen = min(NG, -(-(gen_phase[b] + gen_lens[b]) // ps)) if gen_lens[b] > 0 else 0
+                items.append(("gen", splits, [b], b, range(n_gen)))
+    return splits, items
+
+
+def paged_decode_attention_split(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    prefix_pages: torch.Tensor,
+    gen_pages: torch.Tensor,
+    gen_phase: torch.Tensor,
+    new_k: torch.Tensor,
+    new_v: torch.Tensor,
+    prompt_lens: torch.Tensor,
+    gen_lens: torch.Tensor,
+    *,
+    page_size: int,
+    sm_scale: float,
+    page_ranges: Callable[[int, int], List[Tuple[int, int]]] = split_page_ranges,
+) -> torch.Tensor:
+    """The kernel's split and merge in plain f32 PyTorch, on the kernel's
+    arguments: each item of :func:`paged_work_items` gives its rows' (un-
+    normalised out, max, denominator) over its pages, then each row's items
+    are merged in split order with the fresh column folded in last. A page
+    id outside the pool makes the rows with a valid slot in it NaN."""
+    B, QH, D = q.shape
+    KVH = pool_k.shape[1]
+    G = QH // KVH
+    ps = page_size
+    R, NP = prefix_pages.shape
+    num_pages = pool_k.shape[0] // ps
+    plens, glens, phases = prompt_lens.tolist(), gen_lens.tolist(), gen_phase.tolist()
+    splits, items = paged_work_items(B, R, QH, KVH, D, NP, gen_pages.shape[1], ps, q.dtype,
+                                     plens, glens, phases, page_ranges)
+    qf = q.float().reshape(B, KVH, G, D)
+    tables = {"prefix": prefix_pages.tolist(), "gen": gen_pages.tolist()}
+    parts = {b: [] for b in range(B)}  # row -> [(split, o, m, l, bad)]
+    for kind, z, rows, table_row, pages in items:
+        table = tables[kind][table_row]
+        for b in rows:
+            offset, limit = (phases[b], glens[b]) if kind == "gen" else (0, plens[b])
+            slots, bad = [], False
+            for j in pages:
+                base = j * ps - offset
+                if not (base < limit and base + ps > 0):
+                    continue
+                if not 0 <= table[j] < num_pages:
+                    bad = True
+                    continue
+                slots += [table[j] * ps + s for s in range(ps) if 0 <= base + s < limit]
+            o = torch.zeros((KVH, G, D), device=q.device)
+            m = torch.full((KVH, G), -math.inf, device=q.device)
+            l = torch.zeros((KVH, G), device=q.device)
+            if slots:
+                idx = torch.tensor(slots, device=q.device)
+                sc = torch.einsum("hgd,nhd->hgn", qf[b], pool_k[idx].float()) * sm_scale
+                m = sc.amax(-1)
+                p = torch.exp(sc - m[..., None])
+                l = p.sum(-1)
+                o = torch.einsum("hgn,nhd->hgd", p, pool_v[idx].float())
+            parts[b].append((z, o, m, l, bad))
+    out = torch.empty((B, KVH, G, D), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        ordered = sorted(parts[b], key=lambda part: part[0])
+        m = torch.stack([pm for _, _, pm, _, _ in ordered]).amax(0)
+        acc = torch.zeros((KVH, G, D), device=q.device)
+        l = torch.zeros((KVH, G), device=q.device)
+        for _, po, pm, pl, _ in ordered:
+            w = torch.where(pm == -math.inf, torch.zeros_like(pm), torch.exp(pm - m))
+            acc = acc + w[..., None] * po
+            l = l + w * pl
+        s_new = torch.einsum("hgd,hd->hg", qf[b], new_k[b].float()) * sm_scale
+        m_fin = torch.maximum(m, s_new)
+        alpha = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp(m - m_fin))
+        p_new = torch.exp(s_new - m_fin)
+        out[b] = (acc * alpha[..., None] + p_new[..., None] * new_v[b].float()[:, None, :]) / (
+            l * alpha + p_new)[..., None]
+        if any(bad for *_, bad in ordered):
+            out[b] = math.nan
+    return out.reshape(B, QH, D)
+
+
 def paged_decode_attention(
     q: torch.Tensor,
     pool_k: torch.Tensor,
@@ -228,14 +379,18 @@ def paged_decode_attention(
         t.to(device=q.device, dtype=torch.int32).contiguous()
         for t in (prefix_pages, gen_pages, gen_phase.reshape(B), prompt_lens.reshape(B), gen_lens.reshape(B))
     ]
+    route, rpc, splits = paged_split_plan(B, R, QH, KVH, D, NP, dt)
     out = torch.empty((B, QH, D), dtype=torch.float32, device=q.device)
+    o_part = torch.empty((splits + 1, B, QH, D), dtype=torch.float32, device=q.device)
+    ml_part = torch.empty((splits + 1, B, QH, 2), dtype=torch.float32, device=q.device)
     lib = _ext.load("paged_decode")
     status = lib.kllms_paged_decode_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
         new_k.data_ptr(), new_v.data_ptr(), ints[3].data_ptr(), ints[4].data_ptr(),
-        out.data_ptr(), B, QH, KVH, D, R, NP, NG, ps, pool_k.shape[0] // ps,
-        int(dt == torch.bfloat16), float(sm_scale),
+        out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(),
+        B, QH, KVH, D, R, NP, NG, ps, pool_k.shape[0] // ps,
+        int(dt == torch.bfloat16), int(route == "tc"), rpc, splits, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _ext.check_status("paged_decode_attention", status)

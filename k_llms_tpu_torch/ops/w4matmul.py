@@ -124,17 +124,22 @@ def w4_matmul_plain(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-# Routes of ``csrc/w4_matmul.cu``: the GEMV kernel up to the crossover (f32
-# on the CUDA cores; split K over CTAs so that about _TARGET_CTAS run at
-# once), the tensor-core kernel above it for bf16 x (64-row tiles up to 64
-# rows, then 128), and the f32 tiled kernel for f32 x above 64 rows.
-ROUTES = {"gemv": 0, "tiled": 1, "tc": 2}
-_DTYPE_ROUTES = {torch.bfloat16: ("gemv", "tc"), torch.float32: ("gemv", "tiled")}
-# bf16 rows at or below which the GEMV kernel beats the tensor-core one over
-# a Llama-3-8B layer's block matmuls (chip_smoke.py phase k4 measures it at
-# 1-64 rows; see PERF.md): the last-token logits and n = 2 decode stay on
-# the GEMV kernel, n = 8 decode and every prefill bucket take the tensor cores.
-TC_CROSSOVER_ROWS = 2
+# Routes of ``csrc/w4_matmul.cu``: for bf16 x, the decode kernel up to the
+# crossover (the weight streamed once through tensor-core MMAs with the rows
+# as N; split K finished by the last CTA of each column tile) and the
+# prefill tensor-core kernel above it (64-row tiles up to 64 rows, then
+# 128); for f32 x, the GEMV kernel up to 64 rows (f32 on the CUDA cores,
+# split K over CTAs so that about _TARGET_CTAS run at once) and the f32
+# tiled kernel above.
+ROUTES = {"gemv": 0, "tiled": 1, "tc": 2, "decode": 3}
+_DTYPE_ROUTES = {torch.bfloat16: ("decode", "tc"), torch.float32: ("gemv", "tiled")}
+# bf16 rows at or below which the decode kernel beats the prefill
+# tensor-core kernel over a Llama-3-8B layer's block matmuls and lm_head
+# (chip_smoke.py phase k4 measures both in device time at 1-32 rows; see
+# PERF.md): the last-token logits and decode at n <= 32 take the decode
+# kernel, every prefill bucket the prefill kernel.
+TC_CROSSOVER_ROWS = 32
+_DECODE_MAX_ROWS = 32
 _F32_GEMV_MAX_ROWS = 64
 _TARGET_CTAS = 264
 _GEMV_COLS = 256
@@ -144,10 +149,11 @@ _SMS = 132
 
 def w4_route(rows: int, K: int, N: int, dtype: torch.dtype) -> str:
     """The kernel a CUDA call of ``rows`` x ``K`` @ int4 ``K`` x ``N`` takes:
-    "gemv", "tc" (bf16 tensor cores) or "tiled" (f32 CUDA cores)."""
+    "decode" or "tc" (bf16 tensor cores), "gemv" or "tiled" (f32 CUDA
+    cores)."""
     del K, N  # one crossover: each 8B weight, lm_head included, agrees with it
     if dtype == torch.bfloat16:
-        return "gemv" if rows <= TC_CROSSOVER_ROWS else "tc"
+        return "decode" if rows <= TC_CROSSOVER_ROWS else "tc"
     return "gemv" if rows <= _F32_GEMV_MAX_ROWS else "tiled"
 
 
@@ -156,16 +162,17 @@ def split_k(rows: int, K: int, N: int, dtype: torch.dtype = torch.bfloat16,
     """How many CTAs share one output tile's contraction, doubled while the
     card is underfilled and each CTA keeps enough groups: on the GEMV route
     until about ``_TARGET_CTAS`` run (at least 4 groups each, one per
-    warp), on the tensor-core route until every SM has a CTA (at least 2
-    groups each). 1 on the f32 tiled route, which does not split. ``route``
-    defaults to :func:`w4_route`'s choice."""
+    warp), on the tensor-core routes until every SM has a CTA (at least 2
+    groups each; the decode kernel's rows all fit one tile). 1 on the f32
+    tiled route, which does not split. ``route`` defaults to
+    :func:`w4_route`'s choice."""
     route = route or w4_route(rows, K, N, dtype)
     groups = K // GROUP
     if route == "gemv":
         tiles, target, min_groups = -(-N // _GEMV_COLS), _TARGET_CTAS, 4
-    elif route == "tc":
-        tiles = -(-N // _TC_COLS) * -(-rows // (64 if rows <= 64 else 128))
-        target, min_groups = _SMS, 2
+    elif route in ("decode", "tc"):
+        row_tiles = 1 if route == "decode" else -(-rows // (64 if rows <= 64 else 128))
+        tiles, target, min_groups = -(-N // _TC_COLS) * row_tiles, _SMS, 2
     else:
         return 1
     ksplit = 1
@@ -212,15 +219,20 @@ def w4_matmul(x: torch.Tensor, w: Q4Tensor, *, route: Optional[str] = None) -> t
         route = w4_route(rows, K, N, x.dtype)
     if route not in _DTYPE_ROUTES[x.dtype]:
         raise ValueError(f"w4_matmul: route {route!r} does not take {x.dtype} activations")
+    if route == "decode" and rows > _DECODE_MAX_ROWS:
+        raise ValueError(f"w4_matmul: the decode route takes at most {_DECODE_MAX_ROWS} rows")
     ksplit = split_k(rows, K, N, x.dtype, route)
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
-    partial = (
-        torch.empty((ksplit, rows, N), dtype=torch.float32, device=x.device) if ksplit > 1 else None
-    )
+    partial = sem = None
+    if ksplit > 1:
+        partial = torch.empty((ksplit, rows, N), dtype=torch.float32, device=x.device)
+        if route == "decode":
+            sem = _ext.semaphores(x.device, N // _TC_COLS)
     lib = _ext.load("w4_matmul")
     status = lib.kllms_w4_matmul(
         x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
+        sem.data_ptr() if sem is not None else None,
         rows, K, N, int(x.dtype == torch.bfloat16), ROUTES[route], ksplit,
         torch.cuda.current_stream(x.device).cuda_stream,
     )

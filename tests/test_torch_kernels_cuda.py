@@ -217,10 +217,12 @@ def test_decode_prefix_kernel_matches_plain(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [1, 2, 8, 16, 17, 33, 40, 64, 65, 127, 129, 300])
 def test_w4_matmul_kernel_matches_plain(cuda_device, dtype, rows):
-    """Every kernel route (GEMV with and without split K, f32 tiled, bf16
-    tensor cores with 64- and 128-row tiles, ragged and split) on random
-    packed bytes: f32 sums in another order stay within 1e-5 of the sum of
-    |terms|, and a bf16 output within two ulps of |ref| beyond that."""
+    """Every kernel route (f32 GEMV with and without split K, f32 tiled, the
+    bf16 decode kernel with 1, 2 and 4 n8 tiles, the bf16 prefill
+    tensor-core kernel with 64- and 128-row tiles, ragged and split) on
+    random packed bytes: f32 sums in another order stay within 1e-5 of the
+    sum of |terms|, and a bf16 output within two ulps of |ref| beyond
+    that."""
     from k_llms_tpu_torch.ops import w4matmul as w4
 
     rng = np.random.default_rng(rows)
@@ -237,9 +239,9 @@ def test_w4_matmul_kernel_matches_plain(cuda_device, dtype, rows):
             for g in range(K // 128)
         )
         rtol = 2.0 ** -6 if dtype == torch.bfloat16 else 0.0
-        # At bf16 rows <= 64 both routes the crossover is measured between
+        # At bf16 rows <= 32 both routes the crossover is measured between
         # (the wrapper's own choice is one of them), else the wrapper's.
-        for route in ("gemv", "tc") if dtype == torch.bfloat16 and rows <= 64 else (None,):
+        for route in ("decode", "tc") if dtype == torch.bfloat16 and rows <= 32 else (None,):
             out = w4.w4_matmul(x, w, route=route)
             torch.cuda.synchronize()
             assert out.dtype == dtype and out.shape == (rows, N)
@@ -278,3 +280,130 @@ def test_tiny_int4_dense_flash_tokens_through_kernels_equal_plain(cuda_device):
             assert counts["paged_decode_attention"] == 0
     np.testing.assert_array_equal(outs[0].tokens, outs[1].tokens)
     np.testing.assert_allclose(outs[0].logprobs, outs[1].logprobs, atol=1e-4, rtol=0)
+
+
+# --- the decode-row redesigns: K4's decode route and K1's split and merge ----
+
+LLAMA3_8B_W4 = {"w_gate_up": (4096, 14336), "w_down": (14336, 4096), "wq_wo": (4096, 4096),
+                "wk_wv": (4096, 1024), "lm_head": (4096, 128256)}
+
+
+def _w4_case(rng, rows, K, N, device):
+    from k_llms_tpu_torch.ops import w4matmul as w4
+
+    q = torch.from_numpy(rng.integers(-128, 128, (K // 2, N), dtype=np.int8)).to(device)
+    scale = torch.from_numpy((rng.random((K // 128, N), dtype=np.float32) + 0.5) / (4.61 * K ** 0.5))
+    w = w4.Q4Tensor(q, scale.to(device))
+    x = _normal(rng, rows, K).to(device, torch.bfloat16)
+    return x, w
+
+
+def _w4_group_sums(x, w, scale=None, absolute=False):
+    """sum_g (x_g . ints_g) * scale_g in f32 (on |x| and |ints| for the
+    limit's scale of the summation error)."""
+    from k_llms_tpu_torch.ops import w4matmul as w4
+
+    scale = w.scale if scale is None else scale
+    xf = x.float().abs() if absolute else x.float()
+    acc = torch.zeros((x.shape[0], w.q.shape[1]), dtype=torch.float32, device=x.device)
+    for g in range(x.shape[1] // 128):
+        ints = w4._unpack_ints(w.q[g * 64:(g + 1) * 64])[0].float()
+        acc += (xf[:, g * 128:(g + 1) * 128] @ (ints.abs() if absolute else ints)) * scale[g]
+    return acc
+
+
+@pytest.mark.parametrize("shape", sorted(LLAMA3_8B_W4))
+def test_w4_decode_route_matches_plain_at_8b_shapes(cuda_device, shape):
+    """The decode kernel at every Llama-3-8B weight and the row counts it
+    serves (1, 2, 4, 8, 16, 32), held to K4's limit, |out - ref| <= 2**-6
+    |ref| + 1e-5 (|x| @ |W|), against the plain version, and at 8 and 16
+    rows against the prefill tensor-core route too; a plain variant that drops
+    one group's scale breaks the limit; two runs give the same bits."""
+    from k_llms_tpu_torch.ops import w4matmul as w4
+
+    K, N = LLAMA3_8B_W4[shape]
+    rng = np.random.default_rng(K + N)
+    for rows in (1, 2, 4, 8, 16, 32):
+        x, w = _w4_case(rng, rows, K, N, cuda_device)
+        assert w4.w4_route(rows, K, N, torch.bfloat16) == "decode"
+        before = _ext.LAUNCH_COUNTS["w4_matmul"]
+        out = w4.w4_matmul(x, w)
+        again = w4.w4_matmul(x, w)
+        torch.cuda.synchronize()
+        assert _ext.LAUNCH_COUNTS["w4_matmul"] == before + 2
+        ref = w4.w4_matmul_plain(x, w).float()
+        room = 2.0 ** -6 * ref.abs() + 1e-5 * _w4_group_sums(x, w, absolute=True)
+        assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+        assert ((out.float() - ref).abs() <= room).all()
+        if rows in (8, 16):
+            tc = w4.w4_matmul(x, w, route="tc").float()
+            assert ((out.float() - tc).abs() <= 2 * room).all()
+        if rows == 8:
+            dropped = w.scale.clone()
+            dropped[K // 256] = 0.0
+            mutant = _w4_group_sums(x, w, scale=dropped).to(torch.bfloat16).float()
+            assert ((mutant - ref).abs() > room).any()
+
+
+def _k1_case(rng, R, n_per, QH, KVH, D, ps, plens, glen, device, *, bucket=None, shared=True):
+    B = R * n_per
+    NP = -(-(bucket or max(plens)) // ps)
+    NG = -(-(glen + 24) // ps) + 1
+    total = 1 + R * NP + B * NG
+    perm = rng.permutation(total - 1).astype(np.int32) + 1
+    prefix = perm[: R * NP].reshape(R, NP).copy()
+    for r, p in enumerate(plens):
+        prefix[r, -(-p // ps):] = 0
+    gen = perm[R * NP: R * NP + B * NG].reshape(B, NG).copy()
+    if not shared:
+        prefix = np.repeat(prefix, n_per, axis=0)
+    plen_row = np.repeat(np.asarray(plens, np.int32), n_per)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)  # noqa: E731
+    bf = lambda *sh: _normal(rng, *sh).to(device, torch.bfloat16)  # noqa: E731
+    return [bf(B, QH, D), bf(total * ps, KVH, D), bf(total * ps, KVH, D), on(prefix), on(gen),
+            on(plen_row % ps), bf(B, KVH, D), bf(B, KVH, D), on(plen_row),
+            on(np.full(B, glen, np.int32))]
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_table", "per_row_table"])
+def test_paged_decode_main_path_shape_matches_plain(cuda_device, shared):
+    """K1 at the main path's shape (one request of n = 8 rows, 32/8 heads of
+    128, page 64, the 1490-token prompt in its 2048 bucket, 16 generated),
+    with a shared and a per-row prefix table: within 1e-5 of the plain
+    version, the same bits on a second run, one launch counted; a gen page
+    id past the pool poisons that row alone with NaN; a merge that drops a
+    split or a split boundary one page off breaks the limit."""
+    rng = np.random.default_rng(7)
+    ps = 64
+    args = _k1_case(rng, 1, 8, 32, 8, 128, ps, [1490], 16, cuda_device, bucket=2048, shared=shared)
+    kw = dict(page_size=ps, sm_scale=1 / math.sqrt(128))
+    before = _ext.LAUNCH_COUNTS["paged_decode_attention"]
+    out = pa.paged_decode_attention(*args, **kw)
+    again = pa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["paged_decode_attention"] == before + 2
+    ref = pa.paged_decode_attention_plain(*args, **kw)
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 1e-5
+
+    bad = args[4].clone()
+    bad[1, 0] = args[1].shape[0] // ps + 5
+    out_bad = pa.paged_decode_attention(*args[:4], bad, *args[5:], **kw)
+    torch.cuda.synchronize()
+    others = torch.arange(8, device=cuda_device) != 1
+    assert torch.isnan(out_bad[1]).all()
+    assert (out_bad[others] - ref[others]).abs().max().item() <= 1e-5
+
+    def dropped(n, k):
+        ranges = pa.split_page_ranges(n, k)
+        return [rg for i, rg in enumerate(ranges) if i != len(ranges) // 2]
+
+    def off_by_one(n, k):
+        ranges = pa.split_page_ranges(n, k)
+        i = next(i for i in range(len(ranges) - 1) if ranges[i][1] - ranges[i][0] > 1)
+        ranges[i] = (ranges[i][0], ranges[i][1] - 1)
+        return ranges
+
+    for mutant in (dropped, off_by_one):
+        got = pa.paged_decode_attention_split(*args, **kw, page_ranges=mutant)
+        assert (got - ref).abs().max().item() > 1e-5

@@ -116,14 +116,21 @@ def test_w4_matmul_plain_is_the_group_sum():
 
 
 def test_split_k_fills_the_card_at_decode_rows():
-    # The GEMV route: 256-column tiles, at least 4 groups per CTA.
-    assert w4.split_k(8, 4096, 1024, route="gemv") == 8  # 4 column tiles x 8 splits of 4 groups
+    # The GEMV route (f32 x): 256-column tiles, at least 4 groups per CTA.
+    assert w4.split_k(8, 4096, 1024, torch.float32) == 8  # 4 column tiles x 8 splits of 4 groups
     assert w4.split_k(8, 14336, 4096, route="gemv") == 16
     assert w4.split_k(1, 4096, 128256, route="gemv") == 1  # 501 column tiles already
-    # The tensor-core route: 128-column tiles, at least 2 groups per CTA.
+    # The decode route (bf16 x up to the crossover): 128-column tiles, at
+    # least 2 groups per CTA, doubled until every SM has a CTA.
     assert w4.split_k(8, 4096, 1024) == 16  # 8 column tiles x 16 splits of 2 groups
     assert w4.split_k(8, 14336, 4096) == 8  # 32 x 8 = 256 CTAs of 14 groups
-    assert w4.split_k(3, 4096, 128256) == 1  # 1002 column tiles already
+    assert w4.split_k(8, 4096, 4096) == 8  # 32 x 8 = 256 CTAs of 4 groups
+    assert w4.split_k(8, 4096, 14336) == 2  # 112 x 2 = 224 CTAs of 16 groups
+    assert w4.split_k(1, 4096, 128256) == 1  # 1002 column tiles already
+    # The prefill tensor-core route: until every SM has a CTA.
+    assert w4.split_k(8, 4096, 1024, route="tc") == 16  # 8 column tiles x 16 splits of 2 groups
+    assert w4.split_k(8, 14336, 4096, route="tc") == 8  # 32 x 8 = 256 CTAs of 14 groups
+    assert w4.split_k(40, 4096, 128256) == 1  # 1002 column tiles already
     assert w4.split_k(2048, 4096, 14336) == 1  # 112 x 16 tiles of 128 rows
     assert w4.split_k(40, 1024, 768, torch.float32) == 2  # f32 at 40 rows: GEMV, 8 groups
     assert w4.split_k(300, 512, 384, torch.float32) == 1  # f32 tiled: never split
@@ -137,27 +144,29 @@ LLAMA3_8B_W4 = [(4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024), (4096,
 
 @pytest.mark.parametrize("K,N", LLAMA3_8B_W4)
 def test_w4_route_and_split_k_at_8b_shapes(K, N):
-    """The route is a pure function of dtype and rows: bf16 takes the GEMV
-    up to the measured crossover (2 rows: the last-token logits, decode at
-    n = 2) and the tensor cores above it (decode at n = 8, every prefill
-    bucket); f32 the GEMV up to 64 rows and the tiled kernel above. Each
-    tensor-core split keeps at least 2 whole groups per CTA and stops once
-    the card's 132 SMs each have a CTA."""
-    assert w4.TC_CROSSOVER_ROWS == 2
-    for rows in (1, 2):
-        assert w4.w4_route(rows, K, N, torch.bfloat16) == "gemv"
-        assert w4.split_k(rows, K, N) == w4.split_k(rows, K, N, route="gemv")
-    for rows in (3, 8, 16, 32, 64, 65, 512, 2048):
-        assert w4.w4_route(rows, K, N, torch.bfloat16) == "tc"
+    """The route is a pure function of dtype and rows: bf16 takes the decode
+    kernel up to the measured crossover (32 rows: the last-token logits and
+    decode at n <= 32) and the prefill tensor-core kernel above it (every
+    prefill bucket); f32 the GEMV up to 64 rows and the tiled kernel above.
+    Each tensor-core split (decode or prefill) keeps at least 2 whole groups
+    per CTA and stops once the card's 132 SMs each have a CTA."""
+    assert w4.TC_CROSSOVER_ROWS == 32
+    groups = K // 128
+    for rows in range(1, 65):
+        route = w4.w4_route(rows, K, N, torch.bfloat16)
+        assert route == ("decode" if rows <= 32 else "tc")
         ks = w4.split_k(rows, K, N)
-        groups, tiles = K // 128, N // 128 * -(-rows // (64 if rows <= 64 else 128))
+        assert ks == w4.split_k(rows, K, N, route=route)
+        tiles, target = N // 128 * (1 if route == "decode" else -(-rows // 64)), 132
         assert groups % ks == 0 and groups // ks >= 2
         if ks > 1:  # every doubling was needed ...
-            assert tiles * (ks // 2) < 132
+            assert tiles * (ks // 2) < target
         # ... and the split stops once the card is full or the groups run out
-        assert tiles * ks >= 132 or groups % (2 * ks) or groups // (2 * ks) < 2
-    assert w4.w4_route(64, K, N, torch.float32) == "gemv"
-    assert w4.w4_route(65, K, N, torch.float32) == "tiled"
+        assert tiles * ks >= target or groups % (2 * ks) or groups // (2 * ks) < 2
+        assert w4.w4_route(rows, K, N, torch.float32) == "gemv"
+    for rows in (65, 512, 2048):
+        assert w4.w4_route(rows, K, N, torch.bfloat16) == "tc"
+        assert w4.w4_route(rows, K, N, torch.float32) == "tiled"
     assert w4.split_k(2048, K, N, torch.float32) == 1
 
 
@@ -167,7 +176,88 @@ def test_w4_matmul_route_must_take_the_dtype():
     w = w4.pack_int4(torch.zeros(256, 128))
     x = torch.zeros(4, 256)
     assert torch.equal(w4.w4_matmul(x, w, route="tc"), w4.w4_matmul_plain(x, w))
-    assert set(w4.ROUTES) == {"gemv", "tiled", "tc"}
+    assert set(w4.ROUTES) == {"gemv", "tiled", "tc", "decode"}
+    assert w4._DTYPE_ROUTES == {torch.bfloat16: ("decode", "tc"), torch.float32: ("gemv", "tiled")}
+
+
+# --- the decode kernel's fragments (csrc/w4_matmul.cu, w4_decode_tc) ---------
+
+
+def _nibble(byte, high):
+    """The signed value of a packed byte's low or high nibble."""
+    n = (int(byte) >> (4 if high else 0)) & 0xF
+    return (n ^ 8) - 8
+
+
+def _ldmatrix_trans_reg(tile, r0, c0, g, t):
+    """ldmatrix.trans of the 8 x 8 b16 matrix at byte rows r0 .. +7, byte
+    columns c0 .. +15 of ``tile``: lane (g, t) gets b16 elements [2t][g]
+    (low half) and [2t+1][g], i.e. bytes (2t, c0+2g), (2t, c0+2g+1),
+    (2t+1, c0+2g), (2t+1, c0+2g+1), lowest first."""
+    b = [tile[r0 + 2 * t, c0 + 2 * g], tile[r0 + 2 * t, c0 + 2 * g + 1],
+         tile[r0 + 2 * t + 1, c0 + 2 * g], tile[r0 + 2 * t + 1, c0 + 2 * g + 1]]
+    return sum(int(v) << (8 * i) for i, v in enumerate(b))
+
+
+def _nibbles_to_pair(w):
+    """nibbles_to_bf16x2 on a register already XOR-ed with 0x88888888: bits
+    0-3 and 16-19 become 128 + bits - 136 in bf16, the nibbles' signed
+    values (low half, high half)."""
+    return (128 + (w & 0xF)) - 136, (128 + ((w >> 16) & 0xF)) - 136
+
+
+def test_decode_kernel_fragments_rebuild_the_tile():
+    """A numpy model of w4_decode_tc's data flow for one warp and one group:
+    the ldmatrix.trans registers of the packed bytes, the nibbles taken out
+    of them as A fragments (W^T, columns 2i and 2i + 1 of an m16 tile as A
+    rows i and i + 8), x's B fragments, the MMAs, the per-row scales and the
+    stores. It rebuilds every A tile as the exact integer weights and the
+    warp's 32 output columns as x @ (ints * scale) exactly."""
+    rng = np.random.default_rng(0)
+    tile = rng.integers(0, 256, size=(64, 32), dtype=np.uint8)  # 64 byte rows x 32 columns
+    ints = np.array([[_nibble(tile[k % 64, c], k >= 64) for c in range(32)] for k in range(128)])
+    x = rng.integers(-4, 5, size=(8, 128)).astype(np.float64)
+    scale = rng.integers(1, 9, size=32).astype(np.float64)
+    out = np.zeros((8, 32))
+    for c in range(2):  # the warp's two m16 tiles
+        part = np.zeros((16, 8))  # outT rows (A rows) x rows of x
+        for kk in range(4):
+            for half in range(2):  # low nibbles: k-step kk; high: kk + 4
+                a = np.zeros((16, 16))
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    # raw[2c]: byte rows 16kk .. +7; raw[2c+1]: 16kk + 8 .. +15.
+                    w0 = _ldmatrix_trans_reg(tile, 16 * kk, 16 * c, g, t) ^ 0x88888888
+                    w1 = _ldmatrix_trans_reg(tile, 16 * kk + 8, 16 * c, g, t) ^ 0x88888888
+                    sh = 4 * half
+                    a[g, 2 * t: 2 * t + 2] = _nibbles_to_pair(w0 >> sh)
+                    a[g + 8, 2 * t: 2 * t + 2] = _nibbles_to_pair(w0 >> (8 + sh))
+                    a[g, 2 * t + 8: 2 * t + 10] = _nibbles_to_pair(w1 >> sh)
+                    a[g + 8, 2 * t + 8: 2 * t + 10] = _nibbles_to_pair(w1 >> (8 + sh))
+                k0 = 16 * kk + 64 * half
+                cols = [16 * c + 2 * i for i in range(8)] + [16 * c + 2 * i + 1 for i in range(8)]
+                np.testing.assert_array_equal(a, ints[k0:k0 + 16, cols].T)
+                # B fragments by ldmatrix of x: lane (g, t) holds x[g][k0 + 2t ..]
+                # and x[g][k0 + 8 + 2t ..]: B[k][n] = x[n][k0 + k].
+                bmat = np.zeros((16, 8))
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    bmat[2 * t: 2 * t + 2, g] = x[g, k0 + 2 * t: k0 + 2 * t + 2]
+                    bmat[2 * t + 8: 2 * t + 10, g] = x[g, k0 + 8 + 2 * t: k0 + 10 + 2 * t]
+                part += a @ bmat
+        # Fold at the scales and store: lane (g, t) fragments 0, 1 (A row g,
+        # x rows 2t, 2t+1) and 2, 3 (A row g + 8), scales (.x, .y) of columns
+        # 16c + 2g and + 1.
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            sx, sy = scale[16 * c + 2 * g], scale[16 * c + 2 * g + 1]
+            frag = [part[g, 2 * t] * sx, part[g, 2 * t + 1] * sx,
+                    part[g + 8, 2 * t] * sy, part[g + 8, 2 * t + 1] * sy]
+            for hr in range(2):
+                col = 16 * c + 2 * g
+                out[2 * t + hr, col] = frag[hr]
+                out[2 * t + hr, col + 1] = frag[2 + hr]
+    np.testing.assert_array_equal(out, x @ (ints * scale[None, :]))
 
 
 def test_int8_quantize_and_qdot_equal_jax():
