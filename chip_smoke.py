@@ -171,7 +171,8 @@ def main(argv=None) -> int:
         cuobjdump = os.path.join(os.path.dirname(_ext.nvcc_path()), "cuobjdump")
         mma_counts = {}
         for lib, kernel in (("flash_attention", "flash_attention_tc"), ("w4_matmul", "w4_gemm_tc"),
-                            ("w4_matmul", "w4_decode_tc"), ("paged_decode", "paged_decode_tc")):
+                            ("w4_matmul", "w4_decode_tc"), ("paged_decode", "paged_decode_tc"),
+                            ("decode_prefix", "decode_prefix_tc")):
             sass = subprocess.run([cuobjdump, "-sass", _ext.library_path(lib)], check=True,
                                   capture_output=True, text=True, timeout=300).stdout
             fn = None
@@ -184,7 +185,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{kernel}: no HMMA/HGMMA instruction in the SASS of {lib}")
         # Registers and local memory (spills) of each tensor-core kernel.
         resources = {}
-        for lib in ("flash_attention", "w4_matmul", "paged_decode"):
+        for lib in ("flash_attention", "w4_matmul", "paged_decode", "decode_prefix"):
             usage = subprocess.run([cuobjdump, "-res-usage", _ext.library_path(lib)], check=True,
                                    capture_output=True, text=True, timeout=300).stdout
             fn = None
@@ -194,11 +195,15 @@ def main(argv=None) -> int:
                 elif fn and fn in mma_counts and "REG:" in line:
                     fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
                     resources[fn] = {"registers": int(fields.get("REG", -1)),
+                                     "stack_bytes": int(fields.get("STACK", -1)),
                                      "local_bytes": int(fields.get("LOCAL", -1)),
                                      "shared_bytes": int(fields.get("SHARED", -1))}
                     fn = None
         log({"phase": "build_sass", "tensor_core_instructions": mma_counts,
              "resource_usage": resources})
+        k3_tc = {fn: r for fn, r in resources.items() if "decode_prefix_tc" in fn}
+        if not k3_tc or any(r["local_bytes"] != 0 or r["stack_bytes"] != 0 for r in k3_tc.values()):
+            raise AssertionError(f"decode_prefix_tc: missing or spilling: {k3_tc}")
 
     # 3. K2 flash attention against its plain version
     if "k2" in phases:
@@ -647,11 +652,26 @@ def main(argv=None) -> int:
     # 6. K3 decode-prefix attention against its plain version
     if "k3" in phases:
         # Both compute in f32 from the same inputs and differ only in the
-        # order of their sums: out, m and l are each held per element at
-        # 2e-5 |ref| + 2e-5 (the JAX test's bound, made relative for l, which
-        # grows with the key count).
+        # order of their sums (and, on the tensor cores, in P carried as two
+        # bf16 pieces, 2**-17 of itself): out, m and l are each held per
+        # element at 2e-5 |ref| + 2e-5 (the JAX test's bound, made relative
+        # for l, which grows with the key count).
         def k3_over(o, r):
             return ((o - r).abs() / (2e-5 * r.abs() + 2e-5)).max().item()
+
+        def k3_over3(got, ref):
+            return max(k3_over(o, r) for o, r in zip(got, ref))
+
+        def dropped_split(n, k):
+            ranges = att.split_key_blocks(n, k)
+            return [rg for i, rg in enumerate(ranges) if i != len(ranges) // 2]
+
+        def boundary_one_block_off(n, k):
+            ranges = att.split_key_blocks(n, k)
+            i = next((i for i in range(len(ranges) - 1) if ranges[i][1] - ranges[i][0] > 1), None)
+            if i is not None:
+                ranges[i] = (ranges[i][0], ranges[i][1] - 1)
+            return ranges
 
         def k3_case(name, R, n_per, QH, KVH, D, P, plens, dtype, *, timed=False, mutants=True):
             B = R * n_per
@@ -666,12 +686,17 @@ def main(argv=None) -> int:
             ratios = {k: k3_over(o, r) for k, o, r in zip(("out", "m", "l"), got, ref)}
             err = max((o - r).abs().max().item() for o, r in zip(got, ref))
             ok = all(bool(torch.isfinite(o).all().item()) for o in got) and max(ratios.values()) <= 1.0
+            route, tiles, splits = att.decode_prefix_split_plan(B, R, QH, KVH, D, P, dtype)
             rec = {"phase": "k3", "case": name, "R": R, "n_per": n_per, "heads": [QH, KVH, D],
                    "P": P, "plens": plens, "dtype": str(dtype).replace("torch.", ""),
+                   "impl": route, "plan": {"tiles": tiles, "splits": splits,
+                                           "ctas": R * tiles * KVH * splits},
                    "max_abs_err": err, "err_over_limit": ratios, "ok": ok}
             if mutants:
                 # One key past the prompt admitted; the max taken before the
-                # mask (then l is the denominator at that max).
+                # mask (then l is the denominator at that max); and the
+                # kernel's decomposition with one split dropped from the
+                # merge or a split boundary one key block off.
                 late = att.decode_prefix_attention_plain(q, pk, pv, lens + 1, sm_scale=sc)
                 qg = q.float().reshape(R, n_per, KVH, QH // KVH, D)
                 s_all = torch.einsum("rnhgd,rkhd->rnhgk", qg, pk.float()) * sc
@@ -680,16 +705,63 @@ def main(argv=None) -> int:
                 p = torch.exp(torch.where(valid[:, None, None, None], s_all,
                                           torch.full_like(s_all, att.NEG_INF)) - m_early[..., None])
                 l_early = p.sum(-1).reshape(B, QH)
+                model = att.decode_prefix_attention_split(q, pk, pv, lens, sm_scale=sc)
+                rec["split_model_err_over_limit"] = k3_over3(model, ref)
+                ok = rec["ok"] = ok and rec["split_model_err_over_limit"] <= 1.0
                 rec["mutant_err_over_limit"] = {
-                    "key_past_prompt_len_admitted": max(k3_over(o, r) for o, r in zip(late, ref)),
+                    "key_past_prompt_len_admitted": k3_over3(late, ref),
                     "max_before_masking": max(k3_over(m_early.reshape(B, QH), ref[1]),
                                               k3_over(l_early, ref[2])),
+                    "merge_drops_one_split": k3_over3(att.decode_prefix_attention_split(
+                        q, pk, pv, lens, sm_scale=sc, block_ranges=dropped_split), ref),
+                    "split_boundary_one_block_off": k3_over3(att.decode_prefix_attention_split(
+                        q, pk, pv, lens, sm_scale=sc, block_ranges=boundary_one_block_off), ref),
                 }
             if timed:
-                rec["ms"] = time_ms(lambda: att.decode_prefix_attention(q, pk, pv, lens, sm_scale=sc), iters=50)
+                call = lambda: att.decode_prefix_attention(q, pk, pv, lens, sm_scale=sc)  # noqa: E731
+                rec["ms"] = time_ms(call, iters=50)
                 rec["plain_ms"] = time_ms(
                     lambda: att.decode_prefix_attention_plain(q, pk, pv, lens, sm_scale=sc), iters=10)
-                rec["library_ms"] = None
+                # Device time, cold: each call on its own prefix K/V.
+                n_copies = copies_for(2 * pk.numel() * pk.element_size())
+                prefixes = [(pk, pv)] + [(randn(*pk.shape, dtype=dtype), randn(*pv.shape, dtype=dtype))
+                                         for _ in range(n_copies - 1)]
+                rec["device_ms"] = device_ms(
+                    [lambda k_=k_, v_=v_: att.decode_prefix_attention(q, k_, v_, lens, sm_scale=sc)
+                     for k_, v_ in prefixes])
+                rec["rotation"] = n_copies
+                # Yardstick only (the port never calls it): PyTorch's
+                # memory-efficient attention, the request's n rows as the
+                # query sequence, kv heads expanded, on the valid keys; it
+                # returns out and logsumexp = m + log l.
+                G = QH // KVH
+                if R == 1:
+                    plen = plens[0]
+                    q_sd = q.reshape(1, n_per, QH, D).transpose(1, 2).contiguous()
+
+                    def expand(t):
+                        return t[:, :plen].transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+
+                    def sdpa(k_, v_):
+                        return torch.ops.aten._scaled_dot_product_efficient_attention(
+                            q_sd, k_, v_, None, True, scale=sc)
+
+                    ek, ev = expand(pk), expand(pv)
+                    lib_out, lse = sdpa(ek, ev)[:2]
+                    lse_ref = (ref[1] + torch.log(ref[2])).reshape(n_per, QH).T
+                    rec["library_max_abs_diff"] = {
+                        "out": (lib_out[0].transpose(0, 1).float().reshape(B, QH, D) - ref[0])
+                        .abs().max().item(),
+                        "logsumexp": (lse[0, :, :n_per] - lse_ref).abs().max().item()}
+                    rec["library_ms"] = time_ms(lambda: sdpa(ek, ev), iters=50)
+                    n_lib = copies_for(2 * ek.numel() * ek.element_size())
+                    expanded = [(ek, ev)] + [(expand(k_), expand(v_)) for k_, v_ in prefixes[1:n_lib]]
+                    rec["library_device_ms"] = device_ms(
+                        [lambda k_=k_, v_=v_: sdpa(k_, v_) for k_, v_ in expanded])
+                    del expanded
+                else:
+                    rec["library_ms"] = rec["library_device_ms"] = None
+                del prefixes
                 # The valid keys of each request read once, q read once, out,
                 # m and l written once.
                 keys = sum(plens)
@@ -697,6 +769,7 @@ def main(argv=None) -> int:
                 esz = pk.element_size()
                 nbytes = 2 * keys * KVH * D * esz + q.numel() * esz + (B * QH * (D + 2)) * 4
                 rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+                rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
             log(rec)
             if not ok:
                 raise AssertionError(f"decode_prefix_attention case {name} failed: {rec}")
@@ -706,7 +779,7 @@ def main(argv=None) -> int:
 
         # Each mutant must be caught by some case (a case whose masked keys
         # never hold a row's largest score cannot show the max-before-mask
-        # mutant).
+        # mutant; a case of one split has no boundary to move).
         caught = {}
 
         main_rec, e0 = k3_case("llama3_8b_long_prompt", 1, 8, 32, 8, 128, 2048, [1490],
@@ -717,13 +790,21 @@ def main(argv=None) -> int:
                             torch.bfloat16)[1])
         errs.append(k3_case("P_not_key_block_multiple", 1, 8, 32, 8, 128, 1001, [1000],
                             torch.bfloat16)[1])
+        errs.append(k3_case("plen_equals_P", 1, 8, 32, 8, 128, 1001, [1001], torch.bfloat16)[1])
+        errs.append(k3_case("plen_shorter_than_one_split", 1, 8, 32, 8, 128, 2048, [40],
+                            torch.bfloat16)[1])
         errs.append(k3_case("n16_two_row_tiles", 1, 16, 32, 8, 128, 512, [300], torch.bfloat16)[1])
         errs.append(k3_case("tiny_f32", 3, 4, 4, 2, 16, 96, [45, 20, 95], torch.float32)[1])
         errs.append(k3_case("head_dim_64_f32", 2, 8, 4, 2, 64, 128, [77, 127], torch.float32)[1])
+        errs.append(k3_case("f32_main_heads", 1, 8, 32, 8, 128, 2048, [1490], torch.float32)[1])
+        errs.append(k3_case("head_dim_64", 2, 8, 8, 2, 64, 512, [511, 64], torch.bfloat16)[1])
         errs.append(k3_case("head_dim_256", 1, 8, 8, 4, 256, 200, [129], torch.bfloat16)[1])
+        errs.append(k3_case("head_dim_16_bf16_simt", 1, 8, 4, 2, 16, 96, [70], torch.bfloat16)[1])
         log({"phase": "k3", "mutants_caught_max_err_over_limit": caught})
-        if len(caught) != 2 or min(caught.values()) <= 1.0:
+        if len(caught) != 4 or min(caught.values()) <= 1.0:
             raise AssertionError(f"decode_prefix_attention: the limit misses a mutant: {caught}")
+        if main_rec["impl"] != "tc" or main_rec["plan"]["ctas"] < 132:
+            raise AssertionError(f"decode_prefix_attention main shape plan: {main_rec['plan']}")
         kernels["decode_prefix_attention"] = {
             "name": "decode_prefix_attention", "route": "cuda",
             "source": "k_llms_tpu_torch/csrc/decode_prefix.cu",
@@ -731,7 +812,10 @@ def main(argv=None) -> int:
             "launches": None, "held": True, "max_abs_err": max(errs),
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-            "library_ms": None,
+            "library_ms": main_rec["library_ms"], "device_ms": main_rec["device_ms"],
+            "library_device_ms": main_rec["library_device_ms"],
+            "device_over_bound": main_rec["device_over_bound"], "impl": main_rec["impl"],
+            "plan": main_rec["plan"], "timed_case": main_rec["case"],
         }
 
     from k_llms_tpu_torch.engine.engine import LocalEngine

@@ -64,7 +64,7 @@ class BackendConfig(BaseModel):
     # prefix plus per-row generated caches).
     paged_kv: bool = True
     kv_page_size: int = 64
-    paged_attention_impl: str = "auto"  # "auto" | "cuda" | "xla"
+    paged_attention_impl: str = "auto"  # "auto" | "cuda" (or "pallas") | "xla"
     paged_generate_many: bool = True
     # Where the engine runs: None = the CUDA card (raises without one);
     # "cpu" runs the kernels' plain PyTorch versions.

@@ -22,6 +22,12 @@ optional top logprobs, and quarantine of rows whose logits go non-finite.
 Weights may be quantized (``quantize="int8"|"int4"``; int4 matmuls run the
 w4a16 kernel).
 
+Launches (``generate_many``, ``embed_tokens``) run one at a time under the
+engine's launch lock, the counterpart of the JAX scheduler's single worker:
+concurrent callers, such as ``AsyncKLLMs`` requests gathered together, wait
+their turn, and a paged launch keeps the pool it picked until its last page
+is freed.
+
 Not ported yet: the prefix cache, meshes, sequence-parallel and ring
 prefill, speculative decoding, grammar constraints, the continuous loop,
 device-OOM splitting, the abort poller and the streaming token tap.
@@ -29,8 +35,10 @@ device-OOM splitting, the abort poller and the streaming token tap.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
+import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -131,6 +139,17 @@ class GenRequestSpec(NamedTuple):
     budget: Optional[RequestBudget] = None
 
 
+def _one_launch_at_a_time(method):
+    """Run an engine method under the engine's launch lock."""
+
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        with self._launch_lock:
+            return method(self, *args, **kwargs)
+
+    return locked
+
+
 KV_LAYOUTS = ("dense", "paged")
 QUANTIZATIONS = (None, "int8", "int4")
 
@@ -180,6 +199,10 @@ class LocalEngine:
             paged_attention_impl, device=self.device
         )
         self._kv_pool: Optional[PagedKVPool] = None
+        # Held by every launch: a paged launch picks the page pool, fills it
+        # and frees its pages under it, so no other launch replaces the pool
+        # in between.
+        self._launch_lock = threading.Lock()
         self.quarantine_stats: Dict[str, int] = {"samples": 0, "launches": 0}
         # Host-clock phase times of the last generate_many launch (seconds),
         # fenced by a device synchronise at each phase end.
@@ -241,11 +264,10 @@ class LocalEngine:
             self._kv_pool = pool
         return pool
 
-    def _run_from_dense(self, prefix, plen: int, bucket: int) -> PagedPrefixRun:
+    def _run_from_dense(self, prefix, plen: int, bucket: int, pool: PagedKVPool) -> PagedPrefixRun:
         """Copy a dense prefill result ((k, v) [L, 1, bucket, KVH, D]) into
-        freshly allocated pages; positions past the prompt go to the trash
-        page."""
-        pool = self._ensure_kv_pool()
+        freshly allocated pages of the launch's ``pool``; positions past the
+        prompt go to the trash page."""
         ps = pool.page_size
         pages = pool.allocator.alloc(pages_for(plen, ps))
         idx = flat_slots(pages, np.arange(bucket), ps)
@@ -253,12 +275,14 @@ class LocalEngine:
         pool.scatter_tokens(prefix[0][:, 0], prefix[1][:, 0], idx)
         return PagedPrefixRun(pool, pages, plen, bucket)
 
-    def paged_admit_prefix(self, prompt_ids: List[int], prompt_len: int, bucket: int):
-        """Prefill the prompt and copy its KV into a page run. Returns
-        ``(first_logits [1, V], run, transient)``; with no prefix cache the
-        run is always transient (the caller releases it after pinning)."""
+    def paged_admit_prefix(self, prompt_ids: List[int], prompt_len: int, bucket: int,
+                           pool: PagedKVPool):
+        """Prefill the prompt and copy its KV into a page run of ``pool``, the
+        pool its launch picked. Returns ``(first_logits [1, V], run,
+        transient)``; with no prefix cache the run is always transient (the
+        caller releases it after pinning)."""
         first_logits, prefix = self._prefill_full(prompt_ids, prompt_len, bucket)
-        run = self._run_from_dense(prefix, prompt_len, bucket)
+        run = self._run_from_dense(prefix, prompt_len, bucket, pool)
         return first_logits, run, True
 
     # -- host-side arrays ---------------------------------------------------
@@ -296,6 +320,7 @@ class LocalEngine:
             raise out
         return out
 
+    @_one_launch_at_a_time
     @torch.inference_mode()
     def generate_many(
         self,
@@ -414,7 +439,7 @@ class LocalEngine:
         try:
             first_list = []
             for ids, prompt_len, bucket in preps:
-                fl, run, transient = self.paged_admit_prefix(ids, prompt_len, bucket)
+                fl, run, transient = self.paged_admit_prefix(ids, prompt_len, bucket, pool)
                 run.retain()
                 if transient:
                     run.release()
@@ -630,6 +655,7 @@ class LocalEngine:
         )
 
     # -- embeddings (similarity side-channel) -----------------------------
+    @_one_launch_at_a_time
     @torch.inference_mode()
     def embed_tokens(self, token_lists: List[List[int]], max_tokens: int = 512) -> np.ndarray:
         """Mean-pooled final hidden states."""

@@ -53,7 +53,7 @@ KERNELS = {
     ),
     "decode_prefix": (
         "decode_prefix.cu",
-        {"kllms_decode_prefix_attention": [_P] * 7 + [_I] * 7 + [_F, _P]},
+        {"kllms_decode_prefix_attention": [_P] * 9 + [_I] * 10 + [_F, _P]},
     ),
     "w4_matmul": (
         "w4_matmul.cu",

@@ -9,13 +9,15 @@ bf16, see :func:`flash_route`); for tensors on the CPU it runs
 :func:`flash_attention_plain`, the same function written in plain PyTorch.
 ``decode_prefix_attention`` does the same for the decode step's attention
 over a shared prompt prefix (``csrc/decode_prefix.cu`` /
-:func:`decode_prefix_attention_plain`).
+:func:`decode_prefix_attention_plain`), its key walk split over the card's SMs
+by :func:`decode_prefix_split_plan` (modelled on the CPU by
+:func:`decode_prefix_attention_split`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -211,6 +213,99 @@ def decode_prefix_attention_plain(
     return out.reshape(B, QH, D), m.reshape(B, QH), l.reshape(B, QH)
 
 
+#: SMs of the card the K1 and K3 split plans fill (an H100 SXM has 132).
+_SMS = 132
+#: Query rows (of one request and kv head) one CTA of the K3 kernel serves.
+PREFIX_TILE_ROWS = 32
+#: Keys per block of the K3 kernel's walk; splits cut whole blocks.
+PREFIX_KEY_BLOCK = 64
+
+
+def decode_prefix_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The split kernel of ``csrc/decode_prefix.cu`` a CUDA call takes: "tc"
+    (bf16 tensor cores, bf16 at head dims 64, 128 and 256) or "simt" (f32
+    products on the CUDA cores: f32 inputs, which TF32 would change, and
+    bf16 at head dim 16)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in _TC_DIMS else "simt"
+
+
+def decode_prefix_split_plan(B: int, R: int, QH: int, KVH: int, D: int, P: int,
+                             dtype: torch.dtype) -> Tuple[str, int, int]:
+    """How the K3 kernel cuts the work, from shapes alone: ``(route, tiles,
+    splits)``.
+
+    A CTA serves one tile of up to 32 query rows (``n * G`` rows of a
+    request and kv head, ``tiles`` of them) over one of ``splits``
+    contiguous ranges of the request's valid key blocks
+    (:func:`split_key_blocks`, computed by each CTA from the prompt length
+    on the device). ``splits`` is the fewest that put about one CTA on each
+    of the card's 132 SMs, at most one per key block of the bucket."""
+    QR = (B // R) * (QH // KVH)
+    tiles = -(-QR // PREFIX_TILE_ROWS)
+    splits = max(1, min(-(-P // PREFIX_KEY_BLOCK), -(-_SMS // (R * tiles * KVH))))
+    return decode_prefix_route(dtype, D), tiles, splits
+
+
+def split_key_blocks(n_blocks: int, splits: int) -> List[Tuple[int, int]]:
+    """The key blocks ``[lo, hi)`` each split walks, when the request has
+    ``n_blocks`` blocks with a valid key: contiguous, in order, sizes within
+    one of each other (some empty when there are more splits than blocks)."""
+    return [(s * n_blocks // splits, (s + 1) * n_blocks // splits) for s in range(splits)]
+
+
+def decode_prefix_attention_split(
+    q: torch.Tensor,
+    prefix_k: torch.Tensor,
+    prefix_v: torch.Tensor,
+    prompt_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    block_ranges: Callable[[int, int], List[Tuple[int, int]]] = split_key_blocks,
+):
+    """The K3 kernel's split and merge in plain f32 PyTorch, for the tests
+    and the card's mutants: each split of :func:`decode_prefix_split_plan`
+    gives its rows' (unnormalised out, max, denominator) over the keys of its
+    blocks (``block_ranges``) that lie before the prompt length, then each
+    row's splits are merged in split order, an empty split weighing an exact
+    0. Same arguments and results as :func:`decode_prefix_attention`."""
+    B, QH, D = q.shape
+    R, P, KVH, _ = prefix_k.shape
+    G, n_per = QH // KVH, B // R
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    _, _, splits = decode_prefix_split_plan(B, R, QH, KVH, D, P, q.dtype)
+    qg = q.float().reshape(R, n_per, KVH, G, D)
+    out = torch.empty((R, n_per, KVH, G, D), dtype=torch.float32, device=q.device)
+    m_out = torch.empty((R, n_per, KVH, G), dtype=torch.float32, device=q.device)
+    l_out = torch.empty_like(m_out)
+    for r, plen in enumerate(prompt_lens.tolist()):
+        plen = min(max(int(plen), 0), P)
+        parts = []
+        for lo, hi in block_ranges(-(-plen // PREFIX_KEY_BLOCK), splits):
+            keys = slice(lo * PREFIX_KEY_BLOCK, min(hi * PREFIX_KEY_BLOCK, plen))
+            o = torch.zeros((n_per, KVH, G, D), device=q.device)
+            m = torch.full((n_per, KVH, G), -math.inf, device=q.device)
+            l = torch.zeros((n_per, KVH, G), device=q.device)
+            if keys.stop > keys.start:
+                s = torch.einsum("nhgd,khd->nhgk", qg[r], prefix_k[r, keys].float()) * scale
+                m = s.amax(-1)
+                p = torch.exp(s - m[..., None])
+                l = p.sum(-1)
+                o = torch.einsum("nhgk,khd->nhgd", p, prefix_v[r, keys].float())
+            parts.append((o, m, l))
+        m = torch.stack([pm for _, pm, _ in parts]).amax(0) if parts else torch.full(
+            (n_per, KVH, G), -math.inf, device=q.device)
+        acc = torch.zeros((n_per, KVH, G, D), device=q.device)
+        l = torch.zeros((n_per, KVH, G), device=q.device)
+        for po, pm, pl in parts:
+            w = torch.where(pm == -math.inf, torch.zeros_like(pm), torch.exp(pm - m))
+            acc = acc + w[..., None] * po
+            l = l + w * pl
+        out[r] = acc / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+        m_out[r] = torch.where(m == -math.inf, torch.full_like(m, NEG_INF), m)
+        l_out[r] = l
+    return out.reshape(B, QH, D), m_out.reshape(B, QH), l_out.reshape(B, QH)
+
+
 def decode_prefix_attention(
     q: torch.Tensor,
     prefix_k: torch.Tensor,
@@ -228,8 +323,10 @@ def decode_prefix_attention(
     softmax denominator at m) for the caller's merge with the generated
     tail.
 
-    Tensors on a card go to the CUDA kernel (or the call raises); tensors on
-    the CPU go to :func:`decode_prefix_attention_plain`.
+    Tensors on a card go to the CUDA kernel (or the call raises): one launch
+    of the split kernel picked by :func:`decode_prefix_split_plan` and one of
+    its merge, with no host sync, so the call can be captured in a CUDA
+    graph. Tensors on the CPU go to :func:`decode_prefix_attention_plain`.
     """
     if q.device.type == "cpu":
         return decode_prefix_attention_plain(q, prefix_k, prefix_v, prompt_lens, sm_scale=sm_scale)
@@ -255,15 +352,18 @@ def decode_prefix_attention(
             raise ValueError(f"decode_prefix_attention: {name} must be contiguous, 16-byte aligned, on {q.device}")
     lens = prompt_lens.to(device=q.device, dtype=torch.int32).reshape(R).contiguous()
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    route, tiles, splits = decode_prefix_split_plan(B, R, QH, KVH, D, P, dt)
     out = torch.empty((B, QH, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, QH), dtype=torch.float32, device=q.device)
     l = torch.empty((B, QH), dtype=torch.float32, device=q.device)
+    o_part = torch.empty((splits, B, QH, D), dtype=torch.float32, device=q.device)
+    ml_part = torch.empty((splits, B, QH, 2), dtype=torch.float32, device=q.device)
     lib = _ext.load("decode_prefix")
     status = lib.kllms_decode_prefix_attention(
         q.data_ptr(), prefix_k.data_ptr(), prefix_v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), B, QH, KVH, D, R, P,
-        int(dt == torch.bfloat16), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(),
+        B, QH, KVH, D, R, P, int(dt == torch.bfloat16), int(route == "tc"), tiles, splits,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _ext.check_status("decode_prefix_attention", status)
     _ext.note_launch("decode_prefix_attention")

@@ -35,23 +35,27 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from . import _ext
-from .attention import NEG_INF
+from .attention import _SMS, NEG_INF
 
-#: Values accepted by ``LocalEngine(paged_attention_impl=...)``.
-PAGED_ATTENTION_IMPLS = ("auto", "cuda", "xla")
+#: Values accepted by ``LocalEngine(paged_attention_impl=...)``: "pallas",
+#: the JAX package's name for its kernel, selects the hand kernel ("cuda").
+PAGED_ATTENTION_IMPLS = ("auto", "cuda", "pallas", "xla")
 
 
 def resolve_paged_attention_impl(requested: str, *, device) -> str:
     """Pick the paged-attention implementation: "cuda" (the kernel) or "xla"
     (the reference). "auto" takes the kernel on a card and the reference on
     the CPU; an explicit "cuda" on CPU tensors runs the kernel's plain
-    version through the same wrapper. Models the kernel cannot serve
-    (softcaps, sliding windows) are refused earlier, by
+    version through the same wrapper; "pallas", the name a JAX
+    ``BackendConfig`` carries, resolves to "cuda". Models the kernel cannot
+    serve (softcaps, sliding windows) are refused earlier, by
     ``models.llama.check_supported``."""
     if requested not in PAGED_ATTENTION_IMPLS:
         raise ValueError(
             f"paged_attention_impl must be one of {PAGED_ATTENTION_IMPLS}, got {requested!r}"
         )
+    if requested == "pallas":
+        return "cuda"
     if requested != "auto":
         return requested
     return "cuda" if torch.device(device).type == "cuda" else "xla"
@@ -170,8 +174,6 @@ def paged_decode_attention_plain(
     return out.reshape(B, QH, D)
 
 
-#: SMs of the card the split plan fills (an H100 SXM has 132).
-_SMS = 132
 #: Rows of a request one CTA of the kernel serves at most.
 _MAX_CHUNK_ROWS = 32
 

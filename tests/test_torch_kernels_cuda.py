@@ -407,3 +407,48 @@ def test_paged_decode_main_path_shape_matches_plain(cuda_device, shared):
     for mutant in (dropped, off_by_one):
         got = pa.paged_decode_attention_split(*args, **kw, page_ranges=mutant)
         assert (got - ref).abs().max().item() > 1e-5
+
+
+@pytest.mark.parametrize("case", [
+    (1, 8, 8, 2, 64, 512, [511]),  # head dim 64
+    (1, 8, 32, 8, 128, 2048, [1490]),  # the main path's shape: 17 key splits
+    (2, 8, 32, 8, 128, 2048, [1500, 437]),  # ragged prompts over two requests
+    (1, 16, 32, 8, 128, 512, [300]),  # n = 16: two row tiles
+    (1, 8, 32, 8, 128, 2048, [40]),  # 16 of 17 splits empty
+    (1, 8, 8, 4, 256, 200, [129]),  # head dim 256
+], ids=["d64", "main_shape", "ragged_two_requests", "n16", "empty_splits", "d256"])
+def test_decode_prefix_tc_splits_match_plain(cuda_device, case):
+    """K3's bf16 tensor-core route with its key walk split over the SMs:
+    out, m and l within 2e-5 |ref| + 2e-5 of the plain version and of the
+    split model, the same bits on a second call, one launch counted per
+    call, and no host sync on the way (the call is captured in a CUDA
+    graph)."""
+    R, n_per, QH, KVH, D, P, lens = case
+    assert att.decode_prefix_route(torch.bfloat16, D) == "tc"
+    rng = np.random.default_rng(sum(lens) + D)
+    q = _normal(rng, R * n_per, QH, D).to(cuda_device, torch.bfloat16)
+    pk = _normal(rng, R, P, KVH, D).to(cuda_device, torch.bfloat16)
+    pv = _normal(rng, R, P, KVH, D).to(cuda_device, torch.bfloat16)
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    sc = 1 / math.sqrt(D)
+    before = _ext.LAUNCH_COUNTS["decode_prefix_attention"]
+    got = att.decode_prefix_attention(q, pk, pv, kl, sm_scale=sc)
+    again = att.decode_prefix_attention(q, pk, pv, kl, sm_scale=sc)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["decode_prefix_attention"] == before + 2
+    ref = att.decode_prefix_attention_plain(q, pk, pv, kl, sm_scale=sc)
+    model = att.decode_prefix_attention_split(q, pk, pv, kl, sm_scale=sc)
+    for g, a, r, mo in zip(got, again, ref, model):
+        assert torch.equal(g, a)
+        assert ((g - r).abs() <= 2e-5 * r.abs() + 2e-5).all()
+        assert ((g - mo).abs() <= 2e-5 * mo.abs() + 2e-5).all()
+
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        captured = att.decode_prefix_attention(q, pk, pv, kl, sm_scale=sc)
+    graph.replay()
+    torch.cuda.synchronize()
+    for c, g in zip(captured, got):
+        assert torch.equal(c, g)

@@ -178,8 +178,11 @@ def test_resolve_impl():
     assert pa.resolve_paged_attention_impl("auto", device="cpu") == "xla"
     assert pa.resolve_paged_attention_impl("auto", device="cuda") == "cuda"
     assert pa.resolve_paged_attention_impl("cuda", device="cpu") == "cuda"
+    # The JAX package's name for its kernel selects the hand kernel.
+    assert pa.resolve_paged_attention_impl("pallas", device="cpu") == "cuda"
+    assert pa.resolve_paged_attention_impl("pallas", device="cuda") == "cuda"
     with pytest.raises(ValueError):
-        pa.resolve_paged_attention_impl("pallas", device="cpu")
+        pa.resolve_paged_attention_impl("triton", device="cpu")
 
 
 def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
