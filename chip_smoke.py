@@ -41,8 +41,11 @@ import os
 import subprocess
 import sys
 import time
+from typing import Literal
 
-PHASES = ("build", "k2", "k1", "k4", "k3", "tiny", "8b", "8b_int4")
+from pydantic import BaseModel, Field
+
+PHASES = ("build", "draws", "k2", "k1", "k4", "k3", "tiny", "8b", "8b_int4")
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
 # (needs "8b" or "8b_int4").
 EXTRA_PHASES = ("profile",)
@@ -52,9 +55,43 @@ EXTRA_PHASES = ("profile",)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# jax.random's answers (jax 0.9.0, jax_threefry_partitionable on), which the
+# card's machine has no JAX to compute: (seed, step, row) -> the key words of
+# fold_in(fold_in(key(seed), step), row) and the float32 bits of the first
+# four of jax.random.uniform(that key, (V,), minval=tiny, maxval=1).
+JAX_DRAWS = {
+    (0, 0, 0): ([4165894930, 804218099], [0x3E90C0AC, 0x3F49C0BE, 0x3ECB9010, 0x3F6C7292]),
+    (0, 5, 3): ([535502902, 4114034487], [0x3F39455A, 0x3F46E5FE, 0x3F250914, 0x3EE9ED38]),
+    (7, 0, 0): ([2737751932, 2099591257], [0x3E416598, 0x3F414586, 0x3E4B0DF8, 0x3EB2EC9C]),
+    (7, 5, 3): ([1400128608, 1700204917], [0x3F31744A, 0x3E704638, 0x3E9077BC, 0x3F0FA9D2]),
+    (3000000000, 0, 0): ([2840396633, 2397775790],
+                         [0x3F18B78A, 0x3E661A78, 0x3EE77FF4, 0x3F7168FC]),
+    (3000000000, 5, 3): ([1396230939, 1990630791],
+                         [0x3EBDA3B4, 0x3B3E1400, 0x3F2DDCFE, 0x3C340180]),
+}
+
 # Bytes a device-time rotation spans at least: 2.5 times the H100's 50 MB L2,
 # so that every call reads its inputs from HBM.
 COLD_ROTATION_BYTES = 128e6
+
+
+# The response formats of the grammar-constrained runs. They live at module
+# level: a model class defined inside main() keeps main()'s locals (CUDA
+# streams, generators, graphs) for the resolution of its annotations until
+# the interpreter's last collection, which frees them after the profiler's
+# teardown, and that ended the process with SIGSEGV at exit.
+class Record(BaseModel):
+    name: str
+    count: int
+
+
+class InvoiceStatus(BaseModel):
+    # Bounded: the schema's DFA allows no whitespace and at most 16
+    # characters of note, so a sample ends within about 70 bytes and the
+    # terminal state leaves EOS as the only choice.
+    status: Literal["paid", "unpaid", "overdue"]
+    paid_in_full: bool
+    note: str = Field(max_length=16)
 
 
 def log(obj) -> None:
@@ -205,7 +242,99 @@ def main(argv=None) -> int:
         if not k3_tc or any(r["local_bytes"] != 0 or r["stack_bytes"] != 0 for r in k3_tc.values()):
             raise AssertionError(f"decode_prefix_tc: missing or spilling: {k3_tc}")
 
-    # 3. K2 flash attention against its plain version
+    # 3. The draw kernel: a decode step's uniforms, bit-equal to the plain
+    # version and to jax.random's own answers.
+    if "draws" in phases:
+        from k_llms_tpu_torch.ops import random as rnd
+
+        def bits_of(t):
+            return t.view(torch.int32)
+
+        def swapped_fold(keys, step, n_per, V):
+            # Mutant: the row folded in before the step.
+            rows = torch.arange(n_per, dtype=torch.int64, device=keys.device)
+            row_first = rnd.fold_in(keys[:, None, :], rows[None, :])
+            return rnd.uniform_tiny(rnd.fold_in(row_first, step.to(torch.int64)).reshape(-1, 2), V)
+
+        def wrong_rotation(keys, step, n_per, V):
+            # Mutant: one rotation constant off by one.
+            saved = rnd._ROTATIONS
+            rnd._ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 25))
+            try:
+                return rnd.threefry_uniform_plain(keys, step, n_per, V)
+            finally:
+                rnd._ROTATIONS = saved
+
+        mutants = {"wrong_rotation": wrong_rotation, "step_row_swapped": swapped_fold}
+        caught = {m: 0 for m in mutants}
+        draw_cases = []
+        for R, n_per in ((1, 8), (2, 8)):
+            for V in (128256, 512):
+                for step in (0, 1, 63):
+                    keys = rnd.request_keys([3000000000, 7][:R], dev)
+                    step_t = torch.tensor(step, dtype=torch.int32, device=dev)
+                    got = rnd.threefry_uniform(keys, step_t, n_per, V)
+                    torch.cuda.synchronize()
+                    ref = rnd.threefry_uniform_plain(keys, step_t, n_per, V)
+                    equal = bool(torch.equal(bits_of(got), bits_of(ref)))
+                    for m, fn in mutants.items():
+                        caught[m] += int(not torch.equal(bits_of(got), bits_of(fn(keys, step_t, n_per, V))))
+                    draw_cases.append({"B": R * n_per, "V": V, "step": step, "bit_equal": equal})
+                    if not equal:
+                        raise AssertionError(f"threefry_uniform B={R * n_per} V={V} step={step} "
+                                             "differs from its plain version")
+        known = {}
+        for (seed, step, row), (words, first) in JAX_DRAWS.items():
+            keys = rnd.request_keys([seed], dev)
+            step_t = torch.tensor(step, dtype=torch.int32, device=dev)
+            got = rnd.threefry_uniform(keys, step_t, 4, 512)
+            key_words = rnd.row_keys(keys, step_t, 4)[row].tolist()
+            got_bits = [b & 0xFFFFFFFF for b in bits_of(got[row, :4]).tolist()]
+            known[f"{seed}/{step}/{row}"] = key_words == words and got_bits == first
+        log({"phase": "draws", "cases": draw_cases, "jax_answers_equal": known,
+             "mutants_caught": caught, "cases_run": len(draw_cases)})
+        if not all(known.values()):
+            raise AssertionError(f"threefry_uniform disagrees with jax.random's answers: {known}")
+        if min(caught.values()) != len(draw_cases):
+            raise AssertionError(f"a draw mutant kept bit equality: {caught}")
+        # Timed at the sampled 8B step's shape: one request of n = 8 rows
+        # over the 128,256-column head.
+        R, n_per, V = 1, 8, 128256
+        keys = rnd.request_keys([3000000000], dev)
+        step_t = torch.tensor(5, dtype=torch.int32, device=dev)
+        out_bytes = R * n_per * V * 4
+        outs = []
+
+        def one_draw():
+            outs.append(rnd.threefry_uniform(keys, step_t, n_per, V))
+
+        ms = time_ms(lambda: rnd.threefry_uniform(keys, step_t, n_per, V), iters=50)
+        plain_ms = time_ms(lambda: rnd.threefry_uniform_plain(keys, step_t, n_per, V),
+                           iters=5, warmup=1)
+        # Each captured call keeps its output, so the replay writes
+        # copies_for(out_bytes) distinct buffers a pass, past the L2.
+        dev_ms = device_ms([one_draw] * copies_for(out_bytes))
+        del outs
+        # The output written once, the keys and the step read once; the
+        # integer work has no tensor-core rate, so bytes bound it.
+        b_ms, b_by = bound_ms(0.0, out_bytes + keys.numel() * 8 + 4, PEAK_F32_FLOPS)
+        rec = {"phase": "draws_timing", "B": R * n_per, "V": V, "ms": ms, "plain_ms": plain_ms,
+               "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "device_over_bound": dev_ms / b_ms}
+        log(rec)
+        kernels["threefry_uniform"] = {
+            "name": "threefry_uniform", "route": "cuda",
+            "source": "k_llms_tpu_torch/csrc/threefry.cu",
+            # No Pallas kernel draws in the JAX package: its draws are XLA's
+            # threefry ops, keyed per row in the engine's decode loop.
+            "replaces": "k_llms_tpu/engine/engine.py:1508",
+            "launches": None, "held": True, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "device_ms": dev_ms, "device_over_bound": dev_ms / b_ms,
+            "timed_case": f"B={R * n_per}, V={V}",
+        }
+
+    # 4. K2 flash attention against its plain version
     if "k2" in phases:
         # Both compute in f32 and round the output once, so in bf16 they
         # differ by at most one ulp of the output (<= 2**-7 |ref|). The limit
@@ -331,7 +460,7 @@ def main(argv=None) -> int:
                             ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
 
-    # 4. K1 paged decode against its plain version
+    # 5. K1 paged decode against its plain version
     if "k1" in phases:
         def k1_case(name, R, n_per, QH, KVH, D, ps, plens, glen, dtype, tol, *,
                     phase_on=True, shared=True, bucket=None, timed=False, bad_page=False):
@@ -461,7 +590,7 @@ def main(argv=None) -> int:
                                  "device_over_bound", "plan")},
         }
 
-    # 5. K4 w4a16 matmul against its plain version
+    # 6. K4 w4a16 matmul against its plain version
     if "k4" in phases:
         from k_llms_tpu_torch.ops import w4matmul as w4
 
@@ -649,7 +778,7 @@ def main(argv=None) -> int:
                               for sn in ("w_gate_up", "w_down") for rows in (64, 2048)],
         }
 
-    # 6. K3 decode-prefix attention against its plain version
+    # 7. K3 decode-prefix attention against its plain version
     if "k3" in phases:
         # Both compute in f32 from the same inputs and differ only in the
         # order of their sums (and, on the tensor cores, in P carried as two
@@ -823,8 +952,14 @@ def main(argv=None) -> int:
     from k_llms_tpu_torch.models.config import get_config
     from k_llms_tpu_torch.models.llama import init_params
 
-    # 7. tiny fp32: greedy tokens through the kernels == through the plain paths
+    # 8. tiny fp32: tokens through the kernels == through the plain paths
+    # (greedy three ways; sampled under a grammar on the paged path)
     if "tiny" in phases:
+        from k_llms_tpu_torch.engine.grammar import (
+            grammar_for_schema,
+            grammar_vocab,
+            validate_grammar_tokens,
+        )
         from k_llms_tpu_torch.models.quant import quantize_params
 
         tiny = get_config("tiny")
@@ -840,45 +975,65 @@ def main(argv=None) -> int:
         q4_params = quantize_params(init_params(eligible, gen_tiny, dev), bits=4)
         cpu_q4 = {k: ({kk: vv.to("cpu") for kk, vv in v.items()} if isinstance(v, dict)
                       else v.to("cpu")) for k, v in q4_params.items()}
-        # (label, kernel-path engine, plain-path engine, kernels that must run)
+        cpu_params = {k: ({kk: vv.to("cpu") for kk, vv in v.items()} if isinstance(v, dict)
+                          else v.to("cpu")) for k, v in params.items()}
+        greedy = dict(temperature=0.0)
+        record = grammar_for_schema(Record.model_json_schema(), grammar_vocab(tok))
+        # (label, kernel-path engine, plain-path engine, kernels that must run,
+        # generate keywords)
         cases = [
             ("paged",
              dict(config=tiny.with_(attention_impl="flash"), params=params, device="cuda",
                   paged_attention_impl="cuda"),
              dict(config=tiny, params=params, device="cuda", paged_attention_impl="xla"),
-             ("flash_attention", "paged_decode_attention")),
+             ("flash_attention", "paged_decode_attention"), greedy),
             ("dense_flash_decode",
              dict(config=tiny.with_(**flash), params=params, device="cuda", kv_layout="dense"),
              dict(config=tiny, params=params, device="cuda", kv_layout="dense"),
-             ("flash_attention", "decode_prefix_attention")),
+             ("flash_attention", "decode_prefix_attention"), greedy),
             # The plain versions of K2, K3 and K4 run where the wrappers send
             # CPU tensors.
             ("int4_dense_flash_decode",
              dict(config=eligible.with_(**flash), params=q4_params, device="cuda",
                   kv_layout="dense"),
              dict(config=eligible.with_(**flash), params=cpu_q4, device="cpu", kv_layout="dense"),
-             ("flash_attention", "decode_prefix_attention", "w4_matmul")),
+             ("flash_attention", "decode_prefix_attention", "w4_matmul"), greedy),
+            # Sampled under the Record grammar: the draw kernel on the card,
+            # the plain versions (draws included) on the CPU.
+            ("paged_constrained_sampled",
+             dict(config=tiny.with_(attention_impl="flash"), params=params, device="cuda",
+                  paged_attention_impl="cuda"),
+             dict(config=tiny, params=cpu_params, device="cpu", paged_attention_impl="xla"),
+             ("flash_attention", "paged_decode_attention", "threefry_uniform"),
+             dict(temperature=1.0, constraint=record)),
         ]
-        for label, kernel_kw, plain_kw, needed in cases:
+        for label, kernel_kw, plain_kw, needed, gen_kw in cases:
             runs = {}
             for run, kw in (("kernels", kernel_kw), ("plain", plain_kw)):
                 eng = LocalEngine(kw.pop("config"), kv_page_size=16, **kw)
                 _ext.reset_launch_counts()
-                res = eng.generate(prompt, n=4, seed=1, max_new_tokens=32, temperature=0.0,
-                                   eos_ids=tok.stop_ids)
+                res = eng.generate(prompt, n=4, seed=1, max_new_tokens=32, eos_ids=tok.stop_ids,
+                                   **gen_kw)
                 runs[run] = (res, dict(_ext.LAUNCH_COUNTS), eng.quantized)
-            same = bool((runs["kernels"][0].tokens == runs["plain"][0].tokens).all())
-            lp_err = float(abs(runs["kernels"][0].logprobs - runs["plain"][0].logprobs).max())
+            res = runs["kernels"][0]
+            same = bool((res.tokens == runs["plain"][0].tokens).all())
+            lp_err = float(abs(res.logprobs - runs["plain"][0].logprobs).max())
             counts = runs["kernels"][1]
+            legal = True
+            if "constraint" in gen_kw:
+                legal = all(validate_grammar_tokens(
+                    record, [int(t) for t in res.tokens[i][: int(res.lengths[i])] if t < 256])[0]
+                    for i in range(res.tokens.shape[0]))
             log({"phase": "tiny_fp32", "case": label, "quantized": runs["kernels"][2],
-                 "greedy_tokens_equal": same, "logprob_max_abs_diff": lp_err,
+                 "temperature": gen_kw["temperature"], "tokens_equal": same,
+                 "mask_legal": legal, "logprob_max_abs_diff": lp_err,
                  "kernel_launches": counts, "plain_launches": runs["plain"][1]})
             unused = [k for k in counts if k not in needed]
-            if (not same or min(counts[k] for k in needed) == 0 or any(counts[k] for k in unused)
-                    or max(runs["plain"][1].values()) != 0):
+            if (not same or not legal or min(counts[k] for k in needed) == 0
+                    or any(counts[k] for k in unused) or max(runs["plain"][1].values()) != 0):
                 raise AssertionError(f"tiny fp32 {label}: kernel path disagrees with the plain path")
 
-    # 8. Llama-3-8B at full width, seeded random weights, through KLLMs:
+    # 9. Llama-3-8B at full width, seeded random weights, through KLLMs:
     # bf16 weights on the paged path, then int4 weights on the dense path
     # with flash decode. Random weights spread their mass over the whole 128k
     # vocabulary, which the byte tokenizer decodes to nothing; a logit bias
@@ -899,10 +1054,19 @@ def main(argv=None) -> int:
              n=8, temperature=0.0, max_tokens=32, seed=5, logit_bias=printable),
     ]
 
+    from k_llms_tpu_torch.engine.grammar import validate_grammar_tokens
+
+    parse_request = dict(
+        messages=[{"role": "user", "content": "Invoice 2024-0117 is 12 days past due and "
+                                              "nothing was paid. Extract its status."}],
+        response_format=InvoiceStatus, n=8, temperature=0.8, seed=11, max_tokens=96,
+        logit_bias=printable)
+
     def serve_8b(label, client):
-        """Warm up, then the three requests with every launch count reset
-        just before and read just after. Returns (counts, engine launches
-        [(requests, rows per request, decode steps)], embeddings forwards)."""
+        """Warm up, then the three create requests and the parse request
+        with every launch count reset just before and read just after.
+        Returns (counts, engine launches [(requests, rows per request, decode
+        steps, temperature)], embeddings forwards)."""
         engine = client.backend.engine
         client.chat.completions.create(messages=[{"role": "user", "content": "warm up"}],
                                        n=2, max_tokens=4, temperature=0.0, seed=0,
@@ -910,10 +1074,14 @@ def main(argv=None) -> int:
         launches, embed_batches = [], []
         generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
 
+        constrained = []
+
         def counted_generate_many(items, **kw):
             out = generate_many(items, **kw)
             st = engine.last_launch_stats
-            launches.append((len(items), st["n_per"], st["decode_steps"]))
+            launches.append((len(items), st["n_per"], st["decode_steps"], kw["temperature"]))
+            if kw.get("constraint") is not None:
+                constrained.append((kw["constraint"], out[0], dict(st)))
             return out
 
         def counted_embed_tokens(token_lists, *a, **kw):
@@ -946,6 +1114,39 @@ def main(argv=None) -> int:
                  "tokens_per_s": gen_tokens / wall, "choices": len(resp.choices),
                  "embeddings_forwards": embed_batches[n_embeds:],
                  "consensus": resp.choices[0].message.content, "likelihoods": resp.likelihoods})
+        # The parse request: grammar-constrained and sampled.
+        t0 = time.perf_counter()
+        n_launches = len(launches)
+        resp = client.chat.completions.parse(**parse_request)
+        wall = time.perf_counter() - t0
+        if len(constrained) != 1:
+            raise AssertionError(f"{label} parse: {len(constrained)} constrained launches")
+        grammar, res, st = constrained[0]
+        legal, finished, validated = [], 0, 0
+        for i in range(res.tokens.shape[0]):
+            body = [int(t) for t in res.tokens[i][: int(res.lengths[i])] if t < 256]
+            ok, terminal = validate_grammar_tokens(grammar, body)
+            legal.append(ok)
+            if res.finish_reasons[i] == "stop":
+                finished += 1
+                InvoiceStatus.model_validate_json(bytes(body))  # raises if invalid
+                validated += int(terminal)
+        consensus = resp.choices[0].message.parsed
+        log({"phase": f"{label}_parse_request", "n": parse_request["n"],
+             "temperature": parse_request["temperature"], "prompt_tokens": resp.usage.prompt_tokens,
+             "completion_tokens": resp.usage.completion_tokens,
+             "prefill_ms": st["prefill_s"] * 1e3,
+             "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
+             "decode_steps": st["decode_steps"], "kv_layout": st["kv_layout"], "wall_s": wall,
+             "grammar_states": int(grammar.trans.shape[0]), "mask_legal": legal,
+             "finished": finished, "finished_and_validated": validated,
+             "engine_launches": launches[n_launches:],
+             "samples": [c.message.content for c in resp.choices[1:]],
+             "consensus": None if consensus is None else consensus.model_dump()})
+        if (len(resp.choices) != parse_request["n"] + 1 or not all(legal)
+                or validated != finished or not isinstance(consensus, InvoiceStatus)):
+            raise AssertionError(f"{label} parse request: legal={legal}, finished={finished}, "
+                                 f"validated={validated}, consensus={consensus!r}")
         del engine.generate_many, engine.embed_tokens
         counts = dict(_ext.LAUNCH_COUNTS)
         log({"phase": f"{label}_main_path", "launches": counts, "engine_launches": launches,
@@ -953,6 +1154,11 @@ def main(argv=None) -> int:
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
              "allocated_before_requests_bytes": allocated_before})
         return counts, launches, embed_batches
+
+    def sampled_draws(launches):
+        """Draw-kernel launches of sampled engine launches: one for the
+        first token and one per decode step."""
+        return sum(s + 1 for _, _, s, temperature in launches if temperature != 0.0)
 
     def profile_one(label, client, index):
         from torch.profiler import ProfilerActivity, profile
@@ -988,9 +1194,74 @@ def main(argv=None) -> int:
              "port_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": c}
                               for us, k, c in rows if any(n in k for n in port)]})
 
+    def profile_masked(label, client):
+        """The grammar mask's added device time per decode step: one step's
+        mask and advance at the parse request's shape (8 rows over the whole
+        vocabulary, its grammar) captured in a CUDA graph and replayed, each
+        call on its own logits past the L2 (the capture also shows that
+        neither syncs with the host). Beside it, that request's decode ms per step
+        with and without the grammar (host clock, same seed and draws, 32
+        tokens: too few to finish the document, so both run every step;
+        runs in turns u/m/m/u). And the same step at a BPE vocabulary's
+        width (random tables of the same state count over all V tokens, up
+        to 32 bytes a token: ``grammar_advance`` walks 32 byte columns),
+        which no request here can reach without a BPE tokenizer."""
+        from k_llms_tpu_torch.engine.engine import MAX_EOS_IDS, GenRequestSpec, _constraint_ops
+        from k_llms_tpu_torch.engine.grammar import (
+            DeviceGrammar,
+            grammar_advance,
+            grammar_mask_logits,
+        )
+
+        engine, backend = client.backend.engine, client.backend
+        tok = backend.tokenizer
+        grammar = backend._constraint_for(InvoiceStatus)
+        jt, initial_state, mask_logits, advance = _constraint_ops(grammar, dev)
+        n_rows, V = parse_request["n"], engine.config.vocab_size
+        state = initial_state(n_rows)
+        eos = torch.tensor(tok.stop_ids + [-1] * (MAX_EOS_IDS - len(tok.stop_ids)), device=dev)
+        tokens = torch.full((n_rows,), ord("{"), dtype=torch.int64, device=dev)
+        logits = [randn(n_rows, V, dtype=torch.float32) for _ in range(copies_for(n_rows * V * 4))]
+        mask_ms = device_ms([lambda x=x: (mask_logits(jt, x, *state, eos), advance(jt, tokens, *state))
+                             for x in logits])
+        mask_host_ms = time_ms(lambda: (mask_logits(jt, logits[0], *state, eos),
+                                        advance(jt, tokens, *state)))
+        S = int(grammar.trans.shape[0])
+        bpe = DeviceGrammar(
+            masks=torch.randint(-2 ** 31, 2 ** 31 - 1, (S, (V + 31) // 32), dtype=torch.int32,
+                                device=dev, generator=gen),
+            trans=torch.randint(-1, S, (S, 256), dtype=torch.int64, device=dev, generator=gen),
+            terminal=torch.zeros(S, dtype=torch.bool, device=dev),
+            token_bytes=torch.randint(0, 256, (V, 32), dtype=torch.uint8, device=dev, generator=gen),
+            token_len=torch.randint(1, 33, (V,), dtype=torch.int64, device=dev, generator=gen),
+            start=0, vocab_size=V)
+        bpe_state = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+        bpe_tokens = torch.randint(0, V, (n_rows,), dtype=torch.int64, device=dev, generator=gen)
+
+        def bpe_step(x):
+            return (grammar_mask_logits(bpe, x, bpe_state, eos),
+                    grammar_advance(bpe, bpe_tokens, bpe_state))
+
+        bpe_ms = device_ms([lambda x=x: bpe_step(x) for x in logits])
+        bpe_host_ms = time_ms(lambda: bpe_step(logits[0]))
+        del logits, bpe
+        ids = tok.apply_chat_template(parse_request["messages"], add_generation_prompt=True)
+        bias = {int(t): b for t, b in printable.items()}
+        per_step = {"unmasked": [], "masked": []}
+        for name in ("unmasked", "masked", "masked", "unmasked"):
+            engine.generate_many([GenRequestSpec(ids, n_rows, 11)], max_new_tokens=32,
+                                 temperature=0.8, eos_ids=tok.stop_ids, logit_bias=bias,
+                                 constraint=grammar if name == "masked" else None)
+            st = engine.last_launch_stats
+            per_step[name].append(st["decode_s"] * 1e3 / st["decode_steps"])
+        log({"phase": f"{label}_profile_mask", "grammar_states": S,
+             "mask_and_advance_device_ms": mask_ms, "mask_and_advance_host_ms": mask_host_ms,
+             "bpe_width32_device_ms": bpe_ms, "bpe_width32_host_ms": bpe_host_ms,
+             "decode_ms_per_step": per_step})
+
     from k_llms_tpu_torch import KLLMs
 
-    # 8a. bf16 weights, paged decode: K2 and K1.
+    # 9a. bf16 weights, paged decode: K2 and K1.
     if "8b" in phases:
         t0 = time.perf_counter()
         client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed)
@@ -1002,24 +1273,26 @@ def main(argv=None) -> int:
              "attention_impl": engine.config.attention_impl})
         counts, launches, embeds = serve_8b("8b", client)
         L = engine.config.num_layers
-        for name in ("flash_attention", "paged_decode_attention"):
+        for name in ("flash_attention", "paged_decode_attention", "threefry_uniform"):
             if name in kernels:
                 kernels[name]["launches"] = counts[name]
-        steps = sum(s for _, _, s in launches)
-        prefills = sum(r for r, _, _ in launches)
+        steps = sum(s for _, _, s, _ in launches)
+        prefills = sum(r for r, _, _, _ in launches)
         expected = {"flash_attention": L * (prefills + len(embeds)),
                     "paged_decode_attention": L * steps,
-                    "decode_prefix_attention": 0, "w4_matmul": 0}
+                    "decode_prefix_attention": 0, "w4_matmul": 0,
+                    "threefry_uniform": sampled_draws(launches)}
         if not embeds or counts != expected:
             raise AssertionError(f"8b launch counts {counts} != expected {expected}")
         if "profile" in phases:
             for index in (0, 2):  # a short and the long prompt
                 profile_one("8b", client, index)
+            profile_masked("8b", client)
         del client, engine
         gc.collect()
         torch.cuda.empty_cache()
 
-    # 8b. int4 weights, dense decode with the decode-prefix kernel: K2, K3
+    # 9b. int4 weights, dense decode with the decode-prefix kernel: K2, K3
     # and K4 (no K1).
     if "8b_int4" in phases:
         t0 = time.perf_counter()
@@ -1039,11 +1312,13 @@ def main(argv=None) -> int:
         for name in ("decode_prefix_attention", "w4_matmul"):
             if name in kernels:
                 kernels[name]["launches"] = counts[name]
-        steps = sum(s for _, _, s in launches)
-        prefills = sum(r for r, _, _ in launches)
+        if "threefry_uniform" in kernels and kernels["threefry_uniform"]["launches"] is None:
+            kernels["threefry_uniform"]["launches"] = counts["threefry_uniform"]
+        steps = sum(s for _, _, s, _ in launches)
+        prefills = sum(r for r, _, _, _ in launches)
         # K3 runs where the gate holds: at least 8 query rows per request
         # and kv head (n * G >= 8).
-        gated_steps = sum(s for _, n_per, s in launches if n_per * G >= 8)
+        gated_steps = sum(s for _, n_per, s, _ in launches if n_per * G >= 8)
         expected = {
             "flash_attention": L * (prefills + len(embeds)),
             "paged_decode_attention": 0,
@@ -1052,6 +1327,7 @@ def main(argv=None) -> int:
             # last token and each decode step (the embeddings forward skips
             # lm_head).
             "w4_matmul": (7 * L + 1) * (prefills + steps) + 7 * L * len(embeds),
+            "threefry_uniform": sampled_draws(launches),
         }
         log({"phase": "8b_int4_expected_launches", "expected": expected, "counts": counts})
         if not embeds or gated_steps == 0 or counts != expected:
@@ -1059,6 +1335,7 @@ def main(argv=None) -> int:
         if "profile" in phases:
             for index in (0, 2):
                 profile_one("8b_int4", client, index)
+            profile_masked("8b_int4", client)
         del client, engine
         gc.collect()
         torch.cuda.empty_cache()

@@ -5,11 +5,14 @@ strings, per-sample logprobs and usage of ``chat_completion`` are carried
 over; the request goes straight to ``LocalEngine.generate_many``. The model
 overrides (dtype, max_seq_len, attention impls), weight quantization and the
 KV-layout knobs of the JAX package's ``BackendConfig`` are carried over under
-the same names and defaults. The scheduler, supervisor, continuous loop,
-grammar-constrained decoding, streaming and the device consensus scorer are
-not ported yet (``parse()`` validates after the fact); a keyword that names
-one of the JAX package's other ``BackendConfig`` fields raises
-``NotImplementedError`` rather than being dropped.
+the same names and defaults, and so is grammar-constrained decoding: a
+``response_format`` compiles (once per schema and vocabulary, through the
+process-wide grammar cache) into a token-mask automaton that the engine
+applies inside decode, so every sample is valid by construction
+(``constrained_decoding=True``, the default). The scheduler, supervisor,
+continuous loop, streaming and the device consensus scorer are not ported
+yet; a keyword that names one of the JAX package's other ``BackendConfig``
+fields raises ``NotImplementedError`` rather than being dropped.
 """
 
 from __future__ import annotations
@@ -66,6 +69,12 @@ class BackendConfig(BaseModel):
     kv_page_size: int = 64
     paged_attention_impl: str = "auto"  # "auto" | "cuda" (or "pallas") | "xla"
     paged_generate_many: bool = True
+    # Compile response_format JSON schemas into token-level grammar masks
+    # (engine/grammar.py) applied in-decode. Unsupported schema features
+    # degrade to the generic JSON mask, compile errors to unconstrained
+    # decode; parse()'s post-hoc validation stays authoritative either way.
+    # False = decode unconstrained and validate after the fact.
+    constrained_decoding: bool = True
     # Where the engine runs: None = the CUDA card (raises without one);
     # "cpu" runs the kernels' plain PyTorch versions.
     device: Optional[str] = None
@@ -82,7 +91,7 @@ UNPORTED_FIELDS = frozenset({
     "watchdog_min_budget_s", "watchdog_max_budget_s", "max_rebuilds", "poison_threshold",
     "poison_window", "continuous_batching", "continuous_width", "continuous_max_prompt",
     "continuous_max_new", "prefill_chunk_tokens", "kv_pool_pages", "device_consensus",
-    "constrained_decoding", "tenant_default_weight", "tenant_default_slo",
+    "tenant_default_weight", "tenant_default_slo",
     "tenant_default_requests_per_s", "tenant_default_rows_per_s", "tenants",
     "tenant_api_keys", "brownout_high_water", "batch_store_dir", "batch_max_in_flight",
     "batch_item_retries", "jobstore_ttl_s",
@@ -145,6 +154,12 @@ class CudaBackend(Backend):
         n = max(1, request.n)
         temperature = 1.0 if request.temperature is None else float(request.temperature)
         max_new = request.max_tokens or self.default_max_new_tokens
+        # Structured-output requests decode under a grammar mask: a pydantic
+        # response_format compiles to a CompiledGrammar over this tokenizer's
+        # byte strings; anything the schema compiler cannot express degrades
+        # to the valid-JSON mask, and compile errors or
+        # constrained_decoding=False to unconstrained decode.
+        constraint = self._constraint_for(request.response_format)
         top_lp = request.top_logprobs if request.logprobs else None
         logit_bias = None
         if request.logit_bias:
@@ -179,6 +194,7 @@ class CudaBackend(Backend):
             presence_penalty=float(request.presence_penalty or 0.0),
             logit_bias=logit_bias,
             stop_sequences=stop_seqs,
+            constraint=constraint,
         )[0]
         if isinstance(result, BaseException):
             raise result
@@ -271,6 +287,48 @@ class CudaBackend(Backend):
             },
         }
         return ChatCompletion.model_validate(payload)
+
+    def _constraint_for(self, response_format: Any):
+        if response_format is None:
+            return None
+        schema = None
+        wants_json = False
+        if isinstance(response_format, type) and hasattr(response_format, "model_json_schema"):
+            schema = response_format.model_json_schema()
+        elif isinstance(response_format, dict):
+            kind = response_format.get("type")
+            if kind == "json_object":
+                wants_json = True
+            elif kind == "json_schema":
+                # OpenAI wire form: {"type": "json_schema", "json_schema": {"schema": ...}}
+                schema = (response_format.get("json_schema") or {}).get("schema")
+                wants_json = True  # schema-less json_schema payload degrades to JSON mask
+        if schema is None and not wants_json:
+            # {"type": "text"} and unrecognized forms are unconstrained — only
+            # an explicit JSON request earns the grammar mask.
+            return None
+        if not self.backend_config.constrained_decoding:
+            # Post-hoc-only posture: decode unconstrained, parse() validates
+            # after the fact (byte-identical to no response_format).
+            return None
+        # Compile-or-fetch through the process-wide grammar cache, keyed by
+        # (schema digest, vocab digest). Never raises; None = unconstrained
+        # + post-hoc validation (a compile error, counted in GRAMMAR_EVENTS).
+        from ..engine.grammar import grammar_for_schema
+
+        vocab, vocab_digest = self._grammar_vocab()
+        return grammar_for_schema(schema, vocab, vocab_digest=vocab_digest)
+
+    def _grammar_vocab(self):
+        """(per-token byte strings, digest) for this backend's tokenizer —
+        computed once; the digest is the grammar cache key's vocabulary half."""
+        if getattr(self, "_grammar_vocab_cache", None) is None:
+            from ..engine.grammar import grammar_vocab
+            from ..engine.token_constraint import _vocab_digest
+
+            vocab = grammar_vocab(self.tokenizer)
+            self._grammar_vocab_cache = (vocab, _vocab_digest(vocab))
+        return self._grammar_vocab_cache
 
     # -- embeddings -------------------------------------------------------
     def embeddings(self, texts: List[str]) -> List[List[float]]:

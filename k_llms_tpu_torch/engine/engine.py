@@ -18,7 +18,11 @@ request decode together as one batch, rows request-major
 Both run the same host loop of steps (``_decode``, parameterized by a step
 function) that ends when every row is done: EOS and stop sequences, pad
 after done, per-token logprobs, frequency/presence penalties and logit bias,
-optional top logprobs, and quarantine of rows whose logits go non-finite.
+optional top logprobs, quarantine of rows whose logits go non-finite,
+grammar constraints (``constraint=``: the JSON automaton, a schema DFA, a
+token table or a compiled grammar, masked and advanced on the device every
+step, as ``_constraint_ops`` sets out), and seeded draws equal to the JAX
+engine's (``ops/random.py``; the threefry kernel on a card).
 Weights may be quantized (``quantize="int8"|"int4"``; int4 matmuls run the
 w4a16 kernel).
 
@@ -29,8 +33,8 @@ their turn, and a paged launch keeps the pool it picked until its last page
 is freed.
 
 Not ported yet: the prefix cache, meshes, sequence-parallel and ring
-prefill, speculative decoding, grammar constraints, the continuous loop,
-device-OOM splitting, the abort poller and the streaming token tap.
+prefill, speculative decoding, the continuous loop, device-OOM splitting, the
+abort poller and the streaming token tap.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from ..models.llama import (
 )
 from ..models.quant import init_params_quantized, quantize_params, stored_quant_layout
 from ..ops.paged_attention import resolve_paged_attention_impl
+from ..ops.random import request_keys
 from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
 from ..reliability.deadline import RequestBudget
 from .paging import TRASH_PAGE, PagedKVPool, PagedPrefixRun, flat_slots, pages_for
@@ -102,6 +107,72 @@ def _poisoned_logits(logits: torch.Tensor) -> torch.Tensor:
     bad_val = (torch.isnan(logits) | (logits == float("inf"))).any(dim=-1)
     degenerate = logits.amax(dim=-1) == -float("inf")
     return bad_val | degenerate
+
+
+def _constraint_ops(constraint, device):
+    """Uniform grammar-automaton interface for the decode loop: returns
+    ``(tables, initial_state, mask_logits, advance)`` with the tables on
+    ``device``, where state is always a tuple (splat into mask/advance), or
+    None when unconstrained."""
+    if constraint is None:
+        return None
+    from .token_constraint import TokenConstraint
+
+    if constraint == "json":
+        from .json_constraint import advance, device_tables, initial_state, mask_logits
+
+        return (
+            device_tables(device),
+            lambda n: initial_state(n, device=device),
+            mask_logits,
+            advance,
+        )
+    if isinstance(constraint, TokenConstraint):
+        from .token_constraint import (
+            device_token_table,
+            token_advance,
+            token_initial_state,
+            token_mask_logits,
+        )
+
+        jt = device_token_table(constraint, device=device)
+        return (
+            jt,
+            lambda n: (token_initial_state(jt, n),),
+            token_mask_logits,
+            lambda t, tok, state: (token_advance(t, tok, state),),
+        )
+    from .grammar import CompiledGrammar
+
+    if isinstance(constraint, CompiledGrammar):
+        from .grammar import (
+            device_grammar,
+            grammar_advance,
+            grammar_initial_state,
+            grammar_mask_logits,
+        )
+
+        jt = device_grammar(constraint, device=device)
+        return (
+            jt,
+            lambda n: (grammar_initial_state(jt, n),),
+            grammar_mask_logits,
+            lambda t, tok, state: (grammar_advance(t, tok, state),),
+        )
+    from .schema_constraint import (
+        device_dfa,
+        dfa_advance,
+        dfa_initial_state,
+        dfa_mask_logits,
+    )
+
+    jt = device_dfa(constraint, device=device)
+    return (
+        jt,
+        lambda n: (dfa_initial_state(jt, n),),
+        dfa_mask_logits,
+        lambda t, tok, state: (dfa_advance(t, tok, state),),
+    )
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -311,6 +382,49 @@ class LocalEngine:
             v[t] = float(bias)
         return torch.as_tensor(v, device=self.device)
 
+    def _validate_constraint(self, constraint, eos: List[int]) -> None:
+        """Reject malformed constraint/eos combinations before any device work."""
+        if constraint is None:
+            return
+        from .grammar import CompiledGrammar
+        from .schema_constraint import SchemaDFA
+        from .token_constraint import TokenConstraint
+
+        config = self.config
+        if constraint != "json" and not isinstance(
+            constraint, (SchemaDFA, TokenConstraint, CompiledGrammar)
+        ):
+            raise ValueError(
+                f"Unknown constraint {constraint!r}; supported: 'json', a compiled "
+                "SchemaDFA, a compiled TokenConstraint, or a CompiledGrammar"
+            )
+        if isinstance(constraint, (TokenConstraint, CompiledGrammar)):
+            # Token-level masks carry their own vocabulary; the model head must
+            # cover it, and eos must be a special (len-0) or out-of-vocab id so
+            # opening its column cannot alias a grammar token.
+            if config.vocab_size < constraint.vocab_size:
+                raise ValueError(
+                    f"model vocab {config.vocab_size} < constraint vocab "
+                    f"{constraint.vocab_size}"
+                )
+            if any(
+                0 <= e < constraint.vocab_size and constraint.token_len[e] > 0
+                for e in eos
+            ):
+                raise ValueError(
+                    "eos ids must be special tokens under a token-level constraint"
+                )
+        else:
+            # The byte masks treat token ids 0..255 AS bytes — the caller must
+            # use a byte-level tokenizer. Specials (eos/pad) must live above
+            # the byte range, or the eos column would alias onto a byte and
+            # corrupt the automaton.
+            if config.vocab_size <= 256 or any(e < 256 for e in eos):
+                raise ValueError(
+                    "grammar constraints need byte-level token semantics: vocab > 256 "
+                    "with eos/pad ids outside the 0..255 byte range"
+                )
+
     # -- public API ---------------------------------------------------------
     def generate(self, prompt_ids: Sequence[int], n: int = 1, seed: Optional[int] = None,
                  **kwargs) -> GenerationResult:
@@ -336,10 +450,13 @@ class LocalEngine:
         presence_penalty: float = 0.0,
         logit_bias: Optional[Dict[int, float]] = None,
         stop_sequences: Optional[Sequence[Sequence[int]]] = None,
+        constraint: Any = None,
     ) -> List[Any]:
         """Decode several same-config requests as one batch, in the engine's
-        KV layout. Returns one GenerationResult per item
-        (or the exception a member's spent budget raised)."""
+        KV layout. ``constraint`` masks every row's logits with a grammar
+        automaton (see :func:`_constraint_ops`). Returns one
+        GenerationResult per item (or the exception a member's spent budget
+        raised)."""
         if not items:
             return []
         config = self.config
@@ -349,6 +466,7 @@ class LocalEngine:
             if it.budget is not None:
                 it.budget.check("engine prefill")
         eos = list(eos_ids or [config.eos_token_id])[:MAX_EOS_IDS]
+        self._validate_constraint(constraint, eos)
         preps = [self._prep_prompt(it.prompt_ids) for it in items]
         n_per = max(max(1, it.n) for it in items)
         r_pad = _bucket(len(items), minimum=1)
@@ -359,19 +477,18 @@ class LocalEngine:
             it.seed if it.seed is not None else int.from_bytes(os.urandom(4), "little")
             for it in items
         ]
-        generators = None
-        if temperature != 0.0:
-            generators = [
-                torch.Generator(device=device).manual_seed(int(s)) for s in seeds
-            ] + [None] * extra
+        # The JAX engine's request keys: key(seed) per request, key(0) for
+        # the padding requests.
+        req_keys = request_keys(seeds + [0] * extra, device) if temperature != 0.0 else None
         stops, use_stops = self._stop_array(stop_sequences)
+        eos_t = torch.as_tensor(eos + [-1] * (MAX_EOS_IDS - len(eos)), device=device)
 
         def run_loop(step_fn, first_logits):
             return self._decode(
-                step_fn, first_logits, n_per, r_pad,
-                [max(1, it.n) for it in items] + [0] * extra, generators,
+                step_fn, first_logits, n_per, r_pad, req_keys,
+                _constraint_ops(constraint, device),
                 max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
-                top_k=top_k, eos_t=torch.as_tensor(eos, device=device),
+                top_k=top_k, eos_t=eos_t,
                 top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
                 presence_penalty=presence_penalty,
                 bias=self._bias_array(logit_bias) if logit_bias else None,
@@ -551,14 +668,20 @@ class LocalEngine:
         return result._replace(tokens=toks, logprobs=lps, lengths=lengths, sample_errors=errs)
 
     def _decode(
-        self, step_fn, first_logits, n_per, r_pad, rows, generators, *, max_new_tokens,
+        self, step_fn, first_logits, n_per, r_pad, req_keys, cops, *, max_new_tokens,
         temperature, top_p, top_k, eos_t, top_logprobs, frequency_penalty,
         presence_penalty, bias, stops,
     ):
         """The decode loop over ``B = r_pad * n_per`` rows, the JAX engine's
         ``_run_loop``: ``step_fn(tokens [B], step) -> logits [B, V]`` runs one
-        model step in the caller's KV layout. Returns numpy (tokens, logprobs,
-        done, top ids, top logprobs, poisoned, steps)."""
+        model step in the caller's KV layout. ``req_keys`` [r_pad, 2] are the
+        requests' key words (None at temperature 0); the first token samples
+        at draw step 0 and model step k at draw step k + 1, as in JAX.
+        ``cops`` is :func:`_constraint_ops`'s tuple or None. Each step runs,
+        in the JAX order: grammar mask, the pad column, the poison check,
+        sample (top logprobs from the masked logits), freeze, advance.
+        Returns numpy (tokens, logprobs, done, top ids, top logprobs,
+        poisoned, steps)."""
         config = self.config
         device = self.device
         pad_id = config.pad_token_id
@@ -569,6 +692,13 @@ class LocalEngine:
         penalized = frequency_penalty != 0.0 or presence_penalty != 0.0
         K = top_logprobs or 0
 
+        # The draw step lives on the device, so no host value enters a draw.
+        draw_step = torch.zeros((), dtype=torch.int32, device=device)
+        jstate = None
+        if cops is not None:
+            jt, initial_state, mask_logits, advance = cops
+            jstate = initial_state(B)
+
         def sample(logits, counts):
             pen = None
             if penalized:
@@ -576,15 +706,18 @@ class LocalEngine:
             if bias is not None:
                 pen = -bias[None, :] if pen is None else pen - bias[None, :]
             noise = None
-            if generators is not None:
-                noise = draw_noise(generators, rows, n_per, V, device)
+            if req_keys is not None:
+                noise = draw_noise(req_keys, draw_step, n_per, V)
             return sample_logits(
                 logits, temperature=temperature, top_p=top_p, top_k=top_k,
                 noise=noise, penalty=pen,
             )
 
         def prepare(logits, done):
-            logits = logits.clone()
+            if jstate is not None:
+                logits = mask_logits(jt, logits, *jstate, eos_t)
+            else:
+                logits = logits.clone()
             logits[:, pad_id] += pad_col
             bad = _poisoned_logits(logits) & ~done
             logits = torch.where(bad[:, None], torch.zeros_like(logits), logits)
@@ -597,6 +730,8 @@ class LocalEngine:
         tok, lp = sample(logits0, counts)
         tok = torch.where(bad, torch.full_like(tok, pad_id), tok)
         lp = torch.where(bad, torch.zeros_like(lp), lp)
+        if jstate is not None:
+            jstate = advance(jt, tok, *jstate)
         done = torch.isin(tok, eos_t) | bad
         pois = bad.clone()
         tok_steps, lp_steps, tt_steps, tl_steps = [tok], [lp], [], []
@@ -615,9 +750,12 @@ class LocalEngine:
         while step < max_new_tokens - 1 and not bool(done.all()):
             logits, bad = prepare(step_fn(tok, step), done)
             frozen = done | bad
+            draw_step += 1
             nxt, lp = sample(logits, counts)
             nxt = torch.where(frozen, torch.full_like(nxt, pad_id), nxt)
             lp = torch.where(frozen, torch.zeros_like(lp), lp)
+            if jstate is not None:
+                jstate = advance(jt, nxt, *jstate)  # pad/eos freeze the row
             tok_steps.append(nxt)
             lp_steps.append(lp)
             if K:

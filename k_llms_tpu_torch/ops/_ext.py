@@ -59,6 +59,10 @@ KERNELS = {
         "w4_matmul.cu",
         {"kllms_w4_matmul": [_P] * 6 + [_I] * 6 + [_P]},
     ),
+    "threefry": (
+        "threefry.cu",
+        {"kllms_threefry_uniform": [_P] * 3 + [_I] * 3 + [_P]},
+    ),
 }
 
 #: Launches per kernel wrapper since the last :func:`reset_launch_counts`.
@@ -67,6 +71,7 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "paged_decode_attention": 0,
     "decode_prefix_attention": 0,
     "w4_matmul": 0,
+    "threefry_uniform": 0,
 }
 
 _lock = threading.Lock()

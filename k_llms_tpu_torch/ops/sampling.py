@@ -6,19 +6,23 @@ top-k, then top-p by the same bisection on the logit threshold (so the kept
 set is the JAX function's set), then a draw. Logprobs are reported under the
 untempered, unpenalised model distribution.
 
-The draw is Gumbel-max on uniform noise from ``torch.Generator``s: one
-generator per request, on the logits' device, seeded from the request's
-seed. The caller draws each request's noise in a fixed order every step, so
-a request's samples depend on its own seed and not on what it was batched
-with. The JAX package draws with ``jax.random`` keys, whose bits torch does
-not reproduce: sampled tokens agree with it at temperature 0 only.
+The draw is Gumbel-max on the JAX package's own uniforms: row i of request
+j at decode step s draws from the key ``fold_in(fold_in(key(seed_j), s), i)``
+(:mod:`.random`; on a card the threefry kernel draws a whole step at once),
+so a request's samples depend on its own seed and not on what it was batched
+with, and its uniforms equal the JAX engine's bit for bit. The Gumbel values
+``-log(-log(u))`` come from torch's ``log``, within an ulp or so of XLA's, so
+a sampled token can differ from the JAX engine's only where two perturbed
+scores tie to that precision.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from .random import threefry_uniform
 
 # Bisection steps between two host checks of the top-p loop condition. Steps
 # after the condition has failed change nothing (they are masked on device),
@@ -84,7 +88,7 @@ def sample_logits(
     penalty: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample next tokens. logits: [B, V] f32. ``noise``: [B, V] uniforms in
-    [0, 1) (see :func:`draw_noise`), required when ``temperature > 0``.
+    (0, 1) (see :func:`draw_noise`), required when ``temperature > 0``.
     ``penalty`` [B, V] is subtracted from the logits before temperature.
 
     Returns (tokens [B] int64, logprobs [B] f32 — log p(token) under the
@@ -106,23 +110,13 @@ def sample_logits(
     return tokens, logprobs
 
 
-def draw_noise(
-    generators: Sequence[Optional[torch.Generator]],
-    rows: Sequence[int],
-    n_per: int,
-    vocab: int,
-    device,
-) -> torch.Tensor:
-    """[len(generators) * n_per, vocab] uniforms: request j's first
-    ``rows[j]`` rows come from its own generator (one draw of
-    ``[rows[j], vocab]`` per call, in request order); padding rows get 0.5."""
-    noise = torch.full((len(generators) * n_per, vocab), 0.5, dtype=torch.float32, device=device)
-    for j, (gen, n) in enumerate(zip(generators, rows)):
-        if gen is not None and n > 0:
-            noise[j * n_per : j * n_per + n] = torch.rand(
-                (n, vocab), generator=gen, device=device, dtype=torch.float32
-            )
-    return noise
+def draw_noise(req_keys: torch.Tensor, step: torch.Tensor, n_per: int, vocab: int) -> torch.Tensor:
+    """``[R * n_per, vocab]`` float32 uniforms of one decode step, rows
+    request-major: the JAX engine's ``jax.random.uniform(fold_in(fold_in(
+    key(seed_j), step), i), (vocab,), minval=tiny)`` for row i of request j.
+    ``req_keys`` [R, 2] int64 key words (:func:`.random.request_keys`),
+    ``step`` a 0-d int32 tensor on their device."""
+    return threefry_uniform(req_keys, step, n_per, vocab)
 
 
 def model_top_logprobs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

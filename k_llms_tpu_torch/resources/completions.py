@@ -191,9 +191,12 @@ class Completions:
         tenant: Optional[str] = None,
         **kwargs: Any,
     ) -> KLLMsParsedChatCompletion:
-        """Structured output validated after the fact: the samples decode
-        unconstrained and consolidation parses them into ``response_format``
-        (grammar-constrained decoding is not ported yet)."""
+        """Structured output: under the backend's default
+        ``constrained_decoding=True`` the samples decode under a grammar mask
+        compiled from ``response_format``, so each is valid by construction;
+        consolidation then parses and validates them into ``response_format``
+        all the same (the post-hoc check stays authoritative, and is all
+        there is with ``constrained_decoding=False``)."""
         _no_stream(stream, "parse()")
         settings = consensus_settings or ConsensusSettings()
         if timeout is None:

@@ -1,0 +1,255 @@
+"""The port's copies of the JAX package's host layers.
+
+The port imports nothing of ``k_llms_tpu``, so it carries its own copies of
+the JAX-free host modules. Each copy must equal the reference's source apart
+from import lines and the edits documented below (per module): doc paths to
+the reference SDK written without the machine path, the reference's
+tracking tags dropped, the package's own name, the failpoint sites the port has no
+registry for, the key aligner it has not ported, the native build into
+``_build/``, and, in the four grammar-constraint modules, the device half
+(from its "Device side" marker on), which the port rewrites in torch.
+
+Then a sample of the JAX package's own test vectors (``test_alignment``,
+``test_translit``, ``test_native``, and TRUTH_DOCS consolidation) runs
+through both packages with equal results.
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+
+from fixtures.unidecode_vectors import DIVERGENT_VECTORS, PARITY_VECTORS
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF, PORT = os.path.join(REPO, "k_llms_tpu"), os.path.join(REPO, "k_llms_tpu_torch")
+
+_FAILPOINT_LINE = '    _failpoints.fire("consensus.consolidate")\n'
+
+#: module -> documented (reference text, port text) edits, applied to the
+#: reference after the generic rewrites of ``_normalise``.
+EDITS = {
+    "consensus/consolidation.py": [
+        (
+            "            # Swap point (reference `consolidation.py:22`): key-based aligner\n"
+            "            # behind the same signature.\n"
+            "            from ..keyalign import recursive_align\n"
+            "\n"
+            "            aligned_seq, _ = recursive_align(\n"
+            "                contents,\n"
+            "                consensus_settings.string_similarity_method,\n"
+            "                consensus_settings.min_support_ratio,\n",
+            "            # The key-based aligner (the JAX package's keyalign/) is not\n"
+            "            # ported yet; only the default list aligner runs here.\n"
+            "            raise NotImplementedError(\n"
+            "                \"aligner='key' is not available in k_llms_tpu_torch yet\"\n",
+        ),
+        (_FAILPOINT_LINE, ""),
+        (_FAILPOINT_LINE, ""),
+    ],
+    "native/__init__.py": [
+        ("``make`` on demand", "the host C++ compiler on demand"),
+        (
+            '_LIB_PATH = os.path.join(_DIR, "libkllms_native.so")\n',
+            '_SOURCES = [os.path.join(_DIR, "levenshtein.cpp"), os.path.join(_DIR, "hungarian.cpp")]\n'
+            "# Built at first use into the package's ignored build directory, never\n"
+            "# beside the sources.\n"
+            '_BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")\n'
+            '_LIB_PATH = os.path.join(_BUILD_DIR, "libkllms_native.so")\n',
+        ),
+        (
+            '    """Compile the shared library in-place. Returns True on success."""\n',
+            '    """Compile the shared library into the build directory. Returns True on\n'
+            '    success."""\n',
+        ),
+        ("    try:\n", "    try:\n        os.makedirs(_BUILD_DIR, exist_ok=True)\n"
+                     '        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"\n'),
+        ('            ["make", "-C", _DIR],\n',
+         '            [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17",\n'
+         '             "-shared", "-o", tmp, *_SOURCES],\n'),
+        ("        return os.path.exists(_LIB_PATH)\n",
+         "        os.replace(tmp, _LIB_PATH)\n        return True\n"),
+    ],
+    "engine/json_constraint.py": [
+        ("run inside the jitted decode loop", "run inside the decode loop"),
+        ("carried through the\n``lax.while_loop``. Per step:", "carried through the\ndecode loop. Per step:"),
+        ("table lookup — no Python control flow in the\ncompiled program.",
+         "table lookup — no Python control flow and no\nhost sync in the per-step ops."),
+    ],
+    "engine/token_constraint.py": [
+        ("with a short\n  ``fori_loop`` (so the huge [S, V] next-state table never exists on device).",
+         "with a short\n  loop over byte columns (so the huge [S, V] next-state table never exists on\n"
+         "  device)."),
+    ],
+    "engine/grammar.py": [
+        ("  Cache stats surface as ``kllms_grammar_cache_*`` gauges on ``/metrics``.\n",
+         "  Cache stats surface through :func:`grammar_cache_stats`.\n"),
+        ("  compile errors and the ``engine.grammar`` failpoint degrade to ``None``\n"
+         "  (unconstrained decode + post-hoc validation).",
+         "  compile errors degrade to ``None`` (unconstrained decode + post-hoc\n"
+         "  validation); the port has no failpoint registry, so the JAX package's\n"
+         "  ``engine.grammar`` failpoint site is dropped."),
+        ("no host work per step.  The jitted\ncallers (`engine._get_decode_loop`, "
+         "`ContinuousDecodeLoop._grammar_programs`)\nkeep state advance in the step function; "
+         "kllms-check's host-sync-hot-path rule\npins ``grammar_mask_logits`` / "
+         "``grammar_advance`` sync-free.\n",
+         "no host work per step.  They are\ntorch ops on the tables' device that never read a "
+         "value back to the host, so\nthe engine's decode loop (``engine._decode``) masks and "
+         "advances every step\nwithout a sync.\n"),
+        ('        spec = _failpoints.fire("engine.grammar")\n'
+         '        if spec is not None and spec.action == "fallback":\n'
+         '            GRAMMAR_EVENTS.record("grammar.fallback_failpoint")\n'
+         "            return None\n", ""),
+        ("    compile error — or the ``engine.grammar`` failpoint — degrades to ``None``\n",
+         "    compile error degrades to ``None``\n"),
+    ],
+}
+
+#: The grammar-constraint modules: only the host half is a copy.
+DEVICE_MARKERS = {
+    "engine/json_constraint.py": "# --- device side",
+    "engine/schema_constraint.py": "# --- device side",
+    "engine/token_constraint.py": "# Device side",
+    "engine/grammar.py": "# Device side",
+}
+
+COPIED = sorted(
+    [f"consensus/{f}" for f in os.listdir(os.path.join(PORT, "consensus")) if f.endswith(".py")]
+    + [f"types/{f}" for f in os.listdir(os.path.join(PORT, "types")) if f.endswith(".py")]
+    + ["native/__init__.py", "native/levenshtein.cpp", "native/hungarian.cpp",
+       "reliability/deadline.py", "engine/tokenizer.py"]
+    + list(DEVICE_MARKERS)
+)
+
+
+def _drop_imports(text: str) -> str:
+    """Every import statement removed (multi-line ``from x import (...)`` too)."""
+    out, in_import = [], False
+    for line in text.splitlines(keepends=True):
+        stripped = line.strip()
+        if in_import:
+            in_import = not stripped.endswith(")")
+            continue
+        if re.match(r"(from \S+ import |import \S)", stripped):
+            in_import = stripped.endswith("(")
+            continue
+        out.append(line)
+    return "".join(out)
+
+
+def _normalise(ref: str) -> str:
+    """The rewrites every copy shares: reference-SDK doc paths without the
+    machine path, tracking tags such as ``(WORD 8)`` or ``(WORD r3 #3)``
+    dropped, the package's own name."""
+    ref = re.sub(r"/[\w./-]*?/(k_llms/)", r"\1", ref)
+    ref = re.sub(r"`/[\w./-]*?/README\.md", "`k-LLMs README.md", ref)
+    ref = re.sub(r" \([A-Z]{5,} (?:\d+(?: satellite)?|r\d+ #\d+)\)", "", ref)
+    return re.sub(r"\bk_llms_tpu(?=[./])", "k_llms_tpu_torch", ref)
+
+
+def _host_half(name: str, text: str) -> str:
+    marker = DEVICE_MARKERS.get(name)
+    return text if marker is None else text[: text.index(marker)]
+
+
+@pytest.mark.parametrize("name", COPIED)
+def test_copy_equals_reference_apart_from_imports_and_documented_edits(name):
+    with open(os.path.join(REF, name), encoding="utf-8") as f:
+        ref = _normalise(f.read())
+    with open(os.path.join(PORT, name), encoding="utf-8") as f:
+        port = f.read()
+    for old, new in EDITS.get(name, []):
+        assert old in ref, f"{name}: documented edit no longer matches the reference: {old!r}"
+        ref = ref.replace(old, new, 1)
+    ref, port = (_drop_imports(_host_half(name, t)) for t in (ref, port))
+    assert port == ref
+
+
+def test_every_copied_module_is_listed():
+    """A copied module added to the port joins the list above."""
+    listed = set(COPIED)
+    for sub in ("consensus", "types"):
+        for f in os.listdir(os.path.join(PORT, sub)):
+            if f.endswith(".py"):
+                assert f"{sub}/{f}" in listed
+
+
+# --- the JAX package's vectors through both copies ---------------------------
+
+@pytest.mark.parametrize("inp,expected", PARITY_VECTORS[::4] + [(v[0], v[2]) for v in DIVERGENT_VECTORS[:4]])
+def test_translit_vectors_equal(inp, expected):
+    from k_llms_tpu.consensus.translit import transliterate as jax_translit
+    from k_llms_tpu_torch.consensus.translit import transliterate
+
+    assert transliterate(inp) == jax_translit(inp) == expected
+
+
+def test_native_levenshtein_and_assignment_equal():
+    import random
+    import string
+
+    from k_llms_tpu import native as jnative
+    from k_llms_tpu_torch import native as tnative
+
+    assert tnative.native_available()
+    rng = random.Random(42)
+    alphabet = string.ascii_lowercase + "éß日本"
+    for _ in range(100):
+        a = "".join(rng.choices(alphabet, k=rng.randint(0, 30)))
+        b = "".join(rng.choices(alphabet, k=rng.randint(0, 30)))
+        d = jnative.levenshtein_distance(a, b)
+        assert tnative.levenshtein_distance(a, b) == d == tnative._levenshtein_py(a, b)
+    nrng = np.random.default_rng(7)
+    for _ in range(50):
+        c = nrng.random((nrng.integers(1, 10), nrng.integers(1, 10)))
+        r1, c1 = tnative.linear_sum_assignment(c)
+        r2, c2 = jnative.linear_sum_assignment(c)
+        np.testing.assert_array_equal(r1, r2)
+        np.testing.assert_array_equal(c1, c2)
+
+
+ALIGNMENT_CASES = [
+    [["apple", "banana"], ["apple", "banana"], ["apple", "banana"]],
+    [["apple pie", "banana bread"], ["banana bread", "apple pie"]],
+    [["alpha", "beta", "gamma"], ["alpha", "gamma"], ["beta", "alpha", "gamma"]],
+    [[], [], []],
+]
+
+
+@pytest.mark.parametrize("lists", ALIGNMENT_CASES)
+def test_alignment_vectors_equal(lists):
+    from k_llms_tpu.consensus.alignment import lists_alignment as jax_align
+    from k_llms_tpu.consensus.similarity import SimilarityScorer as JaxScorer
+    from k_llms_tpu_torch.consensus.alignment import lists_alignment
+    from k_llms_tpu_torch.consensus.similarity import SimilarityScorer
+
+    got = lists_alignment(lists, SimilarityScorer(method="levenshtein").generic,
+                          min_support_ratio=0.5)
+    ref = jax_align(lists, JaxScorer(method="levenshtein").generic, min_support_ratio=0.5)
+    assert got == ref
+
+
+@pytest.mark.parametrize("doc", ["invoice", "purchase_order", "profile"])
+def test_truth_docs_consolidation_equal(doc):
+    """Perturbed copies of a TRUTH_DOCS document consolidate to the same
+    consensus and likelihoods through both packages' host consensus."""
+    import copy
+    import json
+
+    from k_llms_tpu.consensus.recursion import consensus_dict as jax_consensus_dict
+    from k_llms_tpu.consensus.settings import ConsensusSettings as JaxSettings
+    from k_llms_tpu.consensus.similarity import SimilarityScorer as JaxScorer
+    from k_llms_tpu.utils.quality import TRUTH_DOCS
+    from k_llms_tpu_torch.consensus.recursion import consensus_dict
+    from k_llms_tpu_torch.consensus.settings import ConsensusSettings
+    from k_llms_tpu_torch.consensus.similarity import SimilarityScorer
+
+    truth = TRUTH_DOCS[doc]
+    samples = [copy.deepcopy(truth) for _ in range(4)]
+    first = next(iter(truth))
+    samples[1][first] = "changed" if isinstance(truth[first], str) else truth[first]
+    samples[3] = {k: v for k, v in list(truth.items())[:-1]}
+    got = consensus_dict(samples, ConsensusSettings(), SimilarityScorer(method="levenshtein"))
+    ref = jax_consensus_dict(samples, JaxSettings(), JaxScorer(method="levenshtein"))
+    assert json.dumps(got, sort_keys=True, default=str) == json.dumps(ref, sort_keys=True, default=str)

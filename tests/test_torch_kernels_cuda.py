@@ -452,3 +452,63 @@ def test_decode_prefix_tc_splits_match_plain(cuda_device, case):
     torch.cuda.synchronize()
     for c, g in zip(captured, got):
         assert torch.equal(c, g)
+
+
+# --- the draw kernel: a decode step's uniforms, JAX's threefry bits -----------
+
+def _draw_mutant_swapped(rnd, keys, step, n_per, V):
+    """The row folded in before the step."""
+    rows = torch.arange(n_per, dtype=torch.int64, device=keys.device)
+    row_first = rnd.fold_in(keys[:, None, :], rows[None, :])
+    return rnd.uniform_tiny(rnd.fold_in(row_first, step.to(torch.int64)).reshape(-1, 2), V)
+
+
+def _draw_mutant_rotation(rnd, keys, step, n_per, V, monkeypatch):
+    """One rotation constant off by one."""
+    with monkeypatch.context() as m:
+        m.setattr(rnd, "_ROTATIONS", ((13, 15, 26, 6), (17, 29, 16, 25)))
+        return rnd.threefry_uniform_plain(keys, step, n_per, V)
+
+
+@pytest.mark.parametrize("R,n_per", [(1, 8), (2, 8)])
+@pytest.mark.parametrize("V", [128256, 512])
+@pytest.mark.parametrize("step", [0, 1, 63])
+def test_threefry_uniform_kernel_bit_equal_plain(cuda_device, monkeypatch, R, n_per, V, step):
+    """The draw kernel at the smoke's shapes: bit-equal to the plain version,
+    one launch counted per call, and both mutants of the plain version
+    (a wrong rotation, the step and row folds swapped) break the equality."""
+    from k_llms_tpu_torch.ops import random as rnd
+
+    keys = rnd.request_keys([3000000000, 7][:R], cuda_device)
+    step_t = torch.tensor(step, dtype=torch.int32, device=cuda_device)
+    before = _ext.LAUNCH_COUNTS["threefry_uniform"]
+    got = rnd.threefry_uniform(keys, step_t, n_per, V)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["threefry_uniform"] == before + 1
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, rnd.threefry_uniform_plain(keys, step_t, n_per, V).view(torch.int32))
+    assert not torch.equal(bits, _draw_mutant_swapped(rnd, keys, step_t, n_per, V).view(torch.int32))
+    assert not torch.equal(
+        bits, _draw_mutant_rotation(rnd, keys, step_t, n_per, V, monkeypatch).view(torch.int32))
+
+
+def test_threefry_uniform_kernel_replays_in_a_cuda_graph(cuda_device):
+    """The step is read from the device, so one captured launch replays at
+    whatever step the buffer holds."""
+    from k_llms_tpu_torch.ops import random as rnd
+
+    keys = rnd.request_keys([11], cuda_device)
+    step_t = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    rnd.threefry_uniform(keys, step_t, 8, 4096)  # load the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        captured = rnd.threefry_uniform(keys, step_t, 8, 4096)
+    for step in (0, 5, 63):
+        step_t.fill_(step)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = rnd.threefry_uniform_plain(keys, step_t, 8, 4096)
+        assert torch.equal(captured.view(torch.int32), ref.view(torch.int32))

@@ -2,10 +2,10 @@
 package's ``sample_logits``; greedy tokens and logprobs equal; seeded draws
 are self-deterministic and independent of coalescing.
 
-JAX's random bits are not reproduced (torch draws from its own generators),
-so sampled tokens are held to self-determinism only. The JAX keep-set is read
-by replacing ``jax.random.categorical`` with a function that returns each
-row's kept-token bitmask.
+The seeded draws themselves (JAX's threefry bits, and sampled tokens equal
+to the JAX engine's) are held in ``tests/test_torch_random.py``. The JAX
+keep-set is read by replacing ``jax.random.categorical`` with a function
+that returns each row's kept-token bitmask.
 """
 
 import jax
