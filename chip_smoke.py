@@ -9,8 +9,16 @@ decode-prefix kernel, and an int4-eligible small config), then serves
 Llama-3-8B at full published width (seeded random weights, the byte
 tokenizer) through ``KLLMs(backend="cuda").chat.completions.create`` twice:
 bf16 weights on the paged path (``8b``: K2, K1), and int4 weights on the
-dense path with flash decode (``8b_int4``: K2, K3, K4). Every kernel launch
-counter is reset just before each of those two paths and read just after.
+dense path with flash decode (``8b_int4``: K2, K3, K4). Between the two,
+``ckpt`` writes the ``8b`` phase's seeded tree to disk as an HF Llama
+checkpoint (sharded safetensors, ``config.json``; about 16 GB under
+``_smoke_tmp/`` of the checkout, removed at the end of the phase), loads it
+back through ``KLLMs(model=<dir>, checkpoint_path=<dir>)`` in bf16 on the
+paged path (the same tokens and logprobs as ``8b``) and quantized to int4 at
+load on the dense flash path, and on both clients drives the prompt-prefix
+cache through a miss, a partial hit (K2 in its ``q_offset`` mode inside the
+model) and an exact hit (no prefill). Every kernel launch counter is reset
+just before each of those paths and read just after.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -45,7 +53,7 @@ from typing import Literal
 
 from pydantic import BaseModel, Field
 
-PHASES = ("build", "draws", "k2", "k1", "k4", "k3", "tiny", "8b", "8b_int4")
+PHASES = ("build", "draws", "k2", "k1", "k4", "k3", "tiny", "8b", "ckpt", "8b_int4")
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
 # (needs "8b" or "8b_int4").
 EXTRA_PHASES = ("profile",)
@@ -68,6 +76,20 @@ JAX_DRAWS = {
                          [0x3F18B78A, 0x3E661A78, 0x3EE77FF4, 0x3F7168FC]),
     (3000000000, 5, 3): ([1396230939, 1990630791],
                          [0x3EBDA3B4, 0x3B3E1400, 0x3F2DDCFE, 0x3C340180]),
+}
+
+# Llama-3-8B's published config.json (its architecture values), with the
+# special-token ids of the byte tokenizer the smoke serves the checkpoint
+# with: the published ids (bos 128000, eos 128001) name Llama-3's BPE
+# tokenizer, which the smoke does not load.
+LLAMA3_8B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
+    "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 8192, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 32, "num_key_value_heads": 8,
+    "pretraining_tp": 1, "rms_norm_eps": 1e-05, "rope_scaling": None, "rope_theta": 500000.0,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 128256, "bos_token_id": 256, "eos_token_id": 257, "pad_token_id": 258,
 }
 
 # Bytes a device-time rotation spans at least: 2.5 times the H100's 50 MB L2,
@@ -121,7 +143,10 @@ def main(argv=None) -> int:
     unknown = sorted(set(phases) - set(PHASES) - set(EXTRA_PHASES))
     if unknown:
         raise SystemExit(f"unknown phases {unknown}; known {PHASES}")
+    if "ckpt" in phases and "8b" not in phases:
+        raise SystemExit("the ckpt phase serves the 8b phase's tree: add 8b")
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -349,6 +374,14 @@ def main(argv=None) -> int:
             ref = ref.float()
             return ((out.float() - ref).abs() / (rtol * ref.abs() + atol)).max().item()
 
+        def masked_attention(q, k, v, keep):
+            """f32 attention of q over k, v under a [B, 1, Sq, Sk] mask (every
+            row keeps at least one key): the mutants' reference."""
+            G = q.shape[1] // k.shape[1]
+            sc = q.float() @ k.float().repeat_interleave(G, dim=1).transpose(2, 3)
+            sc = torch.where(keep, sc / math.sqrt(q.shape[-1]), torch.full_like(sc, att.NEG_INF))
+            return torch.softmax(sc, dim=-1) @ v.float().repeat_interleave(G, dim=1)
+
         def k2_case(name, B, QH, KVH, Sq, Sk, D, dtype, *, key_lengths=None,
                     q_offset=None, window=None, softcap=None, timed=False):
             q = randn(B, QH, Sq, D, dtype=dtype)
@@ -368,6 +401,9 @@ def main(argv=None) -> int:
                    "key_lengths": key_lengths, "max_abs_err": err,
                    "mean_abs_ref": ref.float().abs().mean().item(),
                    "limit": f"{rtol:g}*|ref| + {atol:g}", "max_err_over_limit": ratio, "ok": ok}
+            qo = q_offset or 0
+            valid = att._flash_valid(B, Sq, Sk, torch.full((B,), Sk, device=dev) if kl is None else kl,
+                                     True, att.NO_WINDOW if window is None else window, qo, dev)
             if timed:
                 rec["ms"] = time_ms(lambda: att.flash_attention(q, k, v, **kw))
                 rec["plain_ms"] = time_ms(lambda: att.flash_attention_plain(q, k, v, **kw), iters=5)
@@ -376,30 +412,49 @@ def main(argv=None) -> int:
                 G = QH // KVH
                 k_rep = k.repeat_interleave(G, dim=1)
                 v_rep = v.repeat_interleave(G, dim=1)
-                if key_lengths is None or min(key_lengths) == Sk:
+                if (key_lengths is None or min(key_lengths) == Sk) and qo == 0 and Sq == Sk:
                     lib_kw = dict(is_causal=True)
-                else:  # causal and key lengths as one boolean mask [B, 1, Sq, Sk]
-                    lib_kw = dict(attn_mask=att._flash_valid(
-                        B, Sq, Sk, kl, True, att.NO_WINDOW, 0, dev))
-                rec["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k_rep, v_rep, **lib_kw))
+                else:  # causal, q_offset and key lengths as one boolean mask [B, 1, Sq, Sk]
+                    lib_kw = dict(attn_mask=valid)
+
+                def sdpa(q_, k_, v_):
+                    return torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, **lib_kw)
+
+                rec["library_ms"] = time_ms(lambda: sdpa(q, k_rep, v_rep))
+                # Device time, cold: each call on its own q, k, v (and, for
+                # SDPA, its own expanded k, v), a rotation past the L2.
+                n_copies = copies_for((q.numel() + k.numel() + v.numel()) * q.element_size())
+                sets = [(q, k, v)] + [(randn(*q.shape, dtype=dtype), randn(*k.shape, dtype=dtype),
+                                       randn(*v.shape, dtype=dtype)) for _ in range(n_copies - 1)]
+                rec["device_ms"] = device_ms(
+                    [lambda s_=s_: att.flash_attention(*s_, **kw) for s_ in sets])
+                rec["rotation"] = n_copies
+                expanded = [(q_, k_.repeat_interleave(G, dim=1), v_.repeat_interleave(G, dim=1))
+                            for q_, k_, v_ in sets]
+                rec["library_device_ms"] = device_ms(
+                    [lambda e_=e_: sdpa(*e_) for e_ in expanded])
+                del sets, expanded
                 # What these inputs need: the valid (row, key) pairs, and K/V
                 # up to each key length read once.
                 lens = [Sk] * B if key_lengths is None else key_lengths
-                pairs = QH * sum(sum(min(r + 1, n) for r in range(Sq)) for n in lens)
+                pairs = QH * sum(sum(min(r + qo + 1, n) for r in range(Sq)) for n in lens)
                 flops = 4.0 * D * pairs
                 nbytes = (q.numel() + out.numel() + 2 * KVH * D * sum(lens)) * q.element_size()
                 rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+                rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
             # The limit must catch a kernel that is wrong by one key or one
             # tile: each such variant of the plain version has to break it.
             mutants = {}
-            if timed:
-                keep = torch.arange(Sk, device=dev)[None, :] < (
-                    Sk if kl is None else kl.long()[:, None])
-                keep[:, Sk // 2: Sk // 2 + 32] = False
+            if timed or qo:
                 mutants["causal_edge_one_key_late"] = att.flash_attention_plain(
-                    q, k, v, **dict(kw, q_offset=1))
-                mutants["key_tile_dropped"] = att.attention_xla(q, k, v, key_mask=keep).to(dtype)
+                    q, k, v, **dict(kw, q_offset=qo + 1))
+            if timed or qo >= 64:
+                # A block of 32 keys dropped: inside the cached prefix when
+                # there is one, else mid-sequence.
+                keep = valid.clone()
+                lo = qo // 2 if qo else Sk // 2
+                keep[..., lo: lo + 32] = False
+                mutants["key_tile_dropped"] = masked_attention(q, k, v, keep).to(dtype)
             if window is not None:
                 mutants["window_edge_one_key_wider"] = att.flash_attention_plain(
                     q, k, v, **dict(kw, window=window + 1))
@@ -428,6 +483,19 @@ def main(argv=None) -> int:
                             key_lengths=[S], q_offset=S - 500)[1])
         errs.append(k2_case("q_offset_1000", 1, 32, 8, 1000, S, 128, torch.bfloat16,
                             key_lengths=[S], q_offset=S - 1000)[1])
+        # A prefix-cache continuation inside the model: a suffix bucket of
+        # 32-128 rows (fewer than one 128-row query tile) at q_offset p over
+        # the 2048-key continuation bucket, key length p plus the suffix's
+        # valid rows, p a multiple of the tile or not. The timed case is the
+        # ckpt phase's partial hit (its suffix bucket of 128 rows at p =
+        # 1400, 1490 keys).
+        cont_rec, e_c = k2_case("continuation_sq128_p1400", 1, 32, 8, 128, 2048, 128,
+                                torch.bfloat16, key_lengths=[1490], q_offset=1400, timed=True)
+        errs.append(e_c)
+        for sq in (32, 64, 128):
+            for p0 in (1408, 1401):
+                errs.append(k2_case(f"continuation_sq{sq}_p{p0}", 1, 32, 8, sq, 2048, 128,
+                                    torch.bfloat16, key_lengths=[p0 + sq - 7], q_offset=p0)[1])
         errs.append(k2_case("window", 1, 32, 8, S, S, 128, torch.bfloat16,
                             key_lengths=[S], window=256)[1])
         errs.append(k2_case("softcap", 1, 32, 8, S, S, 128, torch.bfloat16,
@@ -455,9 +523,15 @@ def main(argv=None) -> int:
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"], "impl": main_rec["impl"],
+            "device_ms": main_rec["device_ms"], "library_device_ms": main_rec["library_device_ms"],
+            "device_over_bound": main_rec["device_over_bound"],
             "timed_case": main_rec["case"],
             "bucket_case": {k: bucket_rec[k] for k in
-                            ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                            ("case", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                             "library_ms", "library_device_ms", "device_over_bound")},
+            "continuation_case": {k: cont_rec[k] for k in
+                                  ("case", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_device_ms", "device_over_bound")},
         }
 
     # 5. K1 paged decode against its plain version
@@ -1066,12 +1140,13 @@ def main(argv=None) -> int:
         """Warm up, then the three create requests and the parse request
         with every launch count reset just before and read just after.
         Returns (counts, engine launches [(requests, rows per request, decode
-        steps, temperature)], embeddings forwards)."""
+        steps, temperature)], embeddings forwards, each launch's (tokens,
+        logprobs) per request)."""
         engine = client.backend.engine
         client.chat.completions.create(messages=[{"role": "user", "content": "warm up"}],
                                        n=2, max_tokens=4, temperature=0.0, seed=0,
                                        logit_bias=printable)
-        launches, embed_batches = [], []
+        launches, embed_batches, outputs = [], [], []
         generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
 
         constrained = []
@@ -1080,6 +1155,7 @@ def main(argv=None) -> int:
             out = generate_many(items, **kw)
             st = engine.last_launch_stats
             launches.append((len(items), st["n_per"], st["decode_steps"], kw["temperature"]))
+            outputs.append([(r.tokens.copy(), r.logprobs.copy()) for r in out])
             if kw.get("constraint") is not None:
                 constrained.append((kw["constraint"], out[0], dict(st)))
             return out
@@ -1153,7 +1229,35 @@ def main(argv=None) -> int:
              "embeddings_forwards": len(embed_batches),
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
              "allocated_before_requests_bytes": allocated_before})
-        return counts, launches, embed_batches
+        return counts, launches, embed_batches, outputs
+
+    def expected_bf16_paged(launches, embeds, L):
+        """The paged bf16 path's launch counts: K2 once a layer per prefill
+        and per embeddings forward, K1 once a layer per decode step, a draw
+        per sampled step."""
+        steps = sum(s for _, _, s, _ in launches)
+        prefills = sum(r for r, _, _, _ in launches)
+        return {"flash_attention": L * (prefills + len(embeds)),
+                "paged_decode_attention": L * steps,
+                "decode_prefix_attention": 0, "w4_matmul": 0,
+                "threefry_uniform": sampled_draws(launches)}
+
+    def expected_int4_dense(launches, embeds, L, G):
+        """The int4 dense flash path's launch counts: K2 as on the paged
+        path; K3 where its gate holds (at least 8 query rows per request and
+        kv head, n * G >= 8); seven block matmuls a layer, plus lm_head for
+        each prefill's last token and each decode step (the embeddings
+        forward skips lm_head); a draw per sampled step."""
+        steps = sum(s for _, _, s, _ in launches)
+        prefills = sum(r for r, _, _, _ in launches)
+        gated_steps = sum(s for _, n_per, s, _ in launches if n_per * G >= 8)
+        return {
+            "flash_attention": L * (prefills + len(embeds)),
+            "paged_decode_attention": 0,
+            "decode_prefix_attention": L * gated_steps,
+            "w4_matmul": (7 * L + 1) * (prefills + steps) + 7 * L * len(embeds),
+            "threefry_uniform": sampled_draws(launches),
+        }
 
     def sampled_draws(launches):
         """Draw-kernel launches of sampled engine launches: one for the
@@ -1261,6 +1365,363 @@ def main(argv=None) -> int:
 
     from k_llms_tpu_torch import KLLMs
 
+    # The prefix-cache sequence of the ckpt phase: a 1490-token prompt A
+    # (another document than request 2's, so it is not cached by then), B =
+    # A's first 1400 tokens and a 90-token tail of its own (the 8 header
+    # tokens of the chat template, 1392 characters of A's text, 77 of the
+    # tail, 13 footer tokens), then A again. Greedy answers of at most 16
+    # bytes take no embeddings forward, so every K2 launch of a request is
+    # its prefill's.
+    doc = ("Purchase order PO-88231 from Borealis Oy, Turku. Items: 40 valves at 12.10 EUR, "
+           "6 pumps at 310.00 EUR, freight 45.50 EUR. ") * 14
+    content_a = doc[:1450] + "\nWhat is the total?"
+    tail = ("\nWhich items were shipped to which address, and by which carrier? Answer in a line.")
+    content_b = content_a[:1392] + tail[:77]
+    cache_requests = [("miss", content_a), ("partial_hit", content_b), ("exact_hit", content_a)]
+
+    def cache_sequence(label, client):
+        """A (miss), B (partial hit through prefill_continue: K2 in its
+        q_offset mode inside the model), A again (exact hit: no prefill).
+        Asserts the cache's counts and each request's K2 launches exactly,
+        and B's continuation (the suffix KV rows it wrote, layer by layer,
+        and its first-token logits) against B's full prefill on the same
+        engine."""
+        engine, tok = client.backend.engine, client.backend.tokenizer
+        L = engine.config.num_layers
+        ids = {name: tok.apply_chat_template([{"role": "user", "content": c}],
+                                             add_generation_prompt=True)
+               for name, c in cache_requests}
+        p = next(i for i, (x, y) in enumerate(zip(ids["miss"], ids["partial_hit"])) if x != y)
+        if (len(ids["miss"]), len(ids["partial_hit"]), p) != (1490, 1490, 1400):
+            raise AssertionError(f"{label} cache prompts: lengths {len(ids['miss'])}, "
+                                 f"{len(ids['partial_hit'])}, common prefix {p}")
+        recs = []
+        for name, content in cache_requests:
+            before = dict(engine.prefix_cache_stats)
+            _ext.reset_launch_counts()
+            t0 = time.perf_counter()
+            resp = client.chat.completions.create(
+                messages=[{"role": "user", "content": content}], n=8, temperature=0.0,
+                max_tokens=16, seed=5, logit_bias=printable)
+            wall = time.perf_counter() - t0
+            st = dict(engine.last_launch_stats)
+            stats = {k: engine.prefix_cache_stats[k] - before[k] for k in before}
+            counts = dict(_ext.LAUNCH_COUNTS)
+            recs.append({"request": name, "prompt_tokens": resp.usage.prompt_tokens,
+                         "prefill_ms": st["prefill_s"] * 1e3, "kv_layout": st["kv_layout"],
+                         "wall_s": wall, "cache_stats_delta": stats, "launches": counts})
+            want = {"misses": int(name == "miss"), "partial_hits": int(name == "partial_hit"),
+                    "hits": int(name == "exact_hit")}
+            want_k2 = 0 if name == "exact_hit" else L
+            if stats != want or counts["flash_attention"] != want_k2 or len(resp.choices) != 9:
+                raise AssertionError(f"{label} {name}: cache {stats} (want {want}), K2 "
+                                     f"{counts['flash_attention']} (want {want_k2}): {recs[-1]}")
+        # B's continuation against B's full prefill on this engine: the
+        # suffix KV rows [p, 1490) that it wrote, layer by layer, and its
+        # first-token logits, each as a relative L2 difference. The two run
+        # B's 90 suffix rows through matmuls of other shapes (128 rows
+        # against 2048), so their bf16 roundings differ: layer l's K and V
+        # rows carry the 2l rounded sublayer outputs of the residual
+        # stream below them and their own rounding, the logits all 64 and
+        # theirs. Each rounding is an independent relative error of at
+        # most 2**-9, so n of them add in quadrature to at most
+        # sqrt(n) * 2**-9 (the logits read 0.0144 against sqrt(65) *
+        # 2**-9 = 0.0157); the limit is 4 times that. A suffix at the
+        # wrong positions turns every K row through RoPE (a one-position
+        # shift moves Llama-3's K rows by ~0.2), and a wrong prefix or
+        # another prompt moves K and V past layer 0, so three mutants,
+        # each read on the same rows, must exceed the limit at some layer:
+        # the continuation one prefix key short (every suffix position
+        # one early), one whose cached prefix is zeroed, and A's rows
+        # (another prompt's suffix).
+        from k_llms_tpu_torch.models.llama import KVCache, prefill_continue
+
+        total = len(ids["partial_hit"])
+        suffix = ids["partial_hit"][p:]
+        entry = engine._prefix_entries[tuple(ids["partial_hit"])]
+        cont, cont_kv = entry[0].float(), engine._entry_prefix_kv(entry)
+        full, full_kv = engine._prefill_full(*engine._prep_prompt(ids["partial_hit"]))
+        full = full.float()
+
+        def limit(n):
+            return 4 * math.sqrt(n) * 2.0 ** -9
+
+        @torch.inference_mode()
+        def continued(q_off, lose_prefix=False):
+            kv = engine._entry_prefix_kv(engine._prefix_entries[tuple(ids["miss"])])
+            pad = (0, 0, 0, 0, 0, 2048 - q_off)
+            seed = KVCache(k=torch.nn.functional.pad(kv.k[:, :, :q_off], pad),
+                           v=torch.nn.functional.pad(kv.v[:, :, :q_off], pad))
+            if lose_prefix:
+                seed.k.zero_()
+                seed.v.zero_()
+            tokens = torch.tensor([suffix + [engine.config.pad_token_id] * (128 - len(suffix))],
+                                  device=dev)
+            logits, kv = prefill_continue(engine.config, engine.params, tokens, seed, q_off,
+                                          q_off + len(suffix))
+            return logits.float(), kv
+
+        def rel_l2(x, ref):
+            x, ref = x.float(), ref.float()
+            return ((x - ref).norm() / ref.norm()).item()
+
+        def kv_rows(kv, start):
+            """Per layer, the rel L2 of K and V rows [start, start + 90)
+            against the full prefill's rows [p, total), and the largest
+            ratio of a reading to its layer's limit."""
+            n = len(suffix)
+            k = [rel_l2(kv.k[i, :, start:start + n], full_kv.k[i, :, p:total]) for i in range(L)]
+            v = [rel_l2(kv.v[i, :, start:start + n], full_kv.v[i, :, p:total]) for i in range(L)]
+            worst = max(max(k[i], v[i]) / limit(2 * i + 1) for i in range(L))
+            return {"k": k, "v": v, "max_over_limit": worst}
+
+        sound = kv_rows(cont_kv, p)
+        recomputed, _ = continued(p)
+        one_short_logits, one_short_kv = continued(p - 1)
+        lost_logits, lost_kv = continued(p, lose_prefix=True)
+        other_kv = engine._entry_prefix_kv(engine._prefix_entries[tuple(ids["miss"])])
+        mutants = {"one_prefix_key_short": kv_rows(one_short_kv, p - 1),
+                   "prefix_lost": kv_rows(lost_kv, p),
+                   "another_prompt": kv_rows(other_kv, p)}
+        del one_short_kv, lost_kv, other_kv
+        mutant_logits = {"one_prefix_key_short": rel_l2(one_short_logits, full),
+                         "prefix_lost": rel_l2(lost_logits, full)}
+        rel, logits_limit = rel_l2(cont, full), limit(2 * L + 1)
+        argmax_equal = bool((cont.argmax(-1) == full.argmax(-1)).all())
+        stored_equal = bool(torch.equal(recomputed, cont))
+        log({"phase": f"{label}_prefix_cache", "common_prefix_tokens": p,
+             "suffix_tokens": len(suffix), "suffix_bucket": 128, "requests": recs,
+             "kv_limit_by_layer": [limit(2 * i + 1) for i in range(L)],
+             "kv_rows_rel_l2": sound,
+             "kv_rows_mutant_max_over_limit": {k: m["max_over_limit"] for k, m in mutants.items()},
+             "kv_rows_mutant_rel_l2": mutants,
+             "continuation_vs_full_prefill_rel_l2": rel, "logits_limit_rel_l2": logits_limit,
+             "continuation_vs_full_prefill_max_abs": (cont - full).abs().max().item(),
+             "logits_mutant_rel_l2": mutant_logits,
+             "recomputed_continuation_equals_stored": stored_equal,
+             "argmax_equal": argmax_equal,
+             "prefix_cache_stats": dict(engine.prefix_cache_stats)})
+        if not (torch.isfinite(cont).all() and rel <= logits_limit and argmax_equal
+                and stored_equal and sound["max_over_limit"] <= 1.0):
+            raise AssertionError(f"{label}: continuation off: KV rows at {sound['max_over_limit']} "
+                                 f"of the limit, logits {rel} (limit {logits_limit}), argmax "
+                                 f"equal {argmax_equal}, recomputed equal {stored_equal}")
+        missed = [k for k, m in mutants.items() if m["max_over_limit"] <= 1.0]
+        if missed:
+            raise AssertionError(f"{label}: the KV-row limit misses the mutants {missed}")
+        return recs
+
+    def host_memory(key):
+        """A /proc/self/status entry in bytes (VmRSS: resident now; VmHWM:
+        its peak), or None where the kernel does not report it."""
+        with open("/proc/self/status") as f:
+            return next((int(line.split()[1]) * 1024 for line in f
+                         if line.startswith(key + ":")), None)
+
+    def reset_host_peak():
+        """Set VmHWM, this process's peak resident memory, back to VmRSS.
+        Returns since when ``host_peak`` then reads: "load" (called just
+        before one), or where the kernel reports no VmHWM or refuses the
+        reset, "process start"."""
+        if host_memory("VmHWM") is None:
+            return "process start"
+        try:
+            with open("/proc/self/clear_refs", "w") as f:
+                f.write("5")
+        except OSError:
+            return "process start"
+        return "load"
+
+    def host_peak():
+        """VmHWM in bytes, or where the kernel reports none, getrusage's
+        lifetime peak."""
+        import resource
+
+        peak = host_memory("VmHWM")
+        return peak if peak is not None else resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    def export_hf_llama(params, config, directory, shard_bytes=5 * 10 ** 9):
+        """Write a bf16 Llama tree as an HF checkpoint directory (the test
+        fixture of the ckpt phase; the package has no exporter, as the JAX
+        package has none): ``model-0000k-of-0000m.safetensors`` shards of at
+        most ``shard_bytes`` under HF names in [out, in] layout, with
+        ``model.safetensors.index.json`` and ``config.json``. Returns the
+        bytes written."""
+        from k_llms_tpu_torch.models.safetensors_io import save_file
+
+        layers = params["layers"]
+        entries = [("model.embed_tokens.weight", params["embed"])]
+        for i in range(config.num_layers):
+            pre = f"model.layers.{i}."
+            entries.append((pre + "input_layernorm.weight", layers["attn_norm"][i]))
+            for ours, hf in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                             ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")):
+                entries.append((pre + hf + ".weight", layers[ours][i].t()))
+            entries.append((pre + "post_attention_layernorm.weight", layers["mlp_norm"][i]))
+            for ours, hf in (("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                             ("w_down", "mlp.down_proj")):
+                entries.append((pre + hf + ".weight", layers[ours][i].t()))
+        entries += [("model.norm.weight", params["final_norm"]),
+                    ("lm_head.weight", params["lm_head"].t())]
+        shards, size = [[]], 0
+        for key, t in entries:
+            nbytes = t.numel() * t.element_size()
+            if shards[-1] and size + nbytes > shard_bytes:
+                shards.append([])
+                size = 0
+            shards[-1].append((key, t))
+            size += nbytes
+        weight_map, written, total = {}, 0, 0
+        for k, shard in enumerate(shards, 1):
+            name = f"model-{k:05d}-of-{len(shards):05d}.safetensors"
+            written += save_file(dict(shard), os.path.join(directory, name),
+                                 metadata={"format": "pt"})
+            for key, t in shard:
+                weight_map[key] = name
+                total += t.numel() * t.element_size()
+        with open(os.path.join(directory, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(LLAMA3_8B_CONFIG, f, indent=2)
+        return written, len(shards)
+
+    def load_client(label, directory, **kw):
+        """KLLMs on the checkpoint directory, with the load's phases timed
+        (file to device; the finite scan and checksum), its peak device
+        memory and the host's peak resident memory."""
+        from k_llms_tpu_torch.models import loader
+
+        timings = {}
+
+        def timed(name, fn):
+            """``fn`` timed, with the process's VmRSS when it ends."""
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    timings[name + "_s"] = time.perf_counter() - t0
+                    timings[name + "_end_vmrss_bytes"] = host_memory("VmRSS")
+            return run
+
+        load_sf, verify = loader.load_safetensors, loader.verify_param_integrity
+        loader.load_safetensors = timed("read_to_device", load_sf)
+        loader.verify_param_integrity = timed("verify", verify)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rss_on_entry, peak_since = host_memory("VmRSS"), reset_host_peak()
+        try:
+            t0 = time.perf_counter()
+            client = KLLMs(backend="cuda", model=directory, checkpoint_path=directory,
+                           attention_impl="flash", prefix_cache_size=4, **kw)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+        finally:
+            loader.load_safetensors, loader.verify_param_integrity = load_sf, verify
+        engine = client.backend.engine
+        file_bytes = sum(os.path.getsize(os.path.join(directory, f))
+                         for f in os.listdir(directory) if f.endswith(".safetensors"))
+        rec = {"phase": f"{label}_load", "init_s": init_s, **timings,
+               "read_GB_per_s": file_bytes / timings["read_to_device_s"] / 1e9,
+               "checkpoint_bytes": file_bytes, "param_bytes": engine.param_footprint_bytes(),
+               "device_peak_during_load_bytes": torch.cuda.max_memory_allocated() - base,
+               "host_rss_bytes_on_entry": rss_on_entry, "host_rss_peak_bytes": host_peak(),
+               "host_peak_since": peak_since,
+               "quantized": engine.quantized, "kv_layout": engine.kv_layout,
+               "param_summary": client.backend.param_summary}
+        return client, rec
+
+    def ckpt_phase(seeded):
+        import shutil
+        import tempfile
+
+        from k_llms_tpu_torch.models import loader
+        from k_llms_tpu_torch.models.quant import quantize_params
+
+        engine = seeded["client"].backend.engine
+        cfg = engine.config
+        L, G = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
+        t0 = time.perf_counter()
+        seeded_summary = loader.param_summary(engine.params)
+        summary_s = time.perf_counter() - t0
+        seeded_q4_summary = loader.param_summary(quantize_params(engine.params, bits=4))
+        torch.cuda.empty_cache()
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_tmp")
+        os.makedirs(root, exist_ok=True)
+        directory = tempfile.mkdtemp(prefix="llama-3-8b-hf-", dir=root)
+        try:
+            need = engine.param_footprint_bytes() + (1 << 30)
+            free = shutil.disk_usage(directory).free
+            log({"phase": "ckpt_disk", "directory": directory, "free_bytes": free,
+                 "needed_bytes": need, "seeded_summary": seeded_summary,
+                 "seeded_summary_s": summary_s, "seeded_int4_summary": seeded_q4_summary})
+            if free < need:
+                raise AssertionError(f"ckpt: {free} bytes free under {root}, {need} needed")
+            t0 = time.perf_counter()
+            written, n_shards = export_hf_llama(engine.params, cfg, directory)
+            export_s = time.perf_counter() - t0
+            log({"phase": "ckpt_export", "bytes_written": written, "shards": n_shards,
+                 "seconds": export_s, "GB_per_s": written / export_s / 1e9,
+                 "files": sorted(os.listdir(directory))})
+            del engine
+            seeded.pop("client")
+            gc.collect()
+            torch.cuda.empty_cache()
+            from k_llms_tpu_torch.models.loader import config_from_hf
+
+            loaded_cfg = config_from_hf(directory)
+            if loaded_cfg.with_(name=cfg.name, attention_impl=cfg.attention_impl) != cfg:
+                raise AssertionError(f"config.json gives {loaded_cfg}, not {cfg}")
+
+            # bf16, paged: the same tokens and logprobs as the seeded tree.
+            client, rec = load_client("ckpt_bf16", directory)
+            log(rec)
+            if client.backend.param_summary != seeded_summary:
+                raise AssertionError(f"loaded summary {client.backend.param_summary} != "
+                                     f"seeded {seeded_summary}")
+            counts, launches, embeds, outputs = serve_8b("ckpt_bf16", client)
+            expected = expected_bf16_paged(launches, embeds, L)
+            same = [[bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+                     for a, b in zip(x, y)] for x, y in zip(outputs, seeded["outputs"])]
+            log({"phase": "ckpt_bf16_vs_8b", "launches_equal": launches == seeded["launches"],
+                 "tokens_and_logprobs_equal": same, "counts": counts, "expected": expected,
+                 "prefix_cache_stats": dict(client.backend.engine.prefix_cache_stats)})
+            if launches != seeded["launches"] or not all(all(x) for x in same):
+                raise AssertionError("ckpt_bf16: the loaded checkpoint's outputs differ from the "
+                                     "seeded tree's")
+            if counts != expected or counts != seeded["counts"]:
+                raise AssertionError(f"ckpt_bf16 launch counts {counts} != expected {expected}")
+            cache_sequence("ckpt_bf16", client)
+            del client
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # int4 weights quantized at load, dense layout, flash decode.
+            client, rec = load_client("ckpt_int4", directory, quantization="int4",
+                                      paged_kv=False, decode_attention_impl="flash")
+            t0 = time.perf_counter()
+            rec["int4_summary"] = loader.param_summary(client.backend.engine.params)
+            rec["int4_summary_s"] = time.perf_counter() - t0
+            log(rec)
+            if client.backend.param_summary != seeded_summary:
+                raise AssertionError("ckpt_int4: the loaded bf16 tree differs from the seeded one")
+            if rec["int4_summary"] != seeded_q4_summary:
+                raise AssertionError(f"ckpt_int4: quantized at load {rec['int4_summary']} != "
+                                     f"quantize_params of the seeded tree {seeded_q4_summary}")
+            counts, launches, embeds, _ = serve_8b("ckpt_int4", client)
+            expected = expected_int4_dense(launches, embeds, L, G)
+            log({"phase": "ckpt_int4_expected_launches", "expected": expected, "counts": counts,
+                 "prefix_cache_stats": dict(client.backend.engine.prefix_cache_stats)})
+            if not embeds or expected["decode_prefix_attention"] == 0 or counts != expected:
+                raise AssertionError(f"ckpt_int4 launch counts {counts} != expected {expected}")
+            cache_sequence("ckpt_int4", client)
+            del client
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+            log({"phase": "ckpt_cleanup", "directory_removed": not os.path.exists(directory)})
+
     # 9a. bf16 weights, paged decode: K2 and K1.
     if "8b" in phases:
         t0 = time.perf_counter()
@@ -1271,24 +1732,32 @@ def main(argv=None) -> int:
              "param_bytes": engine.param_footprint_bytes(),
              "paged_attention_impl": engine.paged_attention_impl,
              "attention_impl": engine.config.attention_impl})
-        counts, launches, embeds = serve_8b("8b", client)
+        counts, launches, embeds, outputs = serve_8b("8b", client)
         L = engine.config.num_layers
         for name in ("flash_attention", "paged_decode_attention", "threefry_uniform"):
             if name in kernels:
                 kernels[name]["launches"] = counts[name]
-        steps = sum(s for _, _, s, _ in launches)
-        prefills = sum(r for r, _, _, _ in launches)
-        expected = {"flash_attention": L * (prefills + len(embeds)),
-                    "paged_decode_attention": L * steps,
-                    "decode_prefix_attention": 0, "w4_matmul": 0,
-                    "threefry_uniform": sampled_draws(launches)}
+        expected = expected_bf16_paged(launches, embeds, L)
         if not embeds or counts != expected:
             raise AssertionError(f"8b launch counts {counts} != expected {expected}")
         if "profile" in phases:
             for index in (0, 2):  # a short and the long prompt
                 profile_one("8b", client, index)
             profile_masked("8b", client)
+        if "ckpt" in phases:
+            # 9c serves this tree again from a checkpoint on disk.
+            seeded = {"client": client, "launches": launches, "embeds": embeds,
+                      "outputs": outputs, "counts": counts}
         del client, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 9c. The seeded 8B tree as a checkpoint: exported to disk as an HF
+    # Llama directory, loaded back (bf16, then int4), served, and the
+    # prefix cache's miss, partial hit and exact hit on both clients.
+    if "ckpt" in phases:
+        ckpt_phase(seeded)
+        del seeded
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1305,7 +1774,7 @@ def main(argv=None) -> int:
              "kv_layout": engine.kv_layout,
              "decode_attention_impl": engine.config.decode_attention_impl,
              "attention_impl": engine.config.attention_impl})
-        counts, launches, embeds = serve_8b("8b_int4", client)
+        counts, launches, embeds, _ = serve_8b("8b_int4", client)
         cfg8 = engine.config
         L = cfg8.num_layers
         G = cfg8.num_heads // cfg8.num_kv_heads
@@ -1314,23 +1783,9 @@ def main(argv=None) -> int:
                 kernels[name]["launches"] = counts[name]
         if "threefry_uniform" in kernels and kernels["threefry_uniform"]["launches"] is None:
             kernels["threefry_uniform"]["launches"] = counts["threefry_uniform"]
-        steps = sum(s for _, _, s, _ in launches)
-        prefills = sum(r for r, _, _, _ in launches)
-        # K3 runs where the gate holds: at least 8 query rows per request
-        # and kv head (n * G >= 8).
-        gated_steps = sum(s for _, n_per, s, _ in launches if n_per * G >= 8)
-        expected = {
-            "flash_attention": L * (prefills + len(embeds)),
-            "paged_decode_attention": 0,
-            "decode_prefix_attention": L * gated_steps,
-            # Seven block matmuls a layer, plus lm_head for each prefill's
-            # last token and each decode step (the embeddings forward skips
-            # lm_head).
-            "w4_matmul": (7 * L + 1) * (prefills + steps) + 7 * L * len(embeds),
-            "threefry_uniform": sampled_draws(launches),
-        }
+        expected = expected_int4_dense(launches, embeds, L, G)
         log({"phase": "8b_int4_expected_launches", "expected": expected, "counts": counts})
-        if not embeds or gated_steps == 0 or counts != expected:
+        if not embeds or expected["decode_prefix_attention"] == 0 or counts != expected:
             raise AssertionError(f"8b_int4 launch counts {counts} != expected {expected}")
         if "profile" in phases:
             for index in (0, 2):

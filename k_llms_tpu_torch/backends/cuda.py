@@ -3,9 +3,14 @@
 Counterpart of ``k_llms_tpu/backends/tpu.py``: the chat template, stop
 strings, per-sample logprobs and usage of ``chat_completion`` are carried
 over; the request goes straight to ``LocalEngine.generate_many``. The model
-overrides (dtype, max_seq_len, attention impls), weight quantization and the
-KV-layout knobs of the JAX package's ``BackendConfig`` are carried over under
-the same names and defaults, and so is grammar-constrained decoding: a
+overrides (dtype, max_seq_len, attention impls), weight quantization, the
+KV-layout knobs, the prompt-prefix cache and checkpoint loading of the JAX
+package's ``BackendConfig`` are carried over under the same names and
+defaults: ``checkpoint_path`` loads a native or an HF safetensors checkpoint
+(``models/loader.py``, integrity-verified; its summary is
+``param_summary``), and a ``model`` name that is not registered takes its
+config from the checkpoint's ``config.json``. So is grammar-constrained
+decoding: a
 ``response_format`` compiles (once per schema and vocabulary, through the
 process-wide grammar cache) into a token-mask automaton that the engine
 applies inside decode, so every sample is valid by construction
@@ -26,8 +31,15 @@ import numpy as np
 from pydantic import BaseModel
 
 from ..consensus.prompts import SYSTEM_PROMPT_STRING_CONSENSUS_LLM
-from ..engine.engine import MAX_STOP_LEN, MAX_STOP_SEQS, GenRequestSpec, LocalEngine
+from ..engine.engine import (
+    MAX_STOP_LEN,
+    MAX_STOP_SEQS,
+    GenRequestSpec,
+    LocalEngine,
+    resolve_device,
+)
 from ..engine.tokenizer import get_tokenizer
+from ..models import loader
 from ..models.config import get_config
 from ..types import ChatCompletion
 from .base import Backend, ChatRequest
@@ -52,6 +64,9 @@ class BackendConfig(BaseModel):
     its names and defaults."""
 
     model: str = "tiny"
+    # A native or HF safetensors checkpoint directory (models/loader.py);
+    # None = seeded random weights (param_seed).
+    checkpoint_path: Optional[str] = None
     tokenizer_path: Optional[str] = None
     max_new_tokens: int = 256
     param_seed: int = 0
@@ -69,6 +84,14 @@ class BackendConfig(BaseModel):
     kv_page_size: int = 64
     paged_attention_impl: str = "auto"  # "auto" | "cuda" (or "pallas") | "xla"
     paged_generate_many: bool = True
+    # Prompt-prefix KV cache: keep the last N prompts' KV and reuse the
+    # longest common token prefix (>= prefix_cache_min_reuse tokens) of a
+    # new prompt, prefilling only its suffix. 0 disables.
+    prefix_cache_size: int = 0
+    prefix_cache_min_reuse: int = 32
+    # Page pool size; None sizes it from the first paged launch (and, with a
+    # prefix cache, from the cache's size).
+    kv_pool_pages: Optional[int] = None
     # Compile response_format JSON schemas into token-level grammar masks
     # (engine/grammar.py) applied in-decode. Unsupported schema features
     # degrade to the generic JSON mask, compile errors to unconstrained
@@ -83,14 +106,13 @@ class BackendConfig(BaseModel):
 #: Fields of the JAX package's BackendConfig that this backend has not
 #: ported. A keyword naming one raises NotImplementedError.
 UNPORTED_FIELDS = frozenset({
-    "checkpoint_path", "model_parallel", "sp_prefill_min_tokens", "sp_attention",
-    "sp_decode", "prefix_cache_size", "prefix_cache_min_reuse", "speculative",
+    "model_parallel", "sp_prefill_min_tokens", "sp_attention", "sp_decode", "speculative",
     "spec_lookahead", "batch_window", "max_queue_weight", "max_batch_rows", "hbm_bytes",
     "hbm_headroom", "drain_timeout", "sse_ping_interval_s", "debug_endpoints",
     "watchdog_base_s", "watchdog_per_token_s", "watchdog_multiplier",
     "watchdog_min_budget_s", "watchdog_max_budget_s", "max_rebuilds", "poison_threshold",
     "poison_window", "continuous_batching", "continuous_width", "continuous_max_prompt",
-    "continuous_max_new", "prefill_chunk_tokens", "kv_pool_pages", "device_consensus",
+    "continuous_max_new", "prefill_chunk_tokens", "device_consensus",
     "tenant_default_weight", "tenant_default_slo",
     "tenant_default_requests_per_s", "tenant_default_rows_per_s", "tenants",
     "tenant_api_keys", "brownout_high_water", "batch_store_dir", "batch_max_in_flight",
@@ -125,7 +147,16 @@ class CudaBackend(Backend):
         cfg = config or BackendConfig(model=model or "tiny", **kwargs)
         self.backend_config = cfg
         self.model_name = cfg.model
-        model_config = get_config(cfg.model)
+        try:
+            model_config = get_config(cfg.model)
+        except KeyError:
+            # Not a registered architecture name: a local HF checkpoint
+            # directory carries its own config.json.
+            model_config = (
+                loader.config_from_hf(cfg.checkpoint_path) if cfg.checkpoint_path else None
+            )
+            if model_config is None:
+                raise
         overrides = {k: getattr(cfg, k) for k in _MODEL_OVERRIDES if getattr(cfg, k) is not None}
         if overrides:
             model_config = model_config.with_(**overrides)
@@ -134,8 +165,24 @@ class CudaBackend(Backend):
                 f"Unsupported quantization {cfg.quantization!r}; use 'int8' or 'int4'"
             )
         self.tokenizer = get_tokenizer(cfg.tokenizer_path)
-        self.engine = engine if engine is not None else LocalEngine(
+        self.param_summary: Optional[Dict[str, Any]] = None
+        self.engine = engine if engine is not None else self._build_engine(model_config)
+        self.default_max_new_tokens = cfg.max_new_tokens
+
+    def _build_engine(self, model_config) -> LocalEngine:
+        """The engine, on weights from ``checkpoint_path`` (loaded onto the
+        engine's device and integrity-verified: a corrupt checkpoint raises
+        CheckpointCorruptError) or seeded from ``param_seed``."""
+        cfg = self.backend_config
+        params = None
+        if cfg.checkpoint_path:
+            params = loader.load_checkpoint(
+                cfg.checkpoint_path, model_config, device=resolve_device(cfg.device)
+            )
+            self.param_summary = loader.last_load_summary
+        return LocalEngine(
             model_config,
+            params=params,
             param_seed=cfg.param_seed,
             device=cfg.device,
             quantize=cfg.quantization,
@@ -144,8 +191,10 @@ class CudaBackend(Backend):
             kv_layout="paged" if cfg.paged_kv and cfg.paged_generate_many else "dense",
             kv_page_size=cfg.kv_page_size,
             paged_attention_impl=cfg.paged_attention_impl,
+            prefix_cache_size=cfg.prefix_cache_size,
+            prefix_cache_min_reuse=cfg.prefix_cache_min_reuse,
+            kv_pool_pages=cfg.kv_pool_pages,
         )
-        self.default_max_new_tokens = cfg.max_new_tokens
 
     # -- chat -------------------------------------------------------------
     def chat_completion(self, request: ChatRequest) -> ChatCompletion:

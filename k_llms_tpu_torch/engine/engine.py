@@ -26,15 +26,28 @@ engine's (``ops/random.py``; the threefry kernel on a card).
 Weights may be quantized (``quantize="int8"|"int4"``; int4 matmuls run the
 w4a16 kernel).
 
+With ``prefix_cache_size > 0`` each prompt's prefill goes through the
+prompt-prefix cache (an LRU over full prompts, the JAX engine's): an exact
+hit costs no device work, a partial hit past ``prefix_cache_min_reuse``
+prefills only the suffix (``models.llama.prefill_continue``), and a miss
+prefills in full; the prompt's KV is then stored back, as a run of pool
+pages on the paged layout (siblings extending one prefix share its full
+pages) or as a dense prefix. The page pool is then sized once, as in the JAX
+engine, and never replaced while an entry may hold its pages: under
+pressure LRU paged entries are evicted, and a paged launch that still finds
+the pool short falls back to the dense body.
+
 Launches (``generate_many``, ``embed_tokens``) run one at a time under the
 engine's launch lock, the counterpart of the JAX scheduler's single worker:
 concurrent callers, such as ``AsyncKLLMs`` requests gathered together, wait
 their turn, and a paged launch keeps the pool it picked until its last page
-is freed.
+is freed. The same lock stands in for the JAX engine's ``_paged_mutex``:
+every prefix-cache read and write, and every page allocation, happens under
+it.
 
-Not ported yet: the prefix cache, meshes, sequence-parallel and ring
-prefill, speculative decoding, the continuous loop, device-OOM splitting, the
-abort poller and the streaming token tap.
+Not ported yet: meshes, sequence-parallel and ring prefill (and their cache
+continuation), speculative decoding, the continuous loop, device-OOM
+splitting, the abort poller and the streaming token tap.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import logging
 import os
 import threading
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,13 +73,21 @@ from ..models.llama import (
     init_params,
     paged_verify_step,
     prefill,
+    prefill_continue,
 )
 from ..models.quant import init_params_quantized, quantize_params, stored_quant_layout
 from ..ops.paged_attention import resolve_paged_attention_impl
 from ..ops.random import request_keys
 from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
 from ..reliability.deadline import RequestBudget
-from .paging import TRASH_PAGE, PagedKVPool, PagedPrefixRun, flat_slots, pages_for
+from .paging import (
+    TRASH_PAGE,
+    PagedKVPool,
+    PagedPrefixRun,
+    PagePoolExhausted,
+    flat_slots,
+    pages_for,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -238,6 +260,9 @@ class LocalEngine:
         kv_layout: str = "paged",
         kv_page_size: int = 64,
         paged_attention_impl: str = "auto",
+        prefix_cache_size: int = 0,
+        prefix_cache_min_reuse: int = 32,
+        kv_pool_pages: Optional[int] = None,
     ):
         self.config = get_config(config) if isinstance(config, str) else config
         check_supported(self.config)
@@ -269,11 +294,23 @@ class LocalEngine:
         self.paged_attention_impl = resolve_paged_attention_impl(
             paged_attention_impl, device=self.device
         )
+        self.kv_pool_pages = kv_pool_pages
         self._kv_pool: Optional[PagedKVPool] = None
+        # Prompt-prefix KV cache (LRU over full prompts). 0 disables. Value:
+        # (first_logits, prefix KVCache or PagedPrefixRun, prompt_len,
+        # np.int32 token ids).
+        self.prefix_cache_size = int(prefix_cache_size)
+        self.prefix_cache_min_reuse = int(prefix_cache_min_reuse)
+        self._prefix_entries: "OrderedDict[Tuple[int, ...], Tuple[Any, Any, int, np.ndarray]]" = (
+            OrderedDict()
+        )
+        self.prefix_cache_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
         # Held by every launch: a paged launch picks the page pool, fills it
         # and frees its pages under it, so no other launch replaces the pool
-        # in between.
-        self._launch_lock = threading.Lock()
+        # in between. It also stands in for the JAX engine's _paged_mutex:
+        # every prefix-cache read and write and every page allocation runs
+        # under it (reentrant, so the cache helpers take it inside a launch).
+        self._launch_lock = threading.RLock()
         self.quarantine_stats: Dict[str, int] = {"samples": 0, "launches": 0}
         # Host-clock phase times of the last generate_many launch (seconds),
         # fenced by a device synchronise at each phase end.
@@ -315,46 +352,292 @@ class LocalEngine:
 
     @torch.inference_mode()
     def _prefill_full(self, prompt_ids: List[int], prompt_len: int, bucket: int):
+        """One full-prompt prefill: (first logits [1, V], KVCache [L, 1,
+        bucket, KVH, D])."""
         tokens = torch.tensor(
             [prompt_ids + [self.config.pad_token_id] * (bucket - prompt_len)],
             dtype=torch.int64, device=self.device,
         )
-        return prefill(self.config, self.params, tokens, prompt_len)
+        first_logits, (k, v) = prefill(self.config, self.params, tokens, prompt_len)
+        return first_logits, KVCache(k=k, v=v)
+
+    def _prefill_routed(self, prompt_ids: List[int], prompt_len: int, bucket: int):
+        if self.prefix_cache_size > 0:
+            return self._prefill_with_cache(prompt_ids, prompt_len, bucket)
+        return self._prefill_full(prompt_ids, prompt_len, bucket)
+
+    # -- prefix cache --------------------------------------------------------
+    def prefix_cached_len(self, prompt_ids: List[int]) -> int:
+        """How many leading tokens of ``prompt_ids`` the prefix cache can
+        supply without device work: the full length on an exact hit, the
+        common-prefix length on a partial hit past the reuse threshold, else
+        0. A pure probe: no LRU bump, no stats, no device work."""
+        if self.prefix_cache_size <= 0:
+            return 0
+        with self._launch_lock:
+            if tuple(prompt_ids) in self._prefix_entries:
+                return len(prompt_ids)
+            _, p = self._prefix_match(list(prompt_ids))
+        return p if p >= self.prefix_cache_min_reuse else 0
+
+    def _prefix_store_paged_run(self, ids: List[int], first_logits, run: PagedPrefixRun) -> None:
+        """Insert an already-scattered page run as a cache entry; the caller
+        transfers one reference to the cache (released at once when the
+        cache is off)."""
+        with self._launch_lock:
+            if self.prefix_cache_size <= 0:
+                run.release()
+                return
+            self._prefix_insert(ids, first_logits, run)
+
+    def _prefix_insert(self, ids: List[int], first_logits, stored) -> None:
+        """Put an entry in the LRU (replacing one for the same prompt) and
+        drop the oldest past ``prefix_cache_size``, releasing the page runs
+        it lets go. Caller holds the launch lock."""
+        key = tuple(ids)
+        old = self._prefix_entries.get(key)
+        if old is not None and isinstance(old[1], PagedPrefixRun):
+            old[1].release()
+        self._prefix_entries[key] = (first_logits, stored, len(ids), np.asarray(ids, np.int32))
+        self._prefix_entries.move_to_end(key)
+        while len(self._prefix_entries) > self.prefix_cache_size:
+            _, evicted = self._prefix_entries.popitem(last=False)
+            if isinstance(evicted[1], PagedPrefixRun):
+                evicted[1].release()
+
+    def _prefix_store(self, ids: List[int], first_logits, prefix: KVCache,
+                      base_run: Optional[PagedPrefixRun] = None, base_len: int = 0) -> None:
+        """Store a prefill's KV as the entry for ``ids``: on the paged layout
+        a page run (sharing ``base_run``'s full pages below ``base_len``),
+        falling back to the dense prefix when the pool is short, so
+        correctness never depends on pages being available."""
+        with self._launch_lock:
+            stored = prefix
+            if self.kv_layout == "paged":
+                try:
+                    stored = self._run_from_dense(
+                        prefix, len(ids), int(prefix.k.shape[2]),
+                        base_run=base_run, base_len=base_len,
+                    )
+                except PagePoolExhausted:
+                    stored = prefix
+            self._prefix_insert(ids, first_logits, stored)
+
+    def _prefix_match(self, ids: List[int]) -> Tuple[Any, int]:
+        """Longest common token prefix across cached prompts: the matched
+        entry's KV and the usable common length, capped below the new
+        prompt's length so there is always at least one suffix token to
+        prefill."""
+        ids_np = np.asarray(ids, np.int32)
+        best_kv, best_p = None, 0
+        with self._launch_lock:
+            for _, kv, plen, arr in self._prefix_entries.values():
+                limit = min(len(ids) - 1, plen)
+                neq = np.flatnonzero(arr[:limit] != ids_np[:limit])
+                p = int(neq[0]) if neq.size else limit
+                if p > best_p:
+                    best_p, best_kv = p, kv
+        return best_kv, best_p
+
+    def _entry_prefix_kv(self, entry) -> KVCache:
+        """An entry's KV as dense tensors (materializing a page run)."""
+        kv = entry[1]
+        if isinstance(kv, PagedPrefixRun):
+            return kv.materialize()
+        return kv
+
+    # With attention_impl="xla", continuation prefill materializes a
+    # per-layer f32 score tensor [num_heads, s_bucket, cont_bucket]; cap it
+    # at ~1 GB and fall back to FULL prefill beyond. attention_impl="flash"
+    # runs the suffix through the flash kernel's q_offset mode (no score
+    # tensor), so the cap, and the fallback, do not apply.
+    MAX_CONT_SCORE_BYTES = 1 << 30
+
+    def _prefill_with_cache(self, prompt_ids: List[int], prompt_len: int, bucket: int):
+        """Prefill through the prompt-prefix cache: exact hit -> no device
+        work; partial hit past the reuse threshold -> suffix-only prefill;
+        miss -> full prefill. Stores the full prompt's KV back into the
+        LRU. Returns (first logits [1, V], KVCache)."""
+        with self._launch_lock:
+            key = tuple(prompt_ids)
+            hit = self._prefix_entries.get(key)
+            if hit is not None:
+                self._prefix_entries.move_to_end(key)
+                self.prefix_cache_stats["hits"] += 1
+                return hit[0], self._entry_prefix_kv(hit)
+            matched_kv, p = self._prefix_match(prompt_ids)
+            matched_run = matched_kv if isinstance(matched_kv, PagedPrefixRun) else None
+            if matched_run is not None:
+                # Pinned while the continuation reads it: a store's eviction
+                # must not free its pages before the new entry increfs the
+                # shared ones.
+                matched_run.retain()
+            try:
+                return self._prefill_with_cache_matched(
+                    prompt_ids, prompt_len, bucket, matched_kv, matched_run, p
+                )
+            finally:
+                if matched_run is not None:
+                    matched_run.pool.allocator.decref(matched_run.pages)
+
+    def _prefill_with_cache_matched(self, prompt_ids, prompt_len, bucket, matched_kv,
+                                    matched_run, p):
+        config = self.config
+        s_bucket = _bucket(max(1, prompt_len - p), minimum=32)
+        # Power-of-two rounding capped at max_seq_len; p + s_bucket <=
+        # max_seq_len is checked below, so the capped size fits the write.
+        cont_bucket = max(bucket, min(_bucket(p + s_bucket, minimum=32), config.max_seq_len))
+        continuation_ok = (
+            matched_kv is not None
+            and p >= self.prefix_cache_min_reuse
+            and p + s_bucket <= config.max_seq_len
+            and (
+                config.attention_impl == "flash"
+                or config.num_heads * s_bucket * cont_bucket * 4 <= self.MAX_CONT_SCORE_BYTES
+            )
+        )
+        base_run, base_len = None, 0
+        if continuation_ok:
+            self.prefix_cache_stats["partial_hits"] += 1
+            suffix = prompt_ids[p:]
+            suffix_tokens = torch.tensor(
+                [suffix + [config.pad_token_id] * (s_bucket - len(suffix))],
+                dtype=torch.int64, device=self.device,
+            )
+            # The seed: the reused prefix rows [0, p), padded to
+            # cont_bucket; the continuation writes the suffix KV into it in
+            # place.
+            if matched_run is not None:
+                cache0 = matched_run.gather_prefix_padded(p, cont_bucket)
+                base_run, base_len = matched_run, p
+            else:
+                pad = (0, 0, 0, 0, 0, cont_bucket - p)
+                cache0 = KVCache(
+                    k=torch.nn.functional.pad(matched_kv.k[:, :, :p], pad),
+                    v=torch.nn.functional.pad(matched_kv.v[:, :, :p], pad),
+                )
+            first_logits, prefix = prefill_continue(
+                config, self.params, suffix_tokens, cache0, p, prompt_len
+            )
+            if cont_bucket != bucket:
+                prefix = KVCache(
+                    k=prefix.k[:, :, :bucket].contiguous(), v=prefix.v[:, :, :bucket].contiguous()
+                )
+        else:
+            self.prefix_cache_stats["misses"] += 1
+            first_logits, prefix = self._prefill_full(prompt_ids, prompt_len, bucket)
+        self._prefix_store(prompt_ids, first_logits, prefix, base_run=base_run, base_len=base_len)
+        return first_logits, prefix
 
     # -- paged KV pool -----------------------------------------------------
     def _ensure_kv_pool(self, min_pages: int = 0) -> PagedKVPool:
-        """The engine's page pool, at least ``min_pages`` pages. Nothing
-        outlives a launch in the pool (there is no prefix cache yet), so a
-        pool too small for a launch is replaced by a larger one between
-        launches."""
-        need = max(int(min_pages), 8)
-        pool = self._kv_pool
-        if pool is None or pool.allocator.total_pages < need:
+        """The engine's page pool, sized as in the JAX engine when first
+        built: an explicit ``kv_pool_pages`` wins; else the caller's
+        ``min_pages``, or, with a prefix cache, one 2048-token run per entry
+        plus one in flight, and at least 8 pages. With a prefix cache or an
+        explicit ``kv_pool_pages`` the pool is then fixed for the engine's
+        lifetime (entries hold its pages). Without either, nothing outlives
+        a launch in the pool, and a pool too small for a launch is replaced
+        by a larger one between launches, where the JAX engine would decode
+        that launch dense; the tokens are the same either way."""
+        with self._launch_lock:
+            pool = self._kv_pool
+            fixed = self.prefix_cache_size > 0 or self.kv_pool_pages is not None
+            if pool is not None and (fixed or pool.allocator.total_pages >= max(int(min_pages), 8)):
+                return pool
+            cache_pages = 0
+            if self.prefix_cache_size:
+                cache_pages = (self.prefix_cache_size + 1) * pages_for(
+                    min(self.config.max_seq_len, 2048), self.kv_page_size
+                )
+            total = max(int(self.kv_pool_pages or 0), int(min_pages), cache_pages, 8)
             self._kv_pool = None  # free the old pool before allocating
-            pool = PagedKVPool(self.config, need, self.kv_page_size, self.device)
-            self._kv_pool = pool
-        return pool
+            self._kv_pool = PagedKVPool(self.config, total, self.kv_page_size, self.device)
+            return self._kv_pool
 
-    def _run_from_dense(self, prefix, plen: int, bucket: int, pool: PagedKVPool) -> PagedPrefixRun:
-        """Copy a dense prefill result ((k, v) [L, 1, bucket, KVH, D]) into
-        freshly allocated pages of the launch's ``pool``; positions past the
-        prompt go to the trash page."""
-        ps = pool.page_size
-        pages = pool.allocator.alloc(pages_for(plen, ps))
-        idx = flat_slots(pages, np.arange(bucket), ps)
-        idx[plen:] = (np.arange(bucket) % ps + TRASH_PAGE * ps)[plen:]
-        pool.scatter_tokens(prefix[0][:, 0], prefix[1][:, 0], idx)
-        return PagedPrefixRun(pool, pages, plen, bucket)
+    def _alloc_pages_with_evict(self, count: int) -> List[int]:
+        """Allocate pages, evicting LRU paged cache entries under pressure.
+        Raises PagePoolExhausted only when the pool is short even with every
+        evictable entry gone."""
+        with self._launch_lock:
+            alloc = self._kv_pool.allocator
+            try:
+                return alloc.alloc(count)
+            except PagePoolExhausted:
+                self._evict_paged_entries(need_pages=count - alloc.free_pages)
+                return alloc.alloc(count)
 
-    def paged_admit_prefix(self, prompt_ids: List[int], prompt_len: int, bucket: int,
-                           pool: PagedKVPool):
-        """Prefill the prompt and copy its KV into a page run of ``pool``, the
-        pool its launch picked. Returns ``(first_logits [1, V], run,
-        transient)``; with no prefix cache the run is always transient (the
-        caller releases it after pinning)."""
-        first_logits, prefix = self._prefill_full(prompt_ids, prompt_len, bucket)
-        run = self._run_from_dense(prefix, prompt_len, bucket, pool)
-        return first_logits, run, True
+    def _evict_paged_entries(self, need_pages: int) -> int:
+        """Evict paged cache entries LRU-first until ``need_pages`` pages
+        have returned to the free stack. Pages still referenced by in-flight
+        rows (or by a younger entry extending this one) survive: only the
+        entry's own reference drops, and the last reader's release frees
+        them."""
+        freed = 0
+        with self._launch_lock:
+            for key in list(self._prefix_entries.keys()):
+                if freed >= need_pages:
+                    break
+                run = self._prefix_entries[key][1]
+                if isinstance(run, PagedPrefixRun):
+                    del self._prefix_entries[key]
+                    freed += run.release()
+        return freed
+
+    def _run_from_dense(self, prefix: KVCache, plen: int, bucket: int,
+                        base_run: Optional[PagedPrefixRun] = None,
+                        base_len: int = 0) -> PagedPrefixRun:
+        """Copy a dense prefill result (KVCache [L, 1, bucket, KVH, D]) into
+        pages of the engine's pool; positions past the prompt go to the
+        trash page. When ``base_run`` is the entry this prefill continued
+        from, its full pages below ``base_len`` are shared (incref, no copy):
+        the continuation seeded its cache from those exact values."""
+        with self._launch_lock:
+            pool = self._ensure_kv_pool()
+            ps = pool.page_size
+            npages = pages_for(plen, ps)
+            shared = 0
+            if base_run is not None:
+                shared = min(min(base_len, plen) // ps, npages)
+                if shared:
+                    pool.allocator.incref(base_run.pages[:shared])
+            try:
+                fresh = self._alloc_pages_with_evict(npages - shared)
+            except Exception:
+                if shared:
+                    pool.allocator.decref(base_run.pages[:shared])
+                raise
+            pages = list(base_run.pages[:shared] if shared else []) + fresh
+            idx = flat_slots(pages, np.arange(bucket), ps)
+            trash = (np.arange(bucket) % ps + TRASH_PAGE * ps).astype(np.int32)
+            if shared:
+                idx[: shared * ps] = trash[: shared * ps]
+            idx[plen:] = trash[plen:]
+            pool.scatter_tokens(prefix.k[:, 0], prefix.v[:, 0], idx)
+            return PagedPrefixRun(pool, pages, plen, bucket)
+
+    def paged_admit_prefix(self, prompt_ids: List[int], prompt_len: int, bucket: int):
+        """A prompt's KV as a page run of the engine's pool: ``(first_logits
+        [1, V], run, transient)``. A cached paged entry's run is returned
+        directly (no device work, pages shared); otherwise the routed
+        prefill runs and its result is either the just-stored cache run or,
+        with the cache off, a transient run the caller releases after
+        pinning. May raise :class:`PagePoolExhausted`."""
+        key = tuple(prompt_ids)
+        with self._launch_lock:
+            if self.prefix_cache_size > 0:
+                hit = self._prefix_entries.get(key)
+                if hit is not None and isinstance(hit[1], PagedPrefixRun):
+                    self._prefix_entries.move_to_end(key)
+                    self.prefix_cache_stats["hits"] += 1
+                    return hit[0], hit[1], False
+            first_logits, prefix = self._prefill_routed(prompt_ids, prompt_len, bucket)
+            if self.prefix_cache_size > 0:
+                hit = self._prefix_entries.get(key)
+                if hit is not None and isinstance(hit[1], PagedPrefixRun):
+                    return first_logits, hit[1], False
+            run = self._run_from_dense(prefix, prompt_len, bucket)
+            return first_logits, run, True
 
     # -- host-side arrays ---------------------------------------------------
     def _stop_array(self, stop_sequences) -> Tuple[torch.Tensor, bool]:
@@ -495,9 +778,18 @@ class LocalEngine:
                 stops=stops if use_stops else None,
             )
 
-        if self.kv_layout == "paged":
-            out, t_prefill = self._generate_paged(preps, n_per, r_pad, live, max_new_tokens, run_loop)
-        else:
+        layout = self.kv_layout
+        if layout == "paged":
+            try:
+                out, t_prefill = self._generate_paged(
+                    preps, n_per, r_pad, live, max_new_tokens, run_loop
+                )
+            except PagePoolExhausted:
+                # The JAX engine's rule: correctness never depends on pages
+                # being available.
+                logger.debug("paged launch exhausted the page pool; falling back to dense decode")
+                layout = "dense"
+        if layout == "dense":
             out, t_prefill = self._generate_dense(preps, n_per, r_pad, max_new_tokens, run_loop)
         toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps = out
         t_end = time.perf_counter()
@@ -508,7 +800,7 @@ class LocalEngine:
             "rows": B,
             "n_per": n_per,
             "live_rows": len(live),
-            "kv_layout": self.kv_layout,
+            "kv_layout": layout,
         }
 
         results: List[Any] = []
@@ -537,8 +829,11 @@ class LocalEngine:
         return results
 
     def _generate_paged(self, preps, n_per, r_pad, live, max_new_tokens, run_loop):
-        """The paged body: prompts into pool pages, rows decode through
-        block tables. Returns (loop output, prefill end time)."""
+        """The paged body: prompts admitted as pool page runs (through the
+        prefix cache when it is on), rows decode through block tables.
+        Returns (loop output, prefill end time). Raises PagePoolExhausted
+        (after releasing every reference it took) when admission or the gen
+        pages cannot be had even with eviction."""
         config = self.config
         device = self.device
         extra = r_pad - len(preps)
@@ -556,7 +851,7 @@ class LocalEngine:
         try:
             first_list = []
             for ids, prompt_len, bucket in preps:
-                fl, run, transient = self.paged_admit_prefix(ids, prompt_len, bucket, pool)
+                fl, run, transient = self.paged_admit_prefix(ids, prompt_len, bucket)
                 run.retain()
                 if transient:
                     run.release()
@@ -565,7 +860,7 @@ class LocalEngine:
             self._sync()
             t_prefill = time.perf_counter()
             for row in live:
-                gen_pages_rows[row] = pool.allocator.alloc(gp)
+                gen_pages_rows[row] = self._alloc_pages_with_evict(gp)
 
             # Block tables: prefix_idx is request-level [r_pad, P]; positions
             # past each prompt, and every dead row's gen slots, point into the
@@ -618,17 +913,17 @@ class LocalEngine:
 
     def _generate_dense(self, preps, n_per, r_pad, max_new_tokens, run_loop):
         """The dense body (the JAX engine's ``generate_many`` without the
-        speculative, sequence-parallel and prefix-cache arms): each prompt's
-        KV, zero-padded to the largest bucket, stacked into one shared
-        ``[L, r_pad, P, KVH, D]`` prefix; every row's generated KV in a dense
-        ``[L, B, max_new, KVH, D]`` cache. Returns (loop output, prefill end
-        time)."""
+        speculative and sequence-parallel arms): each prompt's KV (through
+        the prefix cache when it is on), zero-padded to the largest bucket,
+        stacked into one shared ``[L, r_pad, P, KVH, D]`` prefix; every
+        row's generated KV in a dense ``[L, B, max_new, KVH, D]`` cache.
+        Returns (loop output, prefill end time)."""
         config = self.config
         extra = r_pad - len(preps)
         bucket_max = max(bucket for _, _, bucket in preps)
         first_list, k_list, v_list = [], [], []
         for ids, prompt_len, bucket in preps:
-            fl, (k, v) = self._prefill_full(ids, prompt_len, bucket)
+            fl, (k, v) = self._prefill_routed(ids, prompt_len, bucket)
             if bucket < bucket_max:
                 pad = (0, 0, 0, 0, 0, bucket_max - bucket)  # masked by prompt_len
                 k = torch.nn.functional.pad(k, pad)

@@ -5,7 +5,9 @@ sharing and copy-on-write (the vLLM PagedAttention memory model, Kwon et al.
 Counterpart of ``k_llms_tpu/engine/paging.py``: the host-side accounting
 (``PageAllocator``, ``pages_for``, ``flat_slots``, ``TRASH_PAGE``) is carried
 over as it is; ``PagedKVPool`` holds torch tensors on the engine's device and
-moves KV with in-place index writes and gathers.
+moves KV with in-place index writes and gathers, and ``PagedPrefixRun``
+carries the prefix cache's page runs (materialised, or gathered as a
+continuation's seed).
 
 Why pages. The consensus workload decodes ``n`` continuations of ONE prompt;
 dense per-row KV charges every row the full ``seq_len * kv_bytes_per_token``,
@@ -311,16 +313,35 @@ class PagedKVPool:
             self.v[:, idx] = v_src.to(self.v.dtype)
 
     def gather_tokens(self, slot_idx: np.ndarray):
-        """Dense ``(k, v)``, each [L, 1, n, KVH, D], of the given flat slots."""
+        """Dense ``KVCache`` (k, v each [L, 1, n, KVH, D]) of the given flat
+        slots: the layout every engine consumer of a prefix (the decode
+        prefix, a continuation's seed) expects."""
+        from ..models.llama import KVCache
+
         idx = self._index(slot_idx)
         with self.lock:
-            return self.k[:, idx][:, None], self.v[:, idx][:, None]
+            return KVCache(k=self.k[:, idx][:, None], v=self.v[:, idx][:, None])
+
+    def copy_pages(self, src_pages: Sequence[int], dst_pages: Sequence[int]) -> None:
+        """Device copy of whole pages (the copy-on-write mover)."""
+        assert len(src_pages) == len(dst_pages)
+        if not src_pages:
+            return
+        ps = self.page_size
+        src = np.concatenate([np.arange(p * ps, (p + 1) * ps) for p in src_pages])
+        dst = np.concatenate([np.arange(p * ps, (p + 1) * ps) for p in dst_pages])
+        src_i, dst_i = self._index(src), self._index(dst)
+        with self.lock:
+            self.k[:, dst_i] = self.k[:, src_i]
+            self.v[:, dst_i] = self.v[:, src_i]
 
 
 class PagedPrefixRun:
-    """A prompt prefix stored as a run of pool pages. Owns one reference per
-    page; ``release()`` is idempotent. ``bucket`` records the dense bucket
-    the prefill produced."""
+    """A prompt prefix stored as a run of pool pages (the paged form of a
+    prefix-cache entry's KV). Owns one reference per page; ``release()`` is
+    idempotent. ``bucket`` records the dense bucket the prefill produced, so
+    materialization reproduces the exact array shape the dense path
+    stores."""
 
     __slots__ = ("pool", "pages", "plen", "bucket", "_released")
 
@@ -336,8 +357,27 @@ class PagedPrefixRun:
 
     def release(self) -> int:
         """Drop the run's own reference (one-shot); returns how many pages
-        actually hit the free stack."""
+        actually hit the free stack — pages still pinned by rows or by a
+        younger run sharing this prefix stay allocated."""
         if self._released:
             return 0
         self._released = True
         return len(self.pool.allocator.decref(self.pages))
+
+    def _slots(self, length: int) -> np.ndarray:
+        return flat_slots(self.pages, np.arange(length), self.pool.page_size)
+
+    def materialize(self):
+        """Dense ``KVCache`` [L, 1, bucket, KVH, D], equal to the dense
+        entry at every unmasked position (masked slots gather the trash
+        page, which the consumers' masking zeroes)."""
+        return self.pool.gather_tokens(self._slots(self.bucket))
+
+    def gather_prefix_padded(self, p: int, out_len: int):
+        """Dense ``KVCache`` [L, 1, out_len, KVH, D] seeded with positions
+        [0, p): the paged twin of padding ``matched_kv.k[:, :, :p]`` on the
+        dense path. Positions >= p gather the trash page; the continuation
+        prefill overwrites or masks all of them before any unmasked read."""
+        idx = self._slots(out_len)
+        idx[p:] = (np.arange(out_len - p) % self.pool.page_size).astype(np.int32)
+        return self.pool.gather_tokens(idx)

@@ -1,7 +1,8 @@
 """Llama-family transformer (GQA + RoPE + RMSNorm + SwiGLU) in PyTorch.
 
 Counterpart of ``k_llms_tpu/models/llama.py``, Llama family only: the
-prefill (``prefill``), the full-sequence ``forward``/``encode`` behind
+prefill (``prefill``) and its continuation over a cached prefix
+(``prefill_continue``), the full-sequence ``forward``/``encode`` behind
 embeddings, the dense shared-prefix decode step (``decode_step``) and the
 paged decode step (``paged_verify_step`` at ``Sq == 1``). Parameters keep the
 JAX package's tree: a plain dict whose per-layer weights are stacked on a
@@ -24,7 +25,7 @@ attention over the shared prompt prefix runs the decode-prefix kernel
 tail in plain tensor code, behind the JAX package's gate.
 
 Not ported yet (raise ``NotImplementedError``): the verify step at
-``Sq > 1``, continuation and chunked prefill, mixture-of-experts MLPs, the
+``Sq > 1``, chunked prefill, mixture-of-experts MLPs, the
 Gemma variants (offset norms, post-block norms, softcaps, embedding scale,
 GeGLU), sliding windows, the ring (sequence-parallel) decode arm.
 """
@@ -438,6 +439,66 @@ def prefill(config: ModelConfig, params: Params, tokens: torch.Tensor, prompt_le
     x, k, v = _apply_stack(config, params, x, positions, key_mask, key_lengths)
     h = rms_norm(x[:, int(prompt_len) - 1], params["final_norm"], config.rms_eps)
     return _logits(params, h), (k, v)
+
+
+def prefill_continue(
+    config: ModelConfig,
+    params: Params,
+    suffix_tokens: torch.Tensor,
+    cache: KVCache,
+    prefix_len: int,
+    total_len: int,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill a prompt SUFFIX against an already-computed prompt-prefix KV
+    (the prefix cache's partial hit).
+
+    ``cache`` [L, 1, Btot, KVH, D] holds the reused prefix KV at positions
+    0..prefix_len (the rest arbitrary); suffix_tokens: [1, Sq] right-padded.
+    The suffix KV is written in place at positions prefix_len.., and the
+    updated cache is returned: directly the decode loop's shared prefix and
+    the next cache entry. Attention masks are built over absolute positions:
+    under ``attention_impl="flash"`` the suffix rows reach the flash kernel
+    with ``q_offset = prefix_len`` and ``key_lengths = total_len`` (a valid
+    row sees keys up to its own position either way, so the key length
+    changes only the padded rows); otherwise one masked softmax over the
+    whole cache, as in the JAX function. Returns (last-valid-token logits
+    [1, V], the cache)."""
+    check_supported(config)
+    B, Sq = suffix_tokens.shape
+    Btot = cache.k.shape[2]
+    device = suffix_tokens.device
+    p, total = int(prefix_len), int(total_len)
+    positions = (p + torch.arange(Sq, device=device))[None, :].expand(B, Sq)
+    x = params["embed"][suffix_tokens.long()]
+    rows = p + torch.arange(Sq, device=device)[None, :, None]  # absolute query positions
+    cols = torch.arange(Btot, device=device)[None, None, :]
+    key_mask = cols <= rows  # [1, Sq, Btot]
+    key_lengths = torch.full((B,), total, dtype=torch.int32, device=device)
+    scale = config.query_scale or 1.0 / math.sqrt(config.head_dim)
+    for i in range(config.num_layers):
+        layer = _layer(params, i)
+        cache_k, cache_v = cache.k[i], cache.v[i]
+        q, k, v = _attn_qkv(config, layer, x, positions)
+        cache_k[:, p: p + Sq] = k.to(cache_k.dtype)
+        cache_v[:, p: p + Sq] = v.to(cache_v.dtype)
+        if config.attention_impl == "flash":
+            attn = flash_attention(
+                q.transpose(1, 2).contiguous(),
+                cache_k.transpose(1, 2).contiguous(),
+                cache_v.transpose(1, 2).contiguous(),
+                causal=True,
+                key_lengths=key_lengths,
+                sm_scale=scale,
+                q_offset=p,
+            ).transpose(1, 2)
+        else:
+            scores = _gqa_scores(q, cache_k) * scale  # [B, QH, Sq, Btot] f32
+            scores = torch.where(key_mask[:, None], scores, torch.full_like(scores, NEG_INF))
+            attn = _gqa_values(torch.softmax(scores, dim=-1), cache_v)
+        attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
+        x = _mlp_sublayer(config, layer, _attn_residual(layer, x, attn))
+    h = rms_norm(x[:, total - p - 1], params["final_norm"], config.rms_eps)
+    return _logits(params, h), cache
 
 
 def _block_decode(

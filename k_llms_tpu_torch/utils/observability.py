@@ -1,7 +1,8 @@
 """Event counters: the piece of the JAX package's observability module that
 the port's copied host layers call (consolidation records
 ``consensus.zero_survivors``; the grammar compiler records the
-``GRAMMAR_EVENTS`` family). Tracing, histograms and the kernel dispatch
+``GRAMMAR_EVENTS`` family; the checkpoint loader counts rejected loads in
+``QUARANTINE_EVENTS``). Tracing, histograms and the kernel dispatch
 counters stay in the JAX package; the port's kernels keep their own launch
 counts on their wrappers (``ops/_ext.py``)."""
 
@@ -49,4 +50,12 @@ GRAMMAR_EVENTS = EventCounters(declared=(
     "grammar.fallback_failpoint",
     "grammar.fallback_error",
     "grammar.masked_steps",
+))
+
+#: Numeric-integrity counters, the JAX package's names: corrupted
+#: checkpoints rejected at load count ``quarantine.checksum_failures``.
+QUARANTINE_EVENTS = EventCounters(declared=(
+    "quarantine.samples",
+    "quarantine.launches",
+    "quarantine.checksum_failures",
 ))

@@ -103,13 +103,27 @@ def test_backend_knobs_reach_the_engine(monkeypatch):
         KLLMs(backend="cuda", model="tiny", device="cpu", quantization="int3")
 
 
-@pytest.mark.parametrize("field,value", [("speculative", "prompt_lookup"), ("prefix_cache_size", 4),
+@pytest.mark.parametrize("field,value", [("speculative", "prompt_lookup"), ("sp_decode", True),
                                          ("continuous_batching", True)])
 def test_unported_backend_field_raises(field, value):
     """A keyword naming a JAX BackendConfig field the port has not ported
     raises and names the field; it is never dropped."""
     with pytest.raises(NotImplementedError, match=field):
         KLLMs(backend="cuda", model="tiny", device="cpu", **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("prefix_cache_size", 4), ("prefix_cache_min_reuse", 8),
+                                         ("kv_pool_pages", 64), ("checkpoint_path", None)])
+def test_moved_fields_are_served(field, value):
+    """The fields the checkpoint loader and the prefix cache brought over
+    no longer raise, and reach the backend config."""
+    from k_llms_tpu_torch.backends.cuda import UNPORTED_FIELDS
+
+    assert field not in UNPORTED_FIELDS
+    client = KLLMs(backend="cuda", model="tiny", device="cpu", **{field: value})
+    assert getattr(client.backend.backend_config, field) == value
+    if field != "checkpoint_path":
+        assert getattr(client.backend.engine, field) == value
 
 
 def test_unported_field_list_matches_the_jax_backend_config():
@@ -136,16 +150,54 @@ def test_no_card_raises_instead_of_running_on_cpu(monkeypatch):
         KLLMs(backend="cuda", model="tiny")
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Seeded, and from an HF checkpoint directory written by the port's
+    own writer (config.json and two shards): the checkpoint loads through
+    the port's safetensors reader, with neither ``safetensors`` nor
+    ``transformers`` imported, and the prefix cache serves a repeat."""
     code = (
-        "import sys\n"
+        "import json, os, sys\n"
+        "import torch\n"
         "from k_llms_tpu_torch import KLLMs\n"
+        "from k_llms_tpu_torch.models.safetensors_io import save_file\n"
         "c = KLLMs(backend='cuda', model='tiny', device='cpu')\n"
         "r = c.chat.completions.create(messages=[{'role': 'user', 'content': 'hi'}],"
         " n=4, temperature=0, seed=7, max_tokens=8)\n"
         "assert len(r.choices) == 5 and r.likelihoods is not None\n"
+        "cfg, p = c.backend.engine.config, c.backend.engine.params\n"
+        f"d = {str(tmp_path / 'mini-hf')!r}\n"
+        "os.makedirs(d)\n"
+        "names = {'wq': 'self_attn.q_proj', 'wk': 'self_attn.k_proj', 'wv': 'self_attn.v_proj',"
+        " 'wo': 'self_attn.o_proj', 'w_gate': 'mlp.gate_proj', 'w_up': 'mlp.up_proj',"
+        " 'w_down': 'mlp.down_proj'}\n"
+        "t = {'model.embed_tokens.weight': p['embed'], 'model.norm.weight': p['final_norm'],"
+        " 'lm_head.weight': p['lm_head'].t()}\n"
+        "for i in range(cfg.num_layers):\n"
+        "    for ours, hf in names.items():\n"
+        "        t[f'model.layers.{i}.{hf}.weight'] = p['layers'][ours][i].t()\n"
+        "    t[f'model.layers.{i}.input_layernorm.weight'] = p['layers']['attn_norm'][i]\n"
+        "    t[f'model.layers.{i}.post_attention_layernorm.weight'] = p['layers']['mlp_norm'][i]\n"
+        "keys = sorted(t)\n"
+        "for s in range(2):\n"
+        "    save_file({k: t[k] for k in keys[s::2]}, f'{d}/model-0000{s + 1}-of-00002.safetensors')\n"
+        "json.dump({'model_type': 'llama', 'vocab_size': cfg.vocab_size,"
+        " 'hidden_size': cfg.hidden_size, 'intermediate_size': cfg.intermediate_size,"
+        " 'num_hidden_layers': cfg.num_layers, 'num_attention_heads': cfg.num_heads,"
+        " 'num_key_value_heads': cfg.num_kv_heads, 'head_dim': cfg.head_dim,"
+        " 'rope_theta': cfg.rope_theta, 'max_position_embeddings': cfg.max_seq_len,"
+        " 'bos_token_id': cfg.bos_token_id, 'eos_token_id': cfg.eos_token_id,"
+        " 'pad_token_id': cfg.pad_token_id, 'torch_dtype': 'float32'}, open(f'{d}/config.json', 'w'))\n"
+        "h = KLLMs(backend='cuda', model=d, checkpoint_path=d, device='cpu', dtype='float32',"
+        " prefix_cache_size=2)\n"
+        "for _ in range(2):\n"
+        "    r2 = h.chat.completions.create(messages=[{'role': 'user', 'content': 'hi'}],"
+        " n=4, temperature=0, seed=7, max_tokens=8)\n"
+        "    assert [x.message.content for x in r2.choices] == [x.message.content for x in r.choices]\n"
+        "assert h.backend.engine.prefix_cache_stats == {'hits': 1, 'partial_hits': 0, 'misses': 1}\n"
+        "assert h.backend.param_summary['num_leaves'] == 12\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'k_llms_tpu' or m.startswith('k_llms_tpu.'))\n"
+        " or m == 'k_llms_tpu' or m.startswith('k_llms_tpu.')"
+        " or m.split('.')[0] in ('safetensors', 'transformers'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

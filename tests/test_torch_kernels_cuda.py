@@ -112,6 +112,42 @@ def test_flash_tc_ragged_tiles_match_plain(cuda_device, case):
             assert not out[b].any()
 
 
+def _over_k2_limit(out, ref):
+    return ((out.float() - ref.float()).abs() / (2.0 ** -6 * ref.float().abs() + 1e-5)).max().item()
+
+
+@pytest.mark.parametrize("p", [1408, 1401], ids=["p_tile_multiple", "p_off_tile"])
+@pytest.mark.parametrize("Sq", [32, 64, 128])
+def test_flash_tc_continuation_shapes_match_plain(cuda_device, Sq, p):
+    """A prefix-cache continuation's shapes in the model: an Sq-row suffix
+    bucket (32-128 rows, fewer than one 128-row query tile) at q_offset p,
+    against the 2048-key continuation bucket, key length p plus the suffix's
+    valid rows. Held to K2's limit, |out - ref| <= 2**-6 |ref| + 1e-5; a
+    query offset one key late and a dropped block of 32 prefix keys must
+    each break it."""
+    rng = np.random.default_rng(Sq * 7 + p)
+    Sk, valid = 2048, p + Sq - 7
+    q = _normal(rng, 1, 32, Sq, 128).to(cuda_device, torch.bfloat16)
+    k = _normal(rng, 1, 8, Sk, 128).to(cuda_device, torch.bfloat16)
+    v = _normal(rng, 1, 8, Sk, 128).to(cuda_device, torch.bfloat16)
+    kl = torch.tensor([valid], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=True, key_lengths=kl, q_offset=p)
+    out = att.flash_attention(q, k, v, **kw)
+    ref = att.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert _over_k2_limit(out, ref) <= 1.0
+    late = att.flash_attention_plain(q, k, v, **dict(kw, q_offset=p + 1))
+    assert _over_k2_limit(late, ref) > 1.0
+    keep = att._flash_valid(1, Sq, Sk, kl, True, att.NO_WINDOW, p, cuda_device)
+    keep[..., p // 2: p // 2 + 32] = False
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float().repeat_interleave(4, dim=1))
+    s = torch.where(keep, s / math.sqrt(128), torch.full_like(s, att.NEG_INF))
+    dropped = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1),
+                           v.float().repeat_interleave(4, dim=1)).to(torch.bfloat16)
+    assert _over_k2_limit(dropped, ref) > 1.0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shared", [True, False])
 def test_paged_decode_kernel_matches_plain(cuda_device, dtype, shared):
