@@ -18,7 +18,15 @@ paged path (the same tokens and logprobs as ``8b``) and quantized to int4 at
 load on the dense flash path, and on both clients drives the prompt-prefix
 cache through a miss, a partial hit (K2 in its ``q_offset`` mode inside the
 model) and an exact hit (no prefill). Every kernel launch counter is reset
-just before each of those paths and read just after.
+just before each of those paths and read just after. Every request runs
+through the backend's scheduler and supervisor; ``sched`` drives them on
+purpose: on both 8B clients four requests queued behind the parked
+scheduler worker and served by one launch (its launch counts asserted,
+each member bit-equal to a direct launch of the same specs), on the bf16
+client the abort poller, the device-OOM split (the ``oom`` failpoint, then
+a real OOM under a memory fraction between a solo launch's peak and the
+group's) and a poison-escalated rebuild, and at ``tiny`` the watchdog's
+hang, rebuild and replay, rebuild exhaustion, failover and hedging.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -53,7 +61,7 @@ from typing import Literal
 
 from pydantic import BaseModel, Field
 
-PHASES = ("build", "draws", "k2", "k1", "k4", "k3", "tiny", "8b", "ckpt", "8b_int4")
+PHASES = ("build", "draws", "k2", "k1", "k4", "k3", "tiny", "8b", "ckpt", "8b_int4", "sched")
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
 # (needs "8b" or "8b_int4").
 EXTRA_PHASES = ("profile",)
@@ -134,6 +142,513 @@ def bound_ms(flops: float, nbytes: float, dtype_peak: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# -- the sched phase: the scheduler and supervisor on the card ------------------
+#
+# Module-level so that they read without main()'s closures; each takes the
+# client it drives and the phase's logger.
+
+
+def plain_paged_launches() -> int:
+    """Paged launches that ran the plain version, drilled or not: on the
+    card none may, so a counted window holds this number fixed."""
+    from k_llms_tpu_torch.utils.observability import KERNEL_EVENTS
+
+    return (KERNEL_EVENTS.get("kernel.paged_attn_xla_dispatch")
+            + KERNEL_EVENTS.get("kernel.paged_attn_fallback.failpoint"))
+
+
+def join_all(threads, timeout=600):
+    for t in threads:
+        t.join(timeout)
+        if t.is_alive():
+            raise AssertionError("a queued request did not return")
+
+
+def polled_budget(after):
+    """A request budget that counts its polls and sets ``reached`` at the
+    ``after``-th: a thread waiting on it cancels the request a known number
+    of decode steps in, from outside the launch."""
+    import threading
+
+    from k_llms_tpu_torch.reliability.deadline import RequestBudget
+
+    class PolledBudget(RequestBudget):
+        def __init__(self):
+            super().__init__()
+            self.polls = 0
+            self.reached = threading.Event()
+
+        def should_abort(self):
+            self.polls += 1
+            if self.polls >= after:
+                self.reached.set()
+            return super().should_abort()
+
+    return PolledBudget()
+
+
+def same_result(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(a.tokens, b.tokens) and np.array_equal(a.logprobs, b.logprobs))
+
+
+def sched_coalesce(label, client, requests, expected_fn, log):
+    """Four same-config create() requests queued from threads behind the
+    parked worker, then released: one launch serves them. Returns the
+    counted window's launch counts and what the caller's formula needs;
+    holds every member bit-equal to a direct generate_many of the four
+    specs, and logs the solo agreement, the fused and sequential walls and
+    decode ms per step at 4 x n rows against n."""
+    import numpy as np
+
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.reliability.drills import park_worker, queue_in_order
+
+    backend, engine = client.backend, client.backend.engine
+    sched = backend.scheduler
+    launches, embeds, seen = [], [], []
+    generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
+
+    def counted_generate_many(items, **kw):
+        out = generate_many(items, **kw)
+        st = dict(engine.last_launch_stats)
+        launches.append((len(items), st["n_per"], st["decode_steps"], kw["temperature"]))
+        seen.append((list(items), kw, st, out))
+        return out
+
+    def counted_embed_tokens(token_lists, *a, **kw):
+        embeds.append([len(t) for t in token_lists])
+        return embed_tokens(token_lists, *a, **kw)
+
+    gate = park_worker(sched)
+    before = dict(sched.stats)
+    plain = plain_paged_launches()
+    engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    threads, resps = queue_in_order(
+        sched, [lambda r=r: client.chat.completions.create(**r) for r in requests])
+    gate.set()
+    join_all(threads)
+    wall = time.perf_counter() - t0
+    counts = dict(_ext.LAUNCH_COUNTS)
+    del engine.generate_many, engine.embed_tokens
+    after = dict(sched.stats)
+    bad = {i: repr(r) for i, r in resps.items() if isinstance(r, BaseException)}
+    if bad or len(launches) != 1 or launches[0][0] != len(requests):
+        raise AssertionError(f"{label} coalescing: launches {launches}, failed {bad}")
+    batches = after["batches"] - before["batches"]
+    if batches != 1 + len(embeds) or after["coalesced"] - before["coalesced"] < len(requests) - 1:
+        raise AssertionError(f"{label} coalescing: scheduler {before} -> {after}, embeds {embeds}")
+    if plain_paged_launches() != plain:
+        raise AssertionError(f"{label} coalescing: a paged launch ran the plain version")
+    items, kw, fused_st, fused = seen[0]
+    expected = expected_fn(launches, embeds)
+    log({"phase": f"{label}_sched_coalesced", "requests": len(requests),
+         "prompt_tokens": [len(it.prompt_ids) for it in items], "rows": fused_st["rows"],
+         "decode_steps": fused_st["decode_steps"], "wall_s": wall,
+         "scheduler_batches": batches, "scheduler_coalesced": after["coalesced"] - before["coalesced"],
+         "embeddings_forwards": embeds, "launches": counts, "expected": expected,
+         "consensus": [r.choices[0].message.content for r in resps.values()]})
+    if counts != expected:
+        raise AssertionError(f"{label} coalesced launch counts {counts} != expected {expected}")
+    # Outside the counted window: the same group launched directly, then
+    # each member alone, timed on the host around launches that end in a
+    # device-to-host copy.
+    t0 = time.perf_counter()
+    direct = engine.generate_many(items, **kw)
+    direct_wall = time.perf_counter() - t0
+    direct_st = dict(engine.last_launch_stats)
+    equal = [same_result(a, b) for a, b in zip(fused, direct)]
+    solo_walls, solo_steps_ms, agree = [], [], []
+    for it, res in zip(items, fused):
+        t0 = time.perf_counter()
+        solo = engine.generate_many([it], **kw)[0]
+        solo_walls.append(time.perf_counter() - t0)
+        st = engine.last_launch_stats
+        solo_steps_ms.append(st["decode_s"] * 1e3 / max(1, st["decode_steps"]))
+        agree.append([int(np.sum(res.tokens == solo.tokens)), int(res.tokens.size)])
+    log({"phase": f"{label}_sched_coalesced_check", "bit_equal_to_direct_launch": equal,
+         "solo_tokens_agreeing": agree, "fused_wall_s": direct_wall,
+         "sequential_wall_s": sum(solo_walls), "solo_wall_s": solo_walls,
+         "decode_ms_per_step_fused": direct_st["decode_s"] * 1e3 / max(1, direct_st["decode_steps"]),
+         "fused_rows": direct_st["rows"], "decode_ms_per_step_solo": solo_steps_ms,
+         "solo_rows": direct_st["n_per"]})
+    if not all(equal):
+        raise AssertionError(f"{label}: coalesced members differ from a direct launch: {equal}")
+    return counts
+
+
+def sched_cancel(label, client, contents, log, polls=4):
+    """The abort poller through the backend: one member of a two-request
+    group cancelled from another thread ``polls`` decode steps in (logged:
+    the steps from the cancel to the poll that saw it; the survivor must
+    equal the group launched without the cancel), then both (the launch
+    must end early; logged: the steps from the last cancel to the requests'
+    return)."""
+    import threading
+
+    from k_llms_tpu_torch.engine.engine import GenRequestSpec
+    from k_llms_tpu_torch.reliability.drills import park_worker, queue_in_order
+    from k_llms_tpu_torch.types.wire import RequestCancelledError
+
+    backend, engine = client.backend, client.backend.engine
+    tok, sched = backend.tokenizer, backend.scheduler
+    ids = [tok.apply_chat_template([{"role": "user", "content": c}], add_generation_prompt=True)
+           for c in contents]
+    kw = dict(max_new=32, temperature=0.8, top_p=None, constraint=None)
+    # The scheduler polls a budget twice (admission, dequeue) before decode.
+    seeds = (41, 42)
+
+    def run_group(budgets):
+        cancel_at = {}
+
+        def canceller(j, b):
+            b.reached.wait(600)
+            cancel_at[j] = time.perf_counter()
+            b.cancel()
+
+        for j, b in budgets.items():
+            threading.Thread(target=canceller, args=(j, b), daemon=True).start()
+        gate = park_worker(sched)
+        threads, got = queue_in_order(sched, [
+            lambda j=j: backend._generate_batched(ids[j], n=8, seed=seeds[j],
+                                                  budget=budgets.get(j), **kw)
+            for j in range(2)])
+        gate.set()
+        join_all(threads)
+        return got, dict(engine.last_launch_stats), cancel_at, time.perf_counter()
+
+    got, st, cancel_at, _ = run_group({1: polled_budget(2 + polls)})
+    direct = engine.generate_many([GenRequestSpec(ids[j], 8, seeds[j]) for j in range(2)],
+                                  max_new_tokens=32, temperature=0.8, eos_ids=tok.stop_ids)
+    ms_per_step = st["decode_s"] * 1e3 / max(1, st["decode_steps"])
+    seen_step, seen_at = st["aborted"].get(1, (None, None))
+    log({"phase": f"{label}_sched_cancel_one", "cancelled_error": repr(got[1]),
+         "survivor_bit_equal": same_result(got[0], direct[0]),
+         "cancel_after_decode_polls": polls, "seen_at_step": seen_step,
+         "cancel_to_poll_steps": None if seen_at is None
+         else (seen_at - cancel_at[1]) * 1e3 / ms_per_step,
+         "launch_decode_steps": st["decode_steps"], "decode_ms_per_step": ms_per_step})
+    if not isinstance(got[1], RequestCancelledError) or not same_result(got[0], direct[0]):
+        raise AssertionError(f"{label} cancel one: {got}")
+    got, st, cancel_at, returned_at = run_group(
+        {0: polled_budget(2 + polls), 1: polled_budget(2 + polls)})
+    ms_per_step = st["decode_s"] * 1e3 / max(1, st["decode_steps"])
+    log({"phase": f"{label}_sched_cancel_all", "errors": [repr(got[j]) for j in range(2)],
+         "launch_decode_steps": st["decode_steps"], "max_tokens": kw["max_new"],
+         "aborted": {j: s for j, (s, _) in st["aborted"].items()},
+         "cancel_to_return_steps": (returned_at - max(cancel_at.values())) * 1e3 / ms_per_step})
+    if (not all(isinstance(got[j], RequestCancelledError) for j in range(2))
+            or st["decode_steps"] >= kw["max_new"] - 1):
+        raise AssertionError(f"{label} cancel all: {got}, {st['decode_steps']} steps")
+
+
+def sched_oom(label, client, contents, log):
+    """Device OOM through the backend on a two-request group: the ``oom``
+    failpoint (one split), then a real one with the process's memory
+    fraction set between a solo launch's reserved peak and the group's
+    allocated peak (``reliability/drills.py``; the size is chosen so that
+    the two stand apart, and the phase fails where they do not). Each
+    member must equal its solo launch (the sub-group it ends in)."""
+    import torch
+
+    from k_llms_tpu_torch.engine.engine import GenRequestSpec
+    from k_llms_tpu_torch.reliability import failpoints as fp
+    from k_llms_tpu_torch.reliability.drills import (
+        launch_peaks, memory_fraction, oom_memory_fraction, park_worker, queue_in_order,
+        reset_launch_memory)
+    from k_llms_tpu_torch.reliability.failpoints import FailSpec
+
+    backend, engine = client.backend, client.backend.engine
+    tok, sched = backend.tokenizer, backend.scheduler
+    ids = [tok.apply_chat_template([{"role": "user", "content": c}], add_generation_prompt=True)
+           for c in contents]
+    seeds = (51, 52)
+
+    def specs_and_kw(n, max_new):
+        return ([GenRequestSpec(ids[j], n, seeds[j]) for j in range(2)],
+                dict(max_new_tokens=max_new, temperature=0.0, eos_ids=tok.stop_ids))
+
+    def serve_group(n, max_new):
+        gate = park_worker(sched, hold=600)
+        threads, got = queue_in_order(sched, [
+            lambda j=j: backend._generate_batched(ids[j], n=n, max_new=max_new, temperature=0.0,
+                                                  top_p=None, seed=seeds[j], constraint=None)
+            for j in range(2)])
+        gate.set()
+        join_all(threads)
+        return [got[j] for j in range(2)]
+
+    # The failpoint: n = 8 rows of 16 tokens a request.
+    specs, kw = specs_and_kw(8, 16)
+    solos = [engine.generate_many([spec], **kw)[0] for spec in specs]
+    splits = engine.oom_stats["splits"]
+    with fp.failpoints({"engine.launch": FailSpec(action="oom", times=1)}):
+        got = serve_group(8, 16)
+    equal = [not isinstance(g, BaseException) and same_result(g, s) for g, s in zip(got, solos)]
+    log({"phase": f"{label}_sched_oom_failpoint", "splits": engine.oom_stats["splits"] - splits,
+         "members_equal_solo": equal})
+    if engine.oom_stats["splits"] - splits != 1 or not all(equal):
+        raise AssertionError(f"{label} oom failpoint: {engine.oom_stats}, {got}")
+
+    # The real OOM: n = 32 rows of 128 tokens a request, so a request's own
+    # pages (its prompt's and its rows' generation pages, ~880 MB at 8B)
+    # set the group's peak apart from a solo's by more than a launch's
+    # reserved slack. The three measured launches also step the scheduler's
+    # width back up from the failpoint's backoff, so the group coalesces.
+    n, max_new = 32, 128
+    specs, kw = specs_and_kw(n, max_new)
+    device = engine.device
+    solos, solo_peaks, allocated_peaks = [], [], []
+    for spec in specs:
+        reset_launch_memory(engine)
+        solos.append(engine.generate_many([spec], **kw)[0])
+        reserved, allocated = launch_peaks(device)
+        solo_peaks.append(reserved)
+        allocated_peaks.append(allocated)
+    reset_launch_memory(engine)
+    engine.generate_many(specs, **kw)
+    group_peak, group_allocated = launch_peaks(device)
+    record = {"phase": f"{label}_sched_oom_real", "solo_reserved_peak_bytes": solo_peaks,
+              "group_reserved_peak_bytes": group_peak, "solo_allocated_peak_bytes": allocated_peaks,
+              "group_allocated_peak_bytes": group_allocated,
+              "gap_bytes": group_allocated - max(solo_peaks)}
+    log(record)
+    fraction = oom_memory_fraction(max(solo_peaks), group_allocated, device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    splits = engine.oom_stats["splits"]
+    batches = sched.stats["batches"]
+    launched = []
+    generate_many = engine.generate_many
+
+    def counted_generate_many(items, **kw):
+        launched.append(len(items))
+        return generate_many(items, **kw)
+
+    engine.generate_many = counted_generate_many
+    reset_launch_memory(engine)
+    try:
+        with memory_fraction(fraction, device):
+            got = serve_group(n, max_new)
+    finally:
+        del engine.generate_many
+    drill_peaks = launch_peaks(device)
+    pool = engine._kv_pool
+    in_use = None if pool is None else pool.allocator.snapshot()["in_use"]
+    equal = [not isinstance(g, BaseException) and same_result(g, s) for g, s in zip(got, solos)]
+    log({"phase": f"{label}_sched_oom_drill", "memory_fraction": fraction,
+         "limit_bytes": fraction * total,
+         "scheduler_batches": sched.stats["batches"] - batches, "launch_sizes": launched,
+         "drill_reserved_peak_bytes": drill_peaks[0], "drill_allocated_peak_bytes": drill_peaks[1],
+         "splits": engine.oom_stats["splits"] - splits, "members_equal_solo": equal,
+         "pool_pages_in_use_after": in_use})
+    if engine.oom_stats["splits"] - splits != 1 or not all(equal) or in_use not in (0, None):
+        raise AssertionError(f"{label} real oom: {engine.oom_stats}, {got}")
+
+
+def sched_rebuild(label, client, content, log):
+    """A poison-escalated rebuild of the client's engine: launches whose
+    rows are all poisoned (the ``engine.logits`` drill) until the poisoned
+    share of the supervisor's window crosses its threshold, then a clean
+    request, which rebuilds the engine before it launches. Logs the
+    rebuild's seconds and the peak device memory across it (both engines'
+    weights are resident while the new one is built)."""
+    import torch
+
+    from k_llms_tpu_torch.backends.base import ChatRequest
+    from k_llms_tpu_torch.reliability import failpoints as fp
+    from k_llms_tpu_torch.reliability.failpoints import FailSpec
+
+    backend = client.backend
+    req = ChatRequest(messages=[{"role": "user", "content": content}], model=backend.model_name,
+                      n=8, temperature=0.0, max_tokens=8, seed=61)
+    build = backend._build_engine
+    build_s = []
+
+    def timed_build():
+        t0 = time.perf_counter()
+        engine = build()
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        return engine
+
+    backend._build_engine = timed_build
+    rebuilds = backend.supervisor.stats()["rebuilds"]
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    poisoned = 0
+    try:
+        # All of a poisoned launch's rows freeze at the first token, so
+        # each is one prefill.
+        with fp.failpoints({"engine.logits": FailSpec(action="nan", kill=8, seed=0)}):
+            while backend.supervisor._rebuild_wanted is None:
+                out = backend.chat_completion(req)
+                poisoned += sum(1 for c in out.choices if getattr(c, "sample_error", None))
+        clean = backend.chat_completion(req)
+    finally:
+        del backend._build_engine
+    peak = torch.cuda.max_memory_allocated()
+    sup = backend.supervisor.stats()
+    rec = {"phase": f"{label}_sched_poison_rebuild", "poisoned_samples": poisoned,
+           "rebuilds": sup["rebuilds"] - rebuilds, "reason": sup["last_rebuild_reason"],
+           "build_s": build_s, "state": backend.health()["state"],
+           "allocated_before_bytes": allocated_before, "peak_bytes": peak,
+           "allocated_after_bytes": torch.cuda.memory_allocated(),
+           "param_bytes": backend.engine.param_footprint_bytes(),
+           "clean_samples": sum(1 for c in clean.choices if not getattr(c, "sample_error", None))}
+    log(rec)
+    if (rec["rebuilds"] != 1 or sup["last_rebuild_reason"] != "poison_rate" or len(build_s) != 1
+            or rec["clean_samples"] != 8):
+        raise AssertionError(f"{label} poison rebuild: {rec}")
+
+
+def sched_tiny(log):
+    """The watchdog and the replica set at ``tiny`` (fp32) through the
+    kernels: a hung launch rebuilt and replayed, rebuilds exhausted into
+    STOPPED and a typed 503, a poison-escalated rebuild, failover from a
+    down member and a hedged request's loser cancelled mid-decode."""
+    import torch
+
+    from k_llms_tpu_torch.backends.base import ChatRequest
+    from k_llms_tpu_torch.backends.cuda import CudaBackend
+    from k_llms_tpu_torch.reliability import failpoints as fp
+    from k_llms_tpu_torch.reliability.failpoints import FailSpec
+    from k_llms_tpu_torch.reliability.replicas import ReplicaSet
+    from k_llms_tpu_torch.types.wire import BackendUnavailableError, EngineHungError
+    from k_llms_tpu_torch.utils.observability import FAILURE_EVENTS, HEDGE_EVENTS
+
+    knobs = dict(model="tiny", attention_impl="flash", paged_attention_impl="cuda")
+
+    def req(seed=123, n=2, max_tokens=16, temperature=1.0, content="determinism"):
+        return ChatRequest(messages=[{"role": "user", "content": content}], model="tiny", n=n,
+                           temperature=temperature, seed=seed, max_tokens=max_tokens)
+
+    def texts(out):
+        return [c.message.content for c in out.choices]
+
+    baseline_backend = CudaBackend(**knobs)
+    baseline_backend.chat_completion(req())
+    t0 = time.perf_counter()
+    baseline = baseline_backend.chat_completion(req())
+    warm_s = time.perf_counter() - t0
+    baseline_backend.close()
+    budget = max(2.0, 10.0 * warm_s)
+    watched = dict(knobs, watchdog_min_budget_s=budget, watchdog_max_budget_s=budget)
+
+    # A hung launch: detected, rebuilt, replayed. The hang outlasts the run.
+    b = CudaBackend(**watched)
+    build = b._build_engine
+    build_s = []
+
+    def timed_build():
+        t0 = time.perf_counter()
+        engine = build()
+        build_s.append(time.perf_counter() - t0)
+        return engine
+
+    b._build_engine = timed_build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    with fp.failpoints({"engine.launch": FailSpec(action="hang", times=1, delay=3600.0)}):
+        t0 = time.perf_counter()
+        out = b.chat_completion(req())
+        wall = time.perf_counter() - t0
+    h = b.health()
+    sup = h["supervisor"]
+    rec = {"phase": "sched_tiny_hang", "watchdog_budget_s": budget, "warm_launch_s": warm_s,
+           "request_wall_s": wall, "rebuild_build_s": build_s, "state": h["state"],
+           "hung_launches": sup["hung_launches"], "rebuilds": sup["rebuilds"],
+           "replayed": sup["replayed"], "text_equal": texts(out) == texts(baseline),
+           "allocated_before_bytes": allocated,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(rec)
+    if (h["state"] != "ready" or (sup["hung_launches"], sup["rebuilds"]) != (1, 1)
+            or sup["replayed"] < 1 or texts(out) != texts(baseline)):
+        raise AssertionError(f"tiny hang drill: {rec}")
+    b.close()
+
+    # Every launch hangs and one rebuild is allowed: STOPPED, then 503s.
+    b = CudaBackend(**dict(watched, max_rebuilds=1))
+    with fp.failpoints({"engine.launch": FailSpec(action="hang", delay=3600.0)}):
+        try:
+            b.chat_completion(req(n=1, max_tokens=4))
+            first = "served"
+        except EngineHungError as e:
+            first = repr(e)
+    try:
+        b.chat_completion(req(n=1, max_tokens=4))
+        second = None
+    except BackendUnavailableError as e:
+        second = e
+    rec = {"phase": "sched_tiny_rebuilds_exhausted", "first": first, "state": b.health()["state"],
+           "second_status": getattr(second, "status_code", None), "second": repr(second)}
+    log(rec)
+    if rec["state"] != "stopped" or rec["second_status"] != 503 or first == "served":
+        raise AssertionError(f"tiny rebuild exhaustion: {rec}")
+
+    # Poison above the threshold: the next launch rebuilds first.
+    b = CudaBackend(**dict(knobs, poison_threshold=0.5))
+    with fp.failpoints({"engine.logits": FailSpec(action="nan", kill=1, seed=0)}):
+        b.chat_completion(req(seed=1))
+    out = b.chat_completion(req())
+    sup = b.supervisor.stats()
+    rec = {"phase": "sched_tiny_poison", "rebuilds": sup["rebuilds"],
+           "reason": sup["last_rebuild_reason"], "text_equal": texts(out) == texts(baseline)}
+    log(rec)
+    if sup["rebuilds"] != 1 or sup["last_rebuild_reason"] != "poison_rate" or not rec["text_equal"]:
+        raise AssertionError(f"tiny poison escalation: {rec}")
+    b.close()
+
+    # Replicas: failover from a down member, then a hedge whose loser (a
+    # primary slowed at every decode step) is cancelled through its poller.
+    b0, b1 = CudaBackend(**knobs), CudaBackend(**knobs)
+    rs = ReplicaSet(members=[b0, b1], model="tiny", hedge=False, route_policy="round_robin")
+    with fp.failpoints({"replica.dispatch": FailSpec(action="down", member="r0", times=1),
+                        "replica.probe": FailSpec(action="fail", member="r0")}):
+        out = rs.dispatch_chat_completion(req())
+        health = rs.health()
+    rec = {"phase": "sched_tiny_failover", "text_equal": texts(out) == texts(baseline),
+           "healthy_members": health["healthy_members"],
+           "r0_in_rotation": health["replicas"]["r0"]["in_rotation"],
+           "probe_rejoins": rs.probe("r0")}
+    log(rec)
+    if not rec["text_equal"] or rec["healthy_members"] != 1 or not rec["probe_rejoins"]:
+        raise AssertionError(f"tiny failover: {rec}")
+    rs.close()
+
+    b0, b1 = CudaBackend(**knobs), CudaBackend(**knobs)
+    decode = b0.engine._decode
+
+    def slowed(step_fn, *args, **kwargs):
+        def step(tok, i):
+            time.sleep(0.02)
+            return step_fn(tok, i)
+        return decode(step, *args, **kwargs)
+
+    b0.engine._decode = slowed
+    rs = ReplicaSet(members=[b0, b1], model="tiny", hedge=True, hedge_delay_s=0.05,
+                    route_policy="round_robin")
+    aborts = FAILURE_EVENTS.get("engine.decode_abort")
+    won = HEDGE_EVENTS.get("hedge.won_hedge")
+    out = rs.dispatch_chat_completion(req(max_tokens=200))
+    deadline = time.monotonic() + 30
+    while FAILURE_EVENTS.get("engine.decode_abort") == aborts and time.monotonic() < deadline:
+        time.sleep(0.02)
+    st = b0.engine.last_launch_stats
+    rec = {"phase": "sched_tiny_hedge", "hedge_won": HEDGE_EVENTS.get("hedge.won_hedge") - won,
+           "loser_aborted": FAILURE_EVENTS.get("engine.decode_abort") - aborts,
+           "loser_decode_steps": st.get("decode_steps"), "loser_aborted_at": st.get("aborted"),
+           "breakers": [b0.circuit_breaker.state, b1.circuit_breaker.state]}
+    log(rec)
+    if (rec["hedge_won"] != 1 or rec["loser_aborted"] != 1 or st["decode_steps"] >= 199
+            or rec["breakers"] != ["closed", "closed"]):
+        raise AssertionError(f"tiny hedge: {rec}")
+    rs.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -145,6 +660,8 @@ def main(argv=None) -> int:
         raise SystemExit(f"unknown phases {unknown}; known {PHASES}")
     if "ckpt" in phases and "8b" not in phases:
         raise SystemExit("the ckpt phase serves the 8b phase's tree: add 8b")
+    if "sched" in phases and "8b" not in phases:
+        raise SystemExit("the sched phase drives the 8b phase's client: add 8b")
 
     import numpy as np
     import torch
@@ -1136,6 +1653,17 @@ def main(argv=None) -> int:
         response_format=InvoiceStatus, n=8, temperature=0.8, seed=11, max_tokens=96,
         logit_bias=printable)
 
+    # The sched phase's group: four same-config requests of about 51, 46,
+    # 300 and 1490 prompt tokens; its abort poller's two requests; its OOM
+    # drill's two requests of about 2900 tokens each (another document
+    # apiece), whose page pools set the group's peak apart from a solo's.
+    sched_contents = ["What is the capital of France?", "Name three prime numbers.",
+                      long_text[:279], long_text + "\nWhat is the total?"]
+    sched_requests = [dict(messages=[{"role": "user", "content": c}], n=8, temperature=0.8,
+                           max_tokens=32, seed=31 + i, logit_bias=printable)
+                      for i, c in enumerate(sched_contents)]
+    oom_contents = [long_text * 2, long_text[725:] + long_text[:725] + long_text]
+
     def serve_8b(label, client):
         """Warm up, then the three create requests and the parse request
         with every launch count reset just before and read just after.
@@ -1165,6 +1693,7 @@ def main(argv=None) -> int:
             return embed_tokens(token_lists, *a, **kw)
 
         engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
+        plain = plain_paged_launches()
         _ext.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         allocated_before = torch.cuda.memory_allocated()
@@ -1225,6 +1754,8 @@ def main(argv=None) -> int:
                                  f"validated={validated}, consensus={consensus!r}")
         del engine.generate_many, engine.embed_tokens
         counts = dict(_ext.LAUNCH_COUNTS)
+        if plain_paged_launches() != plain:
+            raise AssertionError(f"{label}: a paged launch ran the plain version in the counted window")
         log({"phase": f"{label}_main_path", "launches": counts, "engine_launches": launches,
              "embeddings_forwards": len(embed_batches),
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -1666,7 +2197,7 @@ def main(argv=None) -> int:
                  "seconds": export_s, "GB_per_s": written / export_s / 1e9,
                  "files": sorted(os.listdir(directory))})
             del engine
-            seeded.pop("client")
+            seeded.pop("client").close()
             gc.collect()
             torch.cuda.empty_cache()
             from k_llms_tpu_torch.models.loader import config_from_hf
@@ -1694,6 +2225,7 @@ def main(argv=None) -> int:
             if counts != expected or counts != seeded["counts"]:
                 raise AssertionError(f"ckpt_bf16 launch counts {counts} != expected {expected}")
             cache_sequence("ckpt_bf16", client)
+            client.close()
             del client
             gc.collect()
             torch.cuda.empty_cache()
@@ -1717,6 +2249,7 @@ def main(argv=None) -> int:
             if not embeds or expected["decode_prefix_attention"] == 0 or counts != expected:
                 raise AssertionError(f"ckpt_int4 launch counts {counts} != expected {expected}")
             cache_sequence("ckpt_int4", client)
+            client.close()
             del client
         finally:
             shutil.rmtree(directory, ignore_errors=True)
@@ -1734,6 +2267,7 @@ def main(argv=None) -> int:
              "attention_impl": engine.config.attention_impl})
         counts, launches, embeds, outputs = serve_8b("8b", client)
         L = engine.config.num_layers
+        del engine  # the rebuild below must be able to free the engine it replaces
         for name in ("flash_attention", "paged_decode_attention", "threefry_uniform"):
             if name in kernels:
                 kernels[name]["launches"] = counts[name]
@@ -1744,11 +2278,21 @@ def main(argv=None) -> int:
             for index in (0, 2):  # a short and the long prompt
                 profile_one("8b", client, index)
             profile_masked("8b", client)
+        if "sched" in phases:
+            sched_coalesce("8b", client, sched_requests,
+                           lambda launches, embeds: expected_bf16_paged(launches, embeds, L), log)
+            sched_cancel("8b", client, [sched_contents[0], sched_contents[2]], log)
+            sched_oom("8b", client, oom_contents, log)
+            # Last: the rebuilt engine holds the same seeded weights, which
+            # the ckpt phase exports and compares with this phase's outputs.
+            sched_rebuild("8b", client, sched_contents[1], log)
         if "ckpt" in phases:
             # 9c serves this tree again from a checkpoint on disk.
             seeded = {"client": client, "launches": launches, "embeds": embeds,
                       "outputs": outputs, "counts": counts}
-        del client, engine
+        else:
+            client.close()  # its scheduler's worker holds the backend until it exits
+        del client
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1791,9 +2335,18 @@ def main(argv=None) -> int:
             for index in (0, 2):
                 profile_one("8b_int4", client, index)
             profile_masked("8b_int4", client)
+        if "sched" in phases:
+            sched_coalesce("8b_int4", client, sched_requests,
+                           lambda launches, embeds: expected_int4_dense(launches, embeds, L, G), log)
+        client.close()
         del client, engine
         gc.collect()
         torch.cuda.empty_cache()
+
+    # 10. The watchdog and the replica set at tiny through the kernels
+    # (after every counted window: a hung launch's thread outlives the run).
+    if "sched" in phases:
+        sched_tiny(log)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)

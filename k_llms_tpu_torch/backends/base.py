@@ -1,8 +1,10 @@
 """Backend protocol: what the resources layer needs from a model engine.
 
-Counterpart of ``k_llms_tpu/backends/base.py`` without its reliability layer
-(circuit breaker, retry policy, failpoints, replicas), which is not ported
-yet: ``dispatch_chat_completion`` is one attempt.
+Counterpart of ``k_llms_tpu/backends/base.py`` with its reliability layer:
+``dispatch_chat_completion`` gates on a per-backend circuit breaker, checks
+the request budget and retries under a bounded backoff policy, and fires the
+``backend.dispatch`` failpoint on every attempt. The streaming dispatch
+waits for streaming.
 """
 
 from __future__ import annotations
@@ -11,8 +13,16 @@ import abc
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any, Dict, List, Optional, Union
 
+from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
+from ..reliability.retry import CircuitBreaker, RetryPolicy
 from ..types import ChatCompletion
+from ..types.wire import (
+    RateLimitError,
+    RequestCancelledError,
+    RequestTimeoutError,
+    ServerDrainingError,
+)
 from ..utils.locks import make_lock
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -39,9 +49,12 @@ class ChatRequest:
     # OpenAI logit_bias: {token_id: bias in [-100, 100]} added to the logits
     # at sampling time.
     logit_bias: Optional[Dict[str, float]] = None
-    # Lifecycle budget built from the caller's ``timeout=``; checked before
-    # prefill and after decode. None = unbounded.
+    # Lifecycle budget built from the caller's ``timeout=`` plus a
+    # cooperative cancel token; threaded into scheduler admission and the
+    # engine's decode loop (polled every step). None = unbounded.
     budget: Optional[RequestBudget] = None
+    # Tenant this request bills against; None = the permissive "default"
+    # tenant. The scheduler resolves it to a TenantContext at admission.
     tenant: Optional[str] = None
     extra: Dict[str, Any] = field(default_factory=dict)
 
@@ -55,11 +68,51 @@ class Backend(abc.ABC):
 
     supports_streaming: bool = False
 
+    #: Dispatch-layer reliability knobs, overridable per instance (pass a
+    #: seeded RetryPolicy in tests to pin backoff schedules). The breaker is
+    #: lazily per-instance so one flapping backend never opens another's
+    #: circuit.
+    retry_policy: RetryPolicy = RetryPolicy()
+
+    @property
+    def circuit_breaker(self) -> CircuitBreaker:
+        breaker = self.__dict__.get("_circuit_breaker")
+        if breaker is None:
+            breaker = CircuitBreaker(name=type(self).__name__)
+            self.__dict__["_circuit_breaker"] = breaker
+        return breaker
+
     def dispatch_chat_completion(self, request: ChatRequest) -> ChatCompletion:
-        """What the resources layer calls: one attempt, after a budget check."""
-        if request.budget is not None:
-            request.budget.check("dispatch")
-        return self.chat_completion(request)
+        """``chat_completion`` wrapped in the reliability layer: circuit-breaker
+        gate, budget check, bounded retry with backoff, and the
+        ``backend.dispatch`` failpoint. This is what the resources layer
+        calls; ``chat_completion`` stays the single-attempt primitive."""
+        breaker = self.circuit_breaker
+
+        def attempt() -> ChatCompletion:
+            breaker.allow()
+            try:
+                _failpoints.fire("backend.dispatch")
+                out = self.chat_completion(request)
+            except BaseException as e:
+                # A caller's own deadline/cancel is not a backend-health
+                # signal, and admission sheds (queue full, draining) are load
+                # signals: only genuine dispatch faults trip the circuit.
+                if not isinstance(
+                    e,
+                    (
+                        RequestTimeoutError,
+                        RequestCancelledError,
+                        RateLimitError,
+                        ServerDrainingError,
+                    ),
+                ):
+                    breaker.record_failure()
+                raise
+            breaker.record_success()
+            return out
+
+        return self.retry_policy.call(attempt, budget=request.budget)
 
     @abc.abstractmethod
     def embeddings(self, texts: List[str]) -> List[List[float]]:
@@ -102,7 +155,14 @@ class Backend(abc.ABC):
         return values[0]
 
     def health(self) -> Dict[str, Any]:
-        return {"state": "ready"}
+        """Point-in-time serving-health snapshot. Backends without a
+        scheduler report their breaker state; CudaBackend overrides with the
+        scheduler's lifecycle view."""
+        breaker = self.__dict__.get("_circuit_breaker")
+        return {
+            "state": "ready",
+            "breaker": breaker.state if breaker is not None else "closed",
+        }
 
     def drain(self, timeout: float = 30.0) -> bool:
         self.close()
@@ -127,12 +187,19 @@ class UnknownBackendError(ValueError):
 
 
 #: Accepted backend names (case/whitespace-insensitive) -> canonical family.
-_BACKEND_ALIASES: Dict[str, str] = {"cuda": "cuda", "local": "cuda"}
+_BACKEND_ALIASES: Dict[str, str] = {
+    "cuda": "cuda",
+    "local": "cuda",
+    "replicas": "replicas",
+    "replica": "replicas",
+    "replicaset": "replicas",
+    "replica_set": "replicas",
+}
 
 
 def resolve_backend(backend: Union[str, Backend, None], **kwargs: Any) -> Backend:
-    """Instantiate a backend from a name ("cuda" and aliases; None defaults
-    to "cuda") or pass a Backend instance through unchanged."""
+    """Instantiate a backend from a name ("cuda" | "replicas", plus aliases;
+    None defaults to "cuda") or pass a Backend instance through unchanged."""
     if isinstance(backend, Backend):
         return backend
     known = sorted(_BACKEND_ALIASES)
@@ -143,4 +210,8 @@ def resolve_backend(backend: Union[str, Backend, None], **kwargs: Any) -> Backen
         from .cuda import CudaBackend
 
         return CudaBackend(**kwargs)
+    if name == "replicas":
+        from ..reliability.replicas import ReplicaSet
+
+        return ReplicaSet(**kwargs)
     raise UnknownBackendError(backend, known)

@@ -2,32 +2,58 @@
 
 Counterpart of ``k_llms_tpu/backends/tpu.py``: the chat template, stop
 strings, per-sample logprobs and usage of ``chat_completion`` are carried
-over; the request goes straight to ``LocalEngine.generate_many``. The model
-overrides (dtype, max_seq_len, attention impls), weight quantization, the
-KV-layout knobs, the prompt-prefix cache and checkpoint loading of the JAX
-package's ``BackendConfig`` are carried over under the same names and
-defaults: ``checkpoint_path`` loads a native or an HF safetensors checkpoint
-(``models/loader.py``, integrity-verified; its summary is
-``param_summary``), and a ``model`` name that is not registered takes its
-config from the checkpoint's ``config.json``. So is grammar-constrained
-decoding: a
-``response_format`` compiles (once per schema and vocabulary, through the
-process-wide grammar cache) into a token-mask automaton that the engine
-applies inside decode, so every sample is valid by construction
-(``constrained_decoding=True``, the default). The scheduler, supervisor,
-continuous loop, streaming and the device consensus scorer are not ported
+over, and so is the serving chain every ``create()``/``parse()`` and
+``embeddings()`` call follows:
+
+1. the seed is pinned at submission (so a replay samples what the first
+   attempt would have), the tenant's quota is charged, and the request's
+   row cap comes from the device memory model (:class:`HbmMemoryModel`);
+2. the request goes through ``EngineScheduler.call_batched``: its single
+   worker coalesces same-key requests that arrive inside the batch window
+   into one launch (``LocalEngine.generate_many`` of R requests × n rows);
+3. the launch runs under ``EngineSupervisor.supervised_launch``, the
+   watchdog that rebuilds the engine (``_rebuild_engine``) and replays the
+   launch when it hangs or poison escalates;
+4. ``generate_many`` splits a group in half on device OOM.
+
+The scheduler's worker and the supervisor's launch threads issue their work
+on the card's legacy default stream, like every other caller, so launches
+stay in stream order and the arrival semaphores of the split-reduction
+kernels (``ops/_ext.py``) stay sound: neither a rebuilt engine nor a launch
+thread gets a stream of its own. The kernels are built when a backend is
+constructed on a card, outside any watched launch.
+
+The model overrides (dtype, max_seq_len, attention impls), weight
+quantization, the KV-layout knobs, the prompt-prefix cache, checkpoint
+loading, grammar-constrained decoding, the scheduler, memory-model,
+watchdog, poison and tenancy knobs of the JAX package's ``BackendConfig``
+are carried over under the same names and defaults: ``checkpoint_path``
+loads a native or an HF safetensors checkpoint (``models/loader.py``,
+integrity-verified; its summary is ``param_summary``), and a ``model`` name
+that is not registered takes its config from the checkpoint's
+``config.json``. A ``response_format`` compiles (once per schema and
+vocabulary, through the process-wide grammar cache) into a token-mask
+automaton that the engine applies inside decode
+(``constrained_decoding=True``, the default). The continuous loop,
+streaming, the batch lane and the device consensus scorer are not ported
 yet; a keyword that names one of the JAX package's other ``BackendConfig``
 fields raises ``NotImplementedError`` rather than being dropped.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
+import logging
+import os
+import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 from pydantic import BaseModel
 
 from ..consensus.prompts import SYSTEM_PROMPT_STRING_CONSENSUS_LLM
@@ -38,11 +64,17 @@ from ..engine.engine import (
     LocalEngine,
     resolve_device,
 )
+from ..engine.scheduler import EngineScheduler
 from ..engine.tokenizer import get_tokenizer
 from ..models import loader
 from ..models.config import get_config
+from ..reliability.supervisor import EngineSupervisor, LaunchBudgetModel
+from ..reliability.tenancy import TenancyConfig
 from ..types import ChatCompletion
+from ..utils.observability import LATENCY
 from .base import Backend, ChatRequest
+
+logger = logging.getLogger(__name__)
 
 # Embedding inputs crop at the same token cap as the reference client.
 MAX_EMBEDDING_TOKENS = 8191
@@ -98,6 +130,53 @@ class BackendConfig(BaseModel):
     # decode; parse()'s post-hoc validation stays authoritative either way.
     # False = decode unconstrained and validate after the fact.
     constrained_decoding: bool = True
+    # -- scheduler (engine/scheduler.py) ---------------------------------
+    # Decode-admission window (seconds): after dequeuing a request the
+    # scheduler holds the batch open this long for same-key arrivals to
+    # coalesce. 0.0 = burst coalescing from queue backlog alone.
+    batch_window: float = 0.005
+    # Bounded admission: total queued weight (rows, i.e. n per request)
+    # above which new work is shed with a typed 429. None = unbounded.
+    max_queue_weight: Optional[int] = None
+    # Hard cap on the coalesced device batch (rows). None = the scheduler's
+    # default (64), further tightened per request by the memory model.
+    max_batch_rows: Optional[int] = None
+    # Device memory for the memory model. None = the card's total
+    # (torch.cuda.mem_get_info) times the process's memory fraction; 16 GiB
+    # on the CPU, where the model then caps nothing at test sizes.
+    hbm_bytes: Optional[int] = None
+    # Fraction of device memory the memory model may plan against.
+    hbm_headroom: float = 0.85
+    # Default timeout for drain()/close() graceful shutdown.
+    drain_timeout: float = 30.0
+    # -- supervision (reliability/supervisor.py) -------------------------
+    # Hung-launch watchdog budget: clamp(base + multiplier * max_new_tokens
+    # * per-token EWMA) seconds per launch.
+    watchdog_base_s: float = 10.0
+    watchdog_per_token_s: float = 0.5
+    watchdog_multiplier: float = 8.0
+    watchdog_min_budget_s: float = 60.0
+    watchdog_max_budget_s: float = 900.0
+    # Consecutive engine rebuilds without a successful launch before the
+    # backend goes STOPPED (typed 503s from then on).
+    max_rebuilds: int = 2
+    # Poisoned-sample fraction over the last poison_window launches at
+    # which the supervisor rebuilds the engine.
+    poison_threshold: float = 0.5
+    poison_window: int = 8
+    # -- tenancy (reliability/tenancy.py) --------------------------------
+    # Per-tenant token-bucket quotas, WFQ weights and SLO classes; ``tenants``
+    # maps a tenant name to TenantSpec overrides, ``tenant_api_keys`` an API
+    # key to a tenant name. None rates = unlimited.
+    tenant_default_weight: float = 1.0
+    tenant_default_slo: str = "interactive"
+    tenant_default_requests_per_s: Optional[float] = None
+    tenant_default_rows_per_s: Optional[float] = None
+    tenants: Optional[Dict[str, Dict[str, Any]]] = None
+    tenant_api_keys: Optional[Dict[str, str]] = None
+    # Queued-weight fraction of max_queue_weight at which batch-class
+    # admissions are shed (brownout).
+    brownout_high_water: float = 0.9
     # Where the engine runs: None = the CUDA card (raises without one);
     # "cpu" runs the kernels' plain PyTorch versions.
     device: Optional[str] = None
@@ -107,19 +186,90 @@ class BackendConfig(BaseModel):
 #: ported. A keyword naming one raises NotImplementedError.
 UNPORTED_FIELDS = frozenset({
     "model_parallel", "sp_prefill_min_tokens", "sp_attention", "sp_decode", "speculative",
-    "spec_lookahead", "batch_window", "max_queue_weight", "max_batch_rows", "hbm_bytes",
-    "hbm_headroom", "drain_timeout", "sse_ping_interval_s", "debug_endpoints",
-    "watchdog_base_s", "watchdog_per_token_s", "watchdog_multiplier",
-    "watchdog_min_budget_s", "watchdog_max_budget_s", "max_rebuilds", "poison_threshold",
-    "poison_window", "continuous_batching", "continuous_width", "continuous_max_prompt",
+    "spec_lookahead", "sse_ping_interval_s", "debug_endpoints",
+    "continuous_batching", "continuous_width", "continuous_max_prompt",
     "continuous_max_new", "prefill_chunk_tokens", "device_consensus",
-    "tenant_default_weight", "tenant_default_slo",
-    "tenant_default_requests_per_s", "tenant_default_rows_per_s", "tenants",
-    "tenant_api_keys", "brownout_high_water", "batch_store_dir", "batch_max_in_flight",
-    "batch_item_retries", "jobstore_ttl_s",
+    "batch_store_dir", "batch_max_in_flight", "batch_item_retries", "jobstore_ttl_s",
 })
 
 _MODEL_OVERRIDES = ("dtype", "max_seq_len", "attention_impl", "decode_attention_impl")
+
+
+def _detect_hbm_bytes(device: torch.device) -> Optional[int]:
+    """The card's memory this process may use: its total times the
+    per-process memory fraction; None off a card."""
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    total = torch.cuda.mem_get_info(index)[1]
+    fraction = getattr(torch.cuda, "get_per_process_memory_fraction", lambda i: 1.0)(index)
+    return int(total * fraction)
+
+
+class HbmMemoryModel:
+    """Static device-memory accounting for the coalesced decode: how many
+    rows (samples) fit beside the resident parameters? The JAX package's
+    model on one card (no tensor or data parallelism):
+
+        params + R * S * kv_bytes_per_token + R * row_margin
+
+    Inverting for R against ``hbm * headroom`` gives the row cap the
+    scheduler may coalesce to for a request shape. Conservative and static:
+    it keeps the first launch inside the card; the engine's OOM guard
+    (split and retry) catches what it underestimates."""
+
+    def __init__(self, config, param_bytes: int, hbm_bytes: Optional[int] = None,
+                 headroom: float = 0.85, device: Optional[torch.device] = None):
+        self.config = config
+        self.param_bytes = int(param_bytes)
+        detected = hbm_bytes if hbm_bytes is not None else _detect_hbm_bytes(
+            torch.device(device or "cpu")
+        )
+        # 16 GiB fallback (the JAX package's): on the CPU, test models are
+        # then effectively uncapped.
+        self.hbm_bytes = int(detected) if detected else 16 * (1 << 30)
+        self.headroom = float(headroom)
+        # K and V, every layer, kv_dim features per token.
+        self.kv_bytes_per_token = 2 * config.num_layers * config.kv_dim * config.torch_dtype.itemsize
+        # Per-row non-KV working set: f32 logits and sampling buffers.
+        self.row_margin_bytes = 4 * config.vocab_size + (64 << 10)
+
+    def budget_bytes(self) -> int:
+        """Bytes available for per-row state after the parameters."""
+        return int(self.hbm_bytes * self.headroom) - self.param_bytes
+
+    def max_rows(self, seq_len: int) -> int:
+        """Row cap for a dense decode whose rows each hold ``seq_len``
+        tokens of KV. Always >= 1: a row that does not fit is the OOM
+        guard's problem, not admission's."""
+        per_row = max(1, int(seq_len)) * self.kv_bytes_per_token + self.row_margin_bytes
+        return max(1, max(0, self.budget_bytes()) // max(1, per_row))
+
+    def paged_max_rows(self, prompt_len: int, max_new: int, page_size: int,
+                       fanout: int = 1) -> int:
+        """Row cap when rows hold paged KV and every ``fanout`` rows share
+        one prompt's pages: a row's private generation reserve plus
+        ``1/fanout`` of the prompt pages."""
+        ps = max(1, int(page_size))
+        fanout = max(1, int(fanout))
+        prompt_len = max(1, int(prompt_len))
+        max_new = max(1, int(max_new))
+        page_bytes = ps * self.kv_bytes_per_token
+        prompt_pages = -(-prompt_len // ps)
+        reserve = (prompt_len + max_new - 1) // ps - prompt_len // ps + 1
+        per_row = (
+            reserve * page_bytes + -(-prompt_pages * page_bytes // fanout) + self.row_margin_bytes
+        )
+        return max(1, max(0, self.budget_bytes()) // max(1, per_row))
+
+    def describe(self) -> Dict[str, Any]:
+        return {
+            "hbm_bytes": self.hbm_bytes,
+            "headroom": self.headroom,
+            "param_bytes": self.param_bytes,
+            "kv_bytes_per_token": self.kv_bytes_per_token,
+            "max_rows_at_max_seq": self.max_rows(self.config.max_seq_len),
+        }
 
 
 class CudaBackend(Backend):
@@ -165,16 +315,84 @@ class CudaBackend(Backend):
                 f"Unsupported quantization {cfg.quantization!r}; use 'int8' or 'int4'"
             )
         self.tokenizer = get_tokenizer(cfg.tokenizer_path)
+        self._model_config = model_config
         self.param_summary: Optional[Dict[str, Any]] = None
-        self.engine = engine if engine is not None else self._build_engine(model_config)
-        self.default_max_new_tokens = cfg.max_new_tokens
+        self.engine = engine if engine is not None else self._build_engine()
+        if self.engine.device.type == "cuda":
+            # Every kernel is built here, so no nvcc build ever runs inside
+            # a watched launch (a cold build of the five sources takes tens
+            # of seconds).
+            from ..ops import _ext
 
-    def _build_engine(self, model_config) -> LocalEngine:
+            _ext.build_all()
+        self.default_max_new_tokens = cfg.max_new_tokens
+        # Row cap per request shape: prompt + max_new KV per row, paged or
+        # dense, against the card's memory.
+        self.memory_model = HbmMemoryModel(
+            self.engine.config,
+            param_bytes=self.engine.param_footprint_bytes(),
+            hbm_bytes=cfg.hbm_bytes,
+            headroom=cfg.hbm_headroom,
+            device=self.engine.device,
+        )
+        self.tenancy = TenancyConfig.from_options(
+            default_weight=cfg.tenant_default_weight,
+            default_slo=cfg.tenant_default_slo,
+            default_requests_per_s=cfg.tenant_default_requests_per_s,
+            default_rows_per_s=cfg.tenant_default_rows_per_s,
+            tenants=cfg.tenants,
+            api_keys=cfg.tenant_api_keys,
+        )
+        # Every launch funnels through one scheduler: its single worker
+        # coalesces concurrent same-key requests into one launch.
+        scheduler_kwargs: Dict[str, Any] = {}
+        if cfg.max_batch_rows is not None:
+            scheduler_kwargs["max_rows"] = cfg.max_batch_rows
+        self.scheduler = EngineScheduler(
+            name=self.model_name,
+            batch_window=cfg.batch_window,
+            max_queue_weight=cfg.max_queue_weight,
+            tenancy=self.tenancy,
+            brownout_high_water=cfg.brownout_high_water,
+            **scheduler_kwargs,
+        )
+        # Every launch runs under the watchdog; a hung or poison-escalated
+        # engine is rebuilt through _rebuild_engine and the launch replayed.
+        # The hooks are the scheduler's RECOVERING / READY / STOPPED
+        # transitions.
+        self.supervisor = EngineSupervisor(
+            rebuild_fn=self._rebuild_engine,
+            budget_model=LaunchBudgetModel(
+                base_s=cfg.watchdog_base_s,
+                per_token_s=cfg.watchdog_per_token_s,
+                multiplier=cfg.watchdog_multiplier,
+                min_budget_s=cfg.watchdog_min_budget_s,
+                max_budget_s=cfg.watchdog_max_budget_s,
+            ),
+            max_rebuilds=cfg.max_rebuilds,
+            poison_threshold=cfg.poison_threshold,
+            poison_window=cfg.poison_window,
+            on_recovering=self.scheduler.note_recovering,
+            on_rebuilt=self.scheduler.note_rebuilt,
+            on_rebuild_failed=self.scheduler.note_rebuild_failed,
+        )
+        # The thread of the latest supervised launch: a rebuild waits for a
+        # hung one to end before it gives the old engine's memory back.
+        self._launch_thread: Optional[threading.Thread] = None
+        self._wire_engine_hooks()
+        self._closed = False
+
+    # -- engine lifecycle ----------------------------------------------------
+    def _build_engine(self) -> LocalEngine:
         """The engine, on weights from ``checkpoint_path`` (loaded onto the
         engine's device and integrity-verified: a corrupt checkpoint raises
-        CheckpointCorruptError) or seeded from ``param_seed``."""
+        CheckpointCorruptError) or seeded from ``param_seed``. Shared by
+        construction and the supervisor's rebuild, so a recovery lands on
+        the weights a cold start would load."""
         cfg = self.backend_config
+        model_config = self._model_config
         params = None
+        self.param_summary = None
         if cfg.checkpoint_path:
             params = loader.load_checkpoint(
                 cfg.checkpoint_path, model_config, device=resolve_device(cfg.device)
@@ -195,6 +413,60 @@ class CudaBackend(Backend):
             prefix_cache_min_reuse=cfg.prefix_cache_min_reuse,
             kv_pool_pages=cfg.kv_pool_pages,
         )
+
+    def _wire_engine_hooks(self) -> None:
+        """Device-OOM feedback (each caught OOM halves the scheduler's
+        coalescing width, clean launches step it back up) and the quarantine
+        feed. Re-run after every rebuild so the hooks follow the new
+        engine."""
+        self.engine.on_oom = self.scheduler.note_oom
+        self.engine.on_launch_ok = self.scheduler.note_recovered
+        self.engine.on_quarantine = self._on_quarantine
+
+    def _on_quarantine(self, poisoned: int, total: int) -> None:
+        # Fires after every launch (poisoned=0 when clean) so the
+        # supervisor's escalation window decays under healthy traffic.
+        self.scheduler.note_quarantine(poisoned)
+        self.supervisor.note_poison(poisoned, total)
+
+    def _rebuild_engine(self) -> None:
+        """Supervisor rebuild_fn: stand up a fresh engine and drop the old,
+        then give the old one's memory back to the card. A launch declared
+        hung keeps its thread, and with it the old engine, until the hang
+        ends (a kernel wedged on the card cannot be killed from the
+        process): its memory goes back once that thread has ended, and
+        until then the card holds both engines' weights."""
+        old = weakref.ref(self.engine)
+        launch = self._launch_thread
+        self.engine = self._build_engine()
+        self._wire_engine_hooks()
+        if self.engine.device.type != "cuda":
+            return
+        if launch is not None and launch.is_alive():
+            threading.Thread(
+                target=self._release_after, args=(launch, old),
+                name="kllms-engine-release", daemon=True,
+            ).start()
+        else:
+            self._release_after(None, old)
+
+    @staticmethod
+    def _release_after(thread: Optional[threading.Thread], engine_ref) -> None:
+        if thread is not None:
+            thread.join()
+        if engine_ref() is not None:
+            gc.collect()
+        torch.cuda.empty_cache()
+
+    def _supervised(self, launch, rows: int, max_new_tokens: int):
+        """``launch(engine)`` under the watchdog, always on the current
+        engine: a replay after a rebuild lands on the new one."""
+
+        def run():
+            self._launch_thread = threading.current_thread()
+            return launch(self.engine)
+
+        return self.supervisor.supervised_launch(run, rows=rows, max_new_tokens=max_new_tokens)
 
     # -- chat -------------------------------------------------------------
     def chat_completion(self, request: ChatRequest) -> ChatCompletion:
@@ -232,21 +504,22 @@ class CudaBackend(Backend):
             if 0 < len(ids_s) <= MAX_STOP_LEN
         ][:MAX_STOP_SEQS] or None
 
-        result = self.engine.generate_many(
-            [GenRequestSpec(list(prompt_ids), n, request.seed, request.budget)],
-            max_new_tokens=max_new,
+        result = self._generate_batched(
+            prompt_ids,
+            n=n,
+            max_new=max_new,
             temperature=temperature,
             top_p=request.top_p,
-            eos_ids=tok.stop_ids,
+            seed=request.seed,
+            constraint=constraint,
             top_logprobs=top_lp,
             frequency_penalty=float(request.frequency_penalty or 0.0),
             presence_penalty=float(request.presence_penalty or 0.0),
             logit_bias=logit_bias,
             stop_sequences=stop_seqs,
-            constraint=constraint,
-        )[0]
-        if isinstance(result, BaseException):
-            raise result
+            budget=request.budget,
+            tenant=request.tenant,
+        )
 
         choices: List[Dict[str, Any]] = []
         completion_tokens = 0
@@ -337,6 +610,95 @@ class CudaBackend(Backend):
         }
         return ChatCompletion.model_validate(payload)
 
+    def _generate_batched(
+        self,
+        prompt_ids: List[int],
+        *,
+        n: int,
+        max_new: int,
+        temperature: float,
+        top_p: Optional[float],
+        seed: Optional[int],
+        constraint: Any,
+        top_logprobs: Optional[int] = None,
+        frequency_penalty: float = 0.0,
+        presence_penalty: float = 0.0,
+        logit_bias: Optional[Dict[int, float]] = None,
+        stop_sequences: Optional[List[List[int]]] = None,
+        budget=None,
+        tenant=None,
+    ):
+        """Submit one generation through the coalescing scheduler: concurrent
+        requests with the same sampling config decode as one launch of
+        ``LocalEngine.generate_many``; a lone request runs solo. ``budget``
+        rides both the scheduler item (admission, window bound, queue
+        shedding) and the GenRequestSpec (the decode loop's abort poller);
+        it is not part of the batch key. ``tenant`` bills this request's rows
+        to that tenant's buckets and keys its fair-queue; an over-quota
+        request gets a typed 429 here."""
+        ckey = None
+        if constraint is not None:
+            ckey = (
+                "json" if constraint == "json" else (type(constraint).__name__, constraint.digest)
+            )
+        eos_ids = self.tokenizer.stop_ids
+        # Coalesced rows share one bias vector and one stop matrix, so only
+        # identical ones may fuse.
+        bias_key = tuple(sorted(logit_bias.items())) if logit_bias else None
+        stop_key = tuple(map(tuple, stop_sequences)) if stop_sequences else None
+        batch_key = (
+            max_new, temperature, top_p, ckey, tuple(eos_ids), top_logprobs,
+            frequency_penalty, presence_penalty, bias_key, stop_key,
+        )
+        # Pin the sampling seed at submission: with seed=None the engine
+        # would draw fresh entropy per launch, and a watchdog replay would
+        # sample other tokens than the abandoned attempt.
+        if seed is None:
+            seed = int.from_bytes(os.urandom(4), "little")
+        rows = max(1, n)
+        tenant_ctx = self.scheduler.charge_tenant_quota(tenant, rows=rows)
+
+        def run(specs):
+            t0 = time.perf_counter()
+            out = self._supervised(
+                lambda engine: engine.generate_many(
+                    specs,
+                    max_new_tokens=max_new,
+                    temperature=temperature,
+                    top_p=top_p,
+                    eos_ids=eos_ids,
+                    constraint=constraint,
+                    top_logprobs=top_logprobs,
+                    frequency_penalty=frequency_penalty,
+                    presence_penalty=presence_penalty,
+                    logit_bias=logit_bias,
+                    stop_sequences=stop_sequences,
+                ),
+                rows=sum(max(1, s.n) for s in specs),
+                max_new_tokens=max_new,
+            )
+            LATENCY.observe("engine.decode_launch", time.perf_counter() - t0)
+            return out
+
+        # The memory model's row cap for this request's KV: any group it
+        # joins is clipped to the tightest member's cap. Paged rows share
+        # their prompt's pages, so the cap is the paged per-group reserve.
+        if self.engine.kv_layout == "paged":
+            max_rows = self.memory_model.paged_max_rows(
+                len(prompt_ids), max_new, self.engine.kv_page_size, fanout=rows
+            )
+        else:
+            max_rows = self.memory_model.max_rows(len(prompt_ids) + max_new)
+        return self.scheduler.call_batched(
+            batch_key,
+            GenRequestSpec(list(prompt_ids), n, seed, budget),
+            run,
+            weight=rows,
+            budget=budget,
+            max_rows=max_rows,
+            tenant=tenant_ctx,
+        )
+
     def _constraint_for(self, response_format: Any):
         if response_format is None:
             return None
@@ -382,7 +744,25 @@ class CudaBackend(Backend):
     # -- embeddings -------------------------------------------------------
     def embeddings(self, texts: List[str]) -> List[List[float]]:
         token_lists = [self.tokenizer.encode(t)[:MAX_EMBEDDING_TOKENS] for t in texts]
-        pooled = self.engine.embed_tokens(token_lists)
+
+        def run(payloads):
+            # Concurrent embedding batches coalesce into one forward,
+            # supervised as a 1-token launch.
+            flat = [tl for p in payloads for tl in p]
+            pooled = self._supervised(
+                lambda engine: engine.embed_tokens(flat), rows=max(1, len(flat)), max_new_tokens=1
+            )
+            out, i = [], 0
+            for p in payloads:
+                out.append(pooled[i: i + len(p)])
+                i += len(p)
+            return out
+
+        # window=0: opportunistic coalescing only; a forward takes a few ms.
+        pooled = self.scheduler.call_batched(
+            ("embed",), token_lists, run, weight=max(1, len(token_lists)),
+            window=0.0, trace_phase="embed",
+        )
         return [[float(x) for x in row] for row in pooled]
 
     def crop_texts(
@@ -404,10 +784,57 @@ class CudaBackend(Backend):
             {"role": "user", "content": f"Input: {[json.dumps(v) for v in values]}\nOutput:"},
         ]
         ids = self.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
-        result = self.engine.generate(
-            ids, n=1, max_new_tokens=128, temperature=0.0, eos_ids=self.tokenizer.stop_ids
+        # Batched like user requests: concurrent consolidations' calls
+        # coalesce into one greedy decode.
+        result = self._generate_batched(
+            ids, n=1, max_new=128, temperature=0.0, top_p=None, seed=None, constraint=None
         )
         text = self.tokenizer.decode(
             [int(t) for t in result.tokens[0][: int(result.lengths[0])]]
         ).strip()
         return text if text else values[0]
+
+    # -- lifecycle -----------------------------------------------------------
+    def health(self) -> Dict[str, Any]:
+        """Serving-health snapshot: the scheduler's lifecycle state and
+        queue and shed counters, the breaker, the engine's OOM and
+        quarantine stats, the supervisor, the memory model's planning view
+        and the page pool. No device work."""
+        snap = self.scheduler.health()
+        snap["breaker"] = self.circuit_breaker.state
+        snap["engine_oom"] = dict(self.engine.oom_stats)
+        snap["memory_model"] = self.memory_model.describe()
+        snap["supervisor"] = self.supervisor.stats()
+        snap["quarantine"] = dict(self.engine.quarantine_stats)
+        snap["params"] = self.param_summary
+        hbm: Dict[str, Any] = {
+            "param_bytes": self.memory_model.param_bytes,
+            "kv_bytes_per_token": self.memory_model.kv_bytes_per_token,
+            "budget_bytes": self.memory_model.budget_bytes(),
+            "paged": self.engine.kv_layout == "paged",
+            "page_size": self.engine.kv_page_size,
+        }
+        pool = self.engine._kv_pool
+        if pool is not None:
+            hbm["page_pool"] = pool.allocator.snapshot()
+        snap["hbm"] = hbm
+        from ..engine.grammar import grammar_cache_stats
+
+        grammar = snap.setdefault("grammar", {})
+        grammar["enabled"] = bool(self.backend_config.constrained_decoding)
+        grammar["cache"] = grammar_cache_stats()
+        return snap
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful shutdown: close admission (new requests get a typed 503),
+        finish queued and in-flight groups, join the scheduler's worker.
+        True when everything completed within ``timeout`` (default
+        ``BackendConfig.drain_timeout``). Idempotent."""
+        self._closed = True
+        t = self.backend_config.drain_timeout if timeout is None else timeout
+        return self.scheduler.drain(timeout=t)
+
+    def close(self) -> None:
+        if self._closed and self.scheduler.state.value == "stopped":
+            return
+        self.drain()

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Type, Union
 
 from pydantic import BaseModel
 
+from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
 from ..types import (
     BackendUnavailableError,
@@ -246,6 +247,7 @@ def consolidate_chat_completions(
 ) -> KLLMsChatCompletion:
     """Consolidate one multi-choice completion (or a list of completions) into a
     KLLMsChatCompletion: choices[0] = consensus, choices[1..n] = originals."""
+    _failpoints.fire("consensus.consolidate")
     if isinstance(completions, ChatCompletion):
         completion = completions
         assert len(completion.choices) > 0, "Cannot consolidate empty list of choices"
@@ -391,6 +393,7 @@ def consolidate_parsed_chat_completions(
 ) -> KLLMsParsedChatCompletion:
     """Structured-output variant: the consensus dict is re-validated into the
     user's ``response_format`` model; ``parsed`` is silently None on failure."""
+    _failpoints.fire("consensus.consolidate")
     assert len(completion.choices) > 0, "Cannot consolidate empty list of choices"
 
     degraded = _degraded_info(completion.choices)

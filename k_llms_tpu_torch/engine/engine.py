@@ -38,23 +38,37 @@ pressure LRU paged entries are evicted, and a paged launch that still finds
 the pool short falls back to the dense body.
 
 Launches (``generate_many``, ``embed_tokens``) run one at a time under the
-engine's launch lock, the counterpart of the JAX scheduler's single worker:
-concurrent callers, such as ``AsyncKLLMs`` requests gathered together, wait
-their turn, and a paged launch keeps the pool it picked until its last page
-is freed. The same lock stands in for the JAX engine's ``_paged_mutex``:
-every prefix-cache read and write, and every page allocation, happens under
-it.
+engine's launch lock, and under ``torch.cuda.device(engine.device)``, so a
+launch from a scheduler or watchdog thread lands on the engine's card. The
+backend's scheduler already serialises its launches on one worker; the lock
+keeps direct callers, such as ``AsyncKLLMs`` requests gathered together
+outside a backend, waiting their turn, and a paged launch keeps the pool it
+picked until its last page is freed. The same lock stands in for the JAX
+engine's ``_paged_mutex``: every prefix-cache read and write, and every page
+allocation, happens under it.
+
+The JAX engine's fault handling is carried over: ``generate_many`` splits a
+group that runs out of device memory in half and retries each half
+(``MAX_OOM_SPLITS``, ``oom_stats``, the ``on_oom``/``on_launch_ok`` hooks),
+a member's failure is an element of the returned list, every decode step
+polls the members' budgets on the host and freezes the rows of a member
+that was cancelled or ran out of time (the abort poller), and the
+``engine.launch``, ``engine.decode`` (``kill_samples``) and ``engine.logits``
+(``nan``) failpoints fire where they do in JAX; ``on_quarantine(poisoned,
+total)`` is called after every launch.
 
 Not ported yet: meshes, sequence-parallel and ring prefill (and their cache
-continuation), speculative decoding, the continuous loop, device-OOM
-splitting, the abort poller and the streaming token tap.
+continuation), speculative decoding, the continuous loop and the streaming
+token tap.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
+import random as _pyrandom
 import threading
 import time
 from collections import OrderedDict
@@ -76,10 +90,13 @@ from ..models.llama import (
     prefill_continue,
 )
 from ..models.quant import init_params_quantized, quantize_params, stored_quant_layout
-from ..ops.paged_attention import resolve_paged_attention_impl
+from ..ops.paged_attention import launch_paged_attention_impl, resolve_paged_attention_impl
 from ..ops.random import request_keys
 from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
+from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
+from ..types.wire import BackendUnavailableError, KLLMsError
+from ..utils.observability import FAILURE_EVENTS, QUARANTINE_EVENTS
 from .paging import (
     TRASH_PAGE,
     PagedKVPool,
@@ -94,6 +111,30 @@ logger = logging.getLogger(__name__)
 MAX_EOS_IDS = 4
 MAX_STOP_SEQS = 4
 MAX_STOP_LEN = 8
+# Device-OOM recovery: a coalesced launch that runs out of device memory is
+# split in half and retried, recursively, at most this many levels deep.
+MAX_OOM_SPLITS = 5
+
+#: The allocator's out-of-memory exception (``torch.OutOfMemoryError`` is
+#: its alias where the installed torch has one).
+_TORCH_OOM = (
+    torch.cuda.OutOfMemoryError,
+    getattr(torch, "OutOfMemoryError", torch.cuda.OutOfMemoryError),
+)
+
+
+def is_resource_exhausted(e: BaseException) -> bool:
+    """Is this the device's out-of-memory signal? The caching allocator
+    raises ``torch.cuda.OutOfMemoryError``; the ``oom`` failpoint raises the
+    JAX package's ``RESOURCE_EXHAUSTED`` message, matched on its marker.
+    Typed lifecycle errors are never OOM even if a message embeds the
+    marker."""
+    if isinstance(e, KLLMsError):
+        return False
+    if isinstance(e, _TORCH_OOM):
+        return True
+    msg = str(e)
+    return "RESOURCE_EXHAUSTED" in msg or "Out of memory" in msg
 
 
 def resolve_device(device=None) -> torch.device:
@@ -204,6 +245,21 @@ def _bucket(n: int, minimum: int = 32) -> int:
     return b
 
 
+def _kill_sample_errors(n: int, fp: "_failpoints.FailSpec") -> List[Optional[Dict[str, Any]]]:
+    """Seeded selection of which of a request's n samples an injected
+    ``engine.decode`` kill_samples failpoint loses."""
+    rng = _pyrandom.Random(fp.seed)
+    idx = rng.sample(range(n), min(fp.kill, n))
+    errs: List[Optional[Dict[str, Any]]] = [None] * n
+    for i in idx:
+        errs[i] = {
+            "type": "server_error",
+            "code": "decode_fault",
+            "message": "sample lost mid-decode (injected failpoint engine.decode)",
+        }
+    return errs
+
+
 def _quarantine_error() -> Dict[str, Any]:
     return {
         "type": "server_error",
@@ -233,11 +289,20 @@ class GenRequestSpec(NamedTuple):
 
 
 def _one_launch_at_a_time(method):
-    """Run an engine method under the engine's launch lock."""
+    """Run an engine method under the engine's launch lock, with the
+    engine's card as the calling thread's current device (a scheduler or
+    watchdog thread starts on card 0). Work is issued on that card's default
+    stream, the one stream the kernels' arrival semaphores assume
+    (``ops/_ext.py``)."""
 
     @functools.wraps(method)
     def locked(self, *args, **kwargs):
-        with self._launch_lock:
+        on_card = (
+            torch.cuda.device(self.device)
+            if self.device.type == "cuda"
+            else contextlib.nullcontext()
+        )
+        with self._launch_lock, on_card:
             return method(self, *args, **kwargs)
 
     return locked
@@ -312,6 +377,13 @@ class LocalEngine:
         # under it (reentrant, so the cache helpers take it inside a launch).
         self._launch_lock = threading.RLock()
         self.quarantine_stats: Dict[str, int] = {"samples": 0, "launches": 0}
+        # Device-OOM recovery accounting and the backend's hooks: on_oom per
+        # caught OOM, on_launch_ok after a clean launch, on_quarantine
+        # (poisoned, total) after every launch.
+        self.oom_stats: Dict[str, int] = {"splits": 0, "unrecovered": 0}
+        self.on_oom: Optional[Any] = None
+        self.on_launch_ok: Optional[Any] = None
+        self.on_quarantine: Optional[Any] = None
         # Host-clock phase times of the last generate_many launch (seconds),
         # fenced by a device synchronise at each phase end.
         self.last_launch_stats: Dict[str, Any] = {}
@@ -601,19 +673,21 @@ class LocalEngine:
                 shared = min(min(base_len, plen) // ps, npages)
                 if shared:
                     pool.allocator.incref(base_run.pages[:shared])
+            pages = list(base_run.pages[:shared] if shared else [])
             try:
-                fresh = self._alloc_pages_with_evict(npages - shared)
-            except Exception:
+                pages += self._alloc_pages_with_evict(npages - shared)
+                idx = flat_slots(pages, np.arange(bucket), ps)
+                trash = (np.arange(bucket) % ps + TRASH_PAGE * ps).astype(np.int32)
                 if shared:
-                    pool.allocator.decref(base_run.pages[:shared])
+                    idx[: shared * ps] = trash[: shared * ps]
+                idx[plen:] = trash[plen:]
+                pool.scatter_tokens(prefix.k[:, 0], prefix.v[:, 0], idx)
+            except Exception:
+                # Pool exhausted, or the device ran out of memory mid-copy:
+                # every reference taken here goes back.
+                if pages:
+                    pool.allocator.decref(pages)
                 raise
-            pages = list(base_run.pages[:shared] if shared else []) + fresh
-            idx = flat_slots(pages, np.arange(bucket), ps)
-            trash = (np.arange(bucket) % ps + TRASH_PAGE * ps).astype(np.int32)
-            if shared:
-                idx[: shared * ps] = trash[: shared * ps]
-            idx[plen:] = trash[plen:]
-            pool.scatter_tokens(prefix.k[:, 0], prefix.v[:, 0], idx)
             return PagedPrefixRun(pool, pages, plen, bucket)
 
     def paged_admit_prefix(self, prompt_ids: List[int], prompt_len: int, bucket: int):
@@ -717,9 +791,95 @@ class LocalEngine:
             raise out
         return out
 
+    def generate_many(
+        self,
+        items: Sequence[GenRequestSpec],
+        *,
+        _oom_splits_left: int = MAX_OOM_SPLITS,
+        **kwargs,
+    ) -> List[Any]:
+        """Decode several same-config requests as one batch, with device-OOM
+        recovery: a launch that runs out of device memory splits the group
+        in half and retries each half (recursively, bounded by
+        ``MAX_OOM_SPLITS``) instead of failing every member. Every page
+        reference the failed attempt took is released and the allocator's
+        cached blocks go back to the card before the retry; nothing moves
+        to the CPU or to a plain version. A solo request that still runs
+        out gets a typed 503 member error. Splits are counted in
+        ``FAILURE_EVENTS`` and ``oom_stats``; ``on_oom``/``on_launch_ok``
+        tell the scheduler to back its coalescing width off and up again.
+        See :meth:`_generate_many_attempt` for the decode semantics."""
+        if not items:
+            return []
+        try:
+            results = self._generate_many_attempt(items, **kwargs)
+        except Exception as e:
+            if not is_resource_exhausted(e):
+                raise
+            message = str(e)
+        else:
+            if self.on_launch_ok is not None:
+                self.on_launch_ok()
+            return results
+        # Outside the handler: the exception's frames, and the device tensors
+        # they hold, are gone. A growing pool (no prefix cache, no fixed
+        # size: nothing in it outlives a launch) sized for the failed group
+        # goes too, so each retry sizes its own; then the cached blocks go
+        # back to the card.
+        if self.prefix_cache_size <= 0 and self.kv_pool_pages is None:
+            with self._launch_lock:
+                self._kv_pool = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        FAILURE_EVENTS.record("engine.oom")
+        self.oom_stats["splits"] += 1
+        if self.on_oom is not None:
+            self.on_oom()
+        if len(items) == 1 or _oom_splits_left <= 0:
+            self.oom_stats["unrecovered"] += len(items)
+            FAILURE_EVENTS.record("engine.oom_unrecovered", len(items))
+            logger.error(
+                "device OOM not recoverable by splitting (%d member(s)): %s",
+                len(items), message,
+            )
+            return [
+                BackendUnavailableError(
+                    f"device out of memory decoding this request "
+                    f"(n={it.n}, prompt_len={len(it.prompt_ids)}); "
+                    "reduce n or max_tokens"
+                )
+                for it in items
+            ]
+        mid = (len(items) + 1) // 2
+        logger.warning(
+            "device OOM on a %d-request coalesced launch; splitting %d/%d and "
+            "retrying (%d split(s) left)",
+            len(items), mid, len(items) - mid, _oom_splits_left - 1,
+        )
+        FAILURE_EVENTS.record("engine.oom_split")
+        return self.generate_many(
+            items[:mid], _oom_splits_left=_oom_splits_left - 1, **kwargs
+        ) + self.generate_many(
+            items[mid:], _oom_splits_left=_oom_splits_left - 1, **kwargs
+        )
+
+    def _generate_many_attempt(self, items: Sequence[GenRequestSpec], **kwargs) -> List[Any]:
+        """One launch of ``items``. A solo launch returns its member's
+        failure as the list's element (as a coalesced launch does per
+        member), except device OOM, which the guard in :meth:`generate_many`
+        must see."""
+        if len(items) > 1:
+            return self._launch(items, **kwargs)
+        try:
+            return self._launch(items, **kwargs)
+        except Exception as e:
+            if is_resource_exhausted(e):
+                raise
+            return [e]
+
     @_one_launch_at_a_time
     @torch.inference_mode()
-    def generate_many(
+    def _launch(
         self,
         items: Sequence[GenRequestSpec],
         *,
@@ -738,16 +898,18 @@ class LocalEngine:
         """Decode several same-config requests as one batch, in the engine's
         KV layout. ``constraint`` masks every row's logits with a grammar
         automaton (see :func:`_constraint_ops`). Returns one
-        GenerationResult per item (or the exception a member's spent budget
-        raised)."""
-        if not items:
-            return []
+        GenerationResult per item, or, for a member whose budget was spent
+        (its rows froze at the step the abort poller saw it) or whose
+        samples an injected fault killed, that member's exception."""
+        _failpoints.fire("engine.launch")
         config = self.config
         device = self.device
         t_start = time.perf_counter()
-        for it in items:
-            if it.budget is not None:
-                it.budget.check("engine prefill")
+        if len(items) == 1 and items[0].budget is not None:
+            # A solo request fails before any device work; a coalesced
+            # member's spent budget is seen by the abort poller at the first
+            # step and fails that member alone, as in the JAX engine.
+            items[0].budget.check("engine prefill")
         eos = list(eos_ids or [config.eos_token_id])[:MAX_EOS_IDS]
         self._validate_constraint(constraint, eos)
         preps = [self._prep_prompt(it.prompt_ids) for it in items]
@@ -766,10 +928,13 @@ class LocalEngine:
         stops, use_stops = self._stop_array(stop_sequences)
         eos_t = torch.as_tensor(eos + [-1] * (MAX_EOS_IDS - len(eos)), device=device)
 
+        budgets = [it.budget for it in items]
+        poison0 = self._poison0_array(B, live)
+
         def run_loop(step_fn, first_logits):
             return self._decode(
                 step_fn, first_logits, n_per, r_pad, req_keys,
-                _constraint_ops(constraint, device),
+                _constraint_ops(constraint, device), budgets, poison0,
                 max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
                 top_k=top_k, eos_t=eos_t,
                 top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
@@ -791,7 +956,7 @@ class LocalEngine:
                 layout = "dense"
         if layout == "dense":
             out, t_prefill = self._generate_dense(preps, n_per, r_pad, max_new_tokens, run_loop)
-        toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps = out
+        toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps, aborted = out
         t_end = time.perf_counter()
         self.last_launch_stats = {
             "prefill_s": t_prefill - t_start,
@@ -801,6 +966,9 @@ class LocalEngine:
             "n_per": n_per,
             "live_rows": len(live),
             "kv_layout": layout,
+            # member -> (decode step, host time) at which the abort poller
+            # froze its rows.
+            "aborted": aborted,
         }
 
         results: List[Any] = []
@@ -817,16 +985,74 @@ class LocalEngine:
                 top_logprobs=tl_np[lo: lo + n_j] if top_logprobs else None,
             )
             res = self._quarantine_result(res, pois_np[lo: lo + n_j])
-            if it.budget is not None and it.budget.should_abort():
-                results.append(it.budget.error("engine decode"))
-            else:
-                results.append(res)
-        poisoned = int(pois_np[np.asarray(live, np.int64)].sum())
+            # A member's lifecycle or injected fault replaces its result
+            # only: the scheduler delivers it to that member's caller.
+            try:
+                results.append(self._apply_decode_faults(res, it.budget))
+            except Exception as e:
+                results.append(e)
+        self._note_quarantine(int(pois_np[np.asarray(live, np.int64)].sum()), len(live))
+        return results
+
+    def _apply_decode_faults(
+        self, result: GenerationResult, budget: Optional[RequestBudget]
+    ) -> GenerationResult:
+        """Post-decode fault surfacing for ONE request: a spent budget raises
+        its typed lifecycle error (the decode loop already froze its rows);
+        an active ``engine.decode`` kill_samples failpoint marks a seeded
+        subset of samples lost (tokens cleared, ``sample_errors`` filled)."""
+        if budget is not None and budget.should_abort():
+            FAILURE_EVENTS.record("engine.decode_abort")
+            raise budget.error("engine decode")
+        fp = _failpoints.fire("engine.decode")
+        if fp is None or fp.action != "kill_samples" or fp.kill <= 0:
+            return result
+        n = result.tokens.shape[0]
+        errs = _kill_sample_errors(n, fp)
+        killed = [i for i, e in enumerate(errs) if e is not None]
+        if not killed:
+            return result
+        FAILURE_EVENTS.record("engine.samples_killed", len(killed))
+        if result.sample_errors:
+            # Compose with earlier per-sample faults (quarantine): a kill
+            # overwrites, everything else survives.
+            errs = [e if e is not None else prev for e, prev in zip(errs, result.sample_errors)]
+        toks = result.tokens.copy()
+        lps = result.logprobs.copy()
+        lengths = result.lengths.copy()
+        for i in killed:
+            toks[i, :] = self.config.pad_token_id
+            lps[i, :] = 0.0
+            lengths[i] = 0
+        return result._replace(tokens=toks, logprobs=lps, lengths=lengths, sample_errors=errs)
+
+    # -- numeric-integrity quarantine --------------------------------------
+    def _poison0_array(self, n_rows: int, live_rows: Sequence[int]) -> Optional[torch.Tensor]:
+        """First-step poison-injection mask [n_rows] bool, or None (nothing
+        to inject, the production path): with an active ``engine.logits``
+        nan failpoint, a seeded subset of the live rows (padding rows
+        excluded, their poison would be invisible)."""
+        fp = _failpoints.fire("engine.logits")
+        if fp is None or fp.action != "nan" or fp.kill <= 0:
+            return None
+        rows = list(live_rows)
+        chosen = _pyrandom.Random(fp.seed).sample(rows, min(fp.kill, len(rows)))
+        mask = np.zeros((n_rows,), np.bool_)
+        mask[chosen] = True
+        return torch.as_tensor(mask, device=self.device)
+
+    def _note_quarantine(self, poisoned: int, total: int) -> None:
+        """Per-launch quarantine accounting and the supervisor's hook, called
+        for every launch (clean ones report poisoned=0) so a rate window
+        decays."""
         if poisoned:
             self.quarantine_stats["samples"] += poisoned
             self.quarantine_stats["launches"] += 1
-            logger.warning("numeric poison: %d/%d decode row(s) quarantined", poisoned, len(live))
-        return results
+            QUARANTINE_EVENTS.record("quarantine.samples", poisoned)
+            QUARANTINE_EVENTS.record("quarantine.launches")
+            logger.warning("numeric poison: %d/%d decode row(s) quarantined", poisoned, total)
+        if self.on_quarantine is not None:
+            self.on_quarantine(poisoned, total)
 
     def _generate_paged(self, preps, n_per, r_pad, live, max_new_tokens, run_loop):
         """The paged body: prompts admitted as pool page runs (through the
@@ -845,6 +1071,9 @@ class LocalEngine:
             + len(live) * gp + 1
         )
         ps = pool.page_size
+        # Resolved per launch: the ops.paged_attn drill sends a CPU launch to
+        # the plain version and fails a card launch, before any page is taken.
+        attn_impl = launch_paged_attention_impl(self.paged_attention_impl, device=device)
 
         pinned: List[PagedPrefixRun] = []
         gen_pages_rows: List[Optional[List[int]]] = [None] * B
@@ -891,7 +1120,7 @@ class LocalEngine:
                     config, self.params, tok[:, None],
                     torch.full((B,), step, dtype=torch.int64, device=device),
                     prompt_lens, pool.k, pool.v, prefix_idx, gen_idx,
-                    attn_impl=self.paged_attention_impl, page_size=ps,
+                    attn_impl=attn_impl, page_size=ps,
                 )
                 # This step's column goes into the pool after the step, at
                 # gen slot ``step`` of every row (dead rows write the trash
@@ -963,8 +1192,8 @@ class LocalEngine:
         return result._replace(tokens=toks, logprobs=lps, lengths=lengths, sample_errors=errs)
 
     def _decode(
-        self, step_fn, first_logits, n_per, r_pad, req_keys, cops, *, max_new_tokens,
-        temperature, top_p, top_k, eos_t, top_logprobs, frequency_penalty,
+        self, step_fn, first_logits, n_per, r_pad, req_keys, cops, budgets, poison0, *,
+        max_new_tokens, temperature, top_p, top_k, eos_t, top_logprobs, frequency_penalty,
         presence_penalty, bias, stops,
     ):
         """The decode loop over ``B = r_pad * n_per`` rows, the JAX engine's
@@ -975,8 +1204,15 @@ class LocalEngine:
         ``cops`` is :func:`_constraint_ops`'s tuple or None. Each step runs,
         in the JAX order: grammar mask, the pad column, the poison check,
         sample (top logprobs from the masked logits), freeze, advance.
+        ``budgets`` are the members' budgets (None entries never abort):
+        the abort poller reads them on the host after every step, and a
+        member whose budget has just been spent has its rows folded into
+        ``done``, as the JAX loop's ``abort_poll`` does; a step where no
+        flag changed adds no device work and no sync. ``poison0`` [B] bool
+        (or None) forces rows' first-step logits to NaN (the
+        ``engine.logits`` drill).
         Returns numpy (tokens, logprobs, done, top ids, top logprobs,
-        poisoned, steps)."""
+        poisoned), the step count and the poller's aborts."""
         config = self.config
         device = self.device
         pad_id = config.pad_token_id
@@ -1008,12 +1244,14 @@ class LocalEngine:
                 noise=noise, penalty=pen,
             )
 
-        def prepare(logits, done):
+        def prepare(logits, done, poison=None):
             if jstate is not None:
                 logits = mask_logits(jt, logits, *jstate, eos_t)
             else:
                 logits = logits.clone()
             logits[:, pad_id] += pad_col
+            if poison is not None:
+                logits = torch.where(poison[:, None], float("nan"), logits)
             bad = _poisoned_logits(logits) & ~done
             logits = torch.where(bad[:, None], torch.zeros_like(logits), logits)
             return logits, bad
@@ -1021,7 +1259,7 @@ class LocalEngine:
         counts = torch.zeros((B, V if penalized else 0), dtype=torch.float32, device=device)
         logits0 = first_logits.repeat_interleave(n_per, dim=0)  # [B, V]
         done = torch.zeros(B, dtype=torch.bool, device=device)
-        logits0, bad = prepare(logits0, done)
+        logits0, bad = prepare(logits0, done, poison0)
         tok, lp = sample(logits0, counts)
         tok = torch.where(bad, torch.full_like(tok, pad_id), tok)
         lp = torch.where(bad, torch.zeros_like(lp), lp)
@@ -1040,6 +1278,11 @@ class LocalEngine:
             recent = torch.full((B, MAX_STOP_LEN), -1, dtype=torch.int64, device=device)
             recent[:, -1] = tok
             done = done | stop_window_match(recent, stops)
+
+        # The abort poller: member -> (step, host time) at which its rows
+        # were folded into done.
+        polled = [b for b in budgets if b is not None]
+        aborted: Dict[int, Tuple[int, float]] = {}
 
         step = 0
         while step < max_new_tokens - 1 and not bool(done.all()):
@@ -1064,6 +1307,21 @@ class LocalEngine:
             if stops is not None:
                 recent = torch.cat([recent[:, 1:], nxt[:, None]], dim=1)
                 done = done | stop_window_match(recent, stops)
+            if polled:
+                flipped = [
+                    j for j, b in enumerate(budgets)
+                    if b is not None and j not in aborted and b.should_abort()
+                ]
+                if flipped:
+                    # Token-granularity cancellation: the member's row group
+                    # (rows are request-major) freezes like eos rows.
+                    seen = time.perf_counter()
+                    for j in flipped:
+                        aborted[j] = (step, seen)
+                    rows = torch.zeros(B, dtype=torch.bool)
+                    for j in flipped:
+                        rows[j * n_per: (j + 1) * n_per] = True
+                    done = done | rows.to(device)
             tok = nxt
             step += 1
 
@@ -1085,6 +1343,7 @@ class LocalEngine:
 
         return (
             host(toks), host(lps), host(done), host(tt), host(tl), host(pois), n_steps - 1,
+            aborted,
         )
 
     # -- embeddings (similarity side-channel) -----------------------------

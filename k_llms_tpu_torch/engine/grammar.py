@@ -19,9 +19,8 @@ Layering relative to the older constraint surface:
   Cache stats surface through :func:`grammar_cache_stats`.
 - :func:`grammar_for_schema` never raises.  Unsupported schema features degrade
   to the generic JSON grammar (post-hoc schema validation stays authoritative);
-  compile errors degrade to ``None`` (unconstrained decode + post-hoc
-  validation); the port has no failpoint registry, so the JAX package's
-  ``engine.grammar`` failpoint site is dropped.  Every degradation increments a
+  compile errors and the ``engine.grammar`` failpoint degrade to ``None``
+  (unconstrained decode + post-hoc validation).  Every degradation increments a
   ``GRAMMAR_EVENTS`` counter so the fallback is observable, never silent.
 
 Device-side ops mirror ``token_constraint``'s but unpack 32-bit words:
@@ -39,6 +38,7 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from ..consensus.cache import TTLCache
+from ..reliability import failpoints as _failpoints
 from ..utils.observability import GRAMMAR_EVENTS
 from .schema_constraint import SchemaUnsupported, compile_schema
 from .token_constraint import (
@@ -159,10 +159,14 @@ def grammar_for_schema(
 
     Never raises: unsupported schema features degrade to the generic JSON
     grammar (cached under the schema's key so the miss is paid once), and any
-    compile error degrades to ``None``
+    compile error — or the ``engine.grammar`` failpoint — degrades to ``None``
     (unconstrained decode, post-hoc validation).  All degradations are counted.
     """
     try:
+        spec = _failpoints.fire("engine.grammar")
+        if spec is not None and spec.action == "fallback":
+            GRAMMAR_EVENTS.record("grammar.fallback_failpoint")
+            return None
         if vocab_digest is None:
             vocab_digest = _vocab_digest(vocab)
         import hashlib

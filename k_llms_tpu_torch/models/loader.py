@@ -23,8 +23,8 @@ host.
 Every load verifies the weights (finite floats, scanned on the device leaf
 by leaf, and the checksum of a save-time manifest when one exists) and
 raises :class:`CheckpointCorruptError` rather than serve corrupt ones. The
-``loader.params`` failpoint of the JAX package is not ported (the port has
-no failpoint registry yet).
+``loader.params`` failpoint (action ``corrupt``) writes NaN into the first
+float leaf after the load, so that verification must trip.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..ops.w4matmul import Q4Tensor
+from ..reliability import failpoints as _failpoints
 from ..types.wire import CheckpointCorruptError
 from ..utils.observability import QUARANTINE_EVENTS
 from .config import ModelConfig
@@ -149,6 +150,16 @@ def verify_param_integrity(
             f"manifest records {manifest['checksum']}"
         )
     return summary
+
+
+def _corrupt_params(params: Any) -> None:
+    """``loader.params=corrupt`` failpoint: overwrite the leading values of
+    the first float leaf with NaN in place, the bit-rot a corrupted
+    checkpoint shows, so :func:`verify_param_integrity` must trip."""
+    for _, leaf in _tree_leaves(params):
+        if leaf.is_floating_point() and leaf.numel():
+            leaf.view(-1)[:16] = float("nan")
+            return
 
 
 # -- native format -----------------------------------------------------------
@@ -348,6 +359,9 @@ def load_checkpoint(path: str, config: ModelConfig, dtype=None, device="cpu") ->
         params = load_native(path, device)
     else:
         params = load_safetensors(path, config, dtype, device)
+    fp = _failpoints.fire("loader.params")
+    if fp is not None and fp.action == "corrupt":
+        _corrupt_params(params)
     manifest = None
     if os.path.exists(_manifest_path(path)):
         with open(_manifest_path(path)) as f:

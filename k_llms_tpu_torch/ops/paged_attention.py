@@ -20,7 +20,11 @@ functions:
 
 ``resolve_paged_attention_impl`` picks between the kernel ("cuda") and the
 reference ("xla"): "auto" selects the kernel for a card and the reference on
-the CPU.
+the CPU. ``launch_paged_attention_impl`` applies the ``ops.paged_attn``
+failpoint per launch: on the CPU the drill sends the launch to the
+reference; on a card it fails the launch with a typed
+:class:`KernelUnavailableError`, since nothing on a card gives way to the
+plain version. Both are counted.
 
 Masking contract: out-of-table positions point into the trash page; their
 values are arbitrary but finite and every consumer masks their scores before
@@ -34,6 +38,9 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ..reliability import failpoints as _failpoints
+from ..types.wire import BackendUnavailableError
+from ..utils.observability import KERNEL_EVENTS
 from . import _ext
 from .attention import _SMS, NEG_INF
 
@@ -59,6 +66,36 @@ def resolve_paged_attention_impl(requested: str, *, device) -> str:
     if requested != "auto":
         return requested
     return "cuda" if torch.device(device).type == "cuda" else "xla"
+
+
+class KernelUnavailableError(BackendUnavailableError):
+    """The paged-attention kernel cannot run this launch (the
+    ``ops.paged_attn`` drill on a card). A 503 like any unavailable backend:
+    the circuit breaker counts it and the launch's members fail typed."""
+
+    code = "kernel_unavailable"
+
+
+def launch_paged_attention_impl(impl: str, *, device) -> str:
+    """The implementation one paged launch runs, from the engine's resolved
+    ``impl``. The ``ops.paged_attn`` failpoint (action ``fallback``) sends a
+    launch on the CPU to the reference ("xla"), counted as
+    ``kernel.paged_attn_fallback.failpoint``; on a card it raises
+    :class:`KernelUnavailableError`, counted as
+    ``kernel.paged_attn_unavailable.failpoint``. Nothing else changes the
+    implementation. Every launch that runs is counted as a cuda or an xla
+    dispatch."""
+    spec = _failpoints.fire("ops.paged_attn")
+    if spec is not None and spec.action == "fallback":
+        if torch.device(device).type == "cuda":
+            KERNEL_EVENTS.record("kernel.paged_attn_unavailable.failpoint")
+            raise KernelUnavailableError(
+                "paged attention kernel unavailable for this launch (ops.paged_attn drill)"
+            )
+        KERNEL_EVENTS.record("kernel.paged_attn_fallback.failpoint")
+        impl = "xla"
+    KERNEL_EVENTS.record(f"kernel.paged_attn_{impl}_dispatch")
+    return impl
 
 
 def paged_decode_attention_xla(

@@ -126,6 +126,48 @@ def test_moved_fields_are_served(field, value):
         assert getattr(client.backend.engine, field) == value
 
 
+#: The scheduler, memory-model, watchdog, poison and tenancy fields, each
+#: with a value other than its default and where the backend holds it.
+SERVING_FIELDS = {
+    "batch_window": (0.25, lambda b: b.scheduler.batch_window),
+    "max_queue_weight": (96, lambda b: b.scheduler.max_queue_weight),
+    "max_batch_rows": (16, lambda b: b.scheduler.max_rows),
+    "drain_timeout": (3.0, lambda b: b.backend_config.drain_timeout),
+    "brownout_high_water": (0.5, lambda b: b.scheduler._brownout_high_water),
+    "hbm_bytes": (1 << 33, lambda b: b.memory_model.hbm_bytes),
+    "hbm_headroom": (0.5, lambda b: b.memory_model.headroom),
+    "watchdog_base_s": (3.0, lambda b: b.supervisor.budget_model.base_s),
+    "watchdog_per_token_s": (0.25, lambda b: b.supervisor.budget_model._per_token_s),
+    "watchdog_multiplier": (2.0, lambda b: b.supervisor.budget_model.multiplier),
+    "watchdog_min_budget_s": (5.0, lambda b: b.supervisor.budget_model.min_budget_s),
+    "watchdog_max_budget_s": (50.0, lambda b: b.supervisor.budget_model.max_budget_s),
+    "max_rebuilds": (5, lambda b: b.supervisor.max_rebuilds),
+    "poison_threshold": (0.25, lambda b: b.supervisor.poison_threshold),
+    "poison_window": (3, lambda b: b.supervisor._poison_history.maxlen),
+    "tenant_default_weight": (2.0, lambda b: b.tenancy.resolve(None).weight),
+    "tenant_default_slo": ("batch", lambda b: b.tenancy.resolve(None).slo),
+    "tenant_default_requests_per_s": (7.0, lambda b: b.tenancy.resolve(None).spec.requests_per_s),
+    "tenant_default_rows_per_s": (9.0, lambda b: b.tenancy.resolve(None).spec.rows_per_s),
+    "tenants": ({"gold": {"weight": 3.0}}, lambda b: {"gold": {"weight": b.tenancy.resolve("gold").weight}}),
+    "tenant_api_keys": ({"sk-1": "gold"}, lambda b: {"sk-1": b.tenancy.tenant_for_key("sk-1")}),
+}
+
+
+@pytest.mark.parametrize("field", sorted(SERVING_FIELDS))
+def test_serving_fields_take_the_jax_defaults_and_reach_their_layer(field):
+    """The 21 fields of the scheduler and supervisor slice are served under
+    the JAX package's names and defaults, and a value reaches its layer."""
+    from k_llms_tpu.backends.tpu import BackendConfig as JaxBackendConfig
+    from k_llms_tpu_torch.backends.cuda import UNPORTED_FIELDS, BackendConfig
+
+    assert field not in UNPORTED_FIELDS
+    assert BackendConfig.model_fields[field].default == JaxBackendConfig.model_fields[field].default
+    value, read = SERVING_FIELDS[field]
+    client = KLLMs(backend="cuda", model="tiny", device="cpu", **{field: value})
+    assert read(client.backend) == value
+    client.close()
+
+
 def test_unported_field_list_matches_the_jax_backend_config():
     """The port's list of unported fields, with the fields it serves, is the
     JAX package's BackendConfig (the port adds only ``device``)."""
@@ -195,6 +237,19 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "    assert [x.message.content for x in r2.choices] == [x.message.content for x in r.choices]\n"
         "assert h.backend.engine.prefix_cache_stats == {'hits': 1, 'partial_hits': 0, 'misses': 1}\n"
         "assert h.backend.param_summary['num_leaves'] == 12\n"
+        "from k_llms_tpu_torch.backends.base import ChatRequest\n"
+        "from k_llms_tpu_torch.engine.scheduler import EngineScheduler\n"
+        "from k_llms_tpu_torch.reliability import drills, failpoints\n"
+        "from k_llms_tpu_torch.reliability.replicas import ReplicaSet\n"
+        "from k_llms_tpu_torch.reliability.supervisor import EngineSupervisor\n"
+        "assert isinstance(h.backend.scheduler, EngineScheduler)\n"
+        "assert isinstance(h.backend.supervisor, EngineSupervisor)\n"
+        "rs = ReplicaSet(members=[c.backend, h.backend], model='tiny', hedge=False)\n"
+        "down = {'replica.dispatch': failpoints.FailSpec(action='down', member='r0', times=1)}\n"
+        "with failpoints.failpoints(down):\n"
+        "    r3 = rs.dispatch_chat_completion(ChatRequest(messages=[{'role': 'user', 'content': 'hi'}],"
+        " model='tiny', n=4, temperature=0, seed=7, max_tokens=8))\n"
+        "assert [x.message.content for x in r3.choices] == [x.message.content for x in r.choices[1:]]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'k_llms_tpu' or m.startswith('k_llms_tpu.')"
         " or m.split('.')[0] in ('safetensors', 'transformers'))\n"

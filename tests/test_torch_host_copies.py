@@ -4,10 +4,13 @@ The port imports nothing of ``k_llms_tpu``, so it carries its own copies of
 the JAX-free host modules. Each copy must equal the reference's source apart
 from import lines and the edits documented below (per module): doc paths to
 the reference SDK written without the machine path, the reference's
-tracking tags dropped, the package's own name, the failpoint sites the port has no
-registry for, the key aligner it has not ported, the native build into
-``_build/``, and, in the four grammar-constraint modules, the device half
-(from its "Device side" marker on), which the port rewrites in torch.
+tracking tags dropped, the package's own name, the key aligner it has not
+ported, the native build into ``_build/``, in the four grammar-constraint
+modules the device half (from its "Device side" marker on), which the port
+rewrites in torch, and in the serving layer (failpoints, retry, tenancy,
+the scheduler, the supervisor, the replica set, the latency histograms) the
+paged-attention drill's target, the card's limits on healing a hang, and
+the default member backend.
 
 Then a sample of the JAX package's own test vectors (``test_alignment``,
 ``test_translit``, ``test_native``, and TRUTH_DOCS consolidation) runs
@@ -24,8 +27,6 @@ from fixtures.unidecode_vectors import DIVERGENT_VECTORS, PARITY_VECTORS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = os.path.join(REPO, "k_llms_tpu"), os.path.join(REPO, "k_llms_tpu_torch")
-
-_FAILPOINT_LINE = '    _failpoints.fire("consensus.consolidate")\n'
 
 #: module -> documented (reference text, port text) edits, applied to the
 #: reference after the generic rewrites of ``_normalise``.
@@ -45,8 +46,6 @@ EDITS = {
             "            raise NotImplementedError(\n"
             "                \"aligner='key' is not available in k_llms_tpu_torch yet\"\n",
         ),
-        (_FAILPOINT_LINE, ""),
-        (_FAILPOINT_LINE, ""),
     ],
     "native/__init__.py": [
         ("``make`` on demand", "the host C++ compiler on demand"),
@@ -85,11 +84,6 @@ EDITS = {
     "engine/grammar.py": [
         ("  Cache stats surface as ``kllms_grammar_cache_*`` gauges on ``/metrics``.\n",
          "  Cache stats surface through :func:`grammar_cache_stats`.\n"),
-        ("  compile errors and the ``engine.grammar`` failpoint degrade to ``None``\n"
-         "  (unconstrained decode + post-hoc validation).",
-         "  compile errors degrade to ``None`` (unconstrained decode + post-hoc\n"
-         "  validation); the port has no failpoint registry, so the JAX package's\n"
-         "  ``engine.grammar`` failpoint site is dropped."),
         ("no host work per step.  The jitted\ncallers (`engine._get_decode_loop`, "
          "`ContinuousDecodeLoop._grammar_programs`)\nkeep state advance in the step function; "
          "kllms-check's host-sync-hot-path rule\npins ``grammar_mask_logits`` / "
@@ -97,14 +91,46 @@ EDITS = {
          "no host work per step.  They are\ntorch ops on the tables' device that never read a "
          "value back to the host, so\nthe engine's decode loop (``engine._decode``) masks and "
          "advances every step\nwithout a sync.\n"),
-        ('        spec = _failpoints.fire("engine.grammar")\n'
-         '        if spec is not None and spec.action == "fallback":\n'
-         '            GRAMMAR_EVENTS.record("grammar.fallback_failpoint")\n'
-         "            return None\n", ""),
-        ("    compile error — or the ``engine.grammar`` failpoint — degrades to ``None``\n",
-         "    compile error degrades to ``None``\n"),
     ],
 }
+
+#: The serving layer's copies: what differs on the card.
+EDITS.update({
+    "reliability/failpoints.py": [
+        ("                           action forces the counted degrade from the fused\n"
+         "                           Pallas kernel to the XLA reference (recording\n"
+         "                           ``kernel.paged_attn_fallback.failpoint``),\n"
+         "                           exercising the kernel-unavailable path without\n"
+         "                           leaving the TPU build\n",
+         "                           action sends one CPU launch to the plain version\n"
+         "                           (recording ``kernel.paged_attn_fallback.failpoint``)\n"
+         "                           and fails one card launch with a typed 503\n"
+         "                           (recording ``kernel.paged_attn_unavailable.failpoint``):\n"
+         "                           nothing on a card gives way to the plain version\n"),
+    ],
+    # The docstring's opening without the project's history; the limit of
+    # in-process healing on a card, and the stream the launch threads use.
+    "reliability/supervisor.py": [
+        ("PRs 1-2 hardened the *request* path", "Deadlines, retries and breakers harden the *request* path"),
+        ("the engine: at most one launch/rebuild is ever active.\n",
+         "the engine: at most one launch/rebuild is ever active.\n"
+         "\n"
+         "On a CUDA card the watchdog heals host-side hangs: the ``hang`` failpoint, a\n"
+         "stuck host thread, a deadlock. A kernel truly wedged on the card cannot be\n"
+         "killed from the process: the abandoned launch thread keeps the old engine\n"
+         "(and its weights on the card) until the kernel returns, and the replay\n"
+         "queues behind it on the same stream, so ``max_rebuilds`` then ends in\n"
+         "STOPPED and typed 503s. Launch threads issue their work on the card's\n"
+         "legacy default stream, as the scheduler's worker does, which keeps the\n"
+         "split-reduction kernels' arrival semaphores in stream order.\n"),
+    ],
+    # The port's backend is "cuda".
+    "reliability/replicas.py": [
+        ('{"backend": "tpu", "id": "west", **kwargs}', '{"backend": "cuda", "id": "west", **kwargs}'),
+        ('name = spec.pop("backend", "tpu")', 'name = spec.pop("backend", "cuda")'),
+    ],
+})
+
 
 #: The grammar-constraint modules: only the host half is a copy.
 DEVICE_MARKERS = {
@@ -118,7 +144,9 @@ COPIED = sorted(
     [f"consensus/{f}" for f in os.listdir(os.path.join(PORT, "consensus")) if f.endswith(".py")]
     + [f"types/{f}" for f in os.listdir(os.path.join(PORT, "types")) if f.endswith(".py")]
     + ["native/__init__.py", "native/levenshtein.cpp", "native/hungarian.cpp",
-       "reliability/deadline.py", "engine/tokenizer.py"]
+       "reliability/deadline.py", "engine/tokenizer.py", "reliability/failpoints.py",
+       "reliability/retry.py", "reliability/tenancy.py", "reliability/supervisor.py",
+       "reliability/replicas.py", "engine/scheduler.py", "observability/histograms.py"]
     + list(DEVICE_MARKERS)
 )
 
@@ -140,11 +168,12 @@ def _drop_imports(text: str) -> str:
 
 def _normalise(ref: str) -> str:
     """The rewrites every copy shares: reference-SDK doc paths without the
-    machine path, tracking tags such as ``(WORD 8)`` or ``(WORD r3 #3)``
-    dropped, the package's own name."""
+    machine path, tracking tags such as ``(WORD 8)``, ``(WORD r3 #3)`` or
+    ``(PR 2)`` dropped, the package's own name."""
     ref = re.sub(r"/[\w./-]*?/(k_llms/)", r"\1", ref)
     ref = re.sub(r"`/[\w./-]*?/README\.md", "`k-LLMs README.md", ref)
     ref = re.sub(r" \([A-Z]{5,} (?:\d+(?: satellite)?|r\d+ #\d+)\)", "", ref)
+    ref = re.sub(r" \(PR \d+\)", "", ref)
     return re.sub(r"\bk_llms_tpu(?=[./])", "k_llms_tpu_torch", ref)
 
 

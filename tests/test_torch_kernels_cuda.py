@@ -548,3 +548,118 @@ def test_threefry_uniform_kernel_replays_in_a_cuda_graph(cuda_device):
         torch.cuda.synchronize()
         ref = rnd.threefry_uniform_plain(keys, step_t, 8, 4096)
         assert torch.equal(captured.view(torch.int32), ref.view(torch.int32))
+
+
+# -- the serving chain on the card --------------------------------------------
+
+
+def test_coalesced_tiny_group_through_the_scheduler_equals_plain(cuda_device):
+    """Four tiny fp32 requests queued behind the scheduler's parked worker
+    run as one launch through K2, K1 and the draws, under the supervisor,
+    and equal the plain paths' direct launch of the same specs."""
+    from k_llms_tpu_torch.backends.cuda import BackendConfig, CudaBackend
+    from k_llms_tpu_torch.engine.engine import GenRequestSpec
+    from k_llms_tpu_torch.reliability.drills import park_worker, queue_in_order
+
+    tiny = get_config("tiny")
+    params = init_params(tiny, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    engine = LocalEngine(tiny.with_(attention_impl="flash"), params=params, device=cuda_device,
+                         paged_attention_impl="cuda", kv_page_size=16)
+    backend = CudaBackend(config=BackendConfig(model="tiny", batch_window=0.0), engine=engine)
+    tok = backend.tokenizer
+    group = [("alpha", 2, 5), ("a somewhat longer second prompt", 3, 6), ("three", 1, 7),
+             ("the fourth request of the group", 2, 8)]
+    prompts = [tok.apply_chat_template([{"role": "user", "content": t}]) for t, _, _ in group]
+    gate = park_worker(backend.scheduler)
+    _ext.reset_launch_counts()
+    threads, got = queue_in_order(backend.scheduler, [
+        lambda p=p, n=n, s=s: backend._generate_batched(
+            p, n=n, max_new=16, temperature=0.8, top_p=None, seed=s, constraint=None)
+        for p, (_, n, s) in zip(prompts, group)])
+    gate.set()
+    for t in threads:
+        t.join(timeout=120)
+    counts = dict(_ext.LAUNCH_COUNTS)
+    assert backend.scheduler.stats["batches"] == 1 and backend.scheduler.stats["coalesced"] == 3
+    assert min(counts[k] for k in ("flash_attention", "paged_decode_attention",
+                                   "threefry_uniform")) > 0
+    plain = LocalEngine(tiny, params=params, device=cuda_device, paged_attention_impl="xla",
+                        kv_page_size=16)
+    want = plain.generate_many([GenRequestSpec(p, n, s) for p, (_, n, s) in zip(prompts, group)],
+                               max_new_tokens=16, temperature=0.8, eos_ids=tok.stop_ids)
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(got[i].tokens, w.tokens)
+        np.testing.assert_allclose(got[i].logprobs, w.logprobs, atol=1e-4, rtol=0)
+    backend.close()
+
+
+def test_paged_attn_drill_fails_the_card_launch_and_the_next_takes_the_kernel(cuda_device):
+    """The ``ops.paged_attn`` drill on a card: the launch's member gets the
+    typed 503 and no plain version runs; the next launch runs K1 and
+    equals a launch made before the drill."""
+    from k_llms_tpu_torch.engine.engine import GenRequestSpec
+    from k_llms_tpu_torch.ops.paged_attention import KernelUnavailableError
+    from k_llms_tpu_torch.reliability import failpoints as fp
+    from k_llms_tpu_torch.reliability.failpoints import FailSpec
+    from k_llms_tpu_torch.utils.observability import KERNEL_EVENTS
+
+    tiny = get_config("tiny")
+    params = init_params(tiny, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    engine = LocalEngine(tiny, params=params, device=cuda_device, paged_attention_impl="cuda",
+                         kv_page_size=16)
+    tok = ByteTokenizer()
+    spec = GenRequestSpec(tok.apply_chat_template([{"role": "user", "content": "drill"}]), 2, 9)
+    kw = dict(max_new_tokens=8, temperature=0.0, eos_ids=tok.stop_ids)
+    want = engine.generate_many([spec], **kw)[0]
+    plain = KERNEL_EVENTS.get("kernel.paged_attn_xla_dispatch")
+    with fp.failpoints({"ops.paged_attn": FailSpec(action="fallback", times=1)}):
+        failed = engine.generate_many([spec], **kw)[0]
+    assert isinstance(failed, KernelUnavailableError)
+    before = _ext.LAUNCH_COUNTS["paged_decode_attention"]
+    got = engine.generate_many([spec], **kw)[0]
+    assert _ext.LAUNCH_COUNTS["paged_decode_attention"] > before
+    assert KERNEL_EVENTS.get("kernel.paged_attn_xla_dispatch") == plain
+    assert engine._kv_pool.allocator.snapshot()["in_use"] == 0
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.logprobs, want.logprobs)
+
+
+def test_real_oom_splits_the_group_and_serves_each_half(cuda_device):
+    """With the process's memory fraction set between a solo launch's peak
+    and a two-request group's, the group's launch runs out of device memory
+    for real: the guard splits it, every page goes back, and each member
+    equals its solo launch. The config's wide KV heads (128 KiB a token)
+    make the page pool the difference between the two peaks: about 400 MB
+    of prompt pages and 512 MB of generation pages (32 rows x 128 tokens)
+    a request, above the solo launch's reserved slack."""
+    from k_llms_tpu_torch.engine.engine import GenRequestSpec
+    from k_llms_tpu_torch.reliability.drills import (
+        launch_peaks, memory_fraction, oom_memory_fraction, reset_launch_memory)
+
+    cfg = get_config("tiny").with_(hidden_size=256, intermediate_size=512, num_heads=32,
+                                   num_kv_heads=32, head_dim=128, num_layers=4,
+                                   attention_impl="flash", max_seq_len=4096)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    engine = LocalEngine(cfg, params=params, device=cuda_device, paged_attention_impl="cuda",
+                         kv_page_size=64)
+    tok = ByteTokenizer()
+    specs = [GenRequestSpec(tok.apply_chat_template([{"role": "user", "content": c * 400}]), 32, s)
+             for c, s in (("abcdefg ", 1), ("hijklmn ", 2))]
+    kw = dict(max_new_tokens=128, temperature=0.0, eos_ids=tok.stop_ids)
+
+    solos, peaks = [], []
+    for spec in specs:
+        reset_launch_memory(engine)
+        solos.append(engine.generate_many([spec], **kw)[0])
+        peaks.append(launch_peaks(cuda_device)[0])
+    reset_launch_memory(engine)
+    engine.generate_many(specs, **kw)
+    fraction = oom_memory_fraction(max(peaks), launch_peaks(cuda_device)[1], cuda_device)
+    reset_launch_memory(engine)
+    with memory_fraction(fraction, cuda_device):
+        got = engine.generate_many(specs, **kw)
+    assert engine.oom_stats == {"splits": 1, "unrecovered": 0}
+    assert engine._kv_pool.allocator.snapshot()["in_use"] == 0
+    for g, w in zip(got, solos):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+        np.testing.assert_array_equal(g.logprobs, w.logprobs)
