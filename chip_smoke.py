@@ -27,6 +27,19 @@ client the abort poller, the device-OOM split (the ``oom`` failpoint, then
 a real OOM under a memory fraction between a solo launch's peak and the
 group's) and a poison-escalated rebuild, and at ``tiny`` the watchdog's
 hang, rebuild and replay, rebuild exhaustion, failover and hedging.
+Consolidation runs on the card (``device_consensus=True``, the default):
+every counted window also asserts the Levenshtein kernel's launches as the
+device consensus planned them and no host fallback. ``consensus`` holds
+that kernel (``csrc/levenshtein.cu``) to its plain version and the native
+code at every length bucket, with two mutants of its source, times it, and
+on the 8B client consolidates a ``parse()`` at n = 8 and a ``create()`` at
+n = 32 again on the host and on the card (equal answers, both timed).
+``loop`` serves the continuous decode loop: on a bf16 paged 8B client (32
+slots, chunked prefill of 128 tokens) four requests joining mid-flight,
+one of them the 1490-token prompt in 12 chunks and one a grammar-
+constrained ``parse()``, with a logit-bias request coalescing while the
+loop decodes; on an int4 dense 8B client two of them; at ``tiny`` a hung
+step and a hung chunk rebuilt and replayed.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -61,7 +74,8 @@ from typing import Literal
 
 from pydantic import BaseModel, Field
 
-PHASES = ("build", "draws", "k2", "k1", "k4", "k3", "tiny", "8b", "ckpt", "8b_int4", "sched")
+PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "ckpt", "loop",
+          "8b_int4", "sched")
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
 # (needs "8b" or "8b_int4").
 EXTRA_PHASES = ("profile",)
@@ -71,6 +85,13 @@ EXTRA_PHASES = ("profile",)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# int32 operations per second: 64 INT32 lanes per SM (NVIDIA H100 Tensor Core
+# GPU architecture whitepaper, the SM's description) x 132 SMs x the 1.98 GHz
+# boost clock of the SXM part. The data sheet states no integer rate outside
+# the tensor cores.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+# Integer operations one Levenshtein DP cell needs (the bound's count).
+LEV_OPS_PER_CELL = 5
 # jax.random's answers (jax 0.9.0, jax_threefry_partitionable on), which the
 # card's machine has no JAX to compute: (seed, step, row) -> the key words of
 # fold_in(fold_in(key(seed), step), row) and the float32 bits of the first
@@ -124,8 +145,12 @@ class InvoiceStatus(BaseModel):
     note: str = Field(max_length=16)
 
 
+#: The script's start, for each record's elapsed seconds (``t_s``).
+T0 = time.perf_counter()
+
+
 def log(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(dict(obj, t_s=round(time.perf_counter() - T0, 3))), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -155,6 +180,63 @@ def plain_paged_launches() -> int:
 
     return (KERNEL_EVENTS.get("kernel.paged_attn_xla_dispatch")
             + KERNEL_EVENTS.get("kernel.paged_attn_fallback.failpoint"))
+
+
+#: The device consensus's Levenshtein launches, as it plans them
+#: (``consensus.device.levenshtein_batches`` of each scored pair list), since
+#: the last :func:`reset_counts`; and the consensus events at that reset.
+LEV_PLANNED = {"launches": 0, "pairs": 0}
+CONSENSUS_AT_RESET = {}
+
+
+def watch_levenshtein() -> None:
+    """Count the launches the device consensus plans: every call of
+    ``batched_levenshtein`` adds one per length bucket and pair chunk, the
+    exact number of kernel launches it must make."""
+    from k_llms_tpu_torch.consensus import device as dc
+
+    import threading
+
+    batched = dc.batched_levenshtein
+    lock = threading.Lock()  # concurrent consolidations plan at once
+
+    def planned(pairs, device="cpu"):
+        with lock:
+            LEV_PLANNED["launches"] += len(dc.levenshtein_batches(pairs))
+            LEV_PLANNED["pairs"] += len(pairs)
+        return batched(pairs, device)
+
+    dc.batched_levenshtein = planned
+
+
+def reset_counts() -> None:
+    """Every kernel launch counter to 0, the planned Levenshtein launches
+    to 0, and the consensus events noted: the start of a counted window."""
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.utils.observability import CONSENSUS_EVENTS
+
+    _ext.reset_launch_counts()
+    LEV_PLANNED.update(launches=0, pairs=0)
+    CONSENSUS_AT_RESET.clear()
+    CONSENSUS_AT_RESET.update(CONSENSUS_EVENTS.snapshot())
+
+
+def consensus_fallbacks() -> dict:
+    """Consolidations (or pair batches) that took the host path since the
+    last reset: failpoint, error, unavailable device, busy device lock."""
+    from k_llms_tpu_torch.utils.observability import CONSENSUS_EVENTS
+
+    now = CONSENSUS_EVENTS.snapshot()
+    return {k: now[k] - CONSENSUS_AT_RESET.get(k, 0) for k in now
+            if (k.startswith("consensus.fallback_") or k == "consensus.device_busy")
+            and now[k] != CONSENSUS_AT_RESET.get(k, 0)}
+
+
+def check_consensus_window(label) -> None:
+    """A counted window's consensus ran on the card: no host fallback."""
+    fallbacks = consensus_fallbacks()
+    if fallbacks:
+        raise AssertionError(f"{label}: consensus fell back to the host: {fallbacks}")
 
 
 def join_all(threads, timeout=600):
@@ -225,7 +307,7 @@ def sched_coalesce(label, client, requests, expected_fn, log):
     before = dict(sched.stats)
     plain = plain_paged_launches()
     engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
-    _ext.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     threads, resps = queue_in_order(
         sched, [lambda r=r: client.chat.completions.create(**r) for r in requests])
@@ -253,6 +335,7 @@ def sched_coalesce(label, client, requests, expected_fn, log):
          "consensus": [r.choices[0].message.content for r in resps.values()]})
     if counts != expected:
         raise AssertionError(f"{label} coalesced launch counts {counts} != expected {expected}")
+    check_consensus_window(f"{label} coalesced")
     # Outside the counted window: the same group launched directly, then
     # each member alone, timed on the host around launches that end in a
     # device-to-host copy.
@@ -649,6 +732,61 @@ def sched_tiny(log):
     rs.close()
 
 
+def loop_tiny(log):
+    """The continuous loop's recovery at ``tiny`` (fp32) through the
+    kernels: a hung step (``continuous.step``) and a hung chunk mid-prompt
+    (``continuous.prefill``) are each abandoned behind the epoch fence, the
+    engine rebuilt and the journal replayed, with the same text as an
+    uninterrupted run."""
+    import torch
+
+    from k_llms_tpu_torch.backends.base import ChatRequest
+    from k_llms_tpu_torch.backends.cuda import CudaBackend
+    from k_llms_tpu_torch.reliability import failpoints as fp
+    from k_llms_tpu_torch.reliability.failpoints import FailSpec
+
+    knobs = dict(model="tiny", attention_impl="flash", paged_attention_impl="cuda",
+                 continuous_batching=True, continuous_width=4, continuous_max_prompt=256,
+                 continuous_max_new=32, prefill_chunk_tokens=32)
+
+    def req(content, seed=123):
+        return ChatRequest(messages=[{"role": "user", "content": content}], model="tiny", n=2,
+                           temperature=0.8, seed=seed, max_tokens=16)
+
+    def texts(out):
+        return [c.message.content for c in out.choices]
+
+    short, long = "determinism", "chunked determinism " * 6
+    base = CudaBackend(**knobs)
+    base.chat_completion(req(short))
+    t0 = time.perf_counter()
+    baseline = {c: base.chat_completion(req(c)) for c in (short, long)}
+    warm_s = (time.perf_counter() - t0) / 2
+    base.close()
+    budget = max(2.0, 10.0 * warm_s)
+    for site, content in (("continuous.step", short), ("continuous.prefill", long)):
+        b = CudaBackend(**dict(knobs, watchdog_min_budget_s=budget, watchdog_max_budget_s=budget))
+        engine0 = b.engine
+        with fp.failpoints({site: FailSpec(action="hang", times=1, delay=3600.0)}):
+            t0 = time.perf_counter()
+            out = b.chat_completion(req(content))
+            wall = time.perf_counter() - t0
+        st = b.health()["continuous"]
+        rec = {"phase": "loop_tiny_hang", "site": site, "watchdog_budget_s": budget,
+               "request_wall_s": wall, "restarts": st["restarts"],
+               "last_recovery_reason": st["last_recovery_reason"],
+               "replayed_rows": st["replayed_rows"], "prefill_chunks": st["prefill_chunks"],
+               "engine_rebuilt": b.engine is not engine0,
+               "text_equal": texts(out) == texts(baseline[content])}
+        log(rec)
+        if (st["restarts"] != 1 or st["last_recovery_reason"] != "hung_step"
+                or not rec["engine_rebuilt"] or not rec["text_equal"]
+                or (site == "continuous.prefill" and st["prefill_chunks"] == 0)):
+            raise AssertionError(f"tiny loop hang drill: {rec}")
+        b.close()
+    torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -673,6 +811,8 @@ def main(argv=None) -> int:
     from k_llms_tpu_torch.ops import _ext
     from k_llms_tpu_torch.ops import attention as att
     from k_llms_tpu_torch.ops import paged_attention as pa
+
+    watch_levenshtein()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -785,7 +925,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"decode_prefix_tc: missing or spilling: {k3_tc}")
 
     # 3. The draw kernel: a decode step's uniforms, bit-equal to the plain
-    # version and to jax.random's own answers.
+    # version and to jax.random's own answers. A coalesced step
+    # (threefry_uniform) and the loop's step (threefry_uniform_rows) launch
+    # the same per-row kernel.
     if "draws" in phases:
         from k_llms_tpu_torch.ops import random as rnd
 
@@ -798,12 +940,16 @@ def main(argv=None) -> int:
             row_first = rnd.fold_in(keys[:, None, :], rows[None, :])
             return rnd.uniform_tiny(rnd.fold_in(row_first, step.to(torch.int64)).reshape(-1, 2), V)
 
+        def coalesced_plain(keys, step, n_per, V):
+            # A coalesced step's rows, request-major, from the plain threefry.
+            return rnd.uniform_tiny(rnd.row_keys(keys, step.to(torch.int64), n_per), V)
+
         def wrong_rotation(keys, step, n_per, V):
             # Mutant: one rotation constant off by one.
             saved = rnd._ROTATIONS
             rnd._ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 25))
             try:
-                return rnd.threefry_uniform_plain(keys, step, n_per, V)
+                return coalesced_plain(keys, step, n_per, V)
             finally:
                 rnd._ROTATIONS = saved
 
@@ -817,7 +963,7 @@ def main(argv=None) -> int:
                     step_t = torch.tensor(step, dtype=torch.int32, device=dev)
                     got = rnd.threefry_uniform(keys, step_t, n_per, V)
                     torch.cuda.synchronize()
-                    ref = rnd.threefry_uniform_plain(keys, step_t, n_per, V)
+                    ref = coalesced_plain(keys, step_t, n_per, V)
                     equal = bool(torch.equal(bits_of(got), bits_of(ref)))
                     for m, fn in mutants.items():
                         caught[m] += int(not torch.equal(bits_of(got), bits_of(fn(keys, step_t, n_per, V))))
@@ -839,41 +985,211 @@ def main(argv=None) -> int:
             raise AssertionError(f"threefry_uniform disagrees with jax.random's answers: {known}")
         if min(caught.values()) != len(draw_cases):
             raise AssertionError(f"a draw mutant kept bit equality: {caught}")
-        # Timed at the sampled 8B step's shape: one request of n = 8 rows
-        # over the 128,256-column head.
-        R, n_per, V = 1, 8, 128256
-        keys = rnd.request_keys([3000000000], dev)
-        step_t = torch.tensor(5, dtype=torch.int32, device=dev)
-        out_bytes = R * n_per * V * 4
+        # The continuous loop's per-row entry: each row its own key, step
+        # and sample index. Held bit for bit to its plain version at the
+        # loop's width (with a mutant: step and index swapped) and to
+        # jax.random's answers, which are per-row keys already.
+        rows_cases = []
+        rows_caught = 0
+        for V in (128256, 512):
+            for trial in range(3):
+                g = np.random.default_rng(100 * trial + V)
+                keys = rnd.request_keys(g.integers(0, 2 ** 32, 32).tolist(), dev)
+                steps_t = torch.tensor(g.integers(0, 97, 32), dtype=torch.int32, device=dev)
+                index_t = torch.tensor(g.integers(0, 32, 32), dtype=torch.int32, device=dev)
+                got = rnd.threefry_uniform_rows(keys, steps_t, index_t, V)
+                ref = rnd.threefry_uniform_rows_plain(keys, steps_t, index_t, V)
+                equal = bool(torch.equal(bits_of(got), bits_of(ref)))
+                rows_caught += int(not torch.equal(bits_of(got), bits_of(
+                    rnd.threefry_uniform_rows_plain(keys, index_t, steps_t, V))))
+                rows_cases.append({"B": 32, "V": V, "trial": trial, "bit_equal": equal})
+                if not equal:
+                    raise AssertionError(f"threefry_uniform_rows V={V} differs from its plain version")
+        triples = list(JAX_DRAWS)
+        keys = rnd.request_keys([s for s, _, _ in triples], dev)
+        got = rnd.threefry_uniform_rows(
+            keys, torch.tensor([st for _, st, _ in triples], dtype=torch.int32, device=dev),
+            torch.tensor([r for _, _, r in triples], dtype=torch.int32, device=dev), 512)
+        rows_known = {f"{s}/{st}/{r}": [b & 0xFFFFFFFF for b in bits_of(got[i, :4]).tolist()]
+                      == JAX_DRAWS[(s, st, r)][1] for i, (s, st, r) in enumerate(triples)}
+        log({"phase": "draws_rows", "cases": rows_cases, "jax_answers_equal": rows_known,
+             "mutant_caught": rows_caught})
+        if not all(rows_known.values()) or rows_caught != len(rows_cases):
+            raise AssertionError(f"threefry_uniform_rows: jax {rows_known}, mutant caught "
+                                 f"{rows_caught} of {len(rows_cases)}")
+        # Timed at the loop's step: 32 rows over the 128,256-column head.
+        B, V = 32, 128256
+        g = np.random.default_rng(1)
+        keys = rnd.request_keys(g.integers(0, 2 ** 32, B).tolist(), dev)
+        steps_t = torch.tensor(g.integers(0, 97, B), dtype=torch.int32, device=dev)
+        index_t = torch.tensor(g.integers(0, 8, B), dtype=torch.int32, device=dev)
+        out_bytes = B * V * 4
         outs = []
-
-        def one_draw():
-            outs.append(rnd.threefry_uniform(keys, step_t, n_per, V))
-
-        ms = time_ms(lambda: rnd.threefry_uniform(keys, step_t, n_per, V), iters=50)
-        plain_ms = time_ms(lambda: rnd.threefry_uniform_plain(keys, step_t, n_per, V),
-                           iters=5, warmup=1)
-        # Each captured call keeps its output, so the replay writes
-        # copies_for(out_bytes) distinct buffers a pass, past the L2.
-        dev_ms = device_ms([one_draw] * copies_for(out_bytes))
+        ms = time_ms(lambda: rnd.threefry_uniform_rows(keys, steps_t, index_t, V), iters=50)
+        plain_ms = time_ms(lambda: rnd.threefry_uniform_rows_plain(keys, steps_t, index_t, V),
+                           iters=3, warmup=1)
+        dev_ms = device_ms([lambda: outs.append(rnd.threefry_uniform_rows(keys, steps_t, index_t, V))]
+                           * copies_for(out_bytes))
         del outs
-        # The output written once, the keys and the step read once; the
-        # integer work has no tensor-core rate, so bytes bound it.
-        b_ms, b_by = bound_ms(0.0, out_bytes + keys.numel() * 8 + 4, PEAK_F32_FLOPS)
-        rec = {"phase": "draws_timing", "B": R * n_per, "V": V, "ms": ms, "plain_ms": plain_ms,
-               "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "device_over_bound": dev_ms / b_ms}
-        log(rec)
-        kernels["threefry_uniform"] = {
-            "name": "threefry_uniform", "route": "cuda",
+        b_ms, b_by = bound_ms(0.0, out_bytes + B * (2 * 8 + 4 + 4), PEAK_F32_FLOPS)
+        log({"phase": "draws_rows_timing", "B": B, "V": V, "ms": ms, "plain_ms": plain_ms,
+             "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "device_over_bound": dev_ms / b_ms})
+        kernels["threefry_uniform_rows"] = {
+            "name": "threefry_uniform_rows", "route": "cuda",
             "source": "k_llms_tpu_torch/csrc/threefry.cu",
             # No Pallas kernel draws in the JAX package: its draws are XLA's
-            # threefry ops, keyed per row in the engine's decode loop.
-            "replaces": "k_llms_tpu/engine/engine.py:1508",
+            # threefry ops, keyed per row in the engine's decode loop and in
+            # the continuous loop.
+            "replaces": "k_llms_tpu/engine/engine.py:1508, k_llms_tpu/engine/continuous.py:721",
             "launches": None, "held": True, "max_abs_err": 0.0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "device_ms": dev_ms, "device_over_bound": dev_ms / b_ms,
-            "timed_case": f"B={R * n_per}, V={V}",
+            "timed_case": f"B={B}, V={V}",
+        }
+        # The coalesced 8B step's shape, one request of n = 8 rows: the
+        # per-row vectors built on the device for each call (what a
+        # coalesced step pays), against the kernel on prebuilt vectors.
+        R, n_per, V = 1, 8, 128256
+        keys = rnd.request_keys([3000000000], dev)
+        step_t = torch.tensor(5, dtype=torch.int32, device=dev)
+        row_keys_t = keys.expand(n_per, 2).contiguous()
+        steps_t = step_t.reshape(1).expand(n_per).contiguous()
+        index_t = torch.arange(n_per, dtype=torch.int32, device=dev)
+        out_bytes = R * n_per * V * 4
+        outs = []
+        coalesced_ms = time_ms(lambda: rnd.threefry_uniform(keys, step_t, n_per, V), iters=50)
+        rows_ms = time_ms(lambda: rnd.threefry_uniform_rows(row_keys_t, steps_t, index_t, V),
+                          iters=50)
+        coalesced_dev_ms = device_ms(
+            [lambda: outs.append(rnd.threefry_uniform(keys, step_t, n_per, V))]
+            * copies_for(out_bytes))
+        outs.clear()
+        rows_dev_ms = device_ms(
+            [lambda: outs.append(rnd.threefry_uniform_rows(row_keys_t, steps_t, index_t, V))]
+            * copies_for(out_bytes))
+        del outs
+        b_ms, b_by = bound_ms(0.0, out_bytes + n_per * (8 + 4 + 4), PEAK_F32_FLOPS)
+        log({"phase": "draws_timing", "B": R * n_per, "V": V, "coalesced_ms": coalesced_ms,
+             "rows_ms": rows_ms, "coalesced_device_ms": coalesced_dev_ms,
+             "rows_device_ms": rows_dev_ms, "bound_ms": b_ms, "bound_by": b_by})
+
+    # 3b. The Levenshtein kernel of the device consensus against its plain
+    # version (the JAX package's row scan in torch) and the native code.
+    if "consensus" in phases:
+        from k_llms_tpu_torch.native import levenshtein_distance
+        from k_llms_tpu_torch.ops import levenshtein as lev
+
+        def code_pairs(g, P, L):
+            """P seeded ASCII pairs of lengths 0..L over a small alphabet,
+            with empty strings and the bucket's edge lengths."""
+            alpha = np.frombuffer(b"abcde01", np.uint8)
+            a = np.zeros((P, L), np.int32)
+            b = np.zeros((P, L), np.int32)
+            alen = g.integers(0, L + 1, P).astype(np.int32)
+            blen = g.integers(0, L + 1, P).astype(np.int32)
+            alen[:6], blen[:6] = [0, L, 0, L, L - 1, 1], [0, 0, L, L, L, L - 1]
+            for i in range(P):
+                a[i, : alen[i]] = g.choice(alpha, alen[i])
+                b[i, : blen[i]] = g.choice(alpha, blen[i])
+            return a, alen, b, blen
+
+        # Two mutants of the kernel's source, each built by nvcc beside the
+        # real library: the insertion chain without its +1, and the result
+        # read one row position early. The check below must catch both.
+        src_path = os.path.join(_ext.CSRC_DIR, "levenshtein.cu")
+        with open(src_path) as f:
+            lev_src = f.read()
+        edits = {
+            "insertion_chain_off_by_one": ("v = min(v, left + 1);  // insertion chain",
+                                           "v = min(v, left);  // insertion chain"),
+            "wrong_result_column": ("out[p] = row[alen * kThreads];  // result column",
+                                    "out[p] = row[(alen > 0 ? alen - 1 : 0) * kThreads];"),
+        }
+        os.makedirs(_ext.BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name, (old, new) in edits.items():
+            if old not in lev_src:
+                raise AssertionError(f"levenshtein mutant {name}: source line not found")
+            mpath = os.path.join(_ext.BUILD_DIR, f"mutant_levenshtein_{name}.cu")
+            with open(mpath, "w") as f:
+                f.write(lev_src.replace(old, new))
+            lib_path = mpath[:-3] + ".so"
+            procs[name] = (subprocess.Popen([_ext.nvcc_path(), *_ext.NVCC_FLAGS, "-o", lib_path, mpath],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib_path)
+        mutant_libs = {}
+        import ctypes
+        for name, (proc, lib_path) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"mutant {name} failed to build: {out.decode()[-2000:]}")
+            mlib = ctypes.CDLL(lib_path)
+            mlib.kllms_levenshtein.argtypes = _ext.KERNELS["levenshtein"][1]["kllms_levenshtein"]
+            mlib.kllms_levenshtein.restype = ctypes.c_int
+            mutant_libs[name] = mlib
+
+        def run_mutant(mlib, t):
+            out = torch.empty((t[0].shape[0],), dtype=torch.int32, device=dev)
+            status = mlib.kllms_levenshtein(
+                t[0].data_ptr(), t[1].data_ptr(), t[2].data_ptr(), t[3].data_ptr(), out.data_ptr(),
+                t[0].shape[0], t[0].shape[1], torch.cuda.current_stream().cuda_stream)
+            _ext.check_status("levenshtein mutant", status)
+            return out
+
+        lev_cases, caught = [], {m: 0 for m in mutant_libs}
+        g = np.random.default_rng(args.seed)
+        for L in (8, 16, 32, 64, 128):
+            for P in (64, 1024):
+                host = code_pairs(g, P, L)
+                t = [torch.as_tensor(x, device=dev) for x in host]
+                got = lev.levenshtein(*t)
+                plain = lev.levenshtein_plain(*t)
+                a, alen, b, blen = host
+                native = [levenshtein_distance(a[i, : alen[i]].astype(np.uint8).tobytes().decode(),
+                                               b[i, : blen[i]].astype(np.uint8).tobytes().decode())
+                          for i in range(P)]
+                equal = bool(torch.equal(got, plain)) and got.tolist() == native
+                for m, mlib in mutant_libs.items():
+                    caught[m] += int(not torch.equal(run_mutant(mlib, t), plain))
+                lev_cases.append({"L": L, "P": P, "equal": equal})
+                if not equal:
+                    raise AssertionError(f"levenshtein L={L} P={P} differs from its plain "
+                                         "version or the native code")
+        log({"phase": "consensus_levenshtein", "cases": lev_cases, "mutants_caught": caught})
+        if min(caught.values()) != len(lev_cases):
+            raise AssertionError(f"a levenshtein mutant kept equality: {caught}")
+        # Timed at the widest launch: 1024 pairs in the 128 bucket. The
+        # bound: the cells this data fills (sum of alen * blen), 5 integer
+        # operations each, what the recurrence
+        # min(diag + (a != b), min(up, left) + 1) needs (a compare, two adds,
+        # two minimums), over the card's int32 rate; or the codes read once
+        # and the distances written once over HBM.
+        host = code_pairs(np.random.default_rng(7), 1024, 128)
+        t = [torch.as_tensor(x, device=dev) for x in host]
+        ms = time_ms(lambda: lev.levenshtein(*t), iters=20)
+        plain_ms = time_ms(lambda: lev.levenshtein_plain(*t), iters=3, warmup=1)
+        in_bytes = sum(x.nbytes for x in host)
+        copies = [[x.clone() for x in t] for _ in range(copies_for(in_bytes))]
+        dev_ms = device_ms([lambda c=c: lev.levenshtein(*c) for c in copies])
+        del copies
+        cells = int((host[1].astype(np.int64) * host[3].astype(np.int64)).sum())
+        t_ops = LEV_OPS_PER_CELL * cells / PEAK_INT32_OPS * 1e3
+        t_bytes = (in_bytes + 1024 * 4) / PEAK_BYTES * 1e3
+        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        log({"phase": "consensus_levenshtein_timing", "P": 1024, "L": 128, "cells": cells,
+             "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "int32_ops_per_s": PEAK_INT32_OPS,
+             "ops_per_cell": LEV_OPS_PER_CELL,
+             "device_over_bound": dev_ms / b_ms})
+        kernels["levenshtein"] = {
+            "name": "levenshtein", "route": "cuda",
+            "source": "k_llms_tpu_torch/csrc/levenshtein.cu",
+            # No Pallas kernel: the JAX package's jitted lax.scan.
+            "replaces": "k_llms_tpu/consensus/device.py:148",
+            "launches": None, "held": True, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "device_ms": dev_ms, "device_over_bound": dev_ms / b_ms,
+            "timed_case": "P=1024, L=128",
         }
 
     # 4. K2 flash attention against its plain version
@@ -1277,6 +1593,16 @@ def main(argv=None) -> int:
                         [lambda wb=wb: torch.matmul(x_bf16, wb) for wb in cold["bf16"]])
                     rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
                     rec["rotation"] = {k: len(v) for k, v in cold.items()}
+                elif dtype == torch.bfloat16 and rows == 2048:
+                    # The long prefill's row count: the kernel's and cuBLAS's
+                    # device time on cold weights, as at decode rows.
+                    cold = rotations(K, N)
+                    rec["device_ms"] = device_ms([lambda wc=wc: w4.w4_matmul(x, wc)
+                                                  for wc in cold["w4"]])
+                    rec["library_device_ms"] = device_ms(
+                        [lambda wb=wb: torch.matmul(x_bf16, wb) for wb in cold["bf16"]])
+                    rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
+                    rec["rotation"] = {k: len(v) for k, v in cold.items()}
             log(rec)
             if not ok:
                 raise AssertionError(f"w4_matmul case {name}: error {ratio} x the limit")
@@ -1363,9 +1689,9 @@ def main(argv=None) -> int:
                               ("case", "impl", "ms", "device_ms", "library_device_ms", "bound_ms",
                                "device_over_bound")}
                              for sn in shapes for rows in (1, 8)],
-            "prefill_cases": [{k: recs[(sn, rows)][k] for k in
+            "prefill_cases": [{k: recs[(sn, rows)].get(k) for k in
                                ("case", "impl", "ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}
+                                "library_ms", "device_ms", "library_device_ms")}
                               for sn in ("w_gate_up", "w_down") for rows in (64, 2048)],
         }
 
@@ -1595,14 +1921,14 @@ def main(argv=None) -> int:
              dict(config=tiny.with_(attention_impl="flash"), params=params, device="cuda",
                   paged_attention_impl="cuda"),
              dict(config=tiny, params=cpu_params, device="cpu", paged_attention_impl="xla"),
-             ("flash_attention", "paged_decode_attention", "threefry_uniform"),
+             ("flash_attention", "paged_decode_attention", "threefry_uniform_rows"),
              dict(temperature=1.0, constraint=record)),
         ]
         for label, kernel_kw, plain_kw, needed, gen_kw in cases:
             runs = {}
             for run, kw in (("kernels", kernel_kw), ("plain", plain_kw)):
                 eng = LocalEngine(kw.pop("config"), kv_page_size=16, **kw)
-                _ext.reset_launch_counts()
+                reset_counts()
                 res = eng.generate(prompt, n=4, seed=1, max_new_tokens=32, eos_ids=tok.stop_ids,
                                    **gen_kw)
                 runs[run] = (res, dict(_ext.LAUNCH_COUNTS), eng.quantized)
@@ -1694,7 +2020,7 @@ def main(argv=None) -> int:
 
         engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
         plain = plain_paged_launches()
-        _ext.reset_launch_counts()
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         allocated_before = torch.cuda.memory_allocated()
         for i, req in enumerate(requests):
@@ -1771,7 +2097,8 @@ def main(argv=None) -> int:
         return {"flash_attention": L * (prefills + len(embeds)),
                 "paged_decode_attention": L * steps,
                 "decode_prefix_attention": 0, "w4_matmul": 0,
-                "threefry_uniform": sampled_draws(launches)}
+                "threefry_uniform_rows": sampled_draws(launches),
+                "levenshtein": LEV_PLANNED["launches"]}
 
     def expected_int4_dense(launches, embeds, L, G):
         """The int4 dense flash path's launch counts: K2 as on the paged
@@ -1787,7 +2114,8 @@ def main(argv=None) -> int:
             "paged_decode_attention": 0,
             "decode_prefix_attention": L * gated_steps,
             "w4_matmul": (7 * L + 1) * (prefills + steps) + 7 * L * len(embeds),
-            "threefry_uniform": sampled_draws(launches),
+            "threefry_uniform_rows": sampled_draws(launches),
+            "levenshtein": LEV_PLANNED["launches"],
         }
 
     def sampled_draws(launches):
@@ -1929,7 +2257,7 @@ def main(argv=None) -> int:
         recs = []
         for name, content in cache_requests:
             before = dict(engine.prefix_cache_stats)
-            _ext.reset_launch_counts()
+            reset_counts()
             t0 = time.perf_counter()
             resp = client.chat.completions.create(
                 messages=[{"role": "user", "content": content}], n=8, temperature=0.0,
@@ -1947,6 +2275,10 @@ def main(argv=None) -> int:
             if stats != want or counts["flash_attention"] != want_k2 or len(resp.choices) != 9:
                 raise AssertionError(f"{label} {name}: cache {stats} (want {want}), K2 "
                                      f"{counts['flash_attention']} (want {want_k2}): {recs[-1]}")
+            if counts["levenshtein"] != LEV_PLANNED["launches"]:
+                raise AssertionError(f"{label} {name}: levenshtein {counts['levenshtein']} "
+                                     f"!= planned {LEV_PLANNED['launches']}")
+            check_consensus_window(f"{label} {name}")
         # B's continuation against B's full prefill on this engine: the
         # suffix KV rows [p, 1490) that it wrote, layer by layer, and its
         # first-token logits, each as a relative L2 difference. The two run
@@ -2224,6 +2556,7 @@ def main(argv=None) -> int:
                                      "seeded tree's")
             if counts != expected or counts != seeded["counts"]:
                 raise AssertionError(f"ckpt_bf16 launch counts {counts} != expected {expected}")
+            check_consensus_window("ckpt_bf16")
             cache_sequence("ckpt_bf16", client)
             client.close()
             del client
@@ -2248,12 +2581,380 @@ def main(argv=None) -> int:
                  "prefix_cache_stats": dict(client.backend.engine.prefix_cache_stats)})
             if not embeds or expected["decode_prefix_attention"] == 0 or counts != expected:
                 raise AssertionError(f"ckpt_int4 launch counts {counts} != expected {expected}")
+            check_consensus_window("ckpt_int4")
             cache_sequence("ckpt_int4", client)
             client.close()
             del client
         finally:
             shutil.rmtree(directory, ignore_errors=True)
             log({"phase": "ckpt_cleanup", "directory_removed": not os.path.exists(directory)})
+
+    # -- the consensus phase's 8B part and the loop phase -----------------------
+
+    def consensus_8b(client):
+        """The parse() request at n = 8 and one sampled create() at n = 32
+        on the 8B client, each consolidation done again on the host scorer
+        and on a fresh device scorer: choices[0] and likelihoods equal, the
+        consolidate ms of both, the Levenshtein launches as planned."""
+        from k_llms_tpu_torch.consensus.consolidation import (
+            consolidate_chat_completions,
+            consolidate_parsed_chat_completions,
+        )
+        from k_llms_tpu_torch.consensus.device import DeviceSimilarityScorer
+        from k_llms_tpu_torch.consensus.settings import ConsensusSettings
+        from k_llms_tpu_torch.consensus.similarity import SimilarityScorer
+
+        backend = client.backend
+        captured = []
+        dispatch = backend.dispatch_chat_completion
+
+        def capturing(request):
+            out = dispatch(request)
+            captured.append(out)
+            return out
+
+        backend.dispatch_chat_completion = capturing
+        wide = dict(messages=[{"role": "user", "content": "List a code for each of the items."}],
+                    n=32, temperature=0.8, top_p=0.95, seed=13, max_tokens=40,
+                    logit_bias=printable)
+        reset_counts()
+        recs = []
+        for label, req in (("parse_n8", parse_request), ("create_n32", wide)):
+            if label.startswith("parse"):
+                resp = client.chat.completions.parse(**req)
+            else:
+                resp = client.chat.completions.create(**req)
+            completion = captured[-1]
+            rec = {"request": label, "n": req["n"]}
+            for method in ("embeddings", "levenshtein"):
+                outs = {}
+                for way in ("host", "device"):
+                    if way == "host":
+                        scorer = SimilarityScorer(method=method, embed_fn=backend.embeddings)
+                    else:
+                        scorer = DeviceSimilarityScorer(method=method, embed_fn=backend.embeddings,
+                                                        device=dev)
+                    settings = ConsensusSettings(string_similarity_method=method)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if label.startswith("parse"):
+                        out = consolidate_parsed_chat_completions(
+                            completion, scorer, consensus_settings=settings,
+                            response_format=InvoiceStatus)
+                    else:
+                        out = consolidate_chat_completions(completion, scorer,
+                                                           consensus_settings=settings)
+                    outs[way] = (out, (time.perf_counter() - t0) * 1e3)
+                host, device = outs["host"][0], outs["device"][0]
+                same = (host.choices[0].message.content == device.choices[0].message.content
+                        and host.likelihoods == device.likelihoods)
+                rec[method] = {"host_ms": outs["host"][1], "device_ms": outs["device"][1],
+                               "equal": same}
+                if method == "embeddings":  # the client's own consolidation
+                    same = same and resp.choices[0].message.content == device.choices[0].message.content \
+                        and resp.likelihoods == device.likelihoods
+                    rec["client_equal"] = same
+                if not same:
+                    raise AssertionError(f"consensus {label} {method}: device and host differ: "
+                                         f"{device.choices[0].message.content!r} vs "
+                                         f"{host.choices[0].message.content!r}")
+            recs.append(rec)
+        del backend.dispatch_chat_completion
+        counts = dict(_ext.LAUNCH_COUNTS)
+        log({"phase": "consensus_8b", "requests": recs, "levenshtein_launches": counts["levenshtein"],
+             "planned": dict(LEV_PLANNED), "fallbacks": consensus_fallbacks()})
+        if counts["levenshtein"] != LEV_PLANNED["launches"] or LEV_PLANNED["launches"] == 0:
+            raise AssertionError(f"consensus 8b: levenshtein launches {counts['levenshtein']}, "
+                                 f"planned {LEV_PLANNED}")
+        check_consensus_window("consensus 8b")
+
+    loop_knobs = dict(continuous_batching=True, continuous_width=32, continuous_max_prompt=2048,
+                      continuous_max_new=96)
+    loop_parse = dict(messages=[{"role": "user", "content": "Invoice 2024-0117 lists 12 widgets "
+                                                           "from Acme. Extract the record."}],
+                      response_format=Record, n=8, temperature=0.8, seed=17, max_tokens=96)
+    # (label, request, send after this many loop steps, via parse())
+    loop_requests = [
+        ("A", dict(messages=[{"role": "user", "content": "What is the capital of France?"}],
+                   n=8, temperature=0.0, max_tokens=64, seed=1), 0, False),
+        ("D", loop_parse, 0, True),
+        ("B", dict(messages=[{"role": "user", "content": "Name three prime numbers."}],
+                   n=8, temperature=0.8, top_p=0.95, max_tokens=48, seed=3), 8, False),
+        ("C", dict(messages=[{"role": "user", "content": long_text + "\nWhat is the total?"}],
+                   n=8, temperature=0.0, max_tokens=32, seed=5), 16, False),
+    ]
+
+    def drive_loop(label, client, reqs, biased_at=None):
+        """Send ``reqs`` through the client from threads, each after its
+        loop step, with every launch count reset just before and read just
+        after (and, at ``biased_at`` steps, a logit-bias request that takes
+        the coalescing path while the loop decodes). Returns the window's
+        counts, the loop's stats, per-request submissions, the coalesced
+        launches, the embeddings forwards and the per-step record."""
+        import threading
+
+        backend = client.backend
+        engine, loop = backend.engine, backend._continuous
+        subs, steps_log, launches, embeds = {}, [], [], []
+        submit, step_once = loop.submit, loop._step_once
+        generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
+        current = threading.local()
+
+        def recording_submit(ids, **kw):
+            fut = submit(ids, **kw)
+            subs[getattr(current, "label", "?")] = (list(ids), dict(kw), fut)
+            return fut
+
+        def timed_step():
+            rows = int(loop._active_mask.sum())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_once()
+            steps_log.append((rows, (time.perf_counter() - t0) * 1e3))
+
+        def counted_generate_many(items, **kw):
+            out = generate_many(items, **kw)
+            st = engine.last_launch_stats
+            launches.append((len(items), st["n_per"], st["decode_steps"], kw["temperature"]))
+            return out
+
+        def counted_embed_tokens(token_lists, *a, **kw):
+            embeds.append([len(t) for t in token_lists])
+            return embed_tokens(token_lists, *a, **kw)
+
+        loop.submit, loop._step_once = recording_submit, timed_step
+        engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
+        resps, errors = {}, {}
+
+        def run(name, req, parse):
+            current.label = name
+            try:
+                fn = client.chat.completions.parse if parse else client.chat.completions.create
+                resps[name] = fn(**req)
+            except BaseException as e:  # reported below
+                errors[name] = e
+
+        plain = plain_paged_launches()
+        reset_counts()
+        t0 = time.perf_counter()
+        threads = []
+        pending = list(reqs)
+        if biased_at is not None:
+            pending.append(("bias", dict(messages=[{"role": "user", "content": "Spell a word."}],
+                                         n=8, temperature=0.0, max_tokens=32, seed=7,
+                                         logit_bias=printable), biased_at, False))
+        pending.sort(key=lambda r: r[2])
+        for name, req, after, parse in pending:
+            while loop._stats["steps"] < after:
+                time.sleep(0.0005)
+            th = threading.Thread(target=run, args=(name, req, parse))
+            th.start()
+            threads.append(th)
+            if after == 0:  # queued in order before the next one
+                while name != "bias" and name not in subs and th.is_alive():
+                    time.sleep(0.0005)
+        join_all(threads)
+        wall = time.perf_counter() - t0
+        counts = dict(_ext.LAUNCH_COUNTS)
+        del loop.submit, loop._step_once, engine.generate_many, engine.embed_tokens
+        if errors:
+            raise AssertionError(f"{label}: requests failed: {errors}")
+        if plain_paged_launches() != plain:
+            raise AssertionError(f"{label}: a paged launch ran the plain version")
+        check_consensus_window(label)
+        return counts, loop.stats, subs, resps, launches, embeds, steps_log, wall
+
+    def per_rows_ms(steps_log):
+        by = {}
+        for rows, ms in steps_log:
+            by.setdefault(rows, []).append(ms)
+        return {str(r): {"steps": len(v), "median_ms": float(np.median(v))}
+                for r, v in sorted(by.items())}
+
+    def agreement(a, b):
+        return [int(np.sum(a.tokens == b.tokens)), int(a.tokens.size)]
+
+    def loop_bf16():
+        """The 8B bf16 paged client with the continuous loop: A and the
+        Record parse() D together, B after A's 8th step, the 1490-token C
+        after its 16th (12 chunks of 128), a logit-bias request through the
+        coalescing path while the loop decodes; then each request alone
+        through the loop, A through a coalesced launch, C's chunked KV
+        against its whole-prompt prefill, and a profiled solo run."""
+        t0 = time.perf_counter()
+        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed, **loop_knobs)
+        backend = client.backend
+        engine, loop = backend.engine, backend._continuous
+        tok = backend.tokenizer
+        L = engine.config.num_layers
+        log({"phase": "loop_8b_init", "seconds": time.perf_counter() - t0, "width": loop.width,
+             "prefill_chunk_tokens": loop.prefill_chunk_tokens, "paged": loop.paged,
+             "planned_pool_pages": loop._pool_pages_planned})
+        if (loop.width, loop.prefill_chunk_tokens, loop.paged) != (32, 128, True):
+            raise AssertionError(f"loop 8b: width {loop.width}, chunk {loop.prefill_chunk_tokens}")
+        client.chat.completions.create(messages=[{"role": "user", "content": "warm up"}], n=2,
+                                       max_tokens=4, temperature=0.0, seed=0)
+        pool = engine._kv_pool
+        pool_tensors = (pool.k, pool.v)
+        prompt_lens = {name: len(tok.apply_chat_template(r["messages"], add_generation_prompt=True))
+                       for name, r, _, _ in loop_requests}
+        before = dict(loop.stats)
+        counts, st, subs, resps, launches, embeds, steps_log, wall = drive_loop(
+            "loop_8b", client, loop_requests, biased_at=24)
+        delta = {k: st[k] - before[k] for k in ("steps", "admitted", "joined_in_flight",
+                                                 "completed", "prefill_chunks",
+                                                 "prefill_interleaved", "replayed_rows")}
+        chunked = sum(1 for n in prompt_lens.values() if n > loop.prefill_chunk_tokens)
+        whole = delta["admitted"] - chunked
+        co_steps = sum(s for _, _, s, _ in launches)
+        expected = {
+            "flash_attention": L * (whole + delta["prefill_chunks"] + len(embeds)
+                                    + sum(r for r, _, _, _ in launches)),
+            "paged_decode_attention": L * (delta["steps"] + co_steps),
+            "decode_prefix_attention": 0, "w4_matmul": 0,
+            "threefry_uniform_rows": (sampled_draws(launches) + delta["steps"]
+                                      + delta["admitted"]),
+            "levenshtein": LEV_PLANNED["launches"],
+        }
+        pool_same = engine._kv_pool is pool and (pool.k, pool.v) == pool_tensors
+        page_bytes = pool.pool_bytes() // pool.allocator.total_pages
+        log({"phase": "loop_8b", "wall_s": wall, "prompt_tokens": prompt_lens, "stats": delta,
+             "max_active_rows": st["max_active_rows"], "coalesced_launches": launches,
+             "embeddings_forwards": embeds, "launches": counts, "expected": expected,
+             "decode_ms_per_step_by_active_rows": per_rows_ms(steps_log),
+             "pool_pages": pool.allocator.total_pages, "page_bytes": page_bytes,
+             "pool_bytes": pool.pool_bytes(), "param_bytes": engine.param_footprint_bytes(),
+             "pool_tensors_same": pool_same,
+             "consensus": {n: r.choices[0].message.content if not hasattr(r.choices[0].message, "parsed")
+                           else str(r.choices[0].message.parsed) for n, r in resps.items()}})
+        problems = []
+        if delta["admitted"] != 4 or delta["joined_in_flight"] < 2:
+            problems.append("admissions")
+        if delta["prefill_chunks"] != 12 or delta["prefill_interleaved"] < 1:
+            problems.append("chunks")
+        if st["max_active_rows"] < 24:
+            problems.append("max_active_rows")
+        if counts != expected:
+            problems.append("launch counts")
+        if len(launches) != 1 or not pool_same:
+            problems.append("coalesced request / pool")
+        if pool.allocator.total_pages != 1185 or page_bytes != 8 << 20:
+            problems.append("pool size")
+        if problems:
+            raise AssertionError(f"loop 8b: {problems}")
+        kernels_rows = counts["threefry_uniform_rows"]
+        # Outside the counted window: each request alone through the loop.
+        results = {n: f.result() for n, (_, _, f) in subs.items()}
+        solo_agree = {}
+        from torch.profiler import ProfilerActivity, profile
+
+        for name, (ids, kw, _) in subs.items():
+            solo_agree[name] = agreement(results[name], loop.submit(ids, **kw).result())
+        # The device's idle share over a short solo window: A's first 16
+        # tokens alone (the trace of a whole request takes the profiler
+        # tens of seconds to sum).
+        ids_a, kw_a, _ = subs["A"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loop.submit(ids_a, **dict(kw_a, max_new=16)).result()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        busy_us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy_us += getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0))
+        idle = {"tokens": 16, "wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
+                "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall}
+        coalesced = engine.generate(ids_a, n=kw_a["n"], seed=kw_a["seed"],
+                                    max_new_tokens=kw_a["max_new"], temperature=0.0,
+                                    eos_ids=tok.stop_ids)
+        ids_c, kw_c, _ = subs["C"]
+        coalesced_c = engine.generate(ids_c, n=kw_c["n"], seed=kw_c["seed"],
+                                      max_new_tokens=kw_c["max_new"], temperature=0.0,
+                                      eos_ids=tok.stop_ids)
+        # C's chunked KV (12 chunks of 128, K2 in its q_offset mode) against
+        # its whole-prompt prefill, per layer, held to the continuation
+        # bound of the ckpt phase: 4 sqrt(2l + 1) 2**-9.
+        from k_llms_tpu_torch.models.llama import init_cache, prefill_chunk_step
+
+        with torch.inference_mode():
+            cids, plen, bucket = engine._prep_prompt(ids_c)
+            _, full_kv = engine._prefill_full(cids, plen, bucket)
+            cache = init_cache(engine.config, 1, bucket, dev)
+            C = loop.prefill_chunk_tokens
+            for start in range(0, plen, C):
+                valid = min(C, plen - start)
+                chunk = torch.full((1, C), engine.config.pad_token_id, dtype=torch.int64, device=dev)
+                chunk[0, :valid] = torch.tensor(cids[start:start + valid], device=dev)
+                _, cache = prefill_chunk_step(engine.config, engine.params, chunk, cache, start, valid)
+
+        def rel_l2(x, ref):
+            x, ref = x.float(), ref.float()
+            return ((x - ref).norm() / ref.norm()).item()
+
+        kv_k = [rel_l2(cache.k[i, :, :plen], full_kv.k[i, :, :plen]) for i in range(L)]
+        kv_v = [rel_l2(cache.v[i, :, :plen], full_kv.v[i, :, :plen]) for i in range(L)]
+        worst = max(max(kv_k[i], kv_v[i]) / (4 * math.sqrt(2 * i + 1) * 2.0 ** -9) for i in range(L))
+        log({"phase": "loop_8b_check", "solo_tokens_agreeing": solo_agree,
+             "A_vs_coalesced_tokens_agreeing": agreement(results["A"], coalesced),
+             "C_vs_coalesced_whole_prefill_tokens_agreeing": agreement(results["C"], coalesced_c),
+             "C_chunked_kv_rel_l2": {"k": kv_k, "v": kv_v, "max_over_limit": worst},
+             "profiled_solo_A_16_tokens": idle})
+        if worst > 1.0:
+            raise AssertionError(f"loop 8b: C's chunked KV past the bound ({worst})")
+        client.close()
+        del client, backend, engine, loop, pool, pool_tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+        return kernels_rows
+
+    def loop_int4():
+        """The int4 client on the dense loop (K2, K4; plain decode
+        attention, since a loop row is its own prefix): A, then C after A's
+        16th step; counts asserted, A equal to its solo run."""
+        t0 = time.perf_counter()
+        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed,
+                       quantization="int4", paged_kv=False, decode_attention_impl="flash",
+                       **loop_knobs)
+        backend = client.backend
+        engine, loop = backend.engine, backend._continuous
+        L = engine.config.num_layers
+        log({"phase": "loop_8b_int4_init", "seconds": time.perf_counter() - t0,
+             "width": loop.width, "paged": loop.paged, "quantized": engine.quantized})
+        client.chat.completions.create(messages=[{"role": "user", "content": "warm up"}], n=2,
+                                       max_tokens=4, temperature=0.0, seed=0)
+        before = dict(loop.stats)
+        reqs = [r for r in loop_requests if r[0] in ("A", "C")]
+        counts, st, subs, resps, launches, embeds, steps_log, wall = drive_loop(
+            "loop_8b_int4", client, reqs)
+        delta = {k: st[k] - before[k] for k in ("steps", "admitted", "prefill_chunks",
+                                                 "prefill_interleaved", "joined_in_flight")}
+        whole = delta["admitted"] - 1
+        calls = whole + delta["prefill_chunks"] + delta["steps"]
+        expected = {
+            "flash_attention": L * (whole + delta["prefill_chunks"] + len(embeds)),
+            "paged_decode_attention": 0, "decode_prefix_attention": 0,
+            "w4_matmul": (7 * L + 1) * calls + 7 * L * len(embeds),
+            "threefry_uniform_rows": delta["steps"] + delta["admitted"],
+            "levenshtein": LEV_PLANNED["launches"],
+        }
+        ids_a, kw_a, fut_a = subs["A"]
+        solo = loop.submit(ids_a, **kw_a).result()
+        equal = bool(np.array_equal(fut_a.result().tokens, solo.tokens))
+        log({"phase": "loop_8b_int4", "wall_s": wall, "stats": delta, "launches": counts,
+             "expected": expected, "embeddings_forwards": embeds,
+             "decode_ms_per_step_by_active_rows": per_rows_ms(steps_log),
+             "A_equal_to_solo": equal})
+        if (counts != expected or delta["admitted"] != 2 or delta["prefill_chunks"] != 12
+                or not equal or launches):
+            raise AssertionError(f"loop 8b_int4: counts {counts} vs {expected}, {delta}, "
+                                 f"A equal to solo {equal}")
+        client.close()
+        del client, backend, engine, loop
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 9a. bf16 weights, paged decode: K2 and K1.
     if "8b" in phases:
@@ -2268,12 +2969,17 @@ def main(argv=None) -> int:
         counts, launches, embeds, outputs = serve_8b("8b", client)
         L = engine.config.num_layers
         del engine  # the rebuild below must be able to free the engine it replaces
-        for name in ("flash_attention", "paged_decode_attention", "threefry_uniform"):
+        for name in ("flash_attention", "paged_decode_attention", "threefry_uniform_rows"):
             if name in kernels:
                 kernels[name]["launches"] = counts[name]
         expected = expected_bf16_paged(launches, embeds, L)
         if not embeds or counts != expected:
             raise AssertionError(f"8b launch counts {counts} != expected {expected}")
+        check_consensus_window("8b")
+        if "levenshtein" in kernels:
+            kernels["levenshtein"]["launches"] = counts["levenshtein"]
+        if "consensus" in phases:
+            consensus_8b(client)
         if "profile" in phases:
             for index in (0, 2):  # a short and the long prompt
                 profile_one("8b", client, index)
@@ -2305,6 +3011,13 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # 9d. The continuous loop on the 8B bf16 paged client (K2 per whole
+    # prefill and per chunk, K1 per loop step, the per-row draws).
+    if "loop" in phases:
+        rows_launches = loop_bf16()
+        if "threefry_uniform_rows" in kernels:
+            kernels["threefry_uniform_rows"]["loop_launches"] = rows_launches
+
     # 9b. int4 weights, dense decode with the decode-prefix kernel: K2, K3
     # and K4 (no K1).
     if "8b_int4" in phases:
@@ -2325,12 +3038,14 @@ def main(argv=None) -> int:
         for name in ("decode_prefix_attention", "w4_matmul"):
             if name in kernels:
                 kernels[name]["launches"] = counts[name]
-        if "threefry_uniform" in kernels and kernels["threefry_uniform"]["launches"] is None:
-            kernels["threefry_uniform"]["launches"] = counts["threefry_uniform"]
+        draws = kernels.get("threefry_uniform_rows")
+        if draws is not None and draws["launches"] is None:
+            draws["launches"] = counts["threefry_uniform_rows"]
         expected = expected_int4_dense(launches, embeds, L, G)
         log({"phase": "8b_int4_expected_launches", "expected": expected, "counts": counts})
         if not embeds or expected["decode_prefix_attention"] == 0 or counts != expected:
             raise AssertionError(f"8b_int4 launch counts {counts} != expected {expected}")
+        check_consensus_window("8b_int4")
         if "profile" in phases:
             for index in (0, 2):
                 profile_one("8b_int4", client, index)
@@ -2342,11 +3057,15 @@ def main(argv=None) -> int:
         del client, engine
         gc.collect()
         torch.cuda.empty_cache()
+        if "loop" in phases:
+            loop_int4()
 
     # 10. The watchdog and the replica set at tiny through the kernels
     # (after every counted window: a hung launch's thread outlives the run).
     if "sched" in phases:
         sched_tiny(log)
+    if "loop" in phases:
+        loop_tiny(log)
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)

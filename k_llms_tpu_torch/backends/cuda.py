@@ -34,10 +34,15 @@ that is not registered takes its config from the checkpoint's
 ``config.json``. A ``response_format`` compiles (once per schema and
 vocabulary, through the process-wide grammar cache) into a token-mask
 automaton that the engine applies inside decode
-(``constrained_decoding=True``, the default). The continuous loop,
-streaming, the batch lane and the device consensus scorer are not ported
-yet; a keyword that names one of the JAX package's other ``BackendConfig``
-fields raises ``NotImplementedError`` rather than being dropped.
+(``constrained_decoding=True``, the default). With
+``continuous_batching=True`` qualifying requests (no logit bias, penalties
+or top logprobs) join the continuous decode loop (``engine/continuous.py``,
+chunked prefill included) instead of the coalescing scheduler, and with
+``device_consensus=True`` (the default) consolidation scores its pairs and
+votes on the engine's device (``consensus/device.py``). Streaming and the
+batch lane are not ported yet; a keyword that names one of the JAX
+package's other ``BackendConfig`` fields raises ``NotImplementedError``
+rather than being dropped.
 """
 
 from __future__ import annotations
@@ -177,6 +182,30 @@ class BackendConfig(BaseModel):
     # Queued-weight fraction of max_queue_weight at which batch-class
     # admissions are shed (brownout).
     brownout_high_water: float = 0.9
+    # -- continuous in-flight batching (engine/continuous.py) -------------
+    # Persistent decode loop with slot admission: requests join/leave a
+    # fixed-width decode batch mid-flight instead of waiting for coalesced
+    # groups to finish. Requests needing top_logprobs, penalties or
+    # logit_bias still take the coalescing scheduler.
+    continuous_batching: bool = False
+    # Slot count (decode batch width). Clamped by the memory model's row
+    # cap at (continuous_max_prompt + continuous_max_new) KV per slot.
+    continuous_width: int = 8
+    # Per-slot KV bounds; longer prompts / larger max_tokens take the
+    # coalescing path.
+    continuous_max_prompt: int = 512
+    continuous_max_new: int = 256
+    # Chunked prefill: prompts longer than this many tokens are ingested
+    # into the loop chunk by chunk, one chunk between decode steps. None =
+    # auto (HbmMemoryModel.prefill_chunk_tokens); 0 = off (whole-prompt
+    # admission). Normalized down to a power of two >= 32 by the loop.
+    prefill_chunk_tokens: Optional[int] = None
+    # -- on-device consensus (consensus/device.py) ------------------------
+    # Score consolidation's pairwise similarities and majority votes in
+    # batches on the engine's device (the Levenshtein kernel, torch ops),
+    # with a counted per-consolidation host fallback (failpoint, busy
+    # device, error). False = always the host Python path.
+    device_consensus: bool = True
     # Where the engine runs: None = the CUDA card (raises without one);
     # "cpu" runs the kernels' plain PyTorch versions.
     device: Optional[str] = None
@@ -187,8 +216,6 @@ class BackendConfig(BaseModel):
 UNPORTED_FIELDS = frozenset({
     "model_parallel", "sp_prefill_min_tokens", "sp_attention", "sp_decode", "speculative",
     "spec_lookahead", "sse_ping_interval_s", "debug_endpoints",
-    "continuous_batching", "continuous_width", "continuous_max_prompt",
-    "continuous_max_new", "prefill_chunk_tokens", "device_consensus",
     "batch_store_dir", "batch_max_in_flight", "batch_item_retries", "jobstore_ttl_s",
 })
 
@@ -261,6 +288,22 @@ class HbmMemoryModel:
             reserve * page_bytes + -(-prompt_pages * page_bytes // fanout) + self.row_margin_bytes
         )
         return max(1, max(0, self.budget_bytes()) // max(1, per_row))
+
+    def prefill_chunk_tokens(self, width: int, max_prompt: int) -> int:
+        """Auto chunk size for interleaved prefill. A decode step computes
+        one token-row per active slot (<= ``width``); a C-token chunk costs
+        ~C token-rows of the same per-layer work, so C ~= 4*width keeps a
+        chunk within a small multiple of a decode step. Power of two,
+        floored at 32, capped at max_prompt // 2 so chunking splits any
+        prompt it engages on; 0 (off) when the prompt bound is too small for
+        chunking to ever help."""
+        if max_prompt < 64:
+            return 0
+        target = min(max(32, 4 * max(1, int(width))), max_prompt // 2)
+        c = 32
+        while c * 2 <= target:
+            c *= 2
+        return c
 
     def describe(self) -> Dict[str, Any]:
         return {
@@ -380,7 +423,72 @@ class CudaBackend(Backend):
         # hung one to end before it gives the old engine's memory back.
         self._launch_thread: Optional[threading.Thread] = None
         self._wire_engine_hooks()
+        # Consensus cache and dispatch stats ride along scheduler health().
+        self.scheduler.consensus_stats_provider = self._consensus_stats
         self._closed = False
+        # Continuous in-flight batching: a persistent slot-admission decode
+        # loop beside the coalescing scheduler. Its admission follows the
+        # scheduler's DRAINING/STOPPED lifecycle, so drain() quiesces both.
+        self._continuous = None
+        if cfg.continuous_batching:
+            self._continuous = self._build_continuous_loop()
+
+    def _build_continuous_loop(self):
+        from ..engine.continuous import ContinuousDecodeLoop
+
+        cfg = self.backend_config
+        if self.engine.kv_layout == "paged":
+            if "continuous_width" not in cfg.model_fields_set:
+                # No explicit width: size the loop from the no-sharing paged
+                # cap, bounded at 32 slots.
+                width = min(
+                    self.memory_model.paged_max_rows(
+                        cfg.continuous_max_prompt, cfg.continuous_max_new,
+                        self.engine.kv_page_size, fanout=1,
+                    ),
+                    32,
+                )
+            else:
+                # Paged rows share prompt pages across a fan-out; clamp
+                # against the amortized cost at the loop's own width.
+                width = min(
+                    cfg.continuous_width,
+                    self.memory_model.paged_max_rows(
+                        cfg.continuous_max_prompt, cfg.continuous_max_new,
+                        self.engine.kv_page_size, fanout=cfg.continuous_width,
+                    ),
+                )
+        else:
+            width = min(
+                cfg.continuous_width,
+                self.memory_model.max_rows(cfg.continuous_max_prompt + cfg.continuous_max_new),
+            )
+        chunk = cfg.prefill_chunk_tokens
+        if chunk is None:
+            chunk = self.memory_model.prefill_chunk_tokens(max(1, width), cfg.continuous_max_prompt)
+        # The loop gets its OWN budget model: per-step latency must not mix
+        # with the supervisor's per-launch EWMA, and vice versa.
+        return ContinuousDecodeLoop(
+            self.engine,
+            width=max(1, width),
+            max_prompt=cfg.continuous_max_prompt,
+            max_new=cfg.continuous_max_new,
+            eos_ids=self.tokenizer.stop_ids,
+            admission_gate=self.scheduler.admission_error,
+            budget_model=LaunchBudgetModel(
+                base_s=cfg.watchdog_base_s,
+                per_token_s=cfg.watchdog_per_token_s,
+                multiplier=cfg.watchdog_multiplier,
+                min_budget_s=cfg.watchdog_min_budget_s,
+                max_budget_s=cfg.watchdog_max_budget_s,
+            ),
+            rebuild_fn=self._rebuild_loop_engine,
+            max_rebuilds=cfg.max_rebuilds,
+            on_recovering=self.scheduler.note_recovering,
+            on_rebuilt=self.scheduler.note_rebuilt,
+            on_rebuild_failed=self.scheduler.note_rebuild_failed,
+            prefill_chunk_tokens=max(0, int(chunk)),
+        )
 
     # -- engine lifecycle ----------------------------------------------------
     def _build_engine(self) -> LocalEngine:
@@ -404,8 +512,10 @@ class CudaBackend(Backend):
             param_seed=cfg.param_seed,
             device=cfg.device,
             quantize=cfg.quantization,
-            # The port has no continuous loop, so paged_generate_many=False
-            # leaves generate_many the dense body, as the JAX engine does.
+            # The engine has one layout: paged_generate_many=False gives
+            # generate_many the dense body, as the JAX engine does, and the
+            # continuous loop then runs dense too (the JAX loop would stay
+            # paged).
             kv_layout="paged" if cfg.paged_kv and cfg.paged_generate_many else "dense",
             kv_page_size=cfg.kv_page_size,
             paged_attention_impl=cfg.paged_attention_impl,
@@ -440,6 +550,11 @@ class CudaBackend(Backend):
         launch = self._launch_thread
         self.engine = self._build_engine()
         self._wire_engine_hooks()
+        if self._continuous is not None:
+            # The loop holds device KV tied to the old engine: it journals
+            # its in-flight rows, re-prefills on the new engine and replays
+            # each survivor (pinned seeds, self-deterministic row keys).
+            self._continuous.adopt_engine(self.engine)
         if self.engine.device.type != "cuda":
             return
         if launch is not None and launch.is_alive():
@@ -449,6 +564,14 @@ class CudaBackend(Backend):
             ).start()
         else:
             self._release_after(None, old)
+
+    def _rebuild_loop_engine(self) -> LocalEngine:
+        """Continuous-loop rebuild_fn: the same reload as the supervisor's
+        path, driven by the loop (which holds its own journal), returning
+        the engine for the loop to adopt."""
+        self.engine = self._build_engine()
+        self._wire_engine_hooks()
+        return self.engine
 
     @staticmethod
     def _release_after(thread: Optional[threading.Thread], engine_ref) -> None:
@@ -656,7 +779,44 @@ class CudaBackend(Backend):
         if seed is None:
             seed = int.from_bytes(os.urandom(4), "little")
         rows = max(1, n)
+        # Charged once, before routing: a loop rejection that falls back to
+        # coalescing must not bill the request twice.
         tenant_ctx = self.scheduler.charge_tenant_quota(tenant, rows=rows)
+
+        # Continuous in-flight batching: qualifying requests join the slot
+        # loop. top_logprobs, penalties and logit bias stay on the
+        # coalescing path; CompiledGrammar constraints qualify (a schema
+        # other than the loop's resident one raises ValueError below and
+        # coalesces); stop sequences qualify, since the text scan is
+        # authoritative (the loop decodes to eos/max_new).
+        from ..engine.grammar import CompiledGrammar
+
+        loop_grammar = constraint if isinstance(constraint, CompiledGrammar) else None
+        if (
+            self._continuous is not None
+            and (constraint is None or loop_grammar is not None)
+            and top_logprobs is None
+            and frequency_penalty == 0.0
+            and presence_penalty == 0.0
+            and logit_bias is None
+            and self._continuous.qualifies(len(prompt_ids), rows, max_new)
+        ):
+            try:
+                return self._continuous.submit(
+                    list(prompt_ids),
+                    n=rows,
+                    max_new=max_new,
+                    temperature=temperature,
+                    top_p=top_p,
+                    seed=seed,
+                    budget=budget,
+                    grammar=loop_grammar,
+                    tenant=tenant_ctx,
+                ).result()
+            except ValueError:
+                # The prompt outgrew the loop's bounds, or the loop is busy
+                # under a different grammar: coalescing path.
+                pass
 
         def run(specs):
             t0 = time.perf_counter()
@@ -807,6 +967,8 @@ class CudaBackend(Backend):
         snap["supervisor"] = self.supervisor.stats()
         snap["quarantine"] = dict(self.engine.quarantine_stats)
         snap["params"] = self.param_summary
+        if self._continuous is not None:
+            snap["continuous"] = dict(self._continuous.stats)
         hbm: Dict[str, Any] = {
             "param_bytes": self.memory_model.param_bytes,
             "kv_bytes_per_token": self.memory_model.kv_bytes_per_token,
@@ -818,6 +980,7 @@ class CudaBackend(Backend):
         if pool is not None:
             hbm["page_pool"] = pool.allocator.snapshot()
         snap["hbm"] = hbm
+        snap["consensus"] = self._consensus_stats()
         from ..engine.grammar import grammar_cache_stats
 
         grammar = snap.setdefault("grammar", {})
@@ -832,9 +995,66 @@ class CudaBackend(Backend):
         ``BackendConfig.drain_timeout``). Idempotent."""
         self._closed = True
         t = self.backend_config.drain_timeout if timeout is None else timeout
-        return self.scheduler.drain(timeout=t)
+        ok = True
+        if self._continuous is not None:
+            # Quiesce the slot loop first: its in-flight rows finish on its
+            # own worker, not the scheduler's.
+            ok = self._continuous.drain(timeout=t)
+        return self.scheduler.drain(timeout=t) and ok
 
     def close(self) -> None:
         if self._closed and self.scheduler.state.value == "stopped":
             return
         self.drain()
+        if self._continuous is not None:
+            self._continuous.stop()
+
+    # -- on-device consensus ----------------------------------------------
+    def similarity_scorer(self, method: str):
+        """Per-method scorer registry, like the base, but constructing the
+        device scorer on the engine's device when ``device_consensus`` is on
+        (the plain host scorer when that device is unusable; run-time
+        fallback is per consolidation, inside the device scorer)."""
+        if not self.backend_config.device_consensus:
+            return super().similarity_scorer(method)
+        from ..consensus.device import DeviceConsensusUnavailable, DeviceSimilarityScorer
+        from ..consensus.similarity import SimilarityScorer
+        from ..utils.observability import CONSENSUS_EVENTS
+
+        with Backend._scorer_registry_lock:
+            registry = self.__dict__.setdefault("_similarity_scorers", {})
+            scorer = registry.get(method)
+            if scorer is None:
+                try:
+                    scorer = DeviceSimilarityScorer(
+                        method=method, embed_fn=self.embeddings, device=self.engine.device
+                    )
+                except DeviceConsensusUnavailable:
+                    CONSENSUS_EVENTS.record("consensus.fallback_unavailable")
+                    scorer = SimilarityScorer(method=method, embed_fn=self.embeddings)
+                registry[method] = scorer
+            return scorer
+
+    def _consensus_stats(self) -> Dict[str, Any]:
+        """Cache totals, the per-scorer breakdown and the dispatch counters,
+        surfaced in scheduler health and ``health()``."""
+        from ..utils.observability import CONSENSUS_EVENTS
+
+        agg = {"hits": 0, "misses": 0, "entries": 0, "evictions": 0}
+        caches: Dict[str, Any] = {}
+        with Backend._scorer_registry_lock:
+            scorers = dict(self.__dict__.get("_similarity_scorers") or {})
+        for method, scorer in scorers.items():
+            stats = scorer.cache_stats()
+            caches[method] = stats
+            for st in stats.values():
+                for k in agg:
+                    agg[k] += st.get(k, 0)
+        return {
+            "device_consensus": bool(self.backend_config.device_consensus),
+            "cache": agg,
+            "caches": caches,
+            "events": {
+                k: v for k, v in CONSENSUS_EVENTS.snapshot().items() if k.startswith("consensus.")
+            },
+        }

@@ -114,10 +114,14 @@ def _consensus_over_contents(
         # in batched JAX kernels on the chip (consensus/device.py).
         scorer.prepare(contents)
         if consensus_settings.aligner == "key":
-            # The key-based aligner (the JAX package's keyalign/) is not
-            # ported yet; only the default list aligner runs here.
-            raise NotImplementedError(
-                "aligner='key' is not available in k_llms_tpu_torch yet"
+            # Swap point (reference `consolidation.py:22`): key-based aligner
+            # behind the same signature.
+            from ..keyalign import recursive_align
+
+            aligned_seq, _ = recursive_align(
+                contents,
+                consensus_settings.string_similarity_method,
+                consensus_settings.min_support_ratio,
             )
         else:
             aligned_seq, _ = recursive_list_alignments(

@@ -1,29 +1,32 @@
 // Seeded uniforms of one decode step for Hopper (sm_90a), written by hand.
 //
 // The JAX package draws its samples with XLA's threefry ops (no Pallas
-// kernel): row i of request j at decode step s takes the key
+// kernel). Its coalesced engine keys row i of request j at decode step s as
 // fold_in(fold_in(key(seed_j), s), i) (k_llms_tpu/engine/engine.py,
-// _row_keys) and jax.random.categorical draws uniforms
-// jax.random.uniform(key, (V,), minval=tiny, maxval=1) from it. This kernel
-// writes those uniforms for every row of a step, bit for bit:
-//   req_keys [R, 2] int64 (uint32 key words), step [] int32 on the device,
-//   out [R * n_per, V] float32, rows request-major.
+// _row_keys); its continuous loop keys row r, of its own request at its own
+// step, as fold_in(fold_in(key(seed_r), step_r), index_r)
+// (k_llms_tpu/engine/continuous.py, _row_keys). jax.random.categorical then
+// draws uniforms jax.random.uniform(key, (V,), minval=tiny, maxval=1) from
+// the row key. This kernel writes those uniforms, bit for bit, with a key,
+// step and index per row (the coalesced step repeats each request's key):
+//   keys [B, 2] int64 (uint32 key words), steps [B] int32, index [B] int32,
+//   out [B, V] float32.
 // Each thread derives its row key with two threefry calls (the step fold,
-// then the row fold), then writes kCols columns strided by the block width,
+// then the index fold), then writes kCols columns strided by the block width,
 // so neighbouring threads store neighbouring words. Column c's 32 bits are
 // y0 ^ y1 of threefry2x32(row key, (0, c)), the partitionable counter layout
 // (jax_threefry_partitionable); the float is
 // max(tiny, f * (1 - tiny) + tiny) with f = bitcast((bits >> 9) | 1.0f) - 1.
 // 1 - tiny rounds to 1.0f, so f * 1.0f is exact and the multiply-add rounds
 // the same fused or unfused; nvcc's default flags (no --use_fast_math) keep
-// the rest IEEE. The plain version is ops/random.py::threefry_uniform_plain.
+// the rest IEEE. The plain version is ops/random.py::threefry_uniform_rows_plain.
 //
-// What bounds it on this card: bytes. The output, R * n_per * V * 4 bytes,
-// is written once (8 x 128,256 floats = 4.1 MB at n = 8: about 1.2 us at
-// 3.35 TB/s); each column costs one threefry call (20 rounds of add, rotate,
-// xor), about 100 integer operations per 4-byte word, within the SMs'
-// integer rate at that byte rate. The step is read from device memory, not
-// passed by value, so a captured launch replays at any step.
+// What bounds it on this card: bytes. The output, B * V * 4 bytes, is
+// written once (8 x 128,256 floats = 4.1 MB: about 1.2 us at 3.35 TB/s);
+// each column costs one threefry call (20 rounds of add, rotate, xor), about
+// 100 integer operations per 4-byte word, within the SMs' integer rate at
+// that byte rate. Steps and indices are read from device memory, not passed
+// by value, so a captured launch replays at any step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,19 +56,20 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t&
   }
 }
 
+// Row r's key is fold_in(fold_in(keys[r], steps[r]), index[r]), with
+// fold_in(key, d) = threefry2x32(key, (0, d)); then kCols columns per
+// thread, strided by the block width.
 __global__ void __launch_bounds__(kThreads)
-threefry_uniform_kernel(const long long* __restrict__ req_keys, const int* __restrict__ step,
-                        float* __restrict__ out, int n_per, int V) {
+threefry_uniform_rows_kernel(const long long* __restrict__ keys, const int* __restrict__ steps,
+                             const int* __restrict__ index, float* __restrict__ out, int V) {
   const int row = blockIdx.y;
-  const int req = row / n_per;
-  // fold_in(key, d) = threefry2x32(key, (0, d)).
-  uint32_t a = 0u, b = (uint32_t)step[0];
-  threefry2x32((uint32_t)req_keys[2 * req], (uint32_t)req_keys[2 * req + 1], a, b);
-  uint32_t k0 = 0u, k1 = (uint32_t)(row - req * n_per);
+  uint32_t a = 0u, b = (uint32_t)steps[row];
+  threefry2x32((uint32_t)keys[2 * row], (uint32_t)keys[2 * row + 1], a, b);
+  uint32_t k0 = 0u, k1 = (uint32_t)index[row];
   threefry2x32(a, b, k0, k1);
+  float* __restrict__ out_row = out + (size_t)row * V;
   const float tiny = 1.17549435e-38f;  // FLT_MIN, numpy's finfo(float32).tiny
   const float scale = 1.0f - tiny;     // rounds to 1.0f, as in JAX
-  float* out_row = out + (size_t)row * V;
   const int base = blockIdx.x * (kThreads * kCols) + threadIdx.x;
 #pragma unroll
   for (int j = 0; j < kCols; ++j) {
@@ -82,13 +86,11 @@ threefry_uniform_kernel(const long long* __restrict__ req_keys, const int* __res
 
 }  // namespace
 
-extern "C" int kllms_threefry_uniform(const void* req_keys, const void* step, void* out, int R,
-                                      int n_per, int V, void* stream) {
-  if (R <= 0 || n_per <= 0 || V <= 0 || (long long)R * n_per > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((V + kThreads * kCols - 1) / (kThreads * kCols), R * n_per);
-  threefry_uniform_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)req_keys, (const int*)step, (float*)out, n_per, V);
+extern "C" int kllms_threefry_uniform_rows(const void* keys, const void* steps, const void* index,
+                                           void* out, int B, int V, void* stream) {
+  if (B <= 0 || V <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((V + kThreads * kCols - 1) / (kThreads * kCols), B);
+  threefry_uniform_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)keys, (const int*)steps, (const int*)index, (float*)out, V);
   return (int)cudaGetLastError();
 }

@@ -57,9 +57,12 @@ that was cancelled or ran out of time (the abort poller), and the
 (``nan``) failpoints fire where they do in JAX; ``on_quarantine(poisoned,
 total)`` is called after every launch.
 
+The continuous decode loop (``engine/continuous.py``) drives this engine's
+prefill, its prefix cache and its page pool between its own steps; it pins
+the pool once it is built.
+
 Not ported yet: meshes, sequence-parallel and ring prefill (and their cache
-continuation), speculative decoding, the continuous loop and the streaming
-token tap.
+continuation), speculative decoding and the streaming token tap.
 """
 
 from __future__ import annotations
@@ -361,6 +364,7 @@ class LocalEngine:
         )
         self.kv_pool_pages = kv_pool_pages
         self._kv_pool: Optional[PagedKVPool] = None
+        self._kv_pool_pinned = False
         # Prompt-prefix KV cache (LRU over full prompts). 0 disables. Value:
         # (first_logits, prefix KVCache or PagedPrefixRun, prompt_len,
         # np.int32 token ids).
@@ -602,21 +606,32 @@ class LocalEngine:
         return first_logits, prefix
 
     # -- paged KV pool -----------------------------------------------------
-    def _ensure_kv_pool(self, min_pages: int = 0) -> PagedKVPool:
+    def _pool_fixed(self) -> bool:
+        """Whether the page pool, once built, stays for the engine's
+        lifetime: with a prefix cache or an explicit ``kv_pool_pages`` (as
+        in the JAX engine), or once a continuous loop pinned it (the loop
+        holds page ids across steps)."""
+        return self.prefix_cache_size > 0 or self.kv_pool_pages is not None or self._kv_pool_pinned
+
+    def _ensure_kv_pool(self, min_pages: int = 0, pin: bool = False) -> PagedKVPool:
         """The engine's page pool, sized as in the JAX engine when first
         built: an explicit ``kv_pool_pages`` wins; else the caller's
         ``min_pages``, or, with a prefix cache, one 2048-token run per entry
         plus one in flight, and at least 8 pages. With a prefix cache or an
         explicit ``kv_pool_pages`` the pool is then fixed for the engine's
-        lifetime (entries hold its pages). Without either, nothing outlives
-        a launch in the pool, and a pool too small for a launch is replaced
-        by a larger one between launches, where the JAX engine would decode
-        that launch dense; the tokens are the same either way."""
+        lifetime (entries hold its pages); ``pin=True`` (the continuous
+        loop, which sizes the pool for its own worst case) fixes it too.
+        Otherwise nothing outlives a launch in the pool, and a pool too
+        small for a launch is replaced by a larger one between launches,
+        where the JAX engine would decode that launch dense; the tokens are
+        the same either way."""
         with self._launch_lock:
             pool = self._kv_pool
-            fixed = self.prefix_cache_size > 0 or self.kv_pool_pages is not None
+            fixed = self._pool_fixed()
             if pool is not None and (fixed or pool.allocator.total_pages >= max(int(min_pages), 8)):
+                self._kv_pool_pinned = self._kv_pool_pinned or pin
                 return pool
+            self._kv_pool_pinned = self._kv_pool_pinned or pin
             cache_pages = 0
             if self.prefix_cache_size:
                 cache_pages = (self.prefix_cache_size + 1) * pages_for(
@@ -826,7 +841,7 @@ class LocalEngine:
         # size: nothing in it outlives a launch) sized for the failed group
         # goes too, so each retry sizes its own; then the cached blocks go
         # back to the card.
-        if self.prefix_cache_size <= 0 and self.kv_pool_pages is None:
+        if not self._pool_fixed():
             with self._launch_lock:
                 self._kv_pool = None
         if self.device.type == "cuda":

@@ -2,7 +2,7 @@
 
 Counterpart of ``k_llms_tpu/models/llama.py``, Llama family only: the
 prefill (``prefill``) and its continuation over a cached prefix
-(``prefill_continue``), the full-sequence ``forward``/``encode`` behind
+(``prefill_continue``) or by chunks, the full-sequence ``forward``/``encode`` behind
 embeddings, the dense shared-prefix decode step (``decode_step``) and the
 paged decode step (``paged_verify_step`` at ``Sq == 1``). Parameters keep the
 JAX package's tree: a plain dict whose per-layer weights are stacked on a
@@ -19,13 +19,16 @@ of each head. Score and value einsums accumulate in f32 (inputs widened to
 f32, which is exact for bf16).
 
 The dense decode step updates its generated-token cache in place (the JAX
-function returns a new one). With ``decode_attention_impl="flash"`` its
+function returns a new one); ``verify_step`` at ``Sq == 1`` is that step
+with per-row write offsets (the continuous loop's dense step), and
+``prefill_chunk_step``/``prefill_chunk_step_paged`` extend a staging prefix
+one prompt chunk at a time through ``prefill_continue``. With ``decode_attention_impl="flash"`` its
 attention over the shared prompt prefix runs the decode-prefix kernel
 (``ops.attention.decode_prefix_attention``) and merges the per-row generated
 tail in plain tensor code, behind the JAX package's gate.
 
 Not ported yet (raise ``NotImplementedError``): the verify step at
-``Sq > 1``, chunked prefill, mixture-of-experts MLPs, the
+``Sq > 1``, mixture-of-experts MLPs, the
 Gemma variants (offset norms, post-block norms, softcaps, embedding scale,
 GeGLU), sliding windows, the ring (sequence-parallel) decode arm.
 """
@@ -508,7 +511,7 @@ def _block_decode(
     positions: torch.Tensor,
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
-    write_index: int,
+    write_index,
     key_mask: torch.Tensor,
     prefix_kv: Tuple[torch.Tensor, torch.Tensor],
     prefix_mask: torch.Tensor,
@@ -516,13 +519,19 @@ def _block_decode(
 ) -> torch.Tensor:
     """The dense decode branch of the JAX ``_block`` at ``Sq == 1``: this
     step's k/v are written into the layer's cache (cache_k/cache_v [B, G,
-    KVH, D], updated in place) at ``write_index``, then the queries attend
+    KVH, D], updated in place) at ``write_index`` (an int for every row, or
+    a [B] tensor of per-row offsets), then the queries attend
     the shared prefix (prefix_kv [R, P, KVH, D]) and the cache. Returns x."""
     B, Sq, _ = x.shape
     scale = config.query_scale or 1.0 / math.sqrt(config.head_dim)
     q, k, v = _attn_qkv(config, layer, x, positions)
-    cache_k[:, write_index: write_index + Sq] = k.to(cache_k.dtype)
-    cache_v[:, write_index: write_index + Sq] = v.to(cache_v.dtype)
+    if isinstance(write_index, torch.Tensor):  # per-row offsets [B] (verify_step)
+        rows = torch.arange(B, device=x.device)
+        cache_k[rows, write_index] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, write_index] = v[:, 0].to(cache_v.dtype)
+    else:
+        cache_k[:, write_index: write_index + Sq] = k.to(cache_k.dtype)
+        cache_v[:, write_index: write_index + Sq] = v.to(cache_v.dtype)
     pk, pv = prefix_kv
     attn = decode_attention(
         q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
@@ -570,6 +579,91 @@ def decode_step(
         )
     h = rms_norm(x, params["final_norm"], config.rms_eps)
     return _logits(params, h[:, 0]), gen_cache
+
+
+def verify_step(
+    config: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    prompt_len: torch.Tensor,
+    gen_cache: KVCache,
+    prefix: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """The JAX ``verify_step`` at ``Sq == 1``: the continuous loop's dense
+    step, one token per row at per-row offsets.
+
+    tokens: [B, 1]; lengths: [B] generated counts (each row's write offset
+    into its gen cache slots); prompt_len: [R] per-request prompt lengths,
+    rows request-major; gen_cache [L, B, G, KVH, D], written in place;
+    prefix [L, R, P, KVH, D]. Masks as in the JAX function: slot s of row b
+    is visible when ``s <= lengths[b]``. Returns (logits f32 [B, 1, V],
+    gen_cache). ``Sq > 1`` (speculative verification) is not ported."""
+    check_supported(config)
+    B, Sq = tokens.shape
+    if Sq != 1:
+        raise NotImplementedError(
+            "verify_step: only Sq == 1 is ported (speculative verification "
+            "comes with speculative decoding)"
+        )
+    device = tokens.device
+    G = gen_cache.max_len
+    P = prefix.max_len
+    pl = prompt_len.reshape(-1).to(device=device, dtype=torch.int64)
+    pl_row = pl.repeat_interleave(B // pl.shape[0])  # [B]
+    lengths = lengths.to(device=device, dtype=torch.int64)
+
+    positions = pl_row[:, None] + lengths[:, None]  # [B, 1]
+    x = params["embed"][tokens.long()]
+    self_mask = torch.arange(G, device=device)[None, None, :] <= lengths[:, None, None]
+    prefix_mask = torch.arange(P, device=device)[None, None, :] < pl_row[:, None, None]
+    plen32 = pl.to(torch.int32)
+    for i in range(config.num_layers):
+        x = _block_decode(
+            config, _layer(params, i), x, positions, gen_cache.k[i], gen_cache.v[i],
+            lengths, self_mask, prefix_mask=prefix_mask, prefix_kv=(prefix.k[i], prefix.v[i]),
+            prefix_lengths=plen32,
+        )
+    h = rms_norm(x, params["final_norm"], config.rms_eps)
+    return _logits(params, h), gen_cache
+
+
+def prefill_chunk_step(
+    config: ModelConfig,
+    params: Params,
+    chunk_tokens: torch.Tensor,
+    cache: KVCache,
+    cursor: int,
+    valid_len: int,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Extend a partially filled prompt prefix by one chunk (chunked
+    prefill). ``chunk_tokens`` [1, C] the next C prompt tokens,
+    right-padded; ``cache`` [L, 1, bucket, KVH, D] the staging cache holding
+    positions 0..cursor, written in place; ``valid_len`` the chunk's real
+    tokens. A chunk is a prompt-suffix continuation, so this is
+    :func:`prefill_continue` (K2 in its ``q_offset`` mode under
+    ``attention_impl="flash"``), as in the JAX function. Returns
+    (last-valid-token logits [1, V], meaningful on the final chunk; the
+    cache)."""
+    return prefill_continue(config, params, chunk_tokens, cache, int(cursor),
+                            int(cursor) + int(valid_len))
+
+
+def prefill_chunk_step_paged(
+    config: ModelConfig,
+    params: Params,
+    chunk_tokens: torch.Tensor,
+    cache: KVCache,
+    cursor: int,
+    valid_len: int,
+) -> Tuple[torch.Tensor, KVCache, torch.Tensor, torch.Tensor]:
+    """:func:`prefill_chunk_step` plus the chunk's KV columns sliced out of
+    the staging cache (k_cols, v_cols [L, C, KVH, D]) for the caller to
+    scatter into the row's reserved page run."""
+    C = chunk_tokens.shape[1]
+    logits, cache = prefill_chunk_step(config, params, chunk_tokens, cache, cursor, valid_len)
+    c = int(cursor)
+    return logits, cache, cache.k[:, 0, c: c + C], cache.v[:, 0, c: c + C]
 
 
 def _block_paged(

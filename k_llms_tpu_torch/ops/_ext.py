@@ -61,7 +61,11 @@ KERNELS = {
     ),
     "threefry": (
         "threefry.cu",
-        {"kllms_threefry_uniform": [_P] * 3 + [_I] * 3 + [_P]},
+        {"kllms_threefry_uniform_rows": [_P] * 4 + [_I] * 2 + [_P]},
+    ),
+    "levenshtein": (
+        "levenshtein.cu",
+        {"kllms_levenshtein": [_P] * 5 + [_I] * 2 + [_P]},
     ),
 }
 
@@ -71,7 +75,8 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "paged_decode_attention": 0,
     "decode_prefix_attention": 0,
     "w4_matmul": 0,
-    "threefry_uniform": 0,
+    "threefry_uniform_rows": 0,
+    "levenshtein": 0,
 }
 
 _lock = threading.Lock()

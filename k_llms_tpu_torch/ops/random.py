@@ -14,6 +14,12 @@ which takes ``argmax(logits - log(-log(u)))`` over uniforms
 - ``u = max(tiny, f * (1 - tiny) + tiny)`` with
   ``f = bitcast_f32((bits >> 9) | 0x3F800000) - 1``.
 
+The continuous decode loop keys each row on its own: row ``r`` at loop step
+``s_r`` with sample index ``i_r`` takes ``fold_in(fold_in(key(seed_r), s_r), i_r)``.
+:func:`threefry_uniform_rows` draws with a key, step and index per row, one
+launch per step; a coalesced step (:func:`threefry_uniform`) is the case of
+one key per request, one step and the index of the row within its request.
+
 The plain version holds uint32 words in int64 tensors, masked to 32 bits
 after every add and shift (torch has no uint32 arithmetic on every device).
 The kernel, ``csrc/threefry.cu``, computes the same bits in native
@@ -104,37 +110,62 @@ def request_keys(seeds: Sequence[int], device) -> torch.Tensor:
     return torch.stack([key_data(s) for s in seeds]).to(device)
 
 
-def threefry_uniform_plain(req_keys: torch.Tensor, step: torch.Tensor, n_per: int,
-                           V: int) -> torch.Tensor:
-    """``[R * n_per, V]`` float32 uniforms of one decode step: row
-    ``j * n_per + i`` is ``uniform_tiny(fold_in(fold_in(req_keys[j], step), i), V)``."""
-    return uniform_tiny(row_keys(req_keys, step, n_per), V)
-
-
 def threefry_uniform(req_keys: torch.Tensor, step: torch.Tensor, n_per: int,
                      V: int) -> torch.Tensor:
-    """One decode step's uniforms for every row, as
-    :func:`threefry_uniform_plain`. ``req_keys`` [R, 2] int64 key words,
-    ``step`` a 0-d integer tensor on the same device (a device scalar, so the
-    call needs no host value and replays in a CUDA graph). On a CUDA tensor
-    this launches the kernel; on a CPU tensor it runs the plain version."""
-    if req_keys.device.type != "cuda":
-        return threefry_uniform_plain(req_keys, step, n_per, V)
-    if req_keys.dim() != 2 or req_keys.shape[1] != 2 or req_keys.dtype != torch.int64:
-        raise ValueError(f"threefry_uniform: req_keys must be [R, 2] int64, got "
-                         f"{tuple(req_keys.shape)} {req_keys.dtype}")
-    if step.numel() != 1 or step.dtype != torch.int32 or step.device != req_keys.device:
-        raise ValueError("threefry_uniform: step must be one int32 on the keys' device")
-    if n_per < 1 or V < 1:
-        raise ValueError(f"threefry_uniform: n_per={n_per}, V={V}")
+    """One decode step's uniforms for every row of a coalesced launch,
+    ``[R * n_per, V]`` float32, request-major: row ``j * n_per + i`` is
+    ``uniform_tiny(fold_in(fold_in(req_keys[j], step), i), V)``. The per-row
+    draw (:func:`threefry_uniform_rows`) with each request's key repeated
+    ``n_per`` times, the step shared and the index the row within its
+    request. ``req_keys`` [R, 2] int64 key words, ``step`` one int32 on the
+    same device (a device scalar, so the call needs no host value and
+    replays in a CUDA graph)."""
+    if req_keys.dim() != 2 or req_keys.shape[1] != 2 or n_per < 1:
+        raise ValueError(f"threefry_uniform: req_keys must be [R, 2], got "
+                         f"{tuple(req_keys.shape)}; n_per={n_per}")
     R = req_keys.shape[0]
-    keys = req_keys.contiguous()
-    out = torch.empty((R * n_per, V), dtype=torch.float32, device=req_keys.device)
+    keys = req_keys[:, None, :].expand(R, n_per, 2).reshape(R * n_per, 2)
+    steps = step.reshape(1).expand(R * n_per)
+    index = torch.arange(n_per, dtype=torch.int32, device=req_keys.device).repeat(R)
+    return threefry_uniform_rows(keys, steps, index, V)
+
+
+def threefry_uniform_rows_plain(keys: torch.Tensor, steps: torch.Tensor, index: torch.Tensor,
+                                V: int) -> torch.Tensor:
+    """``[B, V]`` float32 uniforms with a key, step and sample index per row:
+    row ``r`` is ``uniform_tiny(fold_in(fold_in(keys[r], steps[r]), index[r]), V)``
+    (the continuous loop's row keys)."""
+    k = fold_in(keys, steps.to(torch.int64))
+    return uniform_tiny(fold_in(k, index.to(torch.int64)), V)
+
+
+def threefry_uniform_rows(keys: torch.Tensor, steps: torch.Tensor, index: torch.Tensor,
+                          V: int) -> torch.Tensor:
+    """One decode step's uniforms, as :func:`threefry_uniform_rows_plain`.
+    ``keys`` [B, 2] int64 key words (:func:`request_keys` of each row's
+    seed), ``steps`` and ``index`` [B] int32 on the same device. On a CUDA
+    tensor this launches the kernel; on a CPU tensor it runs the plain
+    version."""
+    if keys.device.type != "cuda":
+        return threefry_uniform_rows_plain(keys, steps, index, V)
+    B = keys.shape[0]
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
+        raise ValueError(f"threefry_uniform_rows: keys must be [B, 2] int64, got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    for name, t in (("steps", steps), ("index", index)):
+        if t.shape != (B,) or t.dtype != torch.int32 or t.device != keys.device:
+            raise ValueError(f"threefry_uniform_rows: {name} must be [B] int32 on the keys' device")
+    if B < 1 or V < 1:
+        raise ValueError(f"threefry_uniform_rows: B={B}, V={V}")
+    # Held until the launch: a copy freed after its data_ptr() is read can
+    # hand its block to the next copy before the kernel reads it.
+    keys, steps, index = keys.contiguous(), steps.contiguous(), index.contiguous()
+    out = torch.empty((B, V), dtype=torch.float32, device=keys.device)
     lib = _ext.load("threefry")
-    status = lib.kllms_threefry_uniform(
-        keys.data_ptr(), step.data_ptr(), out.data_ptr(), R, n_per, V,
-        ctypes.c_void_p(torch.cuda.current_stream(req_keys.device).cuda_stream),
+    status = lib.kllms_threefry_uniform_rows(
+        keys.data_ptr(), steps.data_ptr(), index.data_ptr(), out.data_ptr(), B, V,
+        ctypes.c_void_p(torch.cuda.current_stream(keys.device).cuda_stream),
     )
-    _ext.check_status("threefry_uniform", status)
-    _ext.note_launch("threefry_uniform")
+    _ext.check_status("threefry_uniform_rows", status)
+    _ext.note_launch("threefry_uniform_rows")
     return out

@@ -126,3 +126,4 @@ def model_top_logprobs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torc
     lps = torch.log_softmax(sanitize_logits(logits), dim=-1)
     top = torch.topk(lps, k, dim=-1)
     return top.indices, top.values
+

@@ -6,7 +6,8 @@ loads in ``QUARANTINE_EVENTS``; the scheduler, supervisor, retry policy,
 tenancy and replica set record the failure, recovery, tenant, route, hedge
 and failover families under the JAX package's declared names; the paged
 attention resolver counts its dispatches and drilled fallbacks in
-``KERNEL_EVENTS``. Request tracing is not ported yet, so
+``KERNEL_EVENTS``; the device consensus scorer counts its dispatches and
+fallbacks in ``CONSENSUS_EVENTS``. Request tracing is not ported yet, so
 :func:`current_trace` returns None and the scheduler attributes no spans.
 The port's kernels keep their own launch counts on their wrappers
 (``ops/_ext.py``)."""
@@ -86,8 +87,8 @@ SPEC_EVENTS = EventCounters(declared=(
     "spec.accepted",
 ))
 
-#: Self-healing counters fed by the EngineSupervisor (the ``continuous.*``
-#: names wait for the continuous loop).
+#: Self-healing counters fed by the EngineSupervisor and the continuous
+#: decode loop (the ``continuous.*`` names).
 RECOVERY_EVENTS = EventCounters(declared=(
     "supervisor.hung_launches",
     "supervisor.rebuilds",
@@ -169,4 +170,30 @@ QUARANTINE_EVENTS = EventCounters(declared=(
     "quarantine.samples",
     "quarantine.launches",
     "quarantine.checksum_failures",
+))
+
+#: On-device consensus counters, the JAX package's names
+#: (consensus.device_dispatch / consensus.host_dispatch — which path a
+#: consolidation's similarity prep took; consensus.fallback_failpoint /
+#: consensus.fallback_error / consensus.fallback_unavailable — why a device
+#: prepare degraded to the host; consensus.device_busy — declared as in the
+#: JAX package, never recorded here: the port's scorer waits for its device
+#: lock instead of scoring on the host;
+#: consensus.device_pairs / consensus.host_pairs / consensus.cached_pairs —
+#: where pair similarities came from; consensus.device_cosine — embedding
+#: pairs scored by the batched cosine; consensus.device_votes — vote columns
+#: tallied in the batched vote), fed by consensus/device.py and surfaced in
+#: the backend's health().
+CONSENSUS_EVENTS = EventCounters(declared=(
+    "consensus.device_dispatch",
+    "consensus.host_dispatch",
+    "consensus.fallback_failpoint",
+    "consensus.fallback_error",
+    "consensus.fallback_unavailable",
+    "consensus.device_busy",
+    "consensus.device_pairs",
+    "consensus.host_pairs",
+    "consensus.cached_pairs",
+    "consensus.device_cosine",
+    "consensus.device_votes",
 ))

@@ -104,7 +104,7 @@ def test_backend_knobs_reach_the_engine(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [("speculative", "prompt_lookup"), ("sp_decode", True),
-                                         ("continuous_batching", True)])
+                                         ("batch_store_dir", "jobs")])
 def test_unported_backend_field_raises(field, value):
     """A keyword naming a JAX BackendConfig field the port has not ported
     raises and names the field; it is never dropped."""
@@ -196,7 +196,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """Seeded, and from an HF checkpoint directory written by the port's
     own writer (config.json and two shards): the checkpoint loads through
     the port's safetensors reader, with neither ``safetensors`` nor
-    ``transformers`` imported, and the prefix cache serves a repeat."""
+    ``transformers`` imported, and the prefix cache serves a repeat; the
+    key aligner, the device consensus and the continuous loop (its greedy
+    answer equal to the coalesced one) import neither either."""
     code = (
         "import json, os, sys\n"
         "import torch\n"
@@ -250,6 +252,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "    r3 = rs.dispatch_chat_completion(ChatRequest(messages=[{'role': 'user', 'content': 'hi'}],"
         " model='tiny', n=4, temperature=0, seed=7, max_tokens=8))\n"
         "assert [x.message.content for x in r3.choices] == [x.message.content for x in r.choices[1:]]\n"
+        "from k_llms_tpu_torch import keyalign\n"
+        "from k_llms_tpu_torch.consensus import device as device_consensus\n"
+        "from k_llms_tpu_torch.ops import levenshtein\n"
+        "lp = KLLMs(backend='cuda', model='tiny', device='cpu', continuous_batching=True,"
+        " continuous_width=4, continuous_max_prompt=128, continuous_max_new=16)\n"
+        "r4 = lp.chat.completions.create(messages=[{'role': 'user', 'content': 'hi'}],"
+        " n=4, temperature=0, seed=7, max_tokens=8)\n"
+        "assert [x.message.content for x in r4.choices] == [x.message.content for x in r.choices]\n"
+        "assert lp.backend.health()['continuous']['admitted'] == 1\n"
+        "assert lp.backend.health()['consensus']['events']['consensus.device_dispatch'] >= 1\n"
+        "lp.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'k_llms_tpu' or m.startswith('k_llms_tpu.')"
         " or m.split('.')[0] in ('safetensors', 'transformers'))\n"

@@ -4,8 +4,7 @@ The port imports nothing of ``k_llms_tpu``, so it carries its own copies of
 the JAX-free host modules. Each copy must equal the reference's source apart
 from import lines and the edits documented below (per module): doc paths to
 the reference SDK written without the machine path, the reference's
-tracking tags dropped, the package's own name, the key aligner it has not
-ported, the native build into ``_build/``, in the four grammar-constraint
+tracking tags dropped, the package's own name, the native build into ``_build/``, in the four grammar-constraint
 modules the device half (from its "Device side" marker on), which the port
 rewrites in torch, and in the serving layer (failpoints, retry, tenancy,
 the scheduler, the supervisor, the replica set, the latency histograms) the
@@ -31,22 +30,6 @@ REF, PORT = os.path.join(REPO, "k_llms_tpu"), os.path.join(REPO, "k_llms_tpu_tor
 #: module -> documented (reference text, port text) edits, applied to the
 #: reference after the generic rewrites of ``_normalise``.
 EDITS = {
-    "consensus/consolidation.py": [
-        (
-            "            # Swap point (reference `consolidation.py:22`): key-based aligner\n"
-            "            # behind the same signature.\n"
-            "            from ..keyalign import recursive_align\n"
-            "\n"
-            "            aligned_seq, _ = recursive_align(\n"
-            "                contents,\n"
-            "                consensus_settings.string_similarity_method,\n"
-            "                consensus_settings.min_support_ratio,\n",
-            "            # The key-based aligner (the JAX package's keyalign/) is not\n"
-            "            # ported yet; only the default list aligner runs here.\n"
-            "            raise NotImplementedError(\n"
-            "                \"aligner='key' is not available in k_llms_tpu_torch yet\"\n",
-        ),
-    ],
     "native/__init__.py": [
         ("``make`` on demand", "the host C++ compiler on demand"),
         (
@@ -140,13 +123,20 @@ DEVICE_MARKERS = {
     "engine/grammar.py": "# Device side",
 }
 
+#: Modules of the copied directories that the port rewrites rather than
+#: copies: the device consensus runs torch and the Levenshtein kernel where
+#: the reference runs jitted JAX.
+REWRITTEN = {"consensus/device.py"}
+
 COPIED = sorted(
-    [f"consensus/{f}" for f in os.listdir(os.path.join(PORT, "consensus")) if f.endswith(".py")]
+    [f"consensus/{f}" for f in os.listdir(os.path.join(PORT, "consensus"))
+     if f.endswith(".py") and f"consensus/{f}" not in REWRITTEN]
     + [f"types/{f}" for f in os.listdir(os.path.join(PORT, "types")) if f.endswith(".py")]
     + ["native/__init__.py", "native/levenshtein.cpp", "native/hungarian.cpp",
        "reliability/deadline.py", "engine/tokenizer.py", "reliability/failpoints.py",
        "reliability/retry.py", "reliability/tenancy.py", "reliability/supervisor.py",
        "reliability/replicas.py", "engine/scheduler.py", "observability/histograms.py"]
+    + [f"keyalign/{f}" for f in ("__init__.py", "align.py", "fuzzy.py", "selection.py")]
     + list(DEVICE_MARKERS)
 )
 
@@ -200,7 +190,7 @@ def test_every_copied_module_is_listed():
     listed = set(COPIED)
     for sub in ("consensus", "types"):
         for f in os.listdir(os.path.join(PORT, sub)):
-            if f.endswith(".py"):
+            if f.endswith(".py") and f"{sub}/{f}" not in REWRITTEN:
                 assert f"{sub}/{f}" in listed
 
 
@@ -282,3 +272,103 @@ def test_truth_docs_consolidation_equal(doc):
     got = consensus_dict(samples, ConsensusSettings(), SimilarityScorer(method="levenshtein"))
     ref = jax_consensus_dict(samples, JaxSettings(), JaxScorer(method="levenshtein"))
     assert json.dumps(got, sort_keys=True, default=str) == json.dumps(ref, sort_keys=True, default=str)
+
+
+# --- the key aligner (keyalign/) through both packages -------------------------
+
+def _keyalign_family(seed):
+    """Perturbed product extractions (the JAX package's test vectors):
+    prices jittered, quantities bumped, names upper-cased, records shuffled
+    and sometimes one dropped."""
+    import copy
+    import random
+
+    rng = random.Random(seed)
+    skus = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta"]
+    base, seen = [], set()
+    for _ in range(rng.randint(2, 5)):
+        sku = rng.choice(skus)
+        if sku in seen:
+            continue
+        seen.add(sku)
+        base.append({"sku": sku, "name": rng.choice(skus) + " item",
+                     "price": round(rng.uniform(1, 50), rng.choice([2, 3])),
+                     "qty": rng.randint(1, 9),
+                     "meta": {"cat": rng.choice(["tools", "toys", "food"]), "rank": rng.randint(1, 100)}})
+    out = [{"products": base}]
+    for _ in range(rng.randint(1, 3)):
+        e = copy.deepcopy(base)
+        for rec in e:
+            if rng.random() < 0.4:
+                rec["price"] = round(rec["price"] + rng.uniform(-0.004, 0.004), 4)
+            if rng.random() < 0.2:
+                rec["qty"] += 1
+            if rng.random() < 0.2:
+                rec["name"] = rec["name"].upper()
+        rng.shuffle(e)
+        if rng.random() < 0.3 and e:
+            e.pop()
+        out.append({"products": e})
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_keyalign_vectors_equal(seed):
+    """Key selection (plain and fuzzy) and ``recursive_align`` give the same
+    results through both packages' key aligners."""
+    import copy
+
+    from k_llms_tpu import keyalign as jax_keyalign
+    from k_llms_tpu_torch import keyalign
+
+    family = _keyalign_family(seed)
+
+    def outcome(mod, fn):
+        try:
+            return fn(mod)
+        except ValueError as e:
+            return ("error", str(e))
+
+    def selection(mod):
+        r = mod.select_best_keys(copy.deepcopy(family))
+        return [(tuple(m.path), m.score_tuple) if m else None
+                for m in (r.best_single, r.best_composite)]
+
+    def fuzzy(mod):
+        r = mod.select_best_keys_with_fuzzy_fallback(copy.deepcopy(family))
+        return r.chosen, None if r.fuzzy_best is None else (tuple(r.fuzzy_best.path),
+                                                            r.fuzzy_best.score_tuple)
+
+    for fn in (selection, fuzzy):
+        assert outcome(keyalign, fn) == outcome(jax_keyalign, fn)
+    values = [{"doc": {"items": e["products"], "status": "open"}} for e in family]
+    got = keyalign.recursive_align(copy.deepcopy(values), "levenshtein", 0.5)
+    ref = jax_keyalign.recursive_align(copy.deepcopy(values), "levenshtein", 0.5)
+    assert list(got[0]) == list(ref[0]) and got[1] == ref[1]
+
+
+def test_key_aligner_consolidation_equals_jax():
+    """``aligner="key"`` consolidates through the port's copy exactly as the
+    JAX package does."""
+    import json
+
+    from k_llms_tpu.consensus.consolidation import consolidate_chat_completions as jax_consolidate
+    from k_llms_tpu.consensus.settings import ConsensusSettings as JaxSettings
+    from k_llms_tpu.consensus.similarity import SimilarityScorer as JaxScorer
+    from k_llms_tpu.types import ChatCompletion as JaxChatCompletion
+    from k_llms_tpu_torch.consensus.consolidation import consolidate_chat_completions
+    from k_llms_tpu_torch.consensus.settings import ConsensusSettings
+    from k_llms_tpu_torch.consensus.similarity import SimilarityScorer
+    from k_llms_tpu_torch.types import ChatCompletion
+
+    payload = {"id": "c", "created": 0, "model": "m", "object": "chat.completion", "choices": [
+        {"finish_reason": "stop", "index": i,
+         "message": {"role": "assistant", "content": json.dumps(e)}}
+        for i, e in enumerate(_keyalign_family(3))]}
+    got = consolidate_chat_completions(ChatCompletion.model_validate(payload),
+                                       SimilarityScorer(method="levenshtein"),
+                                       ConsensusSettings(aligner="key"))
+    ref = jax_consolidate(JaxChatCompletion.model_validate(payload),
+                          JaxScorer(method="levenshtein"), JaxSettings(aligner="key"))
+    assert got.choices[0].message.content == ref.choices[0].message.content
+    assert got.likelihoods == ref.likelihoods

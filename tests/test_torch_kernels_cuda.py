@@ -503,26 +503,32 @@ def _draw_mutant_rotation(rnd, keys, step, n_per, V, monkeypatch):
     """One rotation constant off by one."""
     with monkeypatch.context() as m:
         m.setattr(rnd, "_ROTATIONS", ((13, 15, 26, 6), (17, 29, 16, 25)))
-        return rnd.threefry_uniform_plain(keys, step, n_per, V)
+        return _draw_reference(rnd, keys, step, n_per, V)
+
+
+def _draw_reference(rnd, keys, step, n_per, V):
+    """A coalesced step's uniforms, request-major, from the plain threefry."""
+    return rnd.uniform_tiny(rnd.row_keys(keys, step.to(torch.int64), n_per), V)
 
 
 @pytest.mark.parametrize("R,n_per", [(1, 8), (2, 8)])
 @pytest.mark.parametrize("V", [128256, 512])
 @pytest.mark.parametrize("step", [0, 1, 63])
 def test_threefry_uniform_kernel_bit_equal_plain(cuda_device, monkeypatch, R, n_per, V, step):
-    """The draw kernel at the smoke's shapes: bit-equal to the plain version,
-    one launch counted per call, and both mutants of the plain version
+    """A coalesced step's draws through the per-row kernel at the smoke's
+    shapes: bit-equal to the plain threefry's request-major rows, one launch
+    counted per call, and both mutants of the plain version
     (a wrong rotation, the step and row folds swapped) break the equality."""
     from k_llms_tpu_torch.ops import random as rnd
 
     keys = rnd.request_keys([3000000000, 7][:R], cuda_device)
     step_t = torch.tensor(step, dtype=torch.int32, device=cuda_device)
-    before = _ext.LAUNCH_COUNTS["threefry_uniform"]
+    before = _ext.LAUNCH_COUNTS["threefry_uniform_rows"]
     got = rnd.threefry_uniform(keys, step_t, n_per, V)
     torch.cuda.synchronize()
-    assert _ext.LAUNCH_COUNTS["threefry_uniform"] == before + 1
+    assert _ext.LAUNCH_COUNTS["threefry_uniform_rows"] == before + 1
     bits = got.view(torch.int32)
-    assert torch.equal(bits, rnd.threefry_uniform_plain(keys, step_t, n_per, V).view(torch.int32))
+    assert torch.equal(bits, _draw_reference(rnd, keys, step_t, n_per, V).view(torch.int32))
     assert not torch.equal(bits, _draw_mutant_swapped(rnd, keys, step_t, n_per, V).view(torch.int32))
     assert not torch.equal(
         bits, _draw_mutant_rotation(rnd, keys, step_t, n_per, V, monkeypatch).view(torch.int32))
@@ -546,8 +552,98 @@ def test_threefry_uniform_kernel_replays_in_a_cuda_graph(cuda_device):
         step_t.fill_(step)
         graph.replay()
         torch.cuda.synchronize()
-        ref = rnd.threefry_uniform_plain(keys, step_t, 8, 4096)
+        ref = _draw_reference(rnd, keys, step_t, 8, 4096)
         assert torch.equal(captured.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("V", [128256, 512])
+def test_threefry_uniform_rows_kernel_bit_equal_plain(cuda_device, V):
+    """The continuous loop's per-row draws at its width (32 rows, each with
+    its own seed, step and sample index): bit-equal to the plain version,
+    one launch counted, and the step and index swapped breaks equality."""
+    from k_llms_tpu_torch.ops import random as rnd
+
+    rng = np.random.default_rng(V)
+    keys = rnd.request_keys(rng.integers(0, 2 ** 32, 32).tolist(), cuda_device)
+    steps = torch.tensor(rng.integers(0, 97, 32), dtype=torch.int32, device=cuda_device)
+    index = torch.tensor(rng.integers(0, 8, 32), dtype=torch.int32, device=cuda_device)
+    before = _ext.LAUNCH_COUNTS["threefry_uniform_rows"]
+    got = rnd.threefry_uniform_rows(keys, steps, index, V)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["threefry_uniform_rows"] == before + 1
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, rnd.threefry_uniform_rows_plain(keys, steps, index, V).view(torch.int32))
+    assert not torch.equal(bits, rnd.threefry_uniform_rows_plain(keys, index, steps, V).view(torch.int32))
+
+
+def _code_pairs(rng, P, L):
+    """P seeded pairs of ASCII strings of lengths 0..L over a small alphabet
+    (so distances vary), with empty strings and the bucket's edge lengths."""
+    alpha = np.frombuffer(b"abcde01", np.uint8)
+    a = np.zeros((P, L), np.int32)
+    b = np.zeros((P, L), np.int32)
+    alen = rng.integers(0, L + 1, P).astype(np.int32)
+    blen = rng.integers(0, L + 1, P).astype(np.int32)
+    alen[:4], blen[:4] = [0, L, 0, L], [0, 0, L, L]
+    for p in range(P):
+        a[p, : alen[p]] = rng.choice(alpha, alen[p])
+        b[p, : blen[p]] = rng.choice(alpha, blen[p])
+    return a, alen, b, blen
+
+
+@pytest.mark.parametrize("L", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("P", [64, 1024])
+def test_levenshtein_kernel_equals_plain_and_native(cuda_device, L, P):
+    """Every distance equal to the plain version's and the native code's."""
+    from k_llms_tpu_torch.native import levenshtein_distance
+    from k_llms_tpu_torch.ops.levenshtein import levenshtein, levenshtein_plain
+
+    a, alen, b, blen = _code_pairs(np.random.default_rng(L * P), P, L)
+    t = [torch.as_tensor(x, device=cuda_device) for x in (a, alen, b, blen)]
+    before = _ext.LAUNCH_COUNTS["levenshtein"]
+    got = levenshtein(*t)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["levenshtein"] == before + 1
+    assert torch.equal(got, levenshtein_plain(*t))
+    native = [levenshtein_distance(a[p, : alen[p]].astype(np.uint8).tobytes().decode(),
+                                   b[p, : blen[p]].astype(np.uint8).tobytes().decode())
+              for p in range(P)]
+    assert got.tolist() == native
+
+
+def test_continuous_loop_on_card_equals_the_plain_loop(cuda_device):
+    """tiny fp32 through the loop on the card (K2 per whole prefill and per
+    chunk, K1 per step, the per-row draws per step and admission) and on the
+    CPU's plain versions: the same tokens, the kernels' launches exactly as
+    the loop's stats say."""
+    from k_llms_tpu_torch.engine.continuous import ContinuousDecodeLoop
+
+    tiny = get_config("tiny")
+    params = init_params(tiny, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    reqs = [(list(range(2, 100)), dict(n=2, max_new=12, temperature=0.0, top_p=None, seed=1)),
+            ([5, 6, 7], dict(n=3, max_new=16, temperature=0.8, top_p=0.9, seed=2))]
+    outs, counts, stats = {}, None, None
+    for where, kw in (("card", dict(config=tiny.with_(attention_impl="flash"), params=params,
+                                    device=cuda_device, paged_attention_impl="cuda")),
+                      ("plain", dict(config=tiny, params=cpu_params, device="cpu"))):
+        eng = LocalEngine(kw.pop("config"), kv_page_size=16, **kw)
+        loop = ContinuousDecodeLoop(eng, width=8, max_prompt=128, max_new=16,
+                                    prefill_chunk_tokens=32)
+        _ext.reset_launch_counts()
+        futs = [loop.submit(ids, **k) for ids, k in reqs]
+        outs[where] = [f.result(timeout=300) for f in futs]
+        if where == "card":
+            counts, stats = dict(_ext.LAUNCH_COUNTS), loop.stats
+        loop.stop()
+    for got, ref in zip(outs["card"], outs["plain"]):
+        assert np.array_equal(got.tokens, ref.tokens)
+    L = tiny.num_layers
+    assert stats["prefill_chunks"] == 4
+    assert counts["flash_attention"] == L * (stats["prefill_chunks"] + 1)
+    assert counts["paged_decode_attention"] == L * stats["steps"]
+    assert counts["threefry_uniform_rows"] == stats["steps"] + stats["admitted"]
 
 
 # -- the serving chain on the card --------------------------------------------
@@ -582,7 +678,7 @@ def test_coalesced_tiny_group_through_the_scheduler_equals_plain(cuda_device):
     counts = dict(_ext.LAUNCH_COUNTS)
     assert backend.scheduler.stats["batches"] == 1 and backend.scheduler.stats["coalesced"] == 3
     assert min(counts[k] for k in ("flash_attention", "paged_decode_attention",
-                                   "threefry_uniform")) > 0
+                                   "threefry_uniform_rows")) > 0
     plain = LocalEngine(tiny, params=params, device=cuda_device, paged_attention_impl="xla",
                         kv_page_size=16)
     want = plain.generate_many([GenRequestSpec(p, n, s) for p, (_, n, s) in zip(prompts, group)],

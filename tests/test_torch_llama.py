@@ -218,3 +218,36 @@ def test_page_pool_scatter_gather_and_accounting():
     assert alloc.decref(got) == got[1:]
     alloc.decref(got[:1])
     alloc.verify()
+
+
+def test_verify_step_matches_jax_at_one_token_per_row(weights):
+    """The continuous loop's dense step: ``verify_step`` at Sq == 1 with a
+    prompt prefix per row and per-row write offsets (rows joined at
+    different steps), logits and the written cache within 1e-5 of the JAX
+    function; Sq > 1 is not ported and raises."""
+    jax_params, params = weights
+    cfg, jcfg = get_config(CONFIG_NAME), jax_get_config(CONFIG_NAME)
+    rng = np.random.default_rng(3)
+    B, P, G = 3, 32, 8
+    shape = (cfg.num_layers, B, P, cfg.num_kv_heads, cfg.head_dim)
+    pk, pv = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    gshape = (cfg.num_layers, B, G, cfg.num_kv_heads, cfg.head_dim)
+    gk, gv = (rng.normal(size=gshape).astype(np.float32) for _ in range(2))
+    tokens = np.array([[5], [300], [77]], np.int32)
+    lengths = np.array([0, 5, 2], np.int32)
+    prompt_lens = np.array([32, 7, 19], np.int32)
+    jlog, jgen = jax.jit(partial(jax_llama.verify_step, jcfg))(
+        jax_params, jnp.asarray(tokens), jnp.asarray(lengths), jnp.asarray(prompt_lens),
+        jax_llama.KVCache(k=jnp.asarray(gk), v=jnp.asarray(gv)),
+        jax_llama.KVCache(k=jnp.asarray(pk), v=jnp.asarray(pv)))
+    gen = llama.KVCache(k=torch.tensor(gk), v=torch.tensor(gv))
+    logits, gen = llama.verify_step(cfg, params, torch.tensor(tokens), torch.tensor(lengths),
+                                    torch.tensor(prompt_lens), gen,
+                                    llama.KVCache(k=torch.tensor(pk), v=torch.tensor(pv)))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlog), atol=ATOL)
+    np.testing.assert_allclose(gen.k.numpy(), np.asarray(jgen.k), atol=ATOL)
+    np.testing.assert_allclose(gen.v.numpy(), np.asarray(jgen.v), atol=ATOL)
+    with pytest.raises(NotImplementedError, match="Sq == 1"):
+        llama.verify_step(cfg, params, torch.tensor(np.zeros((3, 2), np.int32)),
+                          torch.tensor(lengths), torch.tensor(prompt_lens), gen,
+                          llama.KVCache(k=torch.tensor(pk), v=torch.tensor(pv)))

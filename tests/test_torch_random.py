@@ -106,6 +106,23 @@ def test_draw_noise_on_cpu_runs_the_plain_version():
     np.testing.assert_array_equal(noise.numpy().view(np.uint32), ref.view(np.uint32))
 
 
+def test_per_row_uniforms_equal_jax():
+    """The continuous loop's draws: each row with its own seed, step and
+    sample index, ``fold_in(fold_in(key(seed_r), step_r), index_r)``, bit
+    for bit (the plain version, which the CPU wrapper runs uncounted)."""
+    seeds = [7, 3000000000, 0, 2 ** 32 - 1, 12345]
+    steps = [1, 0, 63, 17, 5]
+    index = [0, 3, 7, 1, 2]
+    keys = rnd.request_keys(seeds, "cpu")
+    before = dict(_ext.LAUNCH_COUNTS)
+    got = rnd.threefry_uniform_rows(keys, torch.tensor(steps, dtype=torch.int32),
+                                    torch.tensor(index, dtype=torch.int32), 300)
+    assert _ext.LAUNCH_COUNTS == before
+    ref = np.stack([np.asarray(jax.random.uniform(_jax_row_key(s, st, i), (300,), minval=TINY))
+                    for s, st, i in zip(seeds, steps, index)])
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref.view(np.uint32))
+
+
 # --- sampled decoding: the JAX engine against the port's ---------------------
 
 PROMPT = [256] + list(b"draw some tokens")
