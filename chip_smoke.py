@@ -39,7 +39,17 @@ slots, chunked prefill of 128 tokens) four requests joining mid-flight,
 one of them the 1490-token prompt in 12 chunks and one a grammar-
 constrained ``parse()``, with a logit-bias request coalescing while the
 loop decodes; on an int4 dense 8B client two of them; at ``tiny`` a hung
-step and a hung chunk rebuilt and replayed.
+step and a hung chunk rebuilt and replayed. ``gemma9b``, ``mistral7b`` and
+``mixtral_int4`` serve the other model families at their full published
+widths (seeded weights, the byte tokenizer's special ids) through
+``KLLMs(backend="cuda", model=..., attention_impl="flash")``: Gemma-2-9B and
+Mistral-7B in bf16 on the paged path (K2 with softcap, the 4096-key window
+and head dim 256 in prefill, a prompt longer than the window; the paged
+decode on the reference attention, which the JAX routing gives softcapped
+and windowed models: K1 asserted at 0, the reference's dispatches counted),
+Mixtral-8x7B quantized to int4 (attention and head on K4, the experts int8)
+on the paged path with K1; each with its launch counts asserted, its peak
+memory and the plain decode attention's cost per step.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -75,7 +85,9 @@ from typing import Literal
 from pydantic import BaseModel, Field
 
 PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "ckpt", "loop",
-          "8b_int4", "sched")
+          "8b_int4", "sched", "gemma9b", "mistral7b", "mixtral_int4")
+# The model-family phases, in the order they run.
+FAMILY_PHASES = ("gemma9b", "mistral7b", "mixtral_int4")
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
 # (needs "8b" or "8b_int4").
 EXTRA_PHASES = ("profile",)
@@ -476,29 +488,38 @@ def sched_oom(label, client, contents, log):
     if engine.oom_stats["splits"] - splits != 1 or not all(equal):
         raise AssertionError(f"{label} oom failpoint: {engine.oom_stats}, {got}")
 
-    # The real OOM: n = 32 rows of 128 tokens a request, so a request's own
-    # pages (its prompt's and its rows' generation pages, ~880 MB at 8B)
-    # set the group's peak apart from a solo's by more than a launch's
-    # reserved slack. The three measured launches also step the scheduler's
-    # width back up from the failpoint's backoff, so the group coalesces.
+    # The real OOM: n = 32 rows of 128 tokens a request. The engine's page
+    # pool, sized once, holds a solo launch but not the group, which decodes
+    # dense (as the JAX engine's would): the group's dense KV (two prompt
+    # buckets, 64 rows' generation caches) sets its peak apart from a
+    # solo's by more than a launch's reserved slack. The three measured
+    # launches also step the scheduler's width back up from the failpoint's
+    # backoff, so the group coalesces.
     n, max_new = 32, 128
     specs, kw = specs_and_kw(n, max_new)
     device = engine.device
-    solos, solo_peaks, allocated_peaks = [], [], []
+    solos, solo_peaks, allocated_peaks, solo_layouts = [], [], [], []
     for spec in specs:
         reset_launch_memory(engine)
         solos.append(engine.generate_many([spec], **kw)[0])
+        solo_layouts.append(engine.last_launch_stats["kv_layout"])
         reserved, allocated = launch_peaks(device)
         solo_peaks.append(reserved)
         allocated_peaks.append(allocated)
     reset_launch_memory(engine)
     engine.generate_many(specs, **kw)
+    group_layout = engine.last_launch_stats["kv_layout"]
     group_peak, group_allocated = launch_peaks(device)
     record = {"phase": f"{label}_sched_oom_real", "solo_reserved_peak_bytes": solo_peaks,
               "group_reserved_peak_bytes": group_peak, "solo_allocated_peak_bytes": allocated_peaks,
               "group_allocated_peak_bytes": group_allocated,
-              "gap_bytes": group_allocated - max(solo_peaks)}
+              "gap_bytes": group_allocated - max(solo_peaks), "solo_kv_layouts": solo_layouts,
+              "group_kv_layout": group_layout,
+              "pool_pages": None if engine._kv_pool is None else engine._kv_pool.allocator.total_pages}
     log(record)
+    if solo_layouts != ["paged", "paged"] or group_layout != "dense":
+        raise AssertionError(f"{label} real oom: the pool must hold each solo and not the group: "
+                             f"{record}")
     fraction = oom_memory_fraction(max(solo_peaks), group_allocated, device)
     total = torch.cuda.get_device_properties(device).total_memory
     splits = engine.oom_stats["splits"]
@@ -1207,21 +1228,52 @@ def main(argv=None) -> int:
             ref = ref.float()
             return ((out.float() - ref).abs() / (rtol * ref.abs() + atol)).max().item()
 
-        def masked_attention(q, k, v, keep):
+        def masked_attention(q, k, v, keep, scale=None, softcap=None):
             """f32 attention of q over k, v under a [B, 1, Sq, Sk] mask (every
             row keeps at least one key): the mutants' reference."""
             G = q.shape[1] // k.shape[1]
             sc = q.float() @ k.float().repeat_interleave(G, dim=1).transpose(2, 3)
-            sc = torch.where(keep, sc / math.sqrt(q.shape[-1]), torch.full_like(sc, att.NEG_INF))
+            sc = sc * (scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+            if softcap is not None:
+                sc = softcap * torch.tanh(sc / softcap)
+            sc = torch.where(keep, sc, torch.full_like(sc, att.NEG_INF))
             return torch.softmax(sc, dim=-1) @ v.float().repeat_interleave(G, dim=1)
 
+        def flex_library(B, Sq, Sk, kl, qo, window, softcap, scale):
+            """PyTorch's flex_attention computing a softcapped case's function
+            (the tanh on the scaled scores as its score_mod, the case's mask
+            as a block mask), compiled: a yardstick only, the port never
+            calls it."""
+            from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+            lens = kl if kl is not None else torch.full((B,), Sk, dtype=torch.int32, device=dev)
+            w = att.NO_WINDOW if window is None else window
+
+            def mask_mod(b, h, qi, kv):
+                pos = qi + qo
+                return (kv <= pos) & (kv > pos - w) & (kv < lens[b])
+
+            def score_mod(score, b, h, qi, kv):
+                return softcap * torch.tanh(score / softcap)
+
+            block_mask = create_block_mask(mask_mod, B, None, Sq, Sk, device=dev)
+            compiled = torch.compile(flex_attention)
+            return lambda q_, k_, v_: compiled(q_, k_, v_, score_mod=score_mod,
+                                               block_mask=block_mask, scale=scale)
+
         def k2_case(name, B, QH, KVH, Sq, Sk, D, dtype, *, key_lengths=None,
-                    q_offset=None, window=None, softcap=None, timed=False):
+                    q_offset=None, window=None, softcap=None, timed=False, sm_scale=None,
+                    variants=None):
+            """One K2 case against its plain version. ``variants`` maps a
+            mutant's name to keyword changes of the plain version (the
+            softcap dropped, the other layer kind's window) that the limit
+            must catch."""
             q = randn(B, QH, Sq, D, dtype=dtype)
             k = randn(B, KVH, Sk, D, dtype=dtype)
             v = randn(B, KVH, Sk, D, dtype=dtype)
             kl = None if key_lengths is None else torch.tensor(key_lengths, dtype=torch.int32, device=dev)
-            kw = dict(causal=True, key_lengths=kl, softcap=softcap, window=window, q_offset=q_offset)
+            kw = dict(causal=True, key_lengths=kl, softcap=softcap, window=window, q_offset=q_offset,
+                      sm_scale=sm_scale)
             out = att.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             ref = att.flash_attention_plain(q, k, v, **kw)
@@ -1231,10 +1283,11 @@ def main(argv=None) -> int:
             rtol, atol = limits[dtype]
             rec = {"phase": "k2", "case": name, "shape": [B, QH, KVH, Sq, Sk, D],
                    "dtype": str(dtype).replace("torch.", ""), "impl": att.flash_route(dtype, D),
-                   "key_lengths": key_lengths, "max_abs_err": err,
+                   "key_lengths": key_lengths, "window": window, "softcap": softcap, "max_abs_err": err,
                    "mean_abs_ref": ref.float().abs().mean().item(),
                    "limit": f"{rtol:g}*|ref| + {atol:g}", "max_err_over_limit": ratio, "ok": ok}
             qo = q_offset or 0
+            lens = [Sk] * B if key_lengths is None else key_lengths
             valid = att._flash_valid(B, Sq, Sk, torch.full((B,), Sk, device=dev) if kl is None else kl,
                                      True, att.NO_WINDOW if window is None else window, qo, dev)
             if timed:
@@ -1245,15 +1298,33 @@ def main(argv=None) -> int:
                 G = QH // KVH
                 k_rep = k.repeat_interleave(G, dim=1)
                 v_rep = v.repeat_interleave(G, dim=1)
-                if (key_lengths is None or min(key_lengths) == Sk) and qo == 0 and Sq == Sk:
-                    lib_kw = dict(is_causal=True)
-                else:  # causal, q_offset and key lengths as one boolean mask [B, 1, Sq, Sk]
-                    lib_kw = dict(attn_mask=valid)
+                scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+                if ((key_lengths is None or min(key_lengths) == Sk) and qo == 0 and Sq == Sk
+                        and window is None):
+                    lib_kw = dict(is_causal=True, scale=scale)
+                else:  # causal, window, q_offset and key lengths as one mask [B, 1, Sq, Sk]
+                    lib_kw = dict(attn_mask=valid, scale=scale)
 
                 def sdpa(q_, k_, v_):
                     return torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, **lib_kw)
 
-                rec["library_ms"] = time_ms(lambda: sdpa(q, k_rep, v_rep))
+                library = sdpa
+                rec["library_call"] = "scaled_dot_product_attention"
+                if softcap is not None:
+                    # SDPA has no softcap: flex_attention with a tanh
+                    # score_mod and the case's mask, compiled, where it builds.
+                    rec["library_call"] = "flex_attention (tanh score_mod, block mask), compiled"
+                    try:
+                        library = flex_library(B, Sq, Sk, kl, qo, window, softcap, scale)
+                        got = library(q, k_rep, v_rep)
+                        torch.cuda.synchronize()
+                        rec["library_max_abs_err"] = (got.float() - ref.float()).abs().max().item()
+                    except Exception as e:  # noqa: BLE001 - recorded as the row's reason
+                        rec["library_call"] = None
+                        rec["library_note"] = f"flex_attention did not build: {type(e).__name__}: {e}"[:400]
+                        library = None
+                rec["library_ms"] = None if library is None else time_ms(
+                    lambda: library(q, k_rep, v_rep))
                 # Device time, cold: each call on its own q, k, v (and, for
                 # SDPA, its own expanded k, v), a rotation past the L2.
                 n_copies = copies_for((q.numel() + k.numel() + v.numel()) * q.element_size())
@@ -1264,13 +1335,15 @@ def main(argv=None) -> int:
                 rec["rotation"] = n_copies
                 expanded = [(q_, k_.repeat_interleave(G, dim=1), v_.repeat_interleave(G, dim=1))
                             for q_, k_, v_ in sets]
-                rec["library_device_ms"] = device_ms(
-                    [lambda e_=e_: sdpa(*e_) for e_ in expanded])
+                rec["library_device_ms"] = None if library is None else device_ms(
+                    [lambda e_=e_: library(*e_) for e_ in expanded])
                 del sets, expanded
-                # What these inputs need: the valid (row, key) pairs, and K/V
-                # up to each key length read once.
-                lens = [Sk] * B if key_lengths is None else key_lengths
-                pairs = QH * sum(sum(min(r + qo + 1, n) for r in range(Sq)) for n in lens)
+                # What these inputs need: the valid (row, key) pairs (keys
+                # inside the window only), and K/V up to each key length
+                # read once.
+                w = att.NO_WINDOW if window is None else window
+                pairs = QH * sum(sum(max(0, min(r + qo + 1, n) - max(0, r + qo - w + 1))
+                                     for r in range(Sq)) for n in lens)
                 flops = 4.0 * D * pairs
                 nbytes = (q.numel() + out.numel() + 2 * KVH * D * sum(lens)) * q.element_size()
                 rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
@@ -1287,10 +1360,15 @@ def main(argv=None) -> int:
                 keep = valid.clone()
                 lo = qo // 2 if qo else Sk // 2
                 keep[..., lo: lo + 32] = False
-                mutants["key_tile_dropped"] = masked_attention(q, k, v, keep).to(dtype)
-            if window is not None:
+                mutants["key_tile_dropped"] = masked_attention(q, k, v, keep, sm_scale,
+                                                               softcap).to(dtype)
+            if window is not None and Sq - 1 + qo >= window and qo - window < max(lens):
+                # (Only where the window masks a key: a short prompt's window
+                # does not, and the mutant would equal the reference.)
                 mutants["window_edge_one_key_wider"] = att.flash_attention_plain(
                     q, k, v, **dict(kw, window=window + 1))
+            for m, change in (variants or {}).items():
+                mutants[m] = att.flash_attention_plain(q, k, v, **dict(kw, **change))
             if mutants:
                 rec["mutant_err_over_limit"] = {m: over_limit(o, ref, dtype) for m, o in mutants.items()}
             log(rec)
@@ -1348,6 +1426,68 @@ def main(argv=None) -> int:
                             key_lengths=[70])[1])
         errs.append(k2_case("head_dim_64_f32", 2, 14, 2, 100, 100, 64, torch.float32,
                             key_lengths=[100, 37])[1])
+        # The family phases' prefill shapes (a 4608-token prompt, longer than
+        # the 4096-key window): Gemma-2-9B's local (even) layers with softcap
+        # and window, its global layers with the softcap alone, Mistral-7B's
+        # windowed layers. Mutants: the softcap dropped, the other layer
+        # kind's window (the wrong layer parity).
+        gemma_scale = 256.0 ** -0.5
+        family_recs = {}
+        family_recs["gemma2_9b_local"], e = k2_case(
+            "gemma2_9b_local_prefill", 1, 16, 8, 4608, 4608, 256, torch.bfloat16,
+            key_lengths=[4608], softcap=50.0, window=4096, sm_scale=gemma_scale, timed=True,
+            variants={"softcap_dropped": dict(softcap=None), "wrong_layer_parity": dict(window=None)})
+        errs.append(e)
+        family_recs["gemma2_9b_global"], e = k2_case(
+            "gemma2_9b_global_prefill", 1, 16, 8, 4608, 4608, 256, torch.bfloat16,
+            key_lengths=[4608], softcap=50.0, sm_scale=gemma_scale, timed=True,
+            variants={"softcap_dropped": dict(softcap=None),
+                      "wrong_layer_parity": dict(window=4096)})
+        errs.append(e)
+        family_recs["mistral_7b"], e = k2_case(
+            "mistral_7b_prefill", 1, 32, 8, 4608, 4608, 128, torch.bfloat16,
+            key_lengths=[4608], window=4096, timed=True,
+            variants={"wrong_layer_parity": dict(window=None)})
+        errs.append(e)
+        # What the family phases' model path gives K2: the 4600-token
+        # prompt padded to its 8192 bucket with the key length (the padded
+        # query rows are computed too), timed for PERF.md; the short
+        # prompts' 64 and 128 buckets; the embeddings forward's 8 x 64
+        # bucket with ragged key lengths. Mixtral's prefill shapes are the
+        # 8B ones (llama3_8b_prefill_bucket; the short prompts' 64 bucket
+        # below, where Mistral's window masks no key).
+        family_len = 4600
+        gemma_local = dict(softcap=50.0, window=4096, sm_scale=gemma_scale)
+        gemma_global = dict(softcap=50.0, sm_scale=gemma_scale)
+        family_recs["gemma2_9b_local_bucket"], e = k2_case(
+            "gemma2_9b_local_prefill_bucket", 1, 16, 8, 8192, 8192, 256, torch.bfloat16,
+            key_lengths=[family_len], timed=True, **gemma_local,
+            variants={"softcap_dropped": dict(softcap=None), "wrong_layer_parity": dict(window=None)})
+        errs.append(e)
+        family_recs["gemma2_9b_global_bucket"], e = k2_case(
+            "gemma2_9b_global_prefill_bucket", 1, 16, 8, 8192, 8192, 256, torch.bfloat16,
+            key_lengths=[family_len], timed=True, **gemma_global,
+            variants={"softcap_dropped": dict(softcap=None),
+                      "wrong_layer_parity": dict(window=4096)})
+        errs.append(e)
+        family_recs["mistral_7b_bucket"], e = k2_case(
+            "mistral_7b_prefill_bucket", 1, 32, 8, 8192, 8192, 128, torch.bfloat16,
+            key_lengths=[family_len], window=4096, timed=True,
+            variants={"wrong_layer_parity": dict(window=None)})
+        errs.append(e)
+        for bucket, n_keys in ((64, 46), (128, 86)):
+            errs.append(k2_case(f"gemma2_9b_short_prompt_{bucket}", 1, 16, 8, bucket, bucket, 256,
+                                torch.bfloat16, key_lengths=[n_keys], **gemma_local,
+                                variants={"softcap_dropped": dict(softcap=None)})[1])
+        errs.append(k2_case("mistral_mixtral_short_prompt_64", 1, 32, 8, 64, 64, 128,
+                            torch.bfloat16, key_lengths=[46], window=4096)[1])
+        ragged = [64, 58, 41, 64, 23, 64, 7, 1]
+        for layers, extra in (("local", gemma_local), ("global", gemma_global)):
+            errs.append(k2_case(f"gemma2_9b_embeddings_{layers}", 8, 16, 8, 64, 64, 256,
+                                torch.bfloat16, key_lengths=ragged, **extra,
+                                variants={"softcap_dropped": dict(softcap=None)})[1])
+        errs.append(k2_case("mistral_mixtral_embeddings", 8, 32, 8, 64, 64, 128, torch.bfloat16,
+                            key_lengths=ragged, window=4096)[1])
         kernels["flash_attention"] = {
             "name": "flash_attention", "route": "cuda",
             "source": "k_llms_tpu_torch/csrc/flash_attention.cu",
@@ -1365,6 +1505,11 @@ def main(argv=None) -> int:
             "continuation_case": {k: cont_rec[k] for k in
                                   ("case", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_device_ms", "device_over_bound")},
+            "family_cases": {k: {f: r.get(f) for f in
+                                 ("case", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                                  "library_call", "library_ms", "library_device_ms",
+                                  "library_note", "device_over_bound")}
+                             for k, r in family_recs.items()},
         }
 
     # 5. K1 paged decode against its plain version
@@ -1657,6 +1802,14 @@ def main(argv=None) -> int:
                                     mutants=rows in mutant_rows or rows == 129)[1])
         errs.append(k4_case("f32_rows40", 40, 1024, 768, torch.float32, mutants=True)[1])
         errs.append(k4_case("f32_rows300", 300, 512, 384, torch.float32, mutants=True)[1])
+        # Mixtral-8x7B's int4 head (N = 32000; its attention matmuls have
+        # the 8B shapes above): each prefill's last token (1 row), decode at
+        # n = 8, and 64 and 2048 rows on the tensor-core route at its width.
+        mixtral_head = {}
+        for rows in (1, 8, 64, 2048):
+            mixtral_head[rows], e = k4_case(f"mixtral_lm_head_rows{rows}", rows, 4096, 32000,
+                                            torch.bfloat16, timed=True, mutants=rows in (8, 64))
+            errs.append(e)
         cold_copies.clear()
         # Crossover, in device time on cold weights: the largest row count at
         # which the decode route is faster than the prefill tensor-core route
@@ -1693,6 +1846,11 @@ def main(argv=None) -> int:
                                ("case", "impl", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "device_ms", "library_device_ms")}
                               for sn in ("w_gate_up", "w_down") for rows in (64, 2048)],
+            "mixtral_head_cases": [{k: r.get(k) for k in
+                                    ("case", "impl", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "device_ms", "library_device_ms",
+                                     "device_over_bound")}
+                                   for r in mixtral_head.values()],
         }
 
     # 7. K3 decode-prefix attention against its plain version
@@ -1982,7 +2140,7 @@ def main(argv=None) -> int:
     # The sched phase's group: four same-config requests of about 51, 46,
     # 300 and 1490 prompt tokens; its abort poller's two requests; its OOM
     # drill's two requests of about 2900 tokens each (another document
-    # apiece), whose page pools set the group's peak apart from a solo's.
+    # apiece), whose dense KV sets the group's peak apart from a solo's.
     sched_contents = ["What is the capital of France?", "Name three prime numbers.",
                       long_text[:279], long_text + "\nWhat is the total?"]
     sched_requests = [dict(messages=[{"role": "user", "content": c}], n=8, temperature=0.8,
@@ -1990,17 +2148,19 @@ def main(argv=None) -> int:
                       for i, c in enumerate(sched_contents)]
     oom_contents = [long_text * 2, long_text[725:] + long_text[:725] + long_text]
 
-    def serve_8b(label, client):
-        """Warm up, then the three create requests and the parse request
-        with every launch count reset just before and read just after.
-        Returns (counts, engine launches [(requests, rows per request, decode
-        steps, temperature)], embeddings forwards, each launch's (tokens,
-        logprobs) per request)."""
+    def serve_8b(label, client, reqs=requests, parse_req=parse_request,
+                 parse_model=InvoiceStatus):
+        """Warm up, then the create requests and the parse request with every
+        launch count reset just before and read just after. Returns (counts,
+        engine launches [(requests, rows per request, decode steps,
+        temperature)], embeddings forwards, each launch's (tokens, logprobs)
+        per request, each launch's ``last_launch_stats``, the paged launches
+        that ran the plain (reference) attention)."""
         engine = client.backend.engine
         client.chat.completions.create(messages=[{"role": "user", "content": "warm up"}],
                                        n=2, max_tokens=4, temperature=0.0, seed=0,
                                        logit_bias=printable)
-        launches, embed_batches, outputs = [], [], []
+        launches, embed_batches, outputs, stats = [], [], [], []
         generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
 
         constrained = []
@@ -2009,6 +2169,7 @@ def main(argv=None) -> int:
             out = generate_many(items, **kw)
             st = engine.last_launch_stats
             launches.append((len(items), st["n_per"], st["decode_steps"], kw["temperature"]))
+            stats.append(dict(st))
             outputs.append([(r.tokens.copy(), r.logprobs.copy()) for r in out])
             if kw.get("constraint") is not None:
                 constrained.append((kw["constraint"], out[0], dict(st)))
@@ -2023,7 +2184,7 @@ def main(argv=None) -> int:
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         allocated_before = torch.cuda.memory_allocated()
-        for i, req in enumerate(requests):
+        for i, req in enumerate(reqs):
             t0 = time.perf_counter()
             n_embeds = len(embed_batches)
             resp = client.chat.completions.create(**req)
@@ -2045,10 +2206,13 @@ def main(argv=None) -> int:
                  "tokens_per_s": gen_tokens / wall, "choices": len(resp.choices),
                  "embeddings_forwards": embed_batches[n_embeds:],
                  "consensus": resp.choices[0].message.content, "likelihoods": resp.likelihoods})
+        if parse_req is None:
+            return finish_serving(label, engine, launches, embed_batches, outputs, stats, plain,
+                                  allocated_before)
         # The parse request: grammar-constrained and sampled.
         t0 = time.perf_counter()
         n_launches = len(launches)
-        resp = client.chat.completions.parse(**parse_request)
+        resp = client.chat.completions.parse(**parse_req)
         wall = time.perf_counter() - t0
         if len(constrained) != 1:
             raise AssertionError(f"{label} parse: {len(constrained)} constrained launches")
@@ -2060,11 +2224,11 @@ def main(argv=None) -> int:
             legal.append(ok)
             if res.finish_reasons[i] == "stop":
                 finished += 1
-                InvoiceStatus.model_validate_json(bytes(body))  # raises if invalid
+                parse_model.model_validate_json(bytes(body))  # raises if invalid
                 validated += int(terminal)
         consensus = resp.choices[0].message.parsed
-        log({"phase": f"{label}_parse_request", "n": parse_request["n"],
-             "temperature": parse_request["temperature"], "prompt_tokens": resp.usage.prompt_tokens,
+        log({"phase": f"{label}_parse_request", "n": parse_req["n"],
+             "temperature": parse_req["temperature"], "prompt_tokens": resp.usage.prompt_tokens,
              "completion_tokens": resp.usage.completion_tokens,
              "prefill_ms": st["prefill_s"] * 1e3,
              "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
@@ -2074,19 +2238,28 @@ def main(argv=None) -> int:
              "engine_launches": launches[n_launches:],
              "samples": [c.message.content for c in resp.choices[1:]],
              "consensus": None if consensus is None else consensus.model_dump()})
-        if (len(resp.choices) != parse_request["n"] + 1 or not all(legal)
-                or validated != finished or not isinstance(consensus, InvoiceStatus)):
+        if (len(resp.choices) != parse_req["n"] + 1 or not all(legal)
+                or validated != finished or not isinstance(consensus, parse_model)):
             raise AssertionError(f"{label} parse request: legal={legal}, finished={finished}, "
                                  f"validated={validated}, consensus={consensus!r}")
+        return finish_serving(label, engine, launches, embed_batches, outputs, stats, plain,
+                              allocated_before)
+
+    def finish_serving(label, engine, launches, embed_batches, outputs, stats, plain,
+                       allocated_before):
+        """The end of serve_8b's counted window: the counts read, no paged
+        launch on the plain version (unless the model's paged decode is the
+        reference, as for softcapped and windowed models), the peak."""
         del engine.generate_many, engine.embed_tokens
         counts = dict(_ext.LAUNCH_COUNTS)
-        if plain_paged_launches() != plain:
+        plain_dispatches = plain_paged_launches() - plain
+        if plain_dispatches and engine.paged_attention_impl != "xla":
             raise AssertionError(f"{label}: a paged launch ran the plain version in the counted window")
         log({"phase": f"{label}_main_path", "launches": counts, "engine_launches": launches,
              "embeddings_forwards": len(embed_batches),
              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
              "allocated_before_requests_bytes": allocated_before})
-        return counts, launches, embed_batches, outputs
+        return counts, launches, embed_batches, outputs, stats, plain_dispatches
 
     def expected_bf16_paged(launches, embeds, L):
         """The paged bf16 path's launch counts: K2 once a layer per prefill
@@ -2544,7 +2717,7 @@ def main(argv=None) -> int:
             if client.backend.param_summary != seeded_summary:
                 raise AssertionError(f"loaded summary {client.backend.param_summary} != "
                                      f"seeded {seeded_summary}")
-            counts, launches, embeds, outputs = serve_8b("ckpt_bf16", client)
+            counts, launches, embeds, outputs, *_ = serve_8b("ckpt_bf16", client)
             expected = expected_bf16_paged(launches, embeds, L)
             same = [[bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
                      for a, b in zip(x, y)] for x, y in zip(outputs, seeded["outputs"])]
@@ -2575,7 +2748,7 @@ def main(argv=None) -> int:
             if rec["int4_summary"] != seeded_q4_summary:
                 raise AssertionError(f"ckpt_int4: quantized at load {rec['int4_summary']} != "
                                      f"quantize_params of the seeded tree {seeded_q4_summary}")
-            counts, launches, embeds, _ = serve_8b("ckpt_int4", client)
+            counts, launches, embeds, *_ = serve_8b("ckpt_int4", client)
             expected = expected_int4_dense(launches, embeds, L, G)
             log({"phase": "ckpt_int4_expected_launches", "expected": expected, "counts": counts,
                  "prefix_cache_stats": dict(client.backend.engine.prefix_cache_stats)})
@@ -2956,17 +3129,168 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # The family phases' requests: a greedy request whose prompt (about
+    # 4600 tokens) is longer than the 4096-key window, so that the window
+    # masks keys in prefill and in decode; a sampled short one; a parse()
+    # under the Record grammar. Mixtral takes the 8b phase's three requests.
+    window_text = (long_text * 4)[:4560] + "\nWhat is the total?"
+    family_requests = [
+        dict(messages=[{"role": "user", "content": window_text}], n=8, temperature=0.0,
+             max_tokens=32, seed=5, logit_bias=printable),
+        dict(messages=[{"role": "user", "content": "Name three prime numbers."}],
+             n=8, temperature=0.8, top_p=0.95, seed=3, max_tokens=64, logit_bias=printable),
+    ]
+    family_parse = dict(messages=[{"role": "user", "content": "Invoice 2024-0117 lists 12 widgets "
+                                                             "from Acme. Extract the record."}],
+                        response_format=Record, n=8, temperature=0.8, seed=17, max_tokens=64,
+                        logit_bias=printable)
+    # (registry name, client keywords, create requests, parse request)
+    families = {
+        "gemma9b": ("gemma-2-9b", {}, family_requests, family_parse),
+        "mistral7b": ("mistral-7b", {}, family_requests, family_parse),
+        "mixtral_int4": ("mixtral-8x7b", dict(quantization="int4"), requests, None),
+    }
+
+    def plain_decode_ms(engine, launch_stats):
+        """Device time of the plain paged decode attention one step runs on
+        the longest launch's shape (n rows over the prompt's bucket of
+        prefix slots and the generation slots), per layer and per step; and
+        the paged kernel's (K1) on the same shape without the window and the
+        softcap it does not serve: what a kernel step would cost."""
+        cfg = engine.config
+        st = max(launch_stats, key=lambda s: s["rows"])
+        B, G = st["n_per"], 32
+        P = 8192 if cfg.sliding_window else 2048
+        ps = engine.kv_page_size
+        QH, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        npages = 1 + P // ps + B * (G // ps + 1)
+        pool_k = randn(npages * ps, KVH, D)
+        pool_v = randn(npages * ps, KVH, D)
+        plen = P - 3592 if cfg.sliding_window else 1490  # the window's prompt: 4600 tokens
+        prefix_idx = torch.arange(P, device=dev)[None] + ps
+        gen_idx = (1 + P // ps) * ps + torch.arange(B * G, device=dev).reshape(B, G)
+        q = randn(B, 1, QH, D)
+        nk, nv = randn(B, 1, KVH, D), randn(B, 1, KVH, D)
+        step = 16
+        lengths = torch.full((B,), step, device=dev)
+        window = cfg.sliding_window or att.NO_WINDOW
+        key_mask = (torch.arange(G, device=dev)[None, None] <= step) & (
+            torch.arange(G, device=dev)[None, None] > step - window)
+        key_mask = key_mask.expand(B, 1, G)
+        pos = plen + step
+        prefix_mask = (torch.arange(P, device=dev)[None, None] < plen) & (
+            torch.arange(P, device=dev)[None, None] > pos - window)
+        prefix_mask = prefix_mask.expand(B, 1, P)
+        scale = cfg.query_scale or 1.0 / math.sqrt(D)
+
+        def plain():
+            return pa.paged_decode_attention_xla(
+                q, pool_k, pool_v, prefix_idx, gen_idx, nk, nv, lengths, key_mask, prefix_mask,
+                sm_scale=scale, softcap=cfg.attn_softcap)
+
+        tables = pa.paged_attention_page_tables(prefix_idx, gen_idx, ps)
+        plen_row = torch.full((B,), plen, dtype=torch.int32, device=dev)
+        glen = torch.full((B,), step, dtype=torch.int32, device=dev)
+
+        def kernel():
+            return pa.paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v, *tables,
+                                             nk[:, 0].contiguous(), nv[:, 0].contiguous(),
+                                             plen_row, glen, page_size=ps, sm_scale=scale)
+
+        plain_layer = time_ms(plain, iters=10)
+        kernel_layer = time_ms(kernel, iters=10)
+        return {"rows": B, "prefix_slots": P, "prompt_len": plen, "layers": cfg.num_layers,
+                "plain_ms_per_layer": plain_layer, "plain_ms_per_step": plain_layer * cfg.num_layers,
+                "plain_device_ms_per_layer": device_ms([plain]),
+                "k1_unwindowed_ms_per_layer": kernel_layer,
+                "k1_unwindowed_device_ms_per_layer": device_ms([kernel])}
+
+    def serve_family(label):
+        """One family at full published width: the client built with K2 on
+        prefill and paged decode, its requests served with every launch
+        counted (K2 per layer per prefill and embeddings forward; the paged
+        kernel per layer per step, or none where the reference attention
+        decodes; K4 on Mixtral's attention and head), the xla dispatches
+        counted, the window's prompt longer than the window, the peak."""
+        from k_llms_tpu_torch.models.config import get_config, register_config
+
+        name, client_kw, reqs, parse_req = families[label]
+        gc.collect()  # an earlier phase's client, so the peak is this model's
+        torch.cuda.empty_cache()
+        # The byte tokenizer's special ids (as LLAMA3_8B_CONFIG has them).
+        register_config(get_config(name).with_(bos_token_id=256, eos_token_id=257,
+                                               pad_token_id=258))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        client = KLLMs(backend="cuda", model=name, param_seed=args.seed, attention_impl="flash",
+                       kv_pool_pages=160, **client_kw)
+        torch.cuda.synchronize()
+        engine = client.backend.engine
+        cfg = engine.config
+        L = cfg.num_layers
+        log({"phase": f"{label}_init", "seconds": time.perf_counter() - t0,
+             "param_bytes": engine.param_footprint_bytes(), "quantized": engine.quantized,
+             "health_hbm": client.backend.health()["hbm"],
+             "kv_layout": engine.kv_layout, "paged_attention_impl": engine.paged_attention_impl,
+             "attention_impl": cfg.attention_impl, "head_dim": cfg.head_dim,
+             "sliding_window": cfg.sliding_window, "window_layers": cfg.sliding_window_layers,
+             "attn_softcap": cfg.attn_softcap, "experts": cfg.num_experts,
+             "init_peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        counts, launches, embeds, _, stats, xla = serve_8b(label, client, reqs, parse_req, Record)
+        steps = sum(s for _, _, s, _ in launches)
+        prefills = sum(r for r, _, _, _ in launches)
+        kernel_decode = engine.paged_attention_impl == "cuda"
+        expected = {
+            "flash_attention": L * (prefills + len(embeds)),
+            "paged_decode_attention": L * steps if kernel_decode else 0,
+            "decode_prefix_attention": 0,
+            "w4_matmul": ((4 * L + 1) * (prefills + steps) + 4 * L * len(embeds)
+                          if engine.quantized == "int4" else 0),
+            "threefry_uniform_rows": sampled_draws(launches),
+            "levenshtein": LEV_PLANNED["launches"],
+        }
+        expected_xla = 0 if kernel_decode else len(launches)
+        prompt_lens = [len(client.backend.tokenizer.apply_chat_template(r["messages"],
+                                                                       add_generation_prompt=True))
+                       for r in reqs]
+        longest = max(prompt_lens)
+        layouts = [s["kv_layout"] for s in stats]
+        rec = {"phase": f"{label}_expected_launches", "expected": expected, "counts": counts,
+               "paged_attn_xla_dispatch": xla, "expected_xla_dispatch": expected_xla,
+               "layouts": layouts, "longest_prompt": longest,
+               "prefill_ms": [s["prefill_s"] * 1e3 for s in stats],
+               "decode_ms_per_step": [s["decode_s"] * 1e3 / max(s["decode_steps"], 1)
+                                      for s in stats],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if cfg.sliding_window is not None or cfg.attn_softcap is not None:
+            rec["plain_decode_attention"] = plain_decode_ms(engine, stats)
+        log(rec)
+        if counts != expected or xla != expected_xla or set(layouts) != {"paged"}:
+            raise AssertionError(f"{label} launch counts {counts} != expected {expected}, "
+                                 f"xla dispatches {xla} != {expected_xla}, layouts {layouts}")
+        if cfg.sliding_window is not None and longest <= cfg.sliding_window:
+            raise AssertionError(f"{label}: the longest prompt ({longest}) is inside the window")
+        check_consensus_window(label)
+        client.close()
+        del client, engine
+
     # 9a. bf16 weights, paged decode: K2 and K1.
     if "8b" in phases:
         t0 = time.perf_counter()
-        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed)
+        # The page pool is sized once, at its first build (as in the JAX
+        # engine): 128 pages of 64 tokens hold every launch served here but
+        # the real OOM drill's group (a solo of that drill takes 111: 46
+        # prompt pages, 32 rows of two generation pages, the trash page), so
+        # only that group decodes dense.
+        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed,
+                       kv_pool_pages=128)
         torch.cuda.synchronize()
         engine = client.backend.engine
         log({"phase": "8b_init", "seconds": time.perf_counter() - t0,
              "param_bytes": engine.param_footprint_bytes(),
              "paged_attention_impl": engine.paged_attention_impl,
              "attention_impl": engine.config.attention_impl})
-        counts, launches, embeds, outputs = serve_8b("8b", client)
+        counts, launches, embeds, outputs, *_ = serve_8b("8b", client)
         L = engine.config.num_layers
         del engine  # the rebuild below must be able to free the engine it replaces
         for name in ("flash_attention", "paged_decode_attention", "threefry_uniform_rows"):
@@ -3031,7 +3355,7 @@ def main(argv=None) -> int:
              "kv_layout": engine.kv_layout,
              "decode_attention_impl": engine.config.decode_attention_impl,
              "attention_impl": engine.config.attention_impl})
-        counts, launches, embeds, _ = serve_8b("8b_int4", client)
+        counts, launches, embeds, *_ = serve_8b("8b_int4", client)
         cfg8 = engine.config
         L = cfg8.num_layers
         G = cfg8.num_heads // cfg8.num_kv_heads
@@ -3059,6 +3383,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         if "loop" in phases:
             loop_int4()
+
+    # 11. The other model families at full published width (seeded weights,
+    # the byte tokenizer's special ids): Gemma-2-9B and Mistral-7B in bf16
+    # on the paged path (K2 with softcap, window and head dim 256 in
+    # prefill; the paged decode on the reference attention, which the JAX
+    # package's routing gives softcapped and windowed models), Mixtral-8x7B
+    # quantized (K2, K1, K4 on attention and the head; int8 experts).
+    for label in FAMILY_PHASES:
+        if label in phases:
+            serve_family(label)
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # 10. The watchdog and the replica set at tiny through the kernels
     # (after every counted window: a hung launch's thread outlives the run).

@@ -17,9 +17,9 @@ Design, as in the JAX loop:
   copied on the first divergent write; generation pages reserved at
   admission), and the step is ``paged_verify_step`` (the paged-decode kernel
   on a card, one table row per slot) plus the fresh column's write into the
-  pool. The engine's pool is sized once, for the loop's worst case, and pinned
-  (``LocalEngine._ensure_kv_pool(..., pin=True)``): a coalesced launch never
-  replaces it while the loop holds page ids.
+  pool. The engine's pool is sized once (``LocalEngine._ensure_kv_pool``,
+  for the loop's worst case when the loop builds it first) and never
+  replaced, as in the JAX engine.
 - Sampling is per ROW (``_sample_rows``: temperature[W],
   top_p[W], greedy at temperature 0, untempered logprobs). Row r draws from
   ``fold_in(fold_in(key(seed_r), gen_len_r + 1), sample_idx_r)`` (the first
@@ -451,7 +451,7 @@ class ContinuousDecodeLoop:
             pool = getattr(engine, "_kv_pool", None)
             self._pool_pages_planned = (
                 pool.allocator.total_pages
-                if pool is not None and engine._pool_fixed()
+                if pool is not None
                 else int(engine.kv_pool_pages or self._default_pool_pages())
             )
         else:
@@ -678,11 +678,11 @@ class ContinuousDecodeLoop:
         W, P, G = self.width, self.max_prompt, self.max_new
         if self.paged:
             # One flat KV pool instead of dense per-slot caches; the engine
-            # owns it, sized once and pinned, so prefix-cache page runs and
-            # loop rows share pages and no coalesced launch replaces it.
+            # owns it, sized once, so prefix-cache page runs and loop rows
+            # share pages.
             from ..ops.paged_attention import launch_paged_attention_impl
 
-            self._pool = engine._ensure_kv_pool(min_pages=self._pool_pages_planned, pin=True)
+            self._pool = engine._ensure_kv_pool(min_pages=self._pool_pages_planned)
             self._pool_pages_planned = self._pool.allocator.total_pages
             # Resolved once per loop build (failpoint-aware, counted): never
             # per step.

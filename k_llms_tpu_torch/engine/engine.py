@@ -360,11 +360,10 @@ class LocalEngine:
         self.kv_layout = kv_layout
         self.kv_page_size = int(kv_page_size)
         self.paged_attention_impl = resolve_paged_attention_impl(
-            paged_attention_impl, device=self.device
+            paged_attention_impl, device=self.device, config=self.config
         )
         self.kv_pool_pages = kv_pool_pages
         self._kv_pool: Optional[PagedKVPool] = None
-        self._kv_pool_pinned = False
         # Prompt-prefix KV cache (LRU over full prompts). 0 disables. Value:
         # (first_logits, prefix KVCache or PagedPrefixRun, prompt_len,
         # np.int32 token ids).
@@ -606,40 +605,24 @@ class LocalEngine:
         return first_logits, prefix
 
     # -- paged KV pool -----------------------------------------------------
-    def _pool_fixed(self) -> bool:
-        """Whether the page pool, once built, stays for the engine's
-        lifetime: with a prefix cache or an explicit ``kv_pool_pages`` (as
-        in the JAX engine), or once a continuous loop pinned it (the loop
-        holds page ids across steps)."""
-        return self.prefix_cache_size > 0 or self.kv_pool_pages is not None or self._kv_pool_pinned
-
-    def _ensure_kv_pool(self, min_pages: int = 0, pin: bool = False) -> PagedKVPool:
-        """The engine's page pool, sized as in the JAX engine when first
-        built: an explicit ``kv_pool_pages`` wins; else the caller's
-        ``min_pages``, or, with a prefix cache, one 2048-token run per entry
-        plus one in flight, and at least 8 pages. With a prefix cache or an
-        explicit ``kv_pool_pages`` the pool is then fixed for the engine's
-        lifetime (entries hold its pages); ``pin=True`` (the continuous
-        loop, which sizes the pool for its own worst case) fixes it too.
-        Otherwise nothing outlives a launch in the pool, and a pool too
-        small for a launch is replaced by a larger one between launches,
-        where the JAX engine would decode that launch dense; the tokens are
-        the same either way."""
+    def _ensure_kv_pool(self, min_pages: int = 0) -> PagedKVPool:
+        """Build (or return) the engine's page pool, as the JAX engine does:
+        a fixed allocation for the engine's lifetime, sized when first
+        built. An explicit ``kv_pool_pages`` wins; else the caller's
+        ``min_pages`` (the first paged launch's need, or the continuous
+        loop's worst case), or, with a prefix cache, one 2048-token run per
+        entry plus one in flight, and at least 8 pages. A later launch that
+        does not fit raises :class:`PagePoolExhausted` at allocation and
+        decodes dense; a rebuild replaces the whole engine, pool included."""
         with self._launch_lock:
-            pool = self._kv_pool
-            fixed = self._pool_fixed()
-            if pool is not None and (fixed or pool.allocator.total_pages >= max(int(min_pages), 8)):
-                self._kv_pool_pinned = self._kv_pool_pinned or pin
-                return pool
-            self._kv_pool_pinned = self._kv_pool_pinned or pin
-            cache_pages = 0
-            if self.prefix_cache_size:
-                cache_pages = (self.prefix_cache_size + 1) * pages_for(
-                    min(self.config.max_seq_len, 2048), self.kv_page_size
-                )
-            total = max(int(self.kv_pool_pages or 0), int(min_pages), cache_pages, 8)
-            self._kv_pool = None  # free the old pool before allocating
-            self._kv_pool = PagedKVPool(self.config, total, self.kv_page_size, self.device)
+            if self._kv_pool is None:
+                cache_pages = 0
+                if self.prefix_cache_size:
+                    cache_pages = (self.prefix_cache_size + 1) * pages_for(
+                        min(self.config.max_seq_len, 2048), self.kv_page_size
+                    )
+                total = max(int(self.kv_pool_pages or 0), int(min_pages), cache_pages, 8)
+                self._kv_pool = PagedKVPool(self.config, total, self.kv_page_size, self.device)
             return self._kv_pool
 
     def _alloc_pages_with_evict(self, count: int) -> List[int]:
@@ -837,13 +820,8 @@ class LocalEngine:
                 self.on_launch_ok()
             return results
         # Outside the handler: the exception's frames, and the device tensors
-        # they hold, are gone. A growing pool (no prefix cache, no fixed
-        # size: nothing in it outlives a launch) sized for the failed group
-        # goes too, so each retry sizes its own; then the cached blocks go
-        # back to the card.
-        if not self._pool_fixed():
-            with self._launch_lock:
-                self._kv_pool = None
+        # they hold, are gone; the cached blocks go back to the card. The
+        # page pool stays, as in the JAX engine.
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         FAILURE_EVENTS.record("engine.oom")

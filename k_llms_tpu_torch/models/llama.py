@@ -1,16 +1,23 @@
-"""Llama-family transformer (GQA + RoPE + RMSNorm + SwiGLU) in PyTorch.
+"""Llama-family transformer (GQA + RoPE + RMSNorm + SwiGLU) in PyTorch, with
+the Gemma-2, Mistral and Mixtral variants.
 
-Counterpart of ``k_llms_tpu/models/llama.py``, Llama family only: the
-prefill (``prefill``) and its continuation over a cached prefix
-(``prefill_continue``) or by chunks, the full-sequence ``forward``/``encode`` behind
-embeddings, the dense shared-prefix decode step (``decode_step``) and the
-paged decode step (``paged_verify_step`` at ``Sq == 1``). Parameters keep the
-JAX package's tree: a plain dict whose per-layer weights are stacked on a
-leading layer axis, laid out (features_in, features_out) so
+Counterpart of ``k_llms_tpu/models/llama.py``: the prefill (``prefill``) and
+its continuation over a cached prefix (``prefill_continue``) or by chunks,
+the full-sequence ``forward``/``encode`` behind embeddings, the dense
+shared-prefix decode step (``decode_step``, ``verify_step`` at ``Sq == 1``)
+and the paged decode step (``paged_verify_step`` at ``Sq == 1``). The
+variants follow the JAX functions: offset norms, post-block norms, GeGLU,
+the embedding scale and the attention and logit softcaps (Gemma-2), sliding
+windows on every layer (Mistral) or on the even layers (Gemma-2), and the
+top-k mixture-of-experts MLP computed densely over all experts (Mixtral).
+Parameters keep the JAX package's tree: a plain dict whose per-layer weights
+are stacked on a leading layer axis, laid out (features_in, features_out) so
 ``params_from_numpy`` carries a JAX tree over as it is, quantized leaves
-included. Every matmul weight goes through ``quant.qdot``, so a weight may be
-a tensor, an int8 ``QTensor`` or an int4 ``Q4Tensor`` (the w4a16 kernel).
-The layer stack is a Python loop over that axis.
+included. Every matmul weight goes through ``quant.qdot`` (the expert stacks
+through ``quant.qeinsum``), so a weight may be a tensor, an int8 ``QTensor``
+or an int4 ``Q4Tensor`` (the w4a16 kernel). The layer stack is a Python
+loop over that axis: where the JAX function scans a per-layer window flag,
+each layer here picks its window and its masks as Python values.
 
 bf16 rounds where the JAX functions round: ``rms_norm`` casts the normalised
 activations to the model dtype before the weight multiply, ``_gqa_values``
@@ -25,12 +32,11 @@ with per-row write offsets (the continuous loop's dense step), and
 one prompt chunk at a time through ``prefill_continue``. With ``decode_attention_impl="flash"`` its
 attention over the shared prompt prefix runs the decode-prefix kernel
 (``ops.attention.decode_prefix_attention``) and merges the per-row generated
-tail in plain tensor code, behind the JAX package's gate.
+tail in plain tensor code, behind the JAX package's gate (which leaves out
+softcapped and windowed models, as the paged kernel's gate does).
 
 Not ported yet (raise ``NotImplementedError``): the verify step at
-``Sq > 1``, mixture-of-experts MLPs, the
-Gemma variants (offset norms, post-block norms, softcaps, embedding scale,
-GeGLU), sliding windows, the ring (sequence-parallel) decode arm.
+``Sq > 1`` and the ring (sequence-parallel) decode arm.
 """
 
 from __future__ import annotations
@@ -44,25 +50,28 @@ import torch
 from ..ops.attention import NEG_INF, decode_prefix_attention, flash_attention
 from ..ops.w4matmul import Q4Tensor
 from .config import ModelConfig
-from .quant import QTensor, qdot
+from .quant import QTensor, qdot, qeinsum
 
 Params = Dict[str, Any]
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
 _BIAS_KEYS = ("bq", "bk", "bv")
+_POST_NORM_KEYS = ("post_attn_norm", "post_mlp_norm")
+
+
+def _layer_keys(config: ModelConfig) -> Tuple[str, ...]:
+    """The per-layer weights a config's tree holds."""
+    return (
+        _LAYER_KEYS
+        + (_BIAS_KEYS if config.qkv_bias else ())
+        + (_POST_NORM_KEYS if config.post_block_norms else ())
+        + (("w_router",) if config.num_experts > 0 else ())
+    )
 
 
 def check_supported(config: ModelConfig) -> None:
-    """Raise for config features outside this port's Llama-family slice."""
+    """Raise for config values this port does not implement."""
     unsupported = []
-    if config.num_experts:
-        unsupported.append("mixture-of-experts MLPs")
-    if config.sliding_window is not None:
-        unsupported.append("sliding-window attention")
-    if config.attn_softcap is not None or config.logit_softcap is not None:
-        unsupported.append("softcaps")
-    if config.norm_offset or config.embed_scale or config.post_block_norms or config.act != "silu":
-        unsupported.append("Gemma variants")
     if config.decode_attention_impl not in ("xla", "flash"):
         unsupported.append(f"decode_attention_impl={config.decode_attention_impl!r}")
     if config.attention_impl not in ("xla", "flash"):
@@ -100,25 +109,40 @@ def init_params(
             part.copy_(draw.mul_(scale))
         return out
 
+    def norm(shape):
+        # Offset norms (Gemma) scale by (1 + w): their identity is 0.
+        fill = torch.zeros if config.norm_offset else torch.ones
+        return fill(shape, dtype=dtype, device=device)
+
     layers = {
-        "attn_norm": torch.ones((L, H), dtype=dtype, device=device),
+        "attn_norm": norm((L, H)),
         "wq": normal((L, H, Q), 1.0 / math.sqrt(H), True),
         "wk": normal((L, H, KV), 1.0 / math.sqrt(H), True),
         "wv": normal((L, H, KV), 1.0 / math.sqrt(H), True),
         "wo": normal((L, Q, H), 1.0 / math.sqrt(Q), True),
-        "mlp_norm": torch.ones((L, H), dtype=dtype, device=device),
-        "w_gate": normal((L, H, I), 1.0 / math.sqrt(H), True),
-        "w_up": normal((L, H, I), 1.0 / math.sqrt(H), True),
-        "w_down": normal((L, I, H), 1.0 / math.sqrt(I), True),
+        "mlp_norm": norm((L, H)),
     }
+    if config.num_experts > 0:  # Mixtral: a router and E experts per layer
+        E = config.num_experts
+        layers["w_router"] = normal((L, H, E), 1.0 / math.sqrt(H), True)
+        layers["w_gate"] = normal((L, E, H, I), 1.0 / math.sqrt(H), True)
+        layers["w_up"] = normal((L, E, H, I), 1.0 / math.sqrt(H), True)
+        layers["w_down"] = normal((L, E, I, H), 1.0 / math.sqrt(I), True)
+    else:
+        layers["w_gate"] = normal((L, H, I), 1.0 / math.sqrt(H), True)
+        layers["w_up"] = normal((L, H, I), 1.0 / math.sqrt(H), True)
+        layers["w_down"] = normal((L, I, H), 1.0 / math.sqrt(I), True)
     if config.qkv_bias:
         layers["bq"] = torch.zeros((L, Q), dtype=dtype, device=device)
         layers["bk"] = torch.zeros((L, KV), dtype=dtype, device=device)
         layers["bv"] = torch.zeros((L, KV), dtype=dtype, device=device)
+    if config.post_block_norms:  # Gemma-2: norms on the attention and MLP outputs
+        layers["post_attn_norm"] = norm((L, H))
+        layers["post_mlp_norm"] = norm((L, H))
     return {
         "embed": normal((V, H), 1.0 / math.sqrt(H)),
         "layers": layers,
-        "final_norm": torch.ones((H,), dtype=dtype, device=device),
+        "final_norm": norm((H,)),
         "lm_head": normal((H, V), 1.0 / math.sqrt(H)),
     }
 
@@ -149,7 +173,7 @@ def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cpu") -
             return QTensor(array(x.q, torch.int8), array(x.scale, torch.float32))
         return array(x, dtype)
 
-    layer_keys = _LAYER_KEYS + (_BIAS_KEYS if config.qkv_bias else ())
+    layer_keys = _layer_keys(config)
     missing = [k for k in layer_keys if k not in tree["layers"]]
     if missing:
         raise ValueError(f"parameter tree lacks layer weights {missing}")
@@ -193,10 +217,51 @@ def init_cache(config: ModelConfig, batch: int, max_len: int, device, dtype=None
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, offset: bool = False) -> torch.Tensor:
+    """RMSNorm; ``offset`` (Gemma) scales by ``1 + w``, formed in f32 and
+    cast to x's dtype."""
     x32 = x.float()
     scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * scale).to(x.dtype) * weight
+    w = (1.0 + weight.float()).to(x.dtype) if offset else weight
+    return (x32 * scale).to(x.dtype) * w
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 soft capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)
+
+
+def _activation(config: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if config.act == "gelu":  # GeGLU (Gemma): the tanh approximation
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    return torch.nn.functional.silu(x)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest values in descending
+    order, a tie taken by the lower index (a stable descending sort;
+    ``torch.topk`` does not promise which index wins a tie)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_mlp(config: ModelConfig, layer: Params, h: torch.Tensor) -> torch.Tensor:
+    """Mixtral's top-k token-choice MoE, computed densely over every expert
+    as the JAX function does (one einsum per projection over the stacked
+    experts; no gather, no sparse dispatch): router logits in f32, a softmax
+    over the k selected only, scattered back to a [B, S, E] combine weight
+    by a one-hot sum."""
+    E, K = config.num_experts, config.num_experts_per_tok
+    router_logits = (h @ layer["w_router"]).float()  # [B, S, E]
+    top_vals, top_idx = _top_k(router_logits, K)
+    top_w = torch.softmax(top_vals, dim=-1)  # [B, S, K]
+    one_hot = torch.nn.functional.one_hot(top_idx, E).float()  # [B, S, K, E]
+    combine = (one_hot * top_w[..., None]).sum(dim=-2)  # [B, S, E]
+
+    gate = _activation(config, qeinsum("bsh,ehi->bsei", h, layer["w_gate"]))
+    up = qeinsum("bsh,ehi->bsei", h, layer["w_up"])
+    expert_out = qeinsum("bsei,eih->bseh", gate * up, layer["w_down"])
+    return torch.einsum("bseh,bse->bsh", expert_out, combine.to(expert_out.dtype))
 
 
 def _rope_inv_freq(d: int, theta: float, scaling, device) -> torch.Tensor:
@@ -270,7 +335,7 @@ def _gqa_values_shared(weights: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _attn_qkv(config: ModelConfig, layer: Params, x: torch.Tensor, positions: torch.Tensor):
     """Pre-norm -> QKV projection (+ optional biases) -> head split -> RoPE."""
     B, Sq, _ = x.shape
-    h = rms_norm(x, layer["attn_norm"], config.rms_eps)
+    h = rms_norm(x, layer["attn_norm"], config.rms_eps, config.norm_offset)
     q, k, v = qdot(h, layer["wq"]), qdot(h, layer["wk"]), qdot(h, layer["wv"])
     if "bq" in layer:  # Qwen2-family QKV biases
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
@@ -283,14 +348,52 @@ def _attn_qkv(config: ModelConfig, layer: Params, x: torch.Tensor, positions: to
 
 
 def _mlp_sublayer(config: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
-    """Post-attention SwiGLU MLP with its residual."""
-    h = rms_norm(x, layer["mlp_norm"], config.rms_eps)
-    gate = torch.nn.functional.silu(qdot(h, layer["w_gate"]))
-    return x + qdot(gate * qdot(h, layer["w_up"]), layer["w_down"])
+    """Post-attention MLP sublayer (gated dense MLP or MoE) with its
+    residual; Gemma-2 normalises the MLP's output before the add."""
+    offset = config.norm_offset
+    h = rms_norm(x, layer["mlp_norm"], config.rms_eps, offset)
+    if "w_router" in layer:  # MoE (Mixtral)
+        out = _moe_mlp(config, layer, h)
+    else:
+        gate = _activation(config, qdot(h, layer["w_gate"]))
+        out = qdot(gate * qdot(h, layer["w_up"]), layer["w_down"])
+    if "post_mlp_norm" in layer:
+        out = rms_norm(out, layer["post_mlp_norm"], config.rms_eps, offset)
+    return x + out
 
 
-def _attn_residual(layer: Params, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    return x + qdot(attn, layer["wo"])
+def _attn_residual(config: ModelConfig, layer: Params, x: torch.Tensor,
+                   attn: torch.Tensor) -> torch.Tensor:
+    """Attention output projection plus the block's first residual."""
+    out = qdot(attn, layer["wo"])
+    if "post_attn_norm" in layer:
+        out = rms_norm(out, layer["post_attn_norm"], config.rms_eps, config.norm_offset)
+    return x + out
+
+
+def _is_local(config: ModelConfig, i: int) -> bool:
+    """Whether layer ``i`` attends through the sliding window: every layer
+    of an "all" config, the even layers of an alternating one (the JAX
+    ``_local_layer_flags``)."""
+    if config.sliding_window is None:
+        return False
+    return config.sliding_window_layers == "all" or i % 2 == 0
+
+
+def _layer_window(config: ModelConfig, i: int) -> Optional[int]:
+    """Layer ``i``'s window for the flash kernel: the config's window on a
+    local layer, none on a global one."""
+    return config.sliding_window if _is_local(config, i) else None
+
+
+def _pick(config: ModelConfig, i: int, windowed, global_):
+    """Layer ``i``'s mask: the windowed one on a local layer (or everywhere
+    when no layer is global), else the global one."""
+    return windowed if global_ is None or _is_local(config, i) else global_
+
+
+def _alternating(config: ModelConfig) -> bool:
+    return config.sliding_window is not None and config.sliding_window_layers != "all"
 
 
 def _merge_prefix_tail(q, cache_k, cache_v, key_mask, scale, out_p, m_p, l_p):
@@ -329,14 +432,17 @@ def flash_prefix_gate(config: ModelConfig, B: int, R: int, Sq: int) -> bool:
 
 
 def decode_attention(q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
-                     *, scale: float, flash_prefix: bool) -> torch.Tensor:
+                     *, scale: float, flash_prefix: bool,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """Decode-step attention over a shared prefix (pk/pv [R, P, KVH, D],
     prefix_mask [B, Sq, P], prefix_lengths [R]) and each row's own cache
     (cache_k/cache_v [B, G, KVH, D], key_mask [B, Sq, G]) for queries q
     [B, Sq, QH, D]. ``flash_prefix`` runs the decode-prefix kernel on the
-    prefix and merges the tail; otherwise one concatenated softmax. Returns
-    [B, Sq, QH, D] f32. Shared by the dense and the paged reference step, so
-    the two agree operation for operation."""
+    prefix and merges the tail (never with a softcap: the gate leaves those
+    models out); otherwise one concatenated softmax, the ``softcap`` applied
+    to the scaled scores before the masks. Returns [B, Sq, QH, D] f32.
+    Shared by the dense and the paged reference step, so the two agree
+    operation for operation."""
     if flash_prefix:
         out_p, m_p, l_p = decode_prefix_attention(
             q[:, 0].contiguous(), pk, pv, prefix_lengths, sm_scale=scale
@@ -346,8 +452,12 @@ def decode_attention(q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_
             out_p[:, :, None], m_p[:, :, None], l_p[:, :, None],
         )
     scores = _gqa_scores(q, cache_k) * scale  # [B, QH, Sq, G] f32
+    if softcap is not None:
+        scores = _softcap(scores, softcap)
     scores = torch.where(key_mask[:, None], scores, torch.full_like(scores, NEG_INF))
     p_scores = _gqa_scores_shared(q, pk) * scale  # [B, QH, Sq, P]
+    if softcap is not None:
+        p_scores = _softcap(p_scores, softcap)
     p_scores = torch.where(prefix_mask[:, None], p_scores, torch.full_like(p_scores, NEG_INF))
     weights = torch.softmax(torch.cat([p_scores, scores], dim=-1), dim=-1)
     P = pk.shape[1]
@@ -361,10 +471,12 @@ def _block(
     positions: torch.Tensor,
     key_mask: torch.Tensor,
     key_lengths: torch.Tensor,
+    window: Optional[int],
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One full-sequence (prefill) block. x: [B, S, H]; key_mask: [B|1, S, S]
-    booleans for the plain path; key_lengths: [B] valid keys for the flash
-    path. Returns (x, (k, v)) with k/v [B, S, KVH, D] — the layer's cache."""
+    booleans for the plain path (this layer's, windowed or not); key_lengths:
+    [B] valid keys and ``window`` this layer's window for the flash path.
+    Returns (x, (k, v)) with k/v [B, S, KVH, D] — the layer's cache."""
     B, Sq, _ = x.shape
     scale = config.query_scale or 1.0 / math.sqrt(config.head_dim)
     q, k, v = _attn_qkv(config, layer, x, positions)
@@ -376,28 +488,67 @@ def _block(
             causal=True,
             key_lengths=key_lengths,
             sm_scale=scale,
+            softcap=config.attn_softcap,
+            window=window,
         ).transpose(1, 2)
     else:
         scores = _gqa_scores(q, k) * scale  # [B, QH, S, S] f32
+        if config.attn_softcap is not None:
+            scores = _softcap(scores, config.attn_softcap)
         scores = torch.where(key_mask[:, None], scores, torch.full_like(scores, NEG_INF))
         attn = _gqa_values(torch.softmax(scores, dim=-1), v)
     attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
-    return _mlp_sublayer(config, layer, _attn_residual(layer, x, attn)), (k, v)
+    return _mlp_sublayer(config, layer, _attn_residual(config, layer, x, attn)), (k, v)
 
 
-def _apply_stack(config, params, x, positions, key_mask, key_lengths):
-    """All layers of the full-sequence path. Returns (x, k [L, B, S, KVH, D],
-    v [L, B, S, KVH, D])."""
+def _apply_stack(config, params, x, positions, key_mask, key_lengths, key_mask_global=None):
+    """All layers of the full-sequence path; ``key_mask`` is the windowed
+    mask where the config has a window, ``key_mask_global`` the causal one
+    its global layers take (alternating configs only). Returns (x, k [L, B,
+    S, KVH, D], v [L, B, S, KVH, D])."""
     ks, vs = [], []
     for i in range(config.num_layers):
-        x, (k, v) = _block(config, _layer(params, i), x, positions, key_mask, key_lengths)
+        x, (k, v) = _block(
+            config, _layer(params, i), x, positions,
+            _pick(config, i, key_mask, key_mask_global), key_lengths, _layer_window(config, i),
+        )
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
 
 
-def _logits(params: Params, h: torch.Tensor) -> torch.Tensor:
-    return qdot(h, params["lm_head"]).float()
+def _embed(config: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if config.embed_scale:  # Gemma: sqrt(H), rounded to the model dtype first
+        x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=x.dtype, device=x.device)
+    return x
+
+
+def _final_norm(config: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, params["final_norm"], config.rms_eps, config.norm_offset)
+
+
+def _logits(config: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    logits = qdot(h, params["lm_head"]).float()
+    if config.logit_softcap is not None:
+        logits = _softcap(logits, config.logit_softcap)
+    return logits
+
+
+def _full_sequence_masks(config: ModelConfig, causal: torch.Tensor, valid: torch.Tensor):
+    """(key_mask, key_mask_global) of a full-sequence pass from its causal
+    [S, S] mask and the valid keys [B, S]: with a window, query i sees keys
+    (i - W, i]; an alternating config keeps the causal mask for its global
+    layers."""
+    key_mask_global = None
+    if config.sliding_window is not None:
+        S = causal.shape[0]
+        band = causal & torch.ones((S, S), dtype=torch.bool, device=causal.device).triu(
+            -(config.sliding_window - 1))
+        if _alternating(config):
+            key_mask_global = causal[None] & valid[:, None, :]
+        causal = band
+    return causal[None] & valid[:, None, :], key_mask_global
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +560,7 @@ def forward(config: ModelConfig, params: Params, tokens: torch.Tensor, pad_mask:
     """Full-sequence causal forward (no cache). Returns (logits f32 [B, S,
     V], final hidden states [B, S, H])."""
     h = encode(config, params, tokens, pad_mask)
-    return _logits(params, h), h
+    return _logits(config, params, h), h
 
 
 def encode(config: ModelConfig, params: Params, tokens: torch.Tensor, pad_mask: torch.Tensor):
@@ -418,12 +569,12 @@ def encode(config: ModelConfig, params: Params, tokens: torch.Tensor, pad_mask: 
     check_supported(config)
     B, S = tokens.shape
     positions = (torch.cumsum(pad_mask.long(), dim=1) - 1).clamp_min(0)
-    x = params["embed"][tokens.long()]
+    x = _embed(config, params, tokens)
     causal = torch.ones((S, S), dtype=torch.bool, device=tokens.device).tril()
-    key_mask = causal[None] & pad_mask.bool()[:, None, :]
+    key_mask, key_mask_global = _full_sequence_masks(config, causal, pad_mask.bool())
     key_lengths = pad_mask.long().sum(dim=1).to(torch.int32)
-    x, _, _ = _apply_stack(config, params, x, positions, key_mask, key_lengths)
-    return rms_norm(x, params["final_norm"], config.rms_eps)
+    x, _, _ = _apply_stack(config, params, x, positions, key_mask, key_lengths, key_mask_global)
+    return _final_norm(config, params, x)
 
 
 def prefill(config: ModelConfig, params: Params, tokens: torch.Tensor, prompt_len: int):
@@ -434,14 +585,14 @@ def prefill(config: ModelConfig, params: Params, tokens: torch.Tensor, prompt_le
     B, S = tokens.shape
     device = tokens.device
     positions = torch.arange(S, device=device)[None, :].expand(B, S)
-    x = params["embed"][tokens.long()]
+    x = _embed(config, params, tokens)
     causal = torch.ones((S, S), dtype=torch.bool, device=device).tril()
     valid = torch.arange(S, device=device)[None, :] < int(prompt_len)
-    key_mask = causal[None] & valid[:, None, :]
+    key_mask, key_mask_global = _full_sequence_masks(config, causal, valid)
     key_lengths = torch.full((B,), int(prompt_len), dtype=torch.int32, device=device)
-    x, k, v = _apply_stack(config, params, x, positions, key_mask, key_lengths)
-    h = rms_norm(x[:, int(prompt_len) - 1], params["final_norm"], config.rms_eps)
-    return _logits(params, h), (k, v)
+    x, k, v = _apply_stack(config, params, x, positions, key_mask, key_lengths, key_mask_global)
+    h = _final_norm(config, params, x[:, int(prompt_len) - 1])
+    return _logits(config, params, h), (k, v)
 
 
 def prefill_continue(
@@ -464,18 +615,24 @@ def prefill_continue(
     with ``q_offset = prefix_len`` and ``key_lengths = total_len`` (a valid
     row sees keys up to its own position either way, so the key length
     changes only the padded rows); otherwise one masked softmax over the
-    whole cache, as in the JAX function. Returns (last-valid-token logits
-    [1, V], the cache)."""
+    whole cache, as in the JAX function. Windows and softcaps apply as in
+    prefill, the window at absolute positions. Returns (last-valid-token
+    logits [1, V], the cache)."""
     check_supported(config)
     B, Sq = suffix_tokens.shape
     Btot = cache.k.shape[2]
     device = suffix_tokens.device
     p, total = int(prefix_len), int(total_len)
     positions = (p + torch.arange(Sq, device=device))[None, :].expand(B, Sq)
-    x = params["embed"][suffix_tokens.long()]
+    x = _embed(config, params, suffix_tokens)
     rows = p + torch.arange(Sq, device=device)[None, :, None]  # absolute query positions
     cols = torch.arange(Btot, device=device)[None, None, :]
     key_mask = cols <= rows  # [1, Sq, Btot]
+    key_mask_global = None
+    if config.sliding_window is not None:
+        if _alternating(config):
+            key_mask_global = key_mask
+        key_mask = key_mask & (cols > rows - config.sliding_window)
     key_lengths = torch.full((B,), total, dtype=torch.int32, device=device)
     scale = config.query_scale or 1.0 / math.sqrt(config.head_dim)
     for i in range(config.num_layers):
@@ -492,16 +649,21 @@ def prefill_continue(
                 causal=True,
                 key_lengths=key_lengths,
                 sm_scale=scale,
+                softcap=config.attn_softcap,
+                window=_layer_window(config, i),
                 q_offset=p,
             ).transpose(1, 2)
         else:
             scores = _gqa_scores(q, cache_k) * scale  # [B, QH, Sq, Btot] f32
-            scores = torch.where(key_mask[:, None], scores, torch.full_like(scores, NEG_INF))
+            if config.attn_softcap is not None:
+                scores = _softcap(scores, config.attn_softcap)
+            mask = _pick(config, i, key_mask, key_mask_global)
+            scores = torch.where(mask[:, None], scores, torch.full_like(scores, NEG_INF))
             attn = _gqa_values(torch.softmax(scores, dim=-1), cache_v)
         attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
-        x = _mlp_sublayer(config, layer, _attn_residual(layer, x, attn))
-    h = rms_norm(x[:, total - p - 1], params["final_norm"], config.rms_eps)
-    return _logits(params, h), cache
+        x = _mlp_sublayer(config, layer, _attn_residual(config, layer, x, attn))
+    h = _final_norm(config, params, x[:, total - p - 1])
+    return _logits(config, params, h), cache
 
 
 def _block_decode(
@@ -536,9 +698,31 @@ def _block_decode(
     attn = decode_attention(
         q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
         scale=scale, flash_prefix=flash_prefix_gate(config, B, pk.shape[0], Sq),
+        softcap=config.attn_softcap,
     )
     attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
-    return _mlp_sublayer(config, layer, _attn_residual(layer, x, attn))
+    return _mlp_sublayer(config, layer, _attn_residual(config, layer, x, attn))
+
+
+def _step_masks(config: ModelConfig, lengths, pl_row, positions, G: int, P: int):
+    """The one-token verify step's masks, as the JAX ``verify_step`` and
+    ``paged_verify_step`` build them at ``Sq == 1``: (self_mask [B, 1, G],
+    prefix_mask [B, 1, P], and their global twins for an alternating config,
+    else None). Gen slot s is visible when ``s <= lengths``; with a window
+    also ``s > lengths - W``, and prefix column c when ``c > position - W``."""
+    device = lengths.device
+    s = torch.arange(G, device=device)[None, None, :]
+    c = torch.arange(P, device=device)[None, None, :]
+    self_mask = s <= lengths[:, None, None]
+    prefix_mask = c < pl_row[:, None, None]
+    self_global = prefix_global = None
+    if config.sliding_window is not None:
+        W = config.sliding_window
+        if _alternating(config):
+            self_global, prefix_global = self_mask, prefix_mask
+        self_mask = self_mask & (s > lengths[:, None, None] - W)
+        prefix_mask = prefix_mask & (c > positions[:, :, None] - W)
+    return self_mask, prefix_mask, self_global, prefix_global
 
 
 def decode_step(
@@ -566,19 +750,21 @@ def decode_step(
     step = int(step)
 
     positions = (pl_row + step)[:, None]
-    x = params["embed"][token.long()[:, None]]
-    # Generated slots 0..step are valid after this step's write.
-    self_mask = (torch.arange(G, device=device) <= step)[None, None, :].expand(B, 1, G)
-    prefix_mask = torch.arange(P, device=device)[None, None, :] < pl_row[:, None, None]
+    x = _embed(config, params, token[:, None])
+    # Generated slots 0..step are valid after this step's write: the verify
+    # step's masks at lengths = step on every row.
+    self_mask, prefix_mask, self_global, prefix_global = _step_masks(
+        config, torch.full((B,), step, device=device), pl_row, positions, G, P)
     plen32 = pl.to(torch.int32)
     for i in range(config.num_layers):
         x = _block_decode(
             config, _layer(params, i), x, positions, gen_cache.k[i], gen_cache.v[i],
-            step, self_mask, prefix_mask=prefix_mask, prefix_kv=(prefix.k[i], prefix.v[i]),
-            prefix_lengths=plen32,
+            step, _pick(config, i, self_mask, self_global),
+            prefix_mask=_pick(config, i, prefix_mask, prefix_global),
+            prefix_kv=(prefix.k[i], prefix.v[i]), prefix_lengths=plen32,
         )
-    h = rms_norm(x, params["final_norm"], config.rms_eps)
-    return _logits(params, h[:, 0]), gen_cache
+    h = _final_norm(config, params, x)
+    return _logits(config, params, h[:, 0]), gen_cache
 
 
 def verify_step(
@@ -614,18 +800,19 @@ def verify_step(
     lengths = lengths.to(device=device, dtype=torch.int64)
 
     positions = pl_row[:, None] + lengths[:, None]  # [B, 1]
-    x = params["embed"][tokens.long()]
-    self_mask = torch.arange(G, device=device)[None, None, :] <= lengths[:, None, None]
-    prefix_mask = torch.arange(P, device=device)[None, None, :] < pl_row[:, None, None]
+    x = _embed(config, params, tokens)
+    self_mask, prefix_mask, self_global, prefix_global = _step_masks(
+        config, lengths, pl_row, positions, G, P)
     plen32 = pl.to(torch.int32)
     for i in range(config.num_layers):
         x = _block_decode(
             config, _layer(params, i), x, positions, gen_cache.k[i], gen_cache.v[i],
-            lengths, self_mask, prefix_mask=prefix_mask, prefix_kv=(prefix.k[i], prefix.v[i]),
-            prefix_lengths=plen32,
+            lengths, _pick(config, i, self_mask, self_global),
+            prefix_mask=_pick(config, i, prefix_mask, prefix_global),
+            prefix_kv=(prefix.k[i], prefix.v[i]), prefix_lengths=plen32,
         )
-    h = rms_norm(x, params["final_norm"], config.rms_eps)
-    return _logits(params, h), gen_cache
+    h = _final_norm(config, params, x)
+    return _logits(config, params, h), gen_cache
 
 
 def prefill_chunk_step(
@@ -707,11 +894,12 @@ def _block_paged(
     else:
         attn = paged_decode_attention_xla(
             q, pool_k_l, pool_v_l, prefix_idx, gen_idx, k, v, write_index,
-            key_mask, prefix_mask, sm_scale=scale, prefix_lengths=prefix_lengths,
+            key_mask, prefix_mask, sm_scale=scale, softcap=config.attn_softcap,
+            prefix_lengths=prefix_lengths,
             flash_prefix=flash_prefix_gate(config, B, prefix_idx.shape[0], Sq),
         )
     attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
-    x = _attn_residual(layer, x, attn)
+    x = _attn_residual(config, layer, x, attn)
     return _mlp_sublayer(config, layer, x), (k_col, v_col)
 
 
@@ -751,9 +939,13 @@ def paged_verify_step(
     lengths = lengths.to(device=device, dtype=torch.int64)
 
     positions = pl_row[:, None] + lengths[:, None]  # [B, 1]
-    x = params["embed"][tokens.long()]
-    self_mask = torch.arange(G, device=device)[None, None, :] <= lengths[:, None, None]
-    prefix_mask = torch.arange(P, device=device)[None, None, :] < pl_row[:, None, None]
+    x = _embed(config, params, tokens)
+    self_mask, prefix_mask, self_global, prefix_global = _step_masks(
+        config, lengths, pl_row, positions, G, P)
+    if config.attn_softcap is not None or config.sliding_window is not None:
+        # The JAX gate (``_block_paged``): the kernel serves neither softcaps
+        # nor windows; the engine resolves such configs to "xla" already.
+        attn_impl = "xla"
 
     # Layer-invariant arguments, built once per step: the kernel's tables,
     # or the reference's prefix lengths.
@@ -768,10 +960,11 @@ def paged_verify_step(
     for i in range(config.num_layers):
         x, (kc, vc) = _block_paged(
             config, _layer(params, i), x, positions, pool_k[i], pool_v[i],
-            prefix_idx, gen_idx, lengths, self_mask, prefix_mask,
+            prefix_idx, gen_idx, lengths, _pick(config, i, self_mask, self_global),
+            _pick(config, i, prefix_mask, prefix_global),
             page_tables, page_size, attn_impl, plen32,
         )
         k_cols.append(kc)
         v_cols.append(vc)
-    h = rms_norm(x, params["final_norm"], config.rms_eps)
-    return _logits(params, h), torch.stack(k_cols), torch.stack(v_cols)
+    h = _final_norm(config, params, x)
+    return _logits(config, params, h), torch.stack(k_cols), torch.stack(v_cols)

@@ -1,12 +1,14 @@
 """Weight-only quantization of the matmul weights (int8 and int4).
 
 Counterpart of ``k_llms_tpu/models/quant.py``, without the mesh helpers
-(the port has no tensor-parallel mesh yet) and without ``qeinsum`` (no
-mixture-of-experts models yet). A :class:`QTensor` (int8 payload,
-per-output-channel f32 scale) or a :class:`~k_llms_tpu_torch.ops.w4matmul.Q4Tensor`
-(packed nibbles, per-group f32 scales) takes the place of a weight in the
-parameter dict; ``qdot(x, w)`` dispatches on the weight's type, so the model
-code is quantization-agnostic. Embeddings and norms stay in the model dtype.
+(the port has no tensor-parallel mesh yet). A :class:`QTensor` (int8
+payload, per-output-channel f32 scale) or a
+:class:`~k_llms_tpu_torch.ops.w4matmul.Q4Tensor` (packed nibbles, per-group
+f32 scales) takes the place of a weight in the parameter dict; ``qdot(x, w)``
+dispatches on the weight's type, and ``qeinsum`` does the same for the
+mixture-of-experts einsums, so the model code is quantization-agnostic.
+Expert stacks ([L, E, in, out]) stay int8 under int4, as in the JAX package.
+Embeddings, norms and the MoE router stay in the model dtype.
 """
 
 from __future__ import annotations
@@ -103,6 +105,18 @@ def qdot(x: torch.Tensor, w: WeightLike) -> torch.Tensor:
     return x @ w
 
 
+def qeinsum(spec: str, x: torch.Tensor, w: WeightLike) -> torch.Tensor:
+    """``einsum(spec, x, w)`` for a plain tensor or a QTensor weight: the
+    int8 payload cast to x's dtype, then the squeezed per-channel scale on
+    the output, whose trailing axes line up with the weight's non-contracted
+    ones (the MoE einsums "bsh,ehi->bsei" and "bsei,eih->bseh"). Plain
+    PyTorch, as the JAX function is plain XLA."""
+    if isinstance(w, QTensor):
+        out = torch.einsum(spec, x, w.q.to(x.dtype))
+        return out * w.scale[..., 0, :].to(out.dtype)
+    return torch.einsum(spec, x, w)
+
+
 def int4_eligible_shape(ndim: int, k: int, n: int) -> bool:
     """Q4 needs whole 256-row K blocks and 128-column N blocks; stacks of
     more than three axes (expert weights) stay int8. Small test models fail
@@ -130,7 +144,10 @@ def quantize_params(params: Dict[str, Any], bits: int = 8) -> Dict[str, Any]:
     def quant(w):
         if isinstance(w, (QTensor, Q4Tensor)) or w.dim() < 3:
             return quantize_weight_bits(w, bits)
-        parts = [quantize_weight_bits(w[i], bits) for i in range(w.shape[0])]
+        # Eligibility is the whole stack's (an expert stack's four axes keep
+        # it int8), decided before the per-layer slices.
+        b = bits if int4_eligible_shape(w.dim(), w.shape[-2], w.shape[-1]) else 8
+        parts = [quantize_weight_bits(w[i], b) for i in range(w.shape[0])]
         if isinstance(parts[0], Q4Tensor):
             return Q4Tensor(torch.stack([p.q for p in parts]), torch.stack([p.scale for p in parts]))
         return QTensor(torch.stack([p.q for p in parts]), torch.stack([p.scale for p in parts]))
@@ -175,26 +192,44 @@ def init_params_quantized(
                            dtype=torch.float32, device=device)
         return QTensor(q=q, scale=scale)
 
-    embed = torch.empty((V, H), dtype=dtype, device=device)
-    embed.copy_(torch.randn((V, H), generator=generator, device=device).mul_(1.0 / math.sqrt(H)))
+    def normal(shape, scale):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        return out.copy_(torch.randn(shape, generator=generator, device=device).mul_(scale))
+
+    def norm(shape):
+        # Offset norms (Gemma) scale by (1 + w): their identity is 0.
+        fill = torch.zeros if config.norm_offset else torch.ones
+        return fill(shape, dtype=dtype, device=device)
+
+    embed = normal((V, H), 1.0 / math.sqrt(H))
     layers: Dict[str, Any] = {
-        "attn_norm": torch.ones((L, H), dtype=dtype, device=device),
+        "attn_norm": norm((L, H)),
         "wq": qinit((L, H, Q)),
         "wk": qinit((L, H, KV)),
         "wv": qinit((L, H, KV)),
         "wo": qinit((L, Q, H)),
-        "mlp_norm": torch.ones((L, H), dtype=dtype, device=device),
-        "w_gate": qinit((L, H, I)),
-        "w_up": qinit((L, H, I)),
-        "w_down": qinit((L, I, H)),
+        "mlp_norm": norm((L, H)),
     }
+    if config.num_experts > 0:  # the router drawn plain, the experts int8
+        E = config.num_experts
+        layers["w_router"] = normal((L, H, E), 1.0 / math.sqrt(H))
+        layers["w_gate"] = qinit((L, E, H, I))
+        layers["w_up"] = qinit((L, E, H, I))
+        layers["w_down"] = qinit((L, E, I, H))
+    else:
+        layers["w_gate"] = qinit((L, H, I))
+        layers["w_up"] = qinit((L, H, I))
+        layers["w_down"] = qinit((L, I, H))
     if config.qkv_bias:
         layers["bq"] = torch.zeros((L, Q), dtype=dtype, device=device)
         layers["bk"] = torch.zeros((L, KV), dtype=dtype, device=device)
         layers["bv"] = torch.zeros((L, KV), dtype=dtype, device=device)
+    if config.post_block_norms:
+        layers["post_attn_norm"] = norm((L, H))
+        layers["post_mlp_norm"] = norm((L, H))
     return {
         "embed": embed,
         "layers": layers,
-        "final_norm": torch.ones((H,), dtype=dtype, device=device),
+        "final_norm": norm((H,)),
         "lm_head": qinit((H, V)),
     }

@@ -20,7 +20,9 @@ functions:
 
 ``resolve_paged_attention_impl`` picks between the kernel ("cuda") and the
 reference ("xla"): "auto" selects the kernel for a card and the reference on
-the CPU. ``launch_paged_attention_impl`` applies the ``ops.paged_attn``
+the CPU; a model with an attention softcap or a sliding window (Gemma-2,
+Mistral) resolves to the reference, as in the JAX package, where the kernel
+does not serve those either. ``launch_paged_attention_impl`` applies the ``ops.paged_attn``
 failpoint per launch: on the CPU the drill sends the launch to the
 reference; on a card it fails the launch with a typed
 :class:`KernelUnavailableError`, since nothing on a card gives way to the
@@ -49,22 +51,35 @@ from .attention import _SMS, NEG_INF
 PAGED_ATTENTION_IMPLS = ("auto", "cuda", "pallas", "xla")
 
 
-def resolve_paged_attention_impl(requested: str, *, device) -> str:
+def resolve_paged_attention_impl(requested: str, *, device, config=None) -> str:
     """Pick the paged-attention implementation: "cuda" (the kernel) or "xla"
-    (the reference). "auto" takes the kernel on a card and the reference on
-    the CPU; an explicit "cuda" on CPU tensors runs the kernel's plain
-    version through the same wrapper; "pallas", the name a JAX
-    ``BackendConfig`` carries, resolves to "cuda". Models the kernel cannot
-    serve (softcaps, sliding windows) are refused earlier, by
-    ``models.llama.check_supported``."""
+    (the reference), once per engine or loop build. "auto" takes the kernel
+    on a card and the reference on the CPU; an explicit "cuda" on CPU
+    tensors runs the kernel's plain version through the same wrapper;
+    "pallas", the name a JAX ``BackendConfig`` carries, resolves to "cuda".
+    A ``config`` with an attention softcap or a sliding window is outside
+    the kernel's support and resolves to "xla", as in the JAX function; an
+    explicit "cuda"/"pallas" request so resolved is counted as
+    ``kernel.paged_attn_fallback.softcap`` or ``.sliding_window``, and
+    "auto" is not counted."""
     if requested not in PAGED_ATTENTION_IMPLS:
         raise ValueError(
             f"paged_attention_impl must be one of {PAGED_ATTENTION_IMPLS}, got {requested!r}"
         )
-    if requested == "pallas":
-        return "cuda"
+    if requested == "xla":
+        return "xla"
+    if config is not None and config.attn_softcap is not None:
+        blocked: Optional[str] = "softcap"
+    elif config is not None and config.sliding_window is not None:
+        blocked = "sliding_window"
+    else:
+        blocked = None
+    if blocked is not None:
+        if requested != "auto":
+            KERNEL_EVENTS.record(f"kernel.paged_attn_fallback.{blocked}")
+        return "xla"
     if requested != "auto":
-        return requested
+        return "cuda"
     return "cuda" if torch.device(device).type == "cuda" else "xla"
 
 
@@ -111,11 +126,12 @@ def paged_decode_attention_xla(
     prefix_mask: torch.Tensor,
     *,
     sm_scale: float,
+    softcap: Optional[float] = None,
     prefix_lengths: Optional[torch.Tensor] = None,
     flash_prefix: bool = False,
 ) -> torch.Tensor:
     """Reference paged decode attention, the dense decode math on gathered
-    pages. q/new_k/new_v: ``[B, Sq, QH|KVH, D]``; pool_k/pool_v: one layer's
+    pages (``softcap`` on the scaled scores before the masks, as there). q/new_k/new_v: ``[B, Sq, QH|KVH, D]``; pool_k/pool_v: one layer's
     pool ``[pages * page_size, KVH, D]``; prefix_idx ``[B|R, P]`` / gen_idx
     ``[B, G]``: flat pool slots per logical position; write_index ``[B]``:
     each row's offset into its gen slots; key_mask ``[B, Sq, G]`` /
@@ -135,7 +151,7 @@ def paged_decode_attention_xla(
     gv[rows, cols] = new_v.to(gv.dtype)
     return decode_attention(
         q, gk, gv, key_mask, pk, pv, prefix_mask, prefix_lengths,
-        scale=sm_scale, flash_prefix=flash_prefix,
+        scale=sm_scale, flash_prefix=flash_prefix, softcap=softcap,
     )
 
 

@@ -70,9 +70,9 @@ def queue_in_order(
 
 
 def reset_launch_memory(engine) -> None:
-    """No page pool and no cached blocks: the engine's next launch allocates
-    its own, and the card's peak counters read that launch alone."""
-    engine._kv_pool = None
+    """No cached blocks: the card's peak counters read the engine's next
+    launch alone. The page pool stays: an engine keeps its first pool, as
+    the JAX engine does, and a launch it cannot hold decodes dense."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(engine.device)

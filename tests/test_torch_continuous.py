@@ -242,7 +242,7 @@ def test_loop_fields_take_the_jax_defaults():
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_backend_routes_qualifying_requests_to_the_loop(paged):
     """Plain sampling joins the loop; a logit-bias request coalesces and
-    runs while the loop decodes, leaving the pinned pool in place; health()
+    runs while the loop decodes, leaving the loop's pool in place; health()
     carries the loop; drain() quiesces it and closes admission."""
     from _torch_serving import port_backend
     from k_llms_tpu_torch import KLLMs
@@ -286,7 +286,7 @@ def test_backend_routes_qualifying_requests_to_the_loop(paged):
     assert loop.stats["admitted"] == 2 and loop.stats["completed"] == 2
     if paged:
         assert backend.engine._kv_pool is pool and (pool.k, pool.v) == tensors
-        assert backend.engine._pool_fixed()
+        assert pool.allocator.total_pages == loop._pool_pages_planned
     health = backend.health()
     assert health["continuous"]["completed"] == 2
     assert backend.drain(timeout=30)

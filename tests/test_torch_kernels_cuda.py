@@ -724,10 +724,11 @@ def test_real_oom_splits_the_group_and_serves_each_half(cuda_device):
     """With the process's memory fraction set between a solo launch's peak
     and a two-request group's, the group's launch runs out of device memory
     for real: the guard splits it, every page goes back, and each member
-    equals its solo launch. The config's wide KV heads (128 KiB a token)
-    make the page pool the difference between the two peaks: about 400 MB
-    of prompt pages and 512 MB of generation pages (32 rows x 128 tokens)
-    a request, above the solo launch's reserved slack."""
+    equals its solo launch. The page pool is sized by the first solo launch
+    and kept, as in the JAX engine, so the group decodes dense: with the
+    config's wide KV heads (128 KiB a token) its dense KV (two 4096-token
+    prompt buckets, 64 rows x 128 tokens) sets its peak apart from a solo's
+    by more than the solo launch's reserved slack."""
     from k_llms_tpu_torch.engine.engine import GenRequestSpec
     from k_llms_tpu_torch.reliability.drills import (
         launch_peaks, memory_fraction, oom_memory_fraction, reset_launch_memory)
@@ -747,9 +748,11 @@ def test_real_oom_splits_the_group_and_serves_each_half(cuda_device):
     for spec in specs:
         reset_launch_memory(engine)
         solos.append(engine.generate_many([spec], **kw)[0])
+        assert engine.last_launch_stats["kv_layout"] == "paged"
         peaks.append(launch_peaks(cuda_device)[0])
     reset_launch_memory(engine)
     engine.generate_many(specs, **kw)
+    assert engine.last_launch_stats["kv_layout"] == "dense"
     fraction = oom_memory_fraction(max(peaks), launch_peaks(cuda_device)[1], cuda_device)
     reset_launch_memory(engine)
     with memory_fraction(fraction, cuda_device):
@@ -759,3 +762,80 @@ def test_real_oom_splits_the_group_and_serves_each_half(cuda_device):
     for g, w in zip(got, solos):
         np.testing.assert_array_equal(g.tokens, w.tokens)
         np.testing.assert_array_equal(g.logprobs, w.logprobs)
+
+
+# --- the other model families: K2 at their prefill shapes, tiny models ------
+
+FAMILY_K2 = {
+    # (QH, KVH, D, softcap, window, sm_scale, {mutant: plain keyword changes})
+    "gemma2_9b_local": (16, 8, 256, 50.0, 4096, 256.0 ** -0.5,
+                        {"softcap_dropped": dict(softcap=None), "wrong_layer_parity": dict(window=None)}),
+    "gemma2_9b_global": (16, 8, 256, 50.0, None, 256.0 ** -0.5,
+                         {"softcap_dropped": dict(softcap=None),
+                          "wrong_layer_parity": dict(window=4096)}),
+    "mistral_7b": (32, 8, 128, None, 4096, None, {"wrong_layer_parity": dict(window=None)}),
+}
+
+
+@pytest.mark.parametrize("S,key_length", [(4608, 4608), (8192, 4600)],
+                         ids=["prompt", "bucket"])
+@pytest.mark.parametrize("case", sorted(FAMILY_K2))
+def test_flash_family_prefill_shapes_match_plain(cuda_device, case, S, key_length):
+    """K2 at Gemma-2-9B's and Mistral-7B's prefill shapes (a 4608-token
+    prompt, past the 4096-key window; and a 4600-token prompt in the 8192
+    bucket the engine pads it to, the padded query rows computed too)
+    within two bf16 ulps of its plain version; the softcap dropped and the
+    other layer kind's window each break the limit (``--phases build,k2``
+    of chip_smoke.py times them)."""
+    QH, KVH, D, softcap, window, scale, mutants = FAMILY_K2[case]
+    rng = np.random.default_rng(11)
+    q = _normal(rng, 1, QH, S, D).to(cuda_device, torch.bfloat16)
+    k = _normal(rng, 1, KVH, S, D).to(cuda_device, torch.bfloat16)
+    v = _normal(rng, 1, KVH, S, D).to(cuda_device, torch.bfloat16)
+    kw = dict(causal=True,
+              key_lengths=torch.tensor([key_length], dtype=torch.int32, device=cuda_device),
+              softcap=softcap, window=window, sm_scale=scale)
+    _ext.reset_launch_counts()
+    out = att.flash_attention(q, k, v, **kw)
+    assert _ext.LAUNCH_COUNTS["flash_attention"] == 1
+    ref = att.flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(out).all() and _over_k2_limit(out, ref) <= 1.0
+    for name, change in mutants.items():
+        assert _over_k2_limit(out, att.flash_attention_plain(q, k, v, **dict(kw, **change))) > 1.0, name
+
+
+def _on(params, device):
+    return {k: ({kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict) else v.to(device))
+            for k, v in params.items()}
+
+
+@pytest.mark.parametrize("family", ["gemma", "mixtral"])
+def test_tiny_family_through_kernels_equals_plain_cpu(cuda_device, family):
+    """A tiny Gemma-2 (alternating window shorter than the prompt, softcaps,
+    head dim 64) and a tiny Mixtral in fp32 on the paged path: the card (K2
+    in prefill; K1 in Mixtral's decode, the reference attention in
+    Gemma's, as the JAX routing has it) and the same model on the CPU's
+    plain paths emit the same greedy tokens."""
+    extra = (dict(sliding_window=16, sliding_window_layers="alternating", act="gelu",
+                  norm_offset=True, embed_scale=True, post_block_norms=True, attn_softcap=50.0,
+                  logit_softcap=30.0, query_scale=64.0 ** -0.5, head_dim=64, num_layers=4)
+             if family == "gemma" else dict(num_experts=4, num_experts_per_tok=2))
+    cfg = get_config("tiny").with_(attention_impl="flash", **extra)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = ByteTokenizer().apply_chat_template(
+        [{"role": "user", "content": "the invoice total due is 41.20 EUR, paid in full"}])
+    assert len(prompt) > 16
+    outs = []
+    for p, dev in ((_on(params, cuda_device), cuda_device), (params, "cpu")):
+        eng = LocalEngine(cfg, params=p, device=dev, kv_page_size=16)
+        _ext.reset_launch_counts()
+        outs.append(eng.generate(prompt, n=3, seed=1, max_new_tokens=24, temperature=0.0))
+        counts = dict(_ext.LAUNCH_COUNTS)
+        if dev == "cpu":
+            assert max(counts.values()) == 0
+        else:
+            assert counts["flash_attention"] == cfg.num_layers
+            assert (counts["paged_decode_attention"] > 0) == (family == "mixtral")
+            assert eng.paged_attention_impl == ("cuda" if family == "mixtral" else "xla")
+    np.testing.assert_array_equal(outs[0].tokens, outs[1].tokens)
+    np.testing.assert_allclose(outs[0].logprobs, outs[1].logprobs, atol=1e-4, rtol=0)

@@ -9,10 +9,9 @@ layout the page pool is also checked: sized once and never replaced while
 entries hold its pages, LRU entries evicted for space, a launch the pool
 cannot hold served by the dense body with the same tokens.
 
-Not here yet: the windowed and softcapped continuations
-(``test_continuation_matches_dense_on_windowed_and_softcap_configs``) wait
-for the Gemma-2 and Mistral families (ROADMAP Queue 1 item 9), and the
-cache on a mesh (``test_prefix_cache_on_mesh``) for the mesh (item 10).
+The windowed and softcapped continuations are here too. Not here yet: the
+cache on a mesh (``test_prefix_cache_on_mesh``) waits for the mesh (ROADMAP
+Queue 1 item 10).
 """
 
 import jax
@@ -132,6 +131,31 @@ def test_shared_system_prefix_continuation_matches_dense(layout, attention_impl,
         (_, a, _, _), (_, b, _, _) = port._prefix_entries.values()
         assert a.pages[:3] == b.pages[:3] and a.pages[3:] != b.pages[3:]
         assert all(port._kv_pool.allocator.refcount(p) == 2 for p in a.pages[:3])
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(sliding_window=16, sliding_window_layers="all"),
+    dict(sliding_window=16, sliding_window_layers="alternating"),
+    dict(attn_softcap=50.0, query_scale=0.125),
+    dict(attention_impl="flash", sliding_window=16, sliding_window_layers="all"),
+    dict(attention_impl="flash", sliding_window=16, sliding_window_layers="alternating"),
+    dict(attention_impl="flash", attn_softcap=50.0, query_scale=0.125),
+], ids=["window-all", "window-alternating", "softcap", "flash-window-all",
+        "flash-window-alternating", "flash-softcap"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_continuation_matches_dense_on_windowed_and_softcap_configs(layout, overrides,
+                                                                    monkeypatch):
+    """The continuation's masks are built over absolute positions, so a
+    window (past the 48-token shared prefix: 16 keys) and a softcap give
+    the uncached engine's tokens and the JAX engine's."""
+    jax_eng, port, plain = _pair(layout, overrides)
+    counter = _Counter(port, monkeypatch)
+    _both(jax_eng, port, SYSTEM + DOC_A, 2, 21, max_new_tokens=3, temperature=0.7)
+    got = _both(jax_eng, port, SYSTEM + DOC_B, 2, 22, max_new_tokens=3, temperature=0.7)
+    assert port.prefix_cache_stats["partial_hits"] == 1
+    assert (counter.full, counter.cont) == (1, 1)
+    _same(got, plain.generate(SYSTEM + DOC_B, n=2, seed=22, max_new_tokens=3, temperature=0.7))
+    _stats_equal(jax_eng, port)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -322,25 +346,33 @@ def test_small_pool_evicts_for_space_then_falls_back_dense(cache_size, max_news,
 
 
 def test_pool_lifetime_without_a_cache_equals_jax():
-    """With no prefix cache and no kv_pool_pages nothing outlives a launch
-    in the pool, and the port replaces a pool too small for a launch with a
-    larger one; the JAX engine keeps its first pool and decodes such a
-    launch dense. The tokens are the same."""
+    """With no prefix cache and no kv_pool_pages both engines size the page
+    pool at their first paged launch and keep it for their lifetime: a
+    later launch the pool cannot hold decodes dense, launch for launch
+    where the JAX engine's does (its paged launches read off its
+    paged-attention dispatch count). The tokens are the same."""
+    from k_llms_tpu.utils.observability import KERNEL_EVENTS as JAX_KERNEL_EVENTS
+
     jax_eng, port, _ = _pair("paged", prefix_cache_size=0)
     kw = dict(temperature=0.7)
-    sizes = []
+    pool, layouts = None, []
     for launch, max_new in zip(_launches(), (4, 40, 80, 8)):
+        dispatches = JAX_KERNEL_EVENTS.get("kernel.paged_attn_xla_dispatch")
         want = jax_eng.generate_many([JaxSpec(p, n, s) for p, n, s in launch],
                                      max_new_tokens=max_new, **kw)
+        paged = JAX_KERNEL_EVENTS.get("kernel.paged_attn_xla_dispatch") > dispatches
         got = port.generate_many([GenRequestSpec(p, n, s) for p, n, s in launch],
                                  max_new_tokens=max_new, **kw)
         for g, w in zip(got, want):
             _same(g, w)
-        assert port.last_launch_stats["kv_layout"] == "paged"
-        sizes.append(port._kv_pool.allocator.total_pages)
-        port._kv_pool.allocator.verify()
-        assert port._kv_pool.allocator.snapshot()["in_use"] == 0
-    assert sizes[1] > sizes[0] and sizes[2] > sizes[1] and sizes[3] == sizes[2]
+        layouts.append(port.last_launch_stats["kv_layout"])
+        assert layouts[-1] == ("paged" if paged else "dense")
+        pool = pool or port._kv_pool
+        assert port._kv_pool is pool
+        pool.allocator.verify()
+        assert pool.allocator.snapshot()["in_use"] == 0
+    assert layouts[0] == "paged" and "dense" in layouts
+    assert pool.allocator.total_pages == jax_eng._kv_pool.allocator.total_pages
     assert port.prefix_cache_stats == jax_eng.prefix_cache_stats == {
         "hits": 0, "partial_hits": 0, "misses": 0}
 

@@ -149,29 +149,40 @@ def test_oom_failpoint_splits_the_group_and_serves_every_member():
         _assert_equal(g, w)
 
 
-@pytest.mark.parametrize("paged,pool_pages", [(True, 64), (True, None), (False, None)],
-                         ids=["paged-fixed-pool", "paged-growing-pool", "dense"])
-def test_torch_oom_mid_decode_releases_pages_and_splits(monkeypatch, paged, pool_pages):
+@pytest.mark.parametrize("paged,pool_pages,group_step",
+                         [(True, 64, "paged_verify_step"), (True, None, "decode_step"),
+                          (False, None, "decode_step")],
+                         ids=["paged-fixed-pool", "paged-first-launch-pool", "dense"])
+def test_torch_oom_mid_decode_releases_pages_and_splits(monkeypatch, paged, pool_pages,
+                                                        group_step):
     """A ``torch.cuda.OutOfMemoryError`` from the model step of the
-    two-request launch: every page reference the launch took goes back (a
-    fixed pool's free count is what it was; a growing pool sized for the
-    group is dropped, so each retry sizes its own), the group splits, and
-    each half equals a direct launch of its sub-group."""
+    two-request launch: every page reference the launch took goes back (the
+    pool's free count is what it was, and the pool stays, as in the JAX
+    engine), the group splits, and each half equals a direct launch of its
+    sub-group. Without ``kv_pool_pages`` the pool is sized by the first
+    (solo) launch, so the group decodes dense, as the JAX engine's would,
+    and its OOM comes from the dense step."""
     engine = _engine(paged, kv_pool_pages=pool_pages)
     want = [engine.generate_many([spec], **KW)[0] for spec in GROUP]
     solo_pages = engine._kv_pool.allocator.total_pages if paged else None
     free_before = engine._kv_pool.allocator.free_pages if paged else None
-    step = engine_mod.paged_verify_step if paged else engine_mod.decode_step
-    name = "paged_verify_step" if paged else "decode_step"
 
-    def oom_at_four_rows(config, params, tok, *args, **kwargs):
-        if tok.shape[0] == 4:  # the coalesced launch: 2 requests x n 2
-            raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB")
-        return step(config, params, tok, *args, **kwargs)
+    raised_in = []
 
-    monkeypatch.setattr(engine_mod, name, oom_at_four_rows)
+    def oom_at_four_rows(name, step):
+        def run(config, params, tok, *args, **kwargs):
+            if tok.shape[0] == 4:  # the coalesced launch: 2 requests x n 2
+                raised_in.append(name)
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB")
+            return step(config, params, tok, *args, **kwargs)
+        return run
+
+    for name in ("paged_verify_step", "decode_step"):
+        monkeypatch.setattr(engine_mod, name, oom_at_four_rows(name, getattr(engine_mod, name)))
     got = engine.generate_many(GROUP, **KW)
     assert engine.oom_stats["splits"] == 1
+    # The group's layout: paged where the pool holds it, else dense.
+    assert raised_in == [group_step]
     if paged:
         assert engine._kv_pool.allocator.free_pages == free_before
         assert engine._kv_pool.allocator.total_pages == solo_pages
