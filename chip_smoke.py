@@ -49,7 +49,19 @@ decode on the reference attention, which the JAX routing gives softcapped
 and windowed models: K1 asserted at 0, the reference's dispatches counted),
 Mixtral-8x7B quantized to int4 (attention and head on K4, the experts int8)
 on the paged path with K1; each with its launch counts asserted, its peak
-memory and the plain decode attention's cost per step.
+memory and the plain decode attention's cost per step. ``serve`` puts the
+``8b`` client behind the OpenAI-wire HTTP front door
+(``ServerThread(create_app(client))`` on loopback, talked to with
+``http.client``): a JSON request equal to ``create()``; a stream whose
+every sample gets a delta before the final event, whose deltas equal the
+final texts and whose final event equals a non-streamed call (time to
+first delta and chunk gaps logged); the token tap's decode cost per step,
+streamed against not, in alternating runs; two streams and a JSON request
+fused into one launch, equal to the same group without streams; a client
+that hangs up after its first delta (the launch aborts, its pages return,
+the next request is served); ``/healthz``, ``/metrics`` and
+``/debug/requests``; a 4-line batch job. ``loop`` adds a grammar-
+constrained stream through the continuous loop.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -84,7 +96,7 @@ from typing import Literal
 
 from pydantic import BaseModel, Field
 
-PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "ckpt", "loop",
+PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "serve", "ckpt", "loop",
           "8b_int4", "sched", "gemma9b", "mistral7b", "mixtral_int4")
 # The model-family phases, in the order they run.
 FAMILY_PHASES = ("gemma9b", "mistral7b", "mixtral_int4")
@@ -608,6 +620,489 @@ def sched_rebuild(label, client, content, log):
         raise AssertionError(f"{label} poison rebuild: {rec}")
 
 
+# -- the serve phase: the OpenAI wire over HTTP on the card ---------------------
+#
+# A stdlib client (the card machine need not have httpx): one request per
+# connection, as the server closes each after its response.
+
+#: Fields of a chat.completion that differ between two runs of one request:
+#: the creation second, and the id (kept deterministic by the backend, but
+#: normalised so that the comparison does not depend on it).
+NORMALISED_FIELDS = ("id", "created")
+
+
+def normalised(completion: dict) -> dict:
+    return {k: (None if k in NORMALISED_FIELDS else v) for k, v in completion.items()}
+
+
+def http_call(port, method, path, body=None, headers=None, timeout=900):
+    """One request to the loopback server: (status, headers, body bytes);
+    ``body`` is JSON-encoded unless it is bytes."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = body if body is None or isinstance(body, bytes) else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"content-type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def http_stream(port, body, headers=None, disconnect_after_first_delta=False, timeout=900):
+    """POST ``body`` with ``stream: true`` and read the SSE frames as they
+    arrive. Returns (status, frames, ttfd_s, arrivals): each frame is a
+    parsed ``data:`` payload or the string ``"[DONE]"``; ttfd_s is the host
+    time from sending to the first content delta, arrivals the host times
+    of the content deltas. With ``disconnect_after_first_delta`` the socket
+    is shut down right after the first content delta (a client hanging up)."""
+    import http.client
+    import socket
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    frames, arrivals, ttfd = [], [], None
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/chat/completions",
+                     body=json.dumps(dict(body, stream=True)).encode(),
+                     headers={"content-type": "application/json", **(headers or {})})
+        sock = conn.sock
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, [json.loads(resp.read())], None, []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.rstrip(b"\r\n")
+            if not line.startswith(b"data: "):
+                continue  # the blank frame separator or a ": ping" comment
+            payload = line[len(b"data: "):]
+            if payload == b"[DONE]":
+                frames.append("[DONE]")
+                break
+            frame = json.loads(payload)
+            frames.append(frame)
+            if (frame.get("object") == "chat.completion.chunk"
+                    and frame["choices"][0]["delta"].get("content")):
+                now = time.perf_counter()
+                arrivals.append(now - t0)
+                if ttfd is None:
+                    ttfd = now - t0
+                if disconnect_after_first_delta:
+                    sock.shutdown(socket.SHUT_RDWR)
+                    resp.close()
+                    break
+        return 200, frames, ttfd, arrivals
+    finally:
+        conn.close()
+
+
+def stream_texts(frames, n):
+    """Per-sample text of the content deltas (wire choice index 1..n), the
+    samples with a delta before the final event, and the final event."""
+    texts, seen, final = [""] * n, set(), None
+    for f in frames:
+        if f == "[DONE]":
+            continue
+        if f["object"] == "chat.completion":
+            final = f
+        elif final is None:
+            c = f["choices"][0]
+            if c["delta"].get("content"):
+                texts[c["index"] - 1] += c["delta"]["content"]
+                seen.add(c["index"])
+    return texts, seen, final
+
+
+def metric_value(text, name):
+    """A sample's value from a Prometheus exposition (None when absent)."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def serve_http(client, req_a, req_b, contents, expected_fn, log):
+    """The serve phase: an 8B client behind the OpenAI-wire HTTP
+    front door (``ServerThread(create_app(client))`` on loopback), talked
+    to with the standard library. Each check runs in its own counted
+    window (every launch count reset just before and read just after,
+    K2, K1 and the draws by formula, ``levenshtein`` as the device
+    consensus planned it, no host fallback). ``req_a`` is a greedy
+    request, ``req_b`` a sampled one; ``contents`` gives four prompts;
+    ``expected_fn(launches, embeds)`` is the path's launch-count formula."""
+    import threading
+
+    import numpy as np
+
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.reliability.drills import park_worker, queue_in_order
+    from k_llms_tpu_torch.serving import ServerThread, create_app
+    from k_llms_tpu_torch.utils.observability import FAILURE_EVENTS
+
+    backend = client.backend
+    engine, scheduler = backend.engine, backend.scheduler
+    launches, embeds, streamed = [], [], []
+    generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
+    lock = threading.Lock()
+
+    def counted_generate_many(items, **kw):
+        out = generate_many(items, **kw)
+        st = engine.last_launch_stats
+        with lock:
+            launches.append((len(items), st["n_per"], st["decode_steps"], kw["temperature"]))
+            streamed.append(sum(it.token_sink is not None for it in items))
+        return out
+
+    def counted_embed_tokens(token_lists, *a, **kw):
+        with lock:
+            embeds.append([len(t) for t in token_lists])
+        return embed_tokens(token_lists, *a, **kw)
+
+    def window(name, fn):
+        launches.clear()
+        embeds.clear()
+        streamed.clear()
+        plain = plain_paged_launches()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        counts = dict(_ext.LAUNCH_COUNTS)
+        expected = expected_fn(launches, embeds)
+        log({"phase": f"serve_{name}_window", "wall_s": wall, "launches": counts,
+             "expected": expected, "engine_launches": list(launches),
+             "streaming_members": list(streamed), "embeddings_forwards": len(embeds)})
+        if counts != expected or plain_paged_launches() != plain:
+            raise AssertionError(f"serve {name}: launch counts {counts} != {expected}")
+        check_consensus_window(f"serve {name}")
+        return out
+
+    def post_json(body, headers=None):
+        status, _, raw = http_call(port, "POST", "/v1/chat/completions", body, headers)
+        if status != 200:
+            raise AssertionError(f"serve: POST answered {status}: {raw[:300]!r}")
+        return json.loads(raw)
+
+    def direct(body):
+        return client.chat.completions.create(**body).model_dump(mode="json")
+
+    engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
+    srv = ServerThread(create_app(client)).start()
+    port = srv.port
+    try:
+        status, _, raw = http_call(port, "GET", "/metrics")
+        metrics0 = raw.decode()
+
+        # a. Non-streamed: the wire JSON is create()'s model_dump.
+        def check_a():
+            got, want = post_json(req_a), direct(req_a)
+            if normalised(got) != normalised(want):
+                raise AssertionError("serve a: the wire JSON differs from create()")
+            return got
+
+        resp_a = window("a_nonstream", check_a)
+
+        # b. Streamed, with a traceparent to find its flight record.
+        trace_id = os.urandom(16).hex()
+        headers_b = {"traceparent": f"00-{trace_id}-{os.urandom(8).hex()}-01"}
+
+        def check_b():
+            status, frames, ttfd, arrivals = http_stream(port, req_b, headers_b)
+            texts, seen, final = stream_texts(frames, req_b["n"])
+            want = direct(req_b)
+            return status, frames, ttfd, arrivals, texts, seen, final, want
+
+        status, frames, ttfd, arrivals, texts, seen, final, want = window("b_stream", check_b)
+        finals = [f for f in frames if f != "[DONE]" and f["object"] == "chat.completion"]
+        gaps = [b - a for a, b in zip(arrivals, arrivals[1:])]
+        log({"phase": "serve_b_stream", "status": status, "frames": len(frames),
+             "content_deltas": len(arrivals), "samples_with_delta": sorted(seen),
+             "time_to_first_delta_s": ttfd,
+             "chunk_gap_s": {"median": float(np.median(gaps)) if gaps else None,
+                             "p90": float(np.percentile(gaps, 90)) if gaps else None,
+                             "max": max(gaps) if gaps else None},
+             "stream_wall_s": arrivals[-1] if arrivals else None})
+        problems = []
+        if status != 200 or frames[-1] != "[DONE]" or len(finals) != 1 or frames[-2] is not final:
+            problems.append("event order")
+        if seen != set(range(1, req_b["n"] + 1)):
+            problems.append(f"samples with a delta {sorted(seen)}")
+        if final is not None and texts != [c["message"]["content"] for c in final["choices"][1:]]:
+            problems.append("deltas differ from the final texts")
+        if final is None or normalised(final) != normalised(want):
+            problems.append("the final event differs from a non-streamed create()")
+        if problems:
+            raise AssertionError(f"serve b: {problems}")
+
+        # The tap's cost: decode ms per step of request b, streamed and
+        # not, in alternating runs (no limit).
+        def tap_cost():
+            runs = []
+            for stream in (False, True, True, False):
+                if stream:
+                    list(client.chat.completions.create(stream=True, **req_b))
+                else:
+                    client.chat.completions.create(**req_b)
+                st = engine.last_launch_stats
+                runs.append({"streamed": stream, "decode_steps": st["decode_steps"],
+                             "decode_ms_per_step": st["decode_s"] * 1e3
+                             / max(st["decode_steps"], 1)})
+            return runs
+
+        runs = window("tap_cost", tap_cost)
+        log({"phase": "serve_tap_cost", "runs": runs,
+             "median_ms_per_step": {
+                 k: float(np.median([r["decode_ms_per_step"] for r in runs
+                                     if r["streamed"] == (k == "streamed")]))
+                 for k in ("streamed", "not_streamed")}})
+
+        # c. Two streams and one non-stream sent together: one launch,
+        # each member equal to the same group served without streams.
+        group = [dict(req_a, messages=[{"role": "user", "content": c}])
+                 for c in contents[:3]]
+
+        def fused(calls):
+            """The calls queued behind the parked worker, then released:
+            their results, the engine launches they took and the requests
+            the scheduler coalesced into another's launch."""
+            gate = park_worker(scheduler)
+            n0, coalesced = len(launches), scheduler.stats["coalesced"]
+            threads, got = queue_in_order(scheduler, calls)
+            gate.set()
+            join_all(threads)
+            return ([got[i] for i in range(len(calls))], launches[n0:],
+                    scheduler.stats["coalesced"] - coalesced)
+
+        def check_c():
+            mixed = fused([lambda b=group[0]: http_stream(port, b),
+                           lambda b=group[1]: http_stream(port, b),
+                           lambda b=group[2]: post_json(b)])
+            plain = fused([lambda b=b: direct(b) for b in group])
+            return mixed, plain
+
+        (mixed, m_launches, m_coalesced), (plain, p_launches, p_coalesced) = window(
+            "c_mixed_group", check_c)
+        problems = []
+        for i, out in enumerate(mixed):
+            if isinstance(out, BaseException):
+                raise AssertionError(f"serve c: member {i} failed: {out!r}")
+        outs = []
+        for i, out in enumerate(mixed[:2]):
+            status, frames, _, _ = out
+            texts, seen, final = stream_texts(frames, group[i]["n"])
+            if status != 200 or final is None or frames[-1] != "[DONE]":
+                problems.append(f"stream {i} did not finish")
+                continue
+            if texts != [c["message"]["content"] for c in final["choices"][1:]]:
+                problems.append(f"stream {i}: deltas differ from the final texts")
+            outs.append(final)
+        outs.append(mixed[2])
+        equal = [normalised(o) == normalised(p) for o, p in zip(outs, plain)]
+        solo = [normalised(o) == normalised(direct(b)) for o, b in zip(outs, group)]
+        log({"phase": "serve_c_mixed_group", "launches_mixed": m_launches,
+             "scheduler_coalesced_mixed": m_coalesced,
+             "launches_without_streams": p_launches,
+             "scheduler_coalesced_without_streams": p_coalesced,
+             "equal_to_the_group_without_streams": equal, "equal_to_solo_runs": solo})
+        if ([x[0] for x in m_launches] != [3] or [x[0] for x in p_launches] != [3]
+                or (m_coalesced, p_coalesced) != (2, 2) or not all(equal) or len(outs) != 3):
+            problems.append(f"fused launches {m_launches} / {p_launches}, equal {equal}")
+        if problems:
+            raise AssertionError(f"serve c: {problems}")
+
+        # d. The client hangs up after the first delta of a 256-token
+        # stream: the launch aborts, its pages return, the next request
+        # is served.
+        body_d = dict(req_b, max_tokens=256, seed=17)
+
+        def check_d():
+            aborts = FAILURE_EVENTS.get("engine.decode_abort")
+            in_use = engine._kv_pool.allocator.in_use_pages
+            n_launches = len(launches)
+            status, frames, ttfd, _ = http_stream(port, body_d,
+                                                  disconnect_after_first_delta=True)
+            deadline = time.monotonic() + 120
+            while (len(launches) == n_launches
+                   or FAILURE_EVENTS.get("engine.decode_abort") == aborts):
+                if time.monotonic() > deadline:
+                    raise AssertionError("serve d: the disconnect did not abort the launch")
+                time.sleep(0.01)
+            st = dict(engine.last_launch_stats)
+            after = {"aborts": FAILURE_EVENTS.get("engine.decode_abort") - aborts,
+                     "pages_in_use_before": in_use,
+                     "pages_in_use_after": engine._kv_pool.allocator.in_use_pages,
+                     "decode_steps": st["decode_steps"], "aborted": st["aborted"],
+                     "time_to_first_delta_s": ttfd, "frames_read": len(frames)}
+            nxt = post_json(req_a)
+            after["next_equal_to_a"] = normalised(nxt) == normalised(resp_a)
+            return after
+
+        d = window("d_disconnect", check_d)
+        log({"phase": "serve_d_disconnect", **{k: v for k, v in d.items() if k != "aborted"},
+             "aborted_members": {str(k): v[0] for k, v in d["aborted"].items()}})
+        if (d["aborts"] != 1 or d["decode_steps"] >= 255 or not d["aborted"]
+                or d["pages_in_use_after"] != d["pages_in_use_before"]
+                or not d["next_equal_to_a"]):
+            raise AssertionError(f"serve d: {d}")
+
+        # e. The metadata routes.
+        def check_e():
+            out = {p: http_call(port, "GET", p)
+                   for p in ("/healthz", "/metrics", "/debug/requests")}
+            backend.backend_config.debug_endpoints = True
+            try:
+                out["debug_on"] = http_call(port, "GET", "/debug/requests")
+            finally:
+                backend.backend_config.debug_endpoints = False
+            return out
+
+        e = window("e_routes", check_e)
+        metrics = e["/metrics"][2].decode()
+        families = sorted({line.split()[2] for line in metrics.splitlines()
+                           if line.startswith("# TYPE kllms_") and line.endswith(" histogram")})
+        e2e = [metric_value(t, "kllms_request_e2e_seconds_count") or 0.0
+               for t in (metrics0, metrics)]
+        ttft = [metric_value(t, "kllms_request_ttft_seconds_count") or 0.0
+                for t in (metrics0, metrics)]
+        records = json.loads(e["debug_on"][2])["requests"] if e["debug_on"][0] == 200 else []
+        rec_b = next((r for r in records if r["trace_id"] == trace_id), None)
+        phases = rec_b["phases"] if rec_b else {}
+        log({"phase": "serve_e_routes", "healthz": e["/healthz"][0],
+             "metrics": e["/metrics"][0], "histogram_families": families,
+             "request_e2e_count": e2e, "request_ttft_count": ttft,
+             "debug_requests_default": e["/debug/requests"][0],
+             "debug_requests_enabled": e["debug_on"][0], "record_b": rec_b})
+        problems = []
+        if e["/healthz"][0] != 200 or e["/metrics"][0] != 200:
+            problems.append("healthz/metrics status")
+        # Chat requests served since the first scrape: a (wire + direct),
+        # b (wire + direct), 4 tap runs, c (3 + 3 + 3 solo), d (the
+        # disconnect + the next request).
+        if e2e[1] - e2e[0] < 2 + 2 + 4 + 9 + 2 or ttft[1] - ttft[0] < 1 + 2 + 2 + 1:
+            problems.append("latency histograms did not count the requests")
+        if e["/debug/requests"][0] != 404 or e["debug_on"][0] != 200 or rec_b is None:
+            problems.append("debug routes")
+        elif (phases.get("sample", 0.0) + phases.get("consolidate", 0.0) > rec_b["duration_s"]
+              or phases.get("queue_wait", 0.0) + phases.get("decode", 0.0)
+              > phases.get("sample", 0.0) or "decode" not in phases):
+            problems.append(f"b's phases {phases} against {rec_b['duration_s']} s")
+        if problems:
+            raise AssertionError(f"serve e: {problems}")
+
+        # f. A 4-line JSONL batch job; the lines' max_tokens differ, so
+        # no two items coalesce and each equals its solo create().
+        lines = [dict(req_a, max_tokens=12 + i, seed=51 + i,
+                      messages=[{"role": "user", "content": c}])
+                 for i, c in enumerate(contents)]
+
+        def check_f():
+            t0 = time.perf_counter()
+            jsonl = b"\n".join(json.dumps(b).encode() for b in lines)
+            status, _, raw = http_call(port, "POST", "/v1/batches", jsonl)
+            if status != 200:
+                raise AssertionError(f"serve f: submit answered {status}: {raw[:300]!r}")
+            job = json.loads(raw)
+            deadline = time.monotonic() + 600
+            while job["status"] not in ("completed", "failed", "cancelled",
+                                        "completed_with_errors"):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve f: the job did not finish: {job}")
+                time.sleep(0.05)
+                job = json.loads(http_call(port, "GET", f"/v1/batches/{job['id']}")[2])
+            wall = time.perf_counter() - t0
+            status, _, out = http_call(port, "GET", f"/v1/batches/{job['id']}/output")
+            records = [json.loads(x) for x in out.splitlines() if x.strip()]
+            want = [direct(b) for b in lines]
+            return job, wall, status, records, want
+
+        job, wall, status, records, want = window("f_batch", check_f)
+        equal = [r["response"] is not None and normalised(r["response"]["body"]) == normalised(w)
+                 for r, w in zip(records, want)]
+        log({"phase": "serve_f_batch", "status": job["status"], "job_wall_s": wall,
+             "request_counts": job.get("request_counts"), "output_status": status,
+             "custom_ids": [r["custom_id"] for r in records], "equal_to_create": equal})
+        if (job["status"] != "completed" or status != 200 or len(records) != 4
+                or [r["custom_id"] for r in records] != [f"item-{i}" for i in range(4)]
+                or not all(equal)):
+            raise AssertionError(f"serve f: {job['status']}, {len(records)} records, {equal}")
+    finally:
+        srv.stop(drain=False)
+        del engine.generate_many, engine.embed_tokens
+
+
+def loop_stream(client, req, window_resp, log):
+    """The serve phase's check g: ``req`` streamed through the loop
+    (``create(stream=True)``) in its own counted window; each sample's
+    deltas equal its final text. The loop takes no logit bias, and its
+    unbiased samples on random weights decode to no text, so ``req`` is
+    the loop phase's grammar-constrained request D, whose samples are
+    JSON; ``window_resp`` is D's response from the loop's main window."""
+    import numpy as np
+
+    from k_llms_tpu_torch.ops import _ext
+
+    backend = client.backend
+    engine, loop = backend.engine, backend._continuous
+    L = engine.config.num_layers
+    embeds, launches = [], []
+    generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
+
+    def counted_generate_many(items, **kw):
+        launches.append(len(items))
+        return generate_many(items, **kw)
+
+    def counted_embed_tokens(token_lists, *a, **kw):
+        embeds.append([len(t) for t in token_lists])
+        return embed_tokens(token_lists, *a, **kw)
+
+    engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
+    before = dict(loop.stats)
+    plain = plain_paged_launches()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        events, arrivals = [], []
+        for ev in client.chat.completions.create(stream=True, **req):
+            events.append(ev)
+            if ev["object"] == "chat.completion.chunk" and ev["choices"][0]["delta"].get("content"):
+                arrivals.append(time.perf_counter() - t0)
+        counts = dict(_ext.LAUNCH_COUNTS)
+    finally:
+        del engine.generate_many, engine.embed_tokens
+    d = {k: loop.stats[k] - before[k] for k in ("steps", "admitted", "prefill_chunks")}
+    expected = {
+        # A whole-prompt admission or its chunks (D's 86 tokens take one
+        # whole prefill on the 8B loop's 128-token chunks).
+        "flash_attention": L * (d["admitted"] - bool(d["prefill_chunks"]) + d["prefill_chunks"]
+                                + len(embeds)),
+        "paged_decode_attention": L * d["steps"],
+        "decode_prefix_attention": 0, "w4_matmul": 0,
+        "threefry_uniform_rows": d["steps"] + d["admitted"],
+        "levenshtein": LEV_PLANNED["launches"],
+    }
+    texts, seen, final = stream_texts(events, req["n"])
+    final_texts = [c["message"]["content"] for c in final["choices"][1:]] if final else None
+    gaps = [b - a for a, b in zip(arrivals, arrivals[1:])]
+    log({"phase": "loop_8b_stream", "wall_s": time.perf_counter() - t0, "stats": d,
+         "launches": counts, "expected": expected, "coalesced_launches": launches,
+         "content_deltas": len(arrivals), "samples_with_delta": sorted(seen),
+         "time_to_first_delta_s": arrivals[0] if arrivals else None,
+         "chunk_gap_median_s": float(np.median(gaps)) if gaps else None,
+         "final_equal_to_the_window_run": final_texts
+         == [c.message.content for c in window_resp.choices[1:]]})
+    with_text = {i for i in range(1, req["n"] + 1) if final and final_texts[i - 1]}
+    if (counts != expected or launches or d["admitted"] != 1 or final is None
+            or events[-1] is not final or not seen or seen != with_text
+            or texts != final_texts or plain_paged_launches() != plain):
+        raise AssertionError(f"loop 8b stream: counts {counts} != {expected}, "
+                             f"samples {sorted(seen)}, deltas equal {texts == final_texts}")
+    check_consensus_window("loop_8b_stream")
+
+
 def sched_tiny(log):
     """The watchdog and the replica set at ``tiny`` (fp32) through the
     kernels: a hung launch rebuilt and replayed, rebuilds exhausted into
@@ -821,6 +1316,8 @@ def main(argv=None) -> int:
         raise SystemExit("the ckpt phase serves the 8b phase's tree: add 8b")
     if "sched" in phases and "8b" not in phases:
         raise SystemExit("the sched phase drives the 8b phase's client: add 8b")
+    if "serve" in phases and "8b" not in phases:
+        raise SystemExit("the serve phase serves the 8b phase's client over HTTP: add 8b")
 
     import numpy as np
     import torch
@@ -3016,6 +3513,7 @@ def main(argv=None) -> int:
         if problems:
             raise AssertionError(f"loop 8b: {problems}")
         kernels_rows = counts["threefry_uniform_rows"]
+        loop_stream(client, loop_parse, resps["D"], log)
         # Outside the counted window: each request alone through the loop.
         results = {n: f.result() for n, (_, _, f) in subs.items()}
         solo_agree = {}
@@ -3308,6 +3806,9 @@ def main(argv=None) -> int:
             for index in (0, 2):  # a short and the long prompt
                 profile_one("8b", client, index)
             profile_masked("8b", client)
+        if "serve" in phases:
+            serve_http(client, requests[0], requests[1], sched_contents,
+                       lambda launches, embeds: expected_bf16_paged(launches, embeds, L), log)
         if "sched" in phases:
             sched_coalesce("8b", client, sched_requests,
                            lambda launches, embeds: expected_bf16_paged(launches, embeds, L), log)

@@ -3,21 +3,22 @@
 Counterpart of ``k_llms_tpu/backends/base.py`` with its reliability layer:
 ``dispatch_chat_completion`` gates on a per-backend circuit breaker, checks
 the request budget and retries under a bounded backoff policy, and fires the
-``backend.dispatch`` failpoint on every attempt. The streaming dispatch
-waits for streaming.
+``backend.dispatch`` failpoint on every attempt. A stream gets exactly one
+attempt behind the same gate and failpoint.
 """
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Any, Dict, List, Optional, Union
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Union
 
 from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
 from ..reliability.retry import CircuitBreaker, RetryPolicy
 from ..types import ChatCompletion
 from ..types.wire import (
+    InvalidRequestError,
     RateLimitError,
     RequestCancelledError,
     RequestTimeoutError,
@@ -66,7 +67,47 @@ class Backend(abc.ABC):
     def chat_completion(self, request: ChatRequest) -> ChatCompletion:
         """Return ONE ChatCompletion carrying n choices (the n samples)."""
 
+    #: True when ``chat_completion_stream`` delivers incremental deltas. The
+    #: resources layer checks this before opening a stream, so ``stream=True``
+    #: against a non-streaming backend fails as a typed 400 up front.
     supports_streaming: bool = False
+
+    def chat_completion_stream(
+        self, request: ChatRequest, emit: "Callable[[int, str], None]"
+    ) -> ChatCompletion:
+        """Run one n-way completion, calling ``emit(sample_idx, text_delta)``
+        as sample text lands (sample_idx in 0..n-1, request order), then
+        return the finished ChatCompletion exactly as ``chat_completion``
+        would. Backends that cannot stream raise the OpenAI-shaped 400."""
+        raise InvalidRequestError(
+            f"{type(self).__name__} does not support stream=True; "
+            "use a streaming-capable backend (cuda, fake) or stream=False",
+            param="stream",
+        )
+
+    def dispatch_chat_completion_stream(
+        self, request: ChatRequest, emit: "Callable[[int, str], None]"
+    ) -> ChatCompletion:
+        """``chat_completion_stream`` behind the circuit-breaker gate and the
+        ``backend.dispatch`` failpoint. Not retried: once deltas have reached
+        the client a retry would replay text mid-stream, so a stream gets
+        exactly one attempt and surfaces its fault."""
+        breaker = self.circuit_breaker
+        breaker.allow()
+        try:
+            _failpoints.fire("backend.dispatch")
+            out = self.chat_completion_stream(request, emit)
+        except BaseException as e:
+            # Caller deadlines and cancels and admission sheds are not
+            # backend-health signals.
+            if not isinstance(
+                e,
+                (RequestTimeoutError, RequestCancelledError, RateLimitError, ServerDrainingError),
+            ):
+                breaker.record_failure()
+            raise
+        breaker.record_success()
+        return out
 
     #: Dispatch-layer reliability knobs, overridable per instance (pass a
     #: seeded RetryPolicy in tests to pin backoff schedules). The breaker is
@@ -188,6 +229,7 @@ class UnknownBackendError(ValueError):
 
 #: Accepted backend names (case/whitespace-insensitive) -> canonical family.
 _BACKEND_ALIASES: Dict[str, str] = {
+    "fake": "fake",
     "cuda": "cuda",
     "local": "cuda",
     "replicas": "replicas",
@@ -198,14 +240,19 @@ _BACKEND_ALIASES: Dict[str, str] = {
 
 
 def resolve_backend(backend: Union[str, Backend, None], **kwargs: Any) -> Backend:
-    """Instantiate a backend from a name ("cuda" | "replicas", plus aliases;
-    None defaults to "cuda") or pass a Backend instance through unchanged."""
+    """Instantiate a backend from a name ("cuda" | "fake" | "replicas", plus
+    aliases; None defaults to "cuda") or pass a Backend instance through
+    unchanged."""
     if isinstance(backend, Backend):
         return backend
     known = sorted(_BACKEND_ALIASES)
     if backend is not None and not isinstance(backend, str):
         raise UnknownBackendError(backend, known)
     name = _BACKEND_ALIASES.get((backend or "cuda").strip().lower())
+    if name == "fake":
+        from .fake import FakeBackend
+
+        return FakeBackend(**kwargs)
     if name == "cuda":
         from .cuda import CudaBackend
 

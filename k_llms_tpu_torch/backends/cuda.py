@@ -39,10 +39,13 @@ automaton that the engine applies inside decode
 or top logprobs) join the continuous decode loop (``engine/continuous.py``,
 chunked prefill included) instead of the coalescing scheduler, and with
 ``device_consensus=True`` (the default) consolidation scores its pairs and
-votes on the engine's device (``consensus/device.py``). Streaming and the
-batch lane are not ported yet; a keyword that names one of the JAX
-package's other ``BackendConfig`` fields raises ``NotImplementedError``
-rather than being dropped.
+votes on the engine's device (``consensus/device.py``). With
+``chat_completion_stream`` (``create(stream=True)``, the SSE front door) the
+engine's token tap or the loop's sink feeds :class:`_IncrementalDetok`,
+which turns each step's tokens into per-sample text deltas; the serving
+app's keep-alive, debug-surface and batch-lane settings are carried too. A
+keyword that names one of the JAX package's other ``BackendConfig`` fields
+raises ``NotImplementedError`` rather than being dropped.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ from ..models.config import get_config
 from ..reliability.supervisor import EngineSupervisor, LaunchBudgetModel
 from ..reliability.tenancy import TenancyConfig
 from ..types import ChatCompletion
-from ..utils.observability import LATENCY
+from ..utils.observability import LATENCY, current_trace
 from .base import Backend, ChatRequest
 
 logger = logging.getLogger(__name__)
@@ -154,6 +157,15 @@ class BackendConfig(BaseModel):
     hbm_headroom: float = 0.85
     # Default timeout for drain()/close() graceful shutdown.
     drain_timeout: float = 30.0
+    # SSE keep-alive: the serving layer emits a ``: ping`` comment frame on
+    # streaming responses whenever this many seconds pass without a data
+    # event (admission queue wait, long prefill), so idle-timeout proxies
+    # don't sever the connection before the first token. 0 disables.
+    sse_ping_interval_s: float = 15.0
+    # Debug surfaces (GET /debug/requests flight recorder, POST /debug/profile
+    # torch.profiler capture): off by default; they expose request metadata
+    # and write profile dumps.
+    debug_endpoints: bool = False
     # -- supervision (reliability/supervisor.py) -------------------------
     # Hung-launch watchdog budget: clamp(base + multiplier * max_new_tokens
     # * per-token EWMA) seconds per launch.
@@ -182,6 +194,18 @@ class BackendConfig(BaseModel):
     # Queued-weight fraction of max_queue_weight at which batch-class
     # admissions are shed (brownout).
     brownout_high_water: float = 0.9
+    # -- offline batch lane (serving/batch.py) ---------------------------
+    # Durable root for the batch job store (journal + output segments);
+    # None: the serving app falls back to KLLMS_BATCH_DIR or an ephemeral
+    # tempdir (no restart recovery).
+    batch_store_dir: Optional[str] = None
+    # Bound on concurrently executing batch items.
+    batch_max_in_flight: int = 4
+    # Re-dispatches after a quota 429 before the item fails into the output.
+    batch_item_retries: int = 1
+    # TTL for terminal batch jobs, swept when the store opens; None/0 keeps
+    # them forever.
+    jobstore_ttl_s: Optional[float] = None
     # -- continuous in-flight batching (engine/continuous.py) -------------
     # Persistent decode loop with slot admission: requests join/leave a
     # fixed-width decode batch mid-flight instead of waiting for coalesced
@@ -215,8 +239,7 @@ class BackendConfig(BaseModel):
 #: ported. A keyword naming one raises NotImplementedError.
 UNPORTED_FIELDS = frozenset({
     "model_parallel", "sp_prefill_min_tokens", "sp_attention", "sp_decode", "speculative",
-    "spec_lookahead", "sse_ping_interval_s", "debug_endpoints",
-    "batch_store_dir", "batch_max_in_flight", "batch_item_retries", "jobstore_ttl_s",
+    "spec_lookahead",
 })
 
 _MODEL_OVERRIDES = ("dtype", "max_seq_len", "attention_impl", "decode_attention_impl")
@@ -231,6 +254,77 @@ def _detect_hbm_bytes(device: torch.device) -> Optional[int]:
     total = torch.cuda.mem_get_info(index)[1]
     fraction = getattr(torch.cuda, "get_per_process_memory_fraction", lambda i: 1.0)(index)
     return int(total * fraction)
+
+
+class _IncrementalDetok:
+    """Turns per-step token taps into per-sample TEXT deltas for SSE.
+
+    Byte/BPE decodes are not prefix-stable token by token: a cut inside a
+    multi-byte UTF-8 character decodes to U+FFFD, and HF-style decode cleanup
+    can rewrite earlier characters when a token is appended. So each feed
+    re-decodes the sample's full accumulated ids, holds back any replacement-
+    character tail, and emits only a grown prefix extension — a step whose
+    decode shrank or diverged emits nothing and later steps recover. Stop
+    strings truncate here too (nothing past the earliest occurrence reaches
+    the wire), mirroring chat_completion's authoritative host-side scan.
+
+    ``flush_final`` reconciles against the finished choices: samples that
+    never produced a delta (speculative decode and SP-prefix paths have no
+    token tap) get their full text as one delta — the wire contract is at
+    least one delta per live sample before the final consensus event.
+    """
+
+    def __init__(self, tok, n: int, pad_id: int, stop_strings: List[str],
+                 emit) -> None:
+        self.tok = tok
+        self.n = n
+        self.pad_id = pad_id
+        self.stop_strings = stop_strings
+        self.emit = emit
+        self.ids: List[List[int]] = [[] for _ in range(n)]
+        self.sent: List[str] = ["" for _ in range(n)]
+        self.stopped = [False] * n
+
+    def feed(self, step: int, toks: np.ndarray) -> None:
+        for i in range(min(self.n, len(toks))):
+            t = int(toks[i])
+            if t == self.pad_id or self.stopped[i]:
+                continue
+            self.ids[i].append(t)
+            text = self.tok.decode(self.ids[i])
+            while text.endswith("�"):
+                # Incomplete UTF-8 tail — hold it back until the next token
+                # completes the character.
+                text = text[:-1]
+            cuts = [
+                pos for s in self.stop_strings if (pos := text.find(s)) != -1
+            ]
+            if cuts:
+                text = text[: min(cuts)]
+                self.stopped[i] = True
+            if len(text) > len(self.sent[i]) and text.startswith(self.sent[i]):
+                delta = text[len(self.sent[i]):]
+                self.sent[i] = text
+                self.emit(i, delta)
+
+    def flush_final(self, final_texts: List[Optional[str]]) -> None:
+        for i, final in enumerate(final_texts):
+            if final is None:
+                continue
+            sent = self.sent[i]
+            if not sent:
+                self.emit(i, final)
+            elif final.startswith(sent):
+                rest = final[len(sent):]
+                if rest:
+                    self.emit(i, rest)
+            elif final != sent:
+                # Streamed text diverged from the authoritative decode (decode
+                # cleanup rewrote earlier characters). The final consensus
+                # event carries the correct text; don't compound the drift.
+                logger.debug(
+                    "streamed text diverged from final decode for sample %d", i
+                )
 
 
 class HbmMemoryModel:
@@ -592,7 +686,15 @@ class CudaBackend(Backend):
         return self.supervisor.supervised_launch(run, rows=rows, max_new_tokens=max_new_tokens)
 
     # -- chat -------------------------------------------------------------
-    def chat_completion(self, request: ChatRequest) -> ChatCompletion:
+    supports_streaming = True
+
+    def chat_completion_stream(self, request: ChatRequest, emit) -> ChatCompletion:
+        """Streaming wire contract: per-token text deltas via ``emit(i, text)``
+        while the decode runs, then the full ChatCompletion for consolidation.
+        Same generation as chat_completion; only the tap differs."""
+        return self.chat_completion(request, _token_emit=emit)
+
+    def chat_completion(self, request: ChatRequest, _token_emit=None) -> ChatCompletion:
         tok = self.tokenizer
         prompt_ids = tok.apply_chat_template(request.messages, add_generation_prompt=True)
         n = max(1, request.n)
@@ -603,7 +705,12 @@ class CudaBackend(Backend):
         # byte strings; anything the schema compiler cannot express degrades
         # to the valid-JSON mask, and compile errors or
         # constrained_decoding=False to unconstrained decode.
-        constraint = self._constraint_for(request.response_format)
+        _req_trace = current_trace()
+        if _req_trace is not None:
+            with _req_trace.phase("grammar_mask"):
+                constraint = self._constraint_for(request.response_format)
+        else:
+            constraint = self._constraint_for(request.response_format)
         top_lp = request.top_logprobs if request.logprobs else None
         logit_bias = None
         if request.logit_bias:
@@ -627,6 +734,12 @@ class CudaBackend(Backend):
             if 0 < len(ids_s) <= MAX_STOP_LEN
         ][:MAX_STOP_SEQS] or None
 
+        detok = None
+        if _token_emit is not None:
+            detok = _IncrementalDetok(
+                tok, n, self.engine.config.pad_token_id, stop_strings, _token_emit,
+            )
+
         result = self._generate_batched(
             prompt_ids,
             n=n,
@@ -641,10 +754,12 @@ class CudaBackend(Backend):
             logit_bias=logit_bias,
             stop_sequences=stop_seqs,
             budget=request.budget,
+            token_sink=detok.feed if detok is not None else None,
             tenant=request.tenant,
         )
 
         choices: List[Dict[str, Any]] = []
+        final_texts: List[Optional[str]] = []
         completion_tokens = 0
         for i in range(n):
             err = result.sample_errors[i] if result.sample_errors else None
@@ -659,6 +774,7 @@ class CudaBackend(Backend):
                         "sample_error": dict(err),
                     }
                 )
+                final_texts.append("")
                 continue
             length = int(result.lengths[i])
             ids = [int(t) for t in result.tokens[i][:length]]
@@ -716,6 +832,11 @@ class CudaBackend(Backend):
                     "sample_logprob": float(np.sum(result.logprobs[i][:length])),
                 }
             )
+            final_texts.append(text)
+
+        if detok is not None:
+            # Reconcile the streamed deltas against the authoritative texts.
+            detok.flush_final(final_texts)
 
         digest = hashlib.md5(repr((request.messages, request.seed)).encode()).hexdigest()[:12]
         payload: Dict[str, Any] = {
@@ -731,6 +852,14 @@ class CudaBackend(Backend):
                 "total_tokens": result.prompt_len + completion_tokens,
             },
         }
+        if os.getenv("KLLMS_TRACE") == "1":
+            # Serving stats captured at generation time for this request; the
+            # port has no speculative decoding, so its spec stats are empty.
+            payload["engine_stats"] = {
+                "spec": {},
+                "prefix_cache": dict(self.engine.prefix_cache_stats),
+                "scheduler": dict(self.scheduler.stats),
+            }
         return ChatCompletion.model_validate(payload)
 
     def _generate_batched(
@@ -749,6 +878,7 @@ class CudaBackend(Backend):
         logit_bias: Optional[Dict[int, float]] = None,
         stop_sequences: Optional[List[List[int]]] = None,
         budget=None,
+        token_sink=None,
         tenant=None,
     ):
         """Submit one generation through the coalescing scheduler: concurrent
@@ -810,6 +940,7 @@ class CudaBackend(Backend):
                     top_p=top_p,
                     seed=seed,
                     budget=budget,
+                    token_sink=token_sink,
                     grammar=loop_grammar,
                     tenant=tenant_ctx,
                 ).result()
@@ -851,7 +982,7 @@ class CudaBackend(Backend):
             max_rows = self.memory_model.max_rows(len(prompt_ids) + max_new)
         return self.scheduler.call_batched(
             batch_key,
-            GenRequestSpec(list(prompt_ids), n, seed, budget),
+            GenRequestSpec(list(prompt_ids), n, seed, budget, token_sink),
             run,
             weight=rows,
             budget=budget,

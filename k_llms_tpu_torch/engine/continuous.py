@@ -1066,6 +1066,11 @@ class ContinuousDecodeLoop:
             if req.replays:
                 self._stats["replayed_rows"] += req.n
                 RECOVERY_EVENTS.record("continuous.replayed_rows", req.n)
+                if req.trace is not None:
+                    # The same trace survives the rebuild, annotated rather
+                    # than duplicated.
+                    req.trace.annotate("replayed")
+                    req.trace.bump("replayed_rows", req.n)
             else:
                 self._stats["admitted"] += 1
                 if in_flight:

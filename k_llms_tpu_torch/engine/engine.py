@@ -57,12 +57,16 @@ that was cancelled or ran out of time (the abort poller), and the
 (``nan``) failpoints fire where they do in JAX; ``on_quarantine(poisoned,
 total)`` is called after every launch.
 
+A member's ``token_sink`` (the streaming tap) receives its rows' tokens of
+every decode step, in step order, exactly once; the copy to the host is
+made only when some member of the launch streams.
+
 The continuous decode loop (``engine/continuous.py``) drives this engine's
 prefill, its prefix cache and its page pool between its own steps; it pins
 the pool once it is built.
 
 Not ported yet: meshes, sequence-parallel and ring prefill (and their cache
-continuation), speculative decoding and the streaming token tap.
+continuation) and speculative decoding.
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ import random as _pyrandom
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -288,7 +292,14 @@ class GenRequestSpec(NamedTuple):
     prompt_ids: List[int]
     n: int = 1
     seed: Optional[int] = None
+    # Lifecycle budget (deadline + cancel token); not part of the scheduler's
+    # batch key: each member's rows abort on their own.
     budget: Optional[RequestBudget] = None
+    # Streaming tap: called as ``sink(step, token_ids[n_per])`` for each
+    # decode step of this request's rows, in step order, exactly once. Like
+    # budget, not part of the batch key: streaming and non-streaming
+    # requests coalesce into one launch.
+    token_sink: Optional[Callable[[int, np.ndarray], None]] = None
 
 
 def _one_launch_at_a_time(method):
@@ -390,6 +401,11 @@ class LocalEngine:
         # Host-clock phase times of the last generate_many launch (seconds),
         # fenced by a device synchronise at each phase end.
         self.last_launch_stats: Dict[str, Any] = {}
+        # The running launch's token sinks (one per member, None where a
+        # member does not stream) and the tap's next step; set per launch
+        # under the launch lock.
+        self._active_token_sinks: Optional[List[Any]] = None
+        self._reset_tap_state()
 
     def param_footprint_bytes(self) -> int:
         """Bytes of the resident parameters, quantized payloads and scales
@@ -782,9 +798,11 @@ class LocalEngine:
 
     # -- public API ---------------------------------------------------------
     def generate(self, prompt_ids: Sequence[int], n: int = 1, seed: Optional[int] = None,
+                 token_sink: Optional[Callable[[int, np.ndarray], None]] = None,
                  **kwargs) -> GenerationResult:
         """One request: :meth:`generate_many` with a single item."""
-        out = self.generate_many([GenRequestSpec(list(prompt_ids), n, seed)], **kwargs)[0]
+        spec = GenRequestSpec(list(prompt_ids), n, seed, token_sink=token_sink)
+        out = self.generate_many([spec], **kwargs)[0]
         if isinstance(out, BaseException):
             raise out
         return out
@@ -924,17 +942,24 @@ class LocalEngine:
         budgets = [it.budget for it in items]
         poison0 = self._poison0_array(B, live)
 
+        sinks = [it.token_sink for it in items]
+
         def run_loop(step_fn, first_logits):
-            return self._decode(
-                step_fn, first_logits, n_per, r_pad, req_keys,
-                _constraint_ops(constraint, device), budgets, poison0,
-                max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
-                top_k=top_k, eos_t=eos_t,
-                top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
-                presence_penalty=presence_penalty,
-                bias=self._bias_array(logit_bias) if logit_bias else None,
-                stops=stops if use_stops else None,
-            )
+            self._active_token_sinks = sinks if any(sinks) else None
+            self._reset_tap_state()
+            try:
+                return self._decode(
+                    step_fn, first_logits, n_per, r_pad, req_keys,
+                    _constraint_ops(constraint, device), budgets, poison0,
+                    max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+                    top_k=top_k, eos_t=eos_t,
+                    top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
+                    presence_penalty=presence_penalty,
+                    bias=self._bias_array(logit_bias) if logit_bias else None,
+                    stops=stops if use_stops else None,
+                )
+            finally:
+                self._active_token_sinks = None
 
         layout = self.kv_layout
         if layout == "paged":
@@ -1018,6 +1043,31 @@ class LocalEngine:
             lps[i, :] = 0.0
             lengths[i] = 0
         return result._replace(tokens=toks, logprobs=lps, lengths=lengths, sample_errors=errs)
+
+    # -- streaming tap ----------------------------------------------------
+    def _reset_tap_state(self) -> None:
+        """Per-launch delivery state for the streaming token tap. One launch
+        runs at a time (the launch lock), so one tap stream is live."""
+        self._tap_next = 0
+
+    def _deliver_tap_step(self, step: int, toks: np.ndarray) -> None:
+        """Deliver one step's tokens ``[r_pad, n_per]`` to the active sinks,
+        member ``r`` getting row group ``toks[r]``. The decode loop is a host
+        loop that delivers in step order, so sinks observe steps 0, 1, 2, ...
+        exactly once (a step other than the next is dropped). A sink that
+        raises is logged and dropped; it never fails the decode."""
+        sinks = self._active_token_sinks
+        if not sinks or step != self._tap_next:
+            return
+        for r, sink in enumerate(sinks):
+            if sink is None:
+                continue
+            try:
+                sink(step, toks[r])
+            except Exception:  # a broken sink must not poison decode
+                logger.exception("token sink failed; dropping stream tap")
+                sinks[r] = None
+        self._tap_next += 1
 
     # -- numeric-integrity quarantine --------------------------------------
     def _poison0_array(self, n_rows: int, live_rows: Sequence[int]) -> Optional[torch.Tensor]:
@@ -1277,6 +1327,14 @@ class LocalEngine:
         polled = [b for b in budgets if b is not None]
         aborted: Dict[int, Tuple[int, float]] = {}
 
+        # The streaming tap: each step's tokens go to the host in one
+        # non-blocking copy, which the next ``bool(done.all())`` sync
+        # completes; they are delivered after the following step's work is
+        # queued, so the card computes while the sinks run. A launch without
+        # sinks copies nothing and syncs no more than before.
+        tapped = self._active_token_sinks is not None
+        pending = (0, tok.to("cpu", non_blocking=True)) if tapped else None
+
         step = 0
         while step < max_new_tokens - 1 and not bool(done.all()):
             logits, bad = prepare(step_fn(tok, step), done)
@@ -1315,6 +1373,9 @@ class LocalEngine:
                     for j in flipped:
                         rows[j * n_per: (j + 1) * n_per] = True
                     done = done | rows.to(device)
+            if tapped:
+                self._deliver_tap_step(pending[0], pending[1].numpy().reshape(r_pad, n_per))
+                pending = (step + 1, nxt.to("cpu", non_blocking=True))
             tok = nxt
             step += 1
 
@@ -1330,6 +1391,8 @@ class LocalEngine:
             tt[:, :n_steps] = torch.stack(tt_steps, dim=1).to(torch.int32)
             tl[:, :n_steps] = torch.stack(tl_steps, dim=1)
         self._sync()
+        if tapped:
+            self._deliver_tap_step(pending[0], pending[1].numpy().reshape(r_pad, n_per))
 
         def host(t):
             return None if t is None else t.cpu().numpy()

@@ -1,30 +1,74 @@
-"""Event counters and the latency histograms: the pieces of the JAX
-package's observability module that the port's copied host layers call.
-Consolidation records ``consensus.zero_survivors``; the grammar compiler
-records the ``GRAMMAR_EVENTS`` family; the checkpoint loader counts rejected
-loads in ``QUARANTINE_EVENTS``; the scheduler, supervisor, retry policy,
-tenancy and replica set record the failure, recovery, tenant, route, hedge
-and failover families under the JAX package's declared names; the paged
-attention resolver counts its dispatches and drilled fallbacks in
-``KERNEL_EVENTS``; the device consensus scorer counts its dispatches and
-fallbacks in ``CONSENSUS_EVENTS``. Request tracing is not ported yet, so
-:func:`current_trace` returns None and the scheduler attributes no spans.
-The port's kernels keep their own launch counts on their wrappers
-(``ops/_ext.py``)."""
+"""Tracing, metrics, and logging.
+
+The request-scoped tracing, latency-histogram and flight-recorder layer lives
+in ``k_llms_tpu_torch/observability/`` and is re-exported here; this module
+keeps the ``EventCounters`` groups (the process-wide counter vocabularies,
+the JAX package's declared names), the ``torch.profiler`` wrapper for device
+traces, the package logger and consensus-confidence histograms. The port's
+kernels keep their own launch counts on their wrappers (``ops/_ext.py``).
+"""
 
 from __future__ import annotations
 
+import contextlib
 import fnmatch
-from typing import Dict, Optional, Sequence, Tuple
+import logging
+import os
+import time
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
-from ..observability import LATENCY, LatencyHistograms  # noqa: F401  (re-exported)
+from ..observability import (  # noqa: F401  (re-exported surface)
+    FLIGHT_RECORDER,
+    FlightRecorder,
+    LATENCY,
+    LatencyHistograms,
+    NOOP_TRACE,
+    NoopTrace,
+    RequestTrace,
+    Span,
+    TRACER,
+    Tracer,
+    current_trace,
+    format_traceparent,
+    parse_traceparent,
+    use_trace,
+)
 from .locks import make_lock
 
+#: The request-phase timer call sites construct directly (``phase()`` /
+#: ``as_dict()``), lock-guarded.
+Trace = RequestTrace
 
-def current_trace() -> None:
-    """The request trace of the calling context: always None until the
-    tracer is ported."""
-    return None
+
+def configure_logging() -> logging.Logger:
+    """Package logger; DEBUG iff ENV_NAME=dev."""
+    logger = logging.getLogger("k_llms_tpu_torch")
+    logger.setLevel(logging.DEBUG if os.getenv("ENV_NAME") == "dev" else logging.INFO)
+    return logger
+
+
+@contextlib.contextmanager
+def device_profiler(log_dir: Optional[str] = None) -> Iterator[None]:
+    """``torch.profiler`` trace of the host and, where a card is present,
+    its kernels around a block, written into ``log_dir`` as a Chrome trace
+    (``*.pt.trace.json``; open it in Perfetto or chrome://tracing). No-ops
+    when log_dir is None and KLLMS_PROFILE_DIR is unset."""
+    log_dir = log_dir or os.getenv("KLLMS_PROFILE_DIR")
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"kllms-{os.getpid()}-{time.time_ns()}.pt.trace.json")
+    )
 
 
 class EventCounters:
@@ -197,3 +241,74 @@ CONSENSUS_EVENTS = EventCounters(declared=(
     "consensus.device_cosine",
     "consensus.device_votes",
 ))
+
+#: HTTP-serving counters (``request.<route>.<status>``, one per completed
+#: request keyed by route and HTTP status, plus ``request.disconnect`` for
+#: clients that dropped before the response finished), fed by the ASGI app
+#: in ``serving/app.py`` and surfaced verbatim on ``/metrics``.
+SERVE_EVENTS = EventCounters(declared=(
+    "request.*",
+))
+
+#: SSE-streaming counters: streams opened, completed and aborted (closed
+#: before the final consensus event, by a client disconnect or a mid-stream
+#: error), ``tokens.streamed`` (content chunks put on the wire) and
+#: ``streams.pings`` (keep-alive comment frames in idle gaps).
+STREAM_EVENTS = EventCounters(declared=(
+    "streams.opened",
+    "streams.completed",
+    "streams.aborted",
+    "tokens.streamed",
+    "streams.pings",
+))
+
+#: Offline batch-lane counters: the job lifecycle (created, recovered after a
+#: restart, completed with or without item errors, cancelled, swept by the
+#: ``jobstore_ttl_s`` sweep), the item lifecycle (output records committed or
+#: captured as typed errors, in-flight items requeued by drain, a worker
+#: crash or startup reconciliation) and the durability drills (lane worker
+#: crashes, torn journal tails truncated on recovery). Fed by
+#: ``reliability/jobstore.py`` and ``serving/batch.py``; surfaced on
+#: ``/metrics`` as ``kllms_batch_events_total``.
+BATCH_EVENTS = EventCounters(declared=(
+    "batch.job_created",
+    "batch.job_recovered",
+    "batch.job_completed",
+    "batch.job_completed_with_errors",
+    "batch.job_cancelled",
+    "batch.item_completed",
+    "batch.item_failed",
+    "batch.item_requeued",
+    "batch.worker_crashes",
+    "batch.store_torn_tail",
+    "batch.job_swept",
+))
+
+
+def _walk_confidences(node: Any, out: List[float]) -> None:
+    if isinstance(node, dict):
+        for v in node.values():
+            _walk_confidences(v, out)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _walk_confidences(v, out)
+    elif isinstance(node, (int, float)) and not isinstance(node, bool):
+        out.append(float(node))
+
+
+def confidence_histogram(likelihoods: Any, bins: int = 10) -> Dict[str, Any]:
+    """Histogram + summary stats over every confidence in a likelihoods tree."""
+    values: List[float] = []
+    _walk_confidences(likelihoods, values)
+    if not values:
+        return {"count": 0, "histogram": [0] * bins, "mean": None, "min": None}
+    counts = [0] * bins
+    for v in values:
+        idx = min(int(max(0.0, min(1.0, v)) * bins), bins - 1)
+        counts[idx] += 1
+    return {
+        "count": len(values),
+        "histogram": counts,
+        "mean": round(sum(values) / len(values), 5),
+        "min": round(min(values), 5),
+    }

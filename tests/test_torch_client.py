@@ -104,7 +104,7 @@ def test_backend_knobs_reach_the_engine(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [("speculative", "prompt_lookup"), ("sp_decode", True),
-                                         ("batch_store_dir", "jobs")])
+                                         ("sp_attention", "ring")])
 def test_unported_backend_field_raises(field, value):
     """A keyword naming a JAX BackendConfig field the port has not ported
     raises and names the field; it is never dropped."""
@@ -168,6 +168,28 @@ def test_serving_fields_take_the_jax_defaults_and_reach_their_layer(field):
     client.close()
 
 
+#: The streaming and HTTP serving fields, each with a value other than its
+#: default; the serving app and the batch lane read them off the backend's
+#: config.
+APP_FIELDS = {"sse_ping_interval_s": 0.5, "debug_endpoints": True, "batch_store_dir": "jobs",
+              "batch_max_in_flight": 2, "batch_item_retries": 3, "jobstore_ttl_s": 60.0}
+
+
+@pytest.mark.parametrize("field", sorted(APP_FIELDS))
+def test_serving_app_fields_take_the_jax_defaults(field):
+    """The six fields of the streaming and HTTP serving slice are served
+    under the JAX package's names and defaults, and a value reaches the
+    backend's config, where the serving app reads it."""
+    from k_llms_tpu.backends.tpu import BackendConfig as JaxBackendConfig
+    from k_llms_tpu_torch.backends.cuda import UNPORTED_FIELDS, BackendConfig
+
+    assert field not in UNPORTED_FIELDS
+    assert BackendConfig.model_fields[field].default == JaxBackendConfig.model_fields[field].default
+    client = KLLMs(backend="cuda", model="tiny", device="cpu", **{field: APP_FIELDS[field]})
+    assert getattr(client.backend.backend_config, field) == APP_FIELDS[field]
+    client.close()
+
+
 def test_unported_field_list_matches_the_jax_backend_config():
     """The port's list of unported fields, with the fields it serves, is the
     JAX package's BackendConfig (the port adds only ``device``)."""
@@ -197,8 +219,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     own writer (config.json and two shards): the checkpoint loads through
     the port's safetensors reader, with neither ``safetensors`` nor
     ``transformers`` imported, and the prefix cache serves a repeat; the
-    key aligner, the device consensus and the continuous loop (its greedy
-    answer equal to the coalesced one) import neither either."""
+    key aligner, the device consensus, the continuous loop (its greedy
+    answer equal to the coalesced one), the observability layer and the
+    HTTP front door (a stream over a real socket) import neither either."""
     code = (
         "import json, os, sys\n"
         "import torch\n"
@@ -263,6 +286,18 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "assert lp.backend.health()['continuous']['admitted'] == 1\n"
         "assert lp.backend.health()['consensus']['events']['consensus.device_dispatch'] >= 1\n"
         "lp.close()\n"
+        "import asyncio, http.client\n"
+        "from k_llms_tpu_torch import observability\n"
+        "from k_llms_tpu_torch.serving import ServerThread, create_app\n"
+        "with ServerThread(create_app(c)) as srv:\n"
+        "    conn = http.client.HTTPConnection('127.0.0.1', srv.port, timeout=60)\n"
+        "    conn.request('POST', '/v1/chat/completions', body=json.dumps({'messages':"
+        " [{'role': 'user', 'content': 'hi'}], 'n': 4, 'temperature': 0, 'seed': 7,"
+        " 'max_tokens': 8, 'stream': True}), headers={'content-type': 'application/json'})\n"
+        "    sse = conn.getresponse().read()\n"
+        "    conn.close()\n"
+        "assert sse.endswith(b'data: [DONE]\\n\\n') and b'chat.completion.chunk' in sse\n"
+        "assert observability.TRACER is not None\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'k_llms_tpu' or m.startswith('k_llms_tpu.')"
         " or m.split('.')[0] in ('safetensors', 'transformers'))\n"

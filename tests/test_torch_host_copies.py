@@ -9,7 +9,10 @@ modules the device half (from its "Device side" marker on), which the port
 rewrites in torch, and in the serving layer (failpoints, retry, tenancy,
 the scheduler, the supervisor, the replica set, the latency histograms) the
 paged-attention drill's target, the card's limits on healing a hang, and
-the default member backend.
+the default member backend; in the streaming and HTTP serving layer (the
+tracer, flight recorder and Prometheus exposition, the job store and batch
+lane, the ASGI app, its server and entry point, the fake backend, the
+resources) the port's backend names and profiler.
 
 Then a sample of the JAX package's own test vectors (``test_alignment``,
 ``test_translit``, ``test_native``, and TRUTH_DOCS consolidation) runs
@@ -114,6 +117,31 @@ EDITS.update({
     ],
 })
 
+#: The streaming, observability and HTTP serving copies: the port's backend
+#: names and its profiler.
+EDITS.update({
+    "serving/__main__.py": [
+        ("--backend tpu --model tiny --port 8000", "--backend cuda --model tiny --port 8000"),
+        ('    p.add_argument("--backend", default="tpu", choices=["tpu", "fake"])\n',
+         '    p.add_argument("--backend", default="cuda", choices=["cuda", "fake"])\n'
+         '    p.add_argument(\n'
+         '        "--device", default=None,\n'
+         '        help="where the cuda backend runs: the CUDA card by default (the server "\n'
+         '             "fails to start without one); \'cpu\' runs the plain PyTorch versions",\n'
+         '    )\n'),
+        ('        ("continuous_width", "continuous_width"),\n',
+         '        ("continuous_width", "continuous_width"),\n        ("device", "device"),\n'),
+    ],
+    "serving/app.py": [
+        ("on-demand jax.profiler capture", "on-demand torch.profiler capture"),
+    ],
+    "observability/trace.py": [
+        ("guarded by a lockcheck leaf lock", "guarded by a leaf lock"),
+    ],
+    "resources/completions.py": [
+        ("# TpuBackend attaches engine_stats", "# CudaBackend attaches engine_stats"),
+    ],
+})
 
 #: The grammar-constraint modules: only the host half is a copy.
 DEVICE_MARKERS = {
@@ -135,7 +163,11 @@ COPIED = sorted(
     + ["native/__init__.py", "native/levenshtein.cpp", "native/hungarian.cpp",
        "reliability/deadline.py", "engine/tokenizer.py", "reliability/failpoints.py",
        "reliability/retry.py", "reliability/tenancy.py", "reliability/supervisor.py",
-       "reliability/replicas.py", "engine/scheduler.py", "observability/histograms.py"]
+       "reliability/replicas.py", "engine/scheduler.py", "observability/histograms.py",
+       "observability/__init__.py", "observability/flight.py", "observability/prometheus.py",
+       "observability/trace.py", "reliability/jobstore.py", "backends/fake.py",
+       "resources/completions.py", "serving/__init__.py", "serving/__main__.py",
+       "serving/app.py", "serving/batch.py", "serving/server.py", "serving/sse.py"]
     + [f"keyalign/{f}" for f in ("__init__.py", "align.py", "fuzzy.py", "selection.py")]
     + list(DEVICE_MARKERS)
 )
@@ -161,9 +193,10 @@ def _normalise(ref: str) -> str:
     machine path, tracking tags such as ``(WORD 8)``, ``(WORD r3 #3)`` or
     ``(PR 2)`` dropped, the package's own name."""
     ref = re.sub(r"/[\w./-]*?/(k_llms/)", r"\1", ref)
-    ref = re.sub(r"`/[\w./-]*?/README\.md", "`k-LLMs README.md", ref)
+    ref = re.sub(r"`/[\w./-]*?/(README\w*\.md)", r"`k-LLMs \1", ref)
     ref = re.sub(r" \([A-Z]{5,} (?:\d+(?: satellite)?|r\d+ #\d+)\)", "", ref)
     ref = re.sub(r" \(PR \d+\)", "", ref)
+    ref = re.sub(r" \(the PR [\d/]+ pattern\)", "", ref)
     return re.sub(r"\bk_llms_tpu(?=[./])", "k_llms_tpu_torch", ref)
 
 
@@ -182,6 +215,18 @@ def test_copy_equals_reference_apart_from_imports_and_documented_edits(name):
         assert old in ref, f"{name}: documented edit no longer matches the reference: {old!r}"
         ref = ref.replace(old, new, 1)
     ref, port = (_drop_imports(_host_half(name, t)) for t in (ref, port))
+    assert port == ref
+
+
+def test_incremental_detok_is_a_copy():
+    """``backends/cuda.py::_IncrementalDetok`` is the JAX backend's class."""
+    def source(path, cls, end):
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        return text[text.index(f"class {cls}"): text.index(end)]
+
+    ref = source(os.path.join(REF, "backends", "tpu.py"), "_IncrementalDetok", "class TpuBackend")
+    port = source(os.path.join(PORT, "backends", "cuda.py"), "_IncrementalDetok", "class HbmMemoryModel")
     assert port == ref
 
 

@@ -839,3 +839,77 @@ def test_tiny_family_through_kernels_equals_plain_cpu(cuda_device, family):
             assert eng.paged_attention_impl == ("cuda" if family == "mixtral" else "xla")
     np.testing.assert_array_equal(outs[0].tokens, outs[1].tokens)
     np.testing.assert_allclose(outs[0].logprobs, outs[1].logprobs, atol=1e-4, rtol=0)
+
+
+# --- the OpenAI wire over HTTP at the 8B shapes of chip_smoke's serve phase ---
+
+PRINTABLE = {str(t): 10.0 for t in range(32, 127)}
+
+
+@pytest.fixture(scope="module")
+def served_8b():
+    """Llama-3-8B in bf16 on the paged path (seeded weights, the byte
+    tokenizer, the smoke's 128-page pool) behind ``ServerThread`` on
+    loopback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no interpret mode")
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.serving import ServerThread, create_app
+
+    client = KLLMs(backend="cuda", model="llama-3-8b", kv_pool_pages=128)
+    srv = ServerThread(create_app(client)).start()
+    yield client, srv.port
+    srv.stop(drain=False)
+    client.close()
+
+
+def test_stream_over_http_equals_create(served_8b):
+    """Request b of the serve phase (n = 8, T 0.8, top-p 0.95, 64 tokens)
+    streamed over a real socket: every sample gets a delta before the final
+    event, the deltas concatenate to the final texts, the final event equals
+    a non-streamed create() with the same seed, and the stream ends in
+    [DONE]; the decode ran K1 and the draws."""
+    from chip_smoke import http_stream, normalised, stream_texts
+
+    client, port = served_8b
+    body = dict(messages=[{"role": "user", "content": "Name three prime numbers."}], n=8,
+                temperature=0.8, top_p=0.95, seed=3, max_tokens=64, logit_bias=PRINTABLE)
+    _ext.reset_launch_counts()
+    status, frames, ttfd, _ = http_stream(port, body)
+    assert _ext.LAUNCH_COUNTS["paged_decode_attention"] > 0
+    assert _ext.LAUNCH_COUNTS["threefry_uniform_rows"] > 0
+    texts, seen, final = stream_texts(frames, 8)
+    assert status == 200 and frames[-1] == "[DONE]" and frames[-2] is final
+    assert seen == set(range(1, 9)) and ttfd is not None
+    assert texts == [c["message"]["content"] for c in final["choices"][1:]]
+    want = client.chat.completions.create(**body).model_dump(mode="json")
+    assert normalised(final) == normalised(want)
+
+
+def test_disconnect_aborts_the_launch(served_8b):
+    """A 256-token stream whose client hangs up after the first delta: the
+    launch aborts (``engine.decode_abort`` up by one, fewer than 255 decode
+    steps), its pages return to the pool, and the next request is served."""
+    import time
+
+    from chip_smoke import http_call, http_stream
+    from k_llms_tpu_torch.utils.observability import FAILURE_EVENTS
+
+    client, port = served_8b
+    engine = client.backend.engine
+    body = dict(messages=[{"role": "user", "content": "Name three prime numbers."}], n=8,
+                temperature=0.8, top_p=0.95, seed=17, max_tokens=256, logit_bias=PRINTABLE)
+    aborts = FAILURE_EVENTS.get("engine.decode_abort")
+    status, frames, ttfd, _ = http_stream(port, body, disconnect_after_first_delta=True)
+    assert status == 200 and ttfd is not None
+    deadline = time.monotonic() + 120
+    while FAILURE_EVENTS.get("engine.decode_abort") == aborts:
+        assert time.monotonic() < deadline, "the disconnect did not abort the launch"
+        time.sleep(0.01)
+    st = engine.last_launch_stats
+    assert FAILURE_EVENTS.get("engine.decode_abort") == aborts + 1
+    assert st["aborted"] and st["decode_steps"] < 255
+    with engine._launch_lock:
+        assert engine._kv_pool.allocator.snapshot()["in_use"] == 0
+    nxt = http_call(port, "POST", "/v1/chat/completions", dict(body, max_tokens=8, stream=False))
+    assert nxt[0] == 200
