@@ -97,7 +97,7 @@ from typing import Literal
 from pydantic import BaseModel, Field
 
 PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "serve", "ckpt", "loop",
-          "8b_int4", "sched", "gemma9b", "mistral7b", "mixtral_int4")
+          "8b_int4", "sched", "spec", "gemma9b", "mistral7b", "mixtral_int4")
 # The model-family phases, in the order they run.
 FAMILY_PHASES = ("gemma9b", "mistral7b", "mixtral_int4")
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
@@ -3772,6 +3772,427 @@ def main(argv=None) -> int:
         client.close()
         del client, engine
 
+    # -- the spec phase: prompt-lookup speculative decoding ------------------
+    # Drafts verified per forward, as the JAX package's default.
+    SPEC_K = 4
+    #: Kernel launches summed over the spec phase's counted windows.
+    spec_launch_counts = {}
+
+    def note_spec_counts(counts):
+        for name, v in counts.items():
+            spec_launch_counts[name] = spec_launch_counts.get(name, 0) + v
+
+    def expected_spec(launches, embeds, L, int4):
+        """A speculative client's launch counts: K2 once a layer per prefill
+        and per embeddings forward; no K1 and no K3 (spec launches decode
+        dense, and the verify's K + 1 queries a row take the plain attention,
+        as in JAX); on int4 weights K4 per int4 matmul per prefill and per
+        verify iteration (seven block matmuls a layer and lm_head; the
+        embeddings forward skips lm_head); a draw per sampled verify
+        iteration plus the first token's (``decode_steps`` of a spec launch
+        counts its verify iterations)."""
+        its = sum(s for _, _, s, _ in launches)
+        prefills = sum(r for r, _, _, _ in launches)
+        return {"flash_attention": L * (prefills + len(embeds)),
+                "paged_decode_attention": 0, "decode_prefix_attention": 0,
+                "w4_matmul": ((7 * L + 1) * (prefills + its) + 7 * L * len(embeds)) if int4 else 0,
+                "threefry_uniform_rows": sampled_draws(launches),
+                "levenshtein": LEV_PLANNED["launches"]}
+
+    def spec_client_beside(client):
+        """A speculative client on another client's weights (the same
+        tensors, no copy), dense, as the JAX engine routes spec launches."""
+        from k_llms_tpu_torch.backends.cuda import CudaBackend
+
+        base = client.backend
+        eng = base.engine
+        spec_engine = LocalEngine(eng.config, params=eng.params, device=eng.device,
+                                  kv_layout="dense", speculative="prompt_lookup",
+                                  spec_lookahead=SPEC_K)
+        cfg = base.backend_config.model_copy(update=dict(
+            speculative="prompt_lookup", spec_lookahead=SPEC_K, paged_kv=False))
+        return KLLMs(backend=CudaBackend(config=cfg, engine=spec_engine))
+
+    def spec_alternating(label, case, normal_engine, spec_engine, ids, expect_normal,
+                         expect_spec, **kw):
+        """One request through the normal and the speculative engine in
+        alternating runs (normal, spec, spec, normal: host clocks move by up
+        to 2x between calls), each launch's counts held to its formula.
+        Per run: decode ms per step (per verify iteration on spec runs) and
+        per emitted token (decode time over the tokens a row emitted after
+        its first, averaged over rows). Returns (runs, first result of each
+        kind)."""
+        runs, results = [], {}
+        for which in ("normal", "spec", "spec", "normal"):
+            eng = spec_engine if which == "spec" else normal_engine
+            reset_counts()
+            res = eng.generate(ids, **kw)
+            counts = dict(_ext.LAUNCH_COUNTS)
+            st = dict(eng.last_launch_stats)
+            launch = [(1, st["n_per"], st["decode_steps"], kw["temperature"])]
+            expected = (expect_spec if which == "spec" else expect_normal)(launch)
+            if counts != expected:
+                raise AssertionError(f"{label} {case} {which} launch counts {counts} != {expected}")
+            if which == "spec":
+                note_spec_counts(counts)
+            emitted = float(np.mean(res.lengths.astype(np.float64) - 1.0))
+            runs.append({"run": which, "prefill_ms": st["prefill_s"] * 1e3,
+                         "decode_ms": st["decode_s"] * 1e3, "steps": st["decode_steps"],
+                         "ms_per_step": st["decode_s"] * 1e3 / max(1, st["decode_steps"]),
+                         "emitted_per_row": emitted,
+                         "ms_per_emitted_token": st["decode_s"] * 1e3 / max(emitted, 1.0),
+                         "kv_layout": st["kv_layout"], "spec": st.get("spec")})
+            results.setdefault(which, res)
+        a, b = results["normal"], results["spec"]
+        summary = {kind: {m: [r[m] for r in runs if r["run"] == kind]
+                          for m in ("ms_per_step", "ms_per_emitted_token")}
+                   for kind in ("normal", "spec")}
+        log({"phase": f"{label}_spec_timing", "case": case, "n": kw["n"],
+             "max_new_tokens": kw["max_new_tokens"], "temperature": kw["temperature"],
+             "prompt_tokens": len(ids), "runs": runs, "summary": summary,
+             "verify_over_step": (np.mean(summary["spec"]["ms_per_step"])
+                                  / np.mean(summary["normal"]["ms_per_step"])),
+             "per_token_speedup": (np.mean(summary["normal"]["ms_per_emitted_token"])
+                                   / np.mean(summary["spec"]["ms_per_emitted_token"])),
+             "tokens_agreeing": [int(np.sum(a.tokens == b.tokens)), int(a.tokens.size)],
+             "rows_equal": int(sum(np.array_equal(x, y) for x, y in zip(a.tokens, b.tokens)))})
+        return runs, results
+
+    def spec_copy_case(label, normal_engine, spec_engine, expect_normal, expect_spec, L, int4):
+        """The copy case, asserted: a prompt of one repeated printable byte
+        with a +100 logit bias on it, greedy, 64 tokens at n = 8: every
+        token is that byte and a verify emits more than two tokens a row.
+        On int4 weights a further counted spec run records K4's routes: the
+        verify's n (K + 1) = 40 rows take the tensor-core tile."""
+        from k_llms_tpu_torch.ops import w4matmul as w4
+
+        byte = ord("x")
+        ids = [byte] * 300
+        kw = dict(n=8, max_new_tokens=64, temperature=0.0, seed=1, logit_bias={byte: 100.0},
+                  eos_ids=ByteTokenizer().stop_ids)
+        runs, results = spec_alternating(label, "copy", normal_engine, spec_engine, ids,
+                                         expect_normal, expect_spec, **kw)
+        res = results["spec"]
+        stats = [r["spec"] for r in runs if r["run"] == "spec"]
+        tpi = [s["tokens_per_iteration"] for s in stats]
+        routes = None
+        if int4:
+            seen = {}
+            original = w4.w4_route
+
+            def recording(rows, K, N, dtype):
+                route = original(rows, K, N, dtype)
+                seen[(rows, route)] = seen.get((rows, route), 0) + 1
+                return route
+
+            reset_counts()
+            w4.w4_route = recording
+            try:
+                spec_engine.generate(ids, **kw)
+            finally:
+                w4.w4_route = original
+            counts = dict(_ext.LAUNCH_COUNTS)
+            st = dict(spec_engine.last_launch_stats)
+            its = st["decode_steps"]
+            note_spec_counts(counts)
+            expected = expect_spec([(1, st["n_per"], its, 0.0)])
+            verify_rows = kw["n"] * (SPEC_K + 1)
+            routes = {f"{rows}:{route}": c for (rows, route), c in sorted(seen.items())}
+            log({"phase": f"{label}_spec_copy_routes", "k4_calls_by_rows_and_route": routes,
+                 "verify_rows": verify_rows, "verify_iterations": its, "launches": counts})
+            if (counts != expected or seen.get((verify_rows, "tc"), 0) != (7 * L + 1) * its
+                    or any(rows == verify_rows and route != "tc" for rows, route in seen)):
+                raise AssertionError(f"{label} copy case K4 routes {routes}, counts {counts} "
+                                     f"!= {expected}")
+        log({"phase": f"{label}_spec_copy", "all_tokens_the_byte": bool((res.tokens == byte).all()),
+             "tokens_per_iteration": tpi, "spec_stats": stats})
+        if not (res.tokens == byte).all() or min(tpi) <= 2.0:
+            raise AssertionError(f"{label} copy case: tokens_per_iteration {tpi}, tokens "
+                                 f"{res.tokens[:, :8].tolist()}")
+        return runs
+
+    def spec_8b(label, client, normal_outputs=None):
+        """The spec phase on an 8B client's weights. On bf16 (``8b``): the
+        ``8b`` phase's three requests and its ``parse()`` through a
+        speculative client (counted, by formula), their acceptance and
+        their agreement with the normal client (reported, not asserted:
+        bf16 shapes differ); request 0 timed against the normal path in
+        alternating runs; a two-request group fused through the scheduler,
+        equal to its rerun, its mirror and ``SPEC_EVENTS`` held together.
+        On both: the copy case."""
+        from k_llms_tpu_torch.utils.observability import SPEC_EVENTS
+
+        engine = client.backend.engine
+        int4 = engine.quantized == "int4"
+        cfg8 = engine.config
+        L, G = cfg8.num_layers, cfg8.num_heads // cfg8.num_kv_heads
+        spec_client = spec_client_beside(client)
+        spec_engine = spec_client.backend.engine
+
+        def expect_spec(launches, embeds=()):
+            return expected_spec(launches, list(embeds), L, int4)
+
+        def expect_normal(launches):
+            if int4:
+                return expected_int4_dense(launches, [], L, G)
+            return expected_bf16_paged(launches, [], L)
+
+        log({"phase": f"{label}_spec_init", "kv_layout": spec_engine.kv_layout,
+             "spec_lookahead": spec_engine.spec_lookahead, "quantized": spec_engine.quantized,
+             "shares_weights": spec_engine.params is engine.params})
+        if not int4:
+            counts, launches, embeds, outputs, stats, _ = serve_8b(f"{label}_spec", spec_client)
+            expected = expect_spec(launches, embeds)
+            agreement = None
+            if normal_outputs is not None:
+                agreement = [
+                    {"tokens_agreeing": [int(np.sum(s[0][0] == n_[0][0])), int(s[0][0].size)],
+                     "rows_equal": int(sum(np.array_equal(x, y)
+                                           for x, y in zip(s[0][0], n_[0][0])))}
+                    for s, n_ in zip(outputs, normal_outputs)]
+            log({"phase": f"{label}_spec_main_path", "launches": counts, "expected": expected,
+                 "engine_launches": launches, "spec_stats": [s.get("spec") for s in stats],
+                 "agreement_with_normal": agreement})
+            if counts != expected or any(s["kv_layout"] != "dense" for s in stats):
+                raise AssertionError(f"{label} spec launch counts {counts} != expected {expected}")
+            check_consensus_window(f"{label}_spec")
+            note_spec_counts(counts)
+            tok = ByteTokenizer()
+            ids0 = tok.apply_chat_template(requests[0]["messages"], add_generation_prompt=True)
+            spec_alternating(label, "request0", engine, spec_engine, ids0, expect_normal,
+                             expect_spec, n=8, max_new_tokens=32, temperature=0.0, seed=1,
+                             logit_bias={int(t): b for t, b in printable.items()},
+                             eos_ids=tok.stop_ids)
+            # The fused group: the hook's calls recorded, SPEC_EVENTS moved
+            # by exactly their numbers.
+            recorded = []
+            hook = spec_engine.on_spec_stats
+
+            def recording_hook(st):
+                recorded.append(dict(st))
+                hook(st)
+
+            spec_engine.on_spec_stats = recording_hook
+            events0 = SPEC_EVENTS.snapshot()
+            try:
+                group_counts = sched_coalesce(
+                    f"{label}_spec", spec_client, sched_requests[:2],
+                    lambda launches, embeds: expect_spec(launches, embeds), log)
+            finally:
+                spec_engine.on_spec_stats = hook
+            events1 = SPEC_EVENTS.snapshot()
+            note_spec_counts(group_counts)
+            moved = {k: events1.get(k, 0) - events0.get(k, 0)
+                     for k in ("spec.launches", "spec.drafted", "spec.accepted")}
+            want = {"spec.launches": len(recorded),
+                    "spec.drafted": sum(r.get("drafted", 0) for r in recorded),
+                    "spec.accepted": sum(r.get("accepted", 0) for r in recorded)}
+            log({"phase": f"{label}_spec_fused", "fused_mirror": recorded[0] if recorded else None,
+                 "spec_events_moved": moved, "mirrors_sum": want, "launch_mirrors": recorded})
+            if not recorded or recorded[0].get("coalesced_requests") != 2 or moved != want:
+                raise AssertionError(f"{label} fused spec group: mirrors {recorded}, events {moved}")
+        spec_copy_case(label, engine, spec_engine, expect_normal, expect_spec, L, int4)
+        spec_client.close()
+        del spec_client, spec_engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def spec_kernels():
+        """K4 at the verify's rows (n = 8, K = 4: 40 rows) on each 8B weight:
+        the wrapper's route (the tensor-core tile), the decode kernel forced
+        over 32-row chunks (32 + 8: it takes at most 32 rows), cuBLAS on a
+        bf16 copy, the plain version, the bound; each route held to K4's
+        limit; device times on cold weights. And one verify iteration's
+        draws at 40 rows against the plain chain, bit for bit, timed."""
+        from k_llms_tpu_torch.ops import random as rnd
+        from k_llms_tpu_torch.ops import w4matmul as w4
+
+        rows = 8 * (SPEC_K + 1)
+        shapes = {"w_gate_up": (4096, 14336), "w_down": (14336, 4096), "wq_wo": (4096, 4096),
+                  "wk_wv": (4096, 1024), "lm_head": (4096, 128256)}
+        cases = []
+        for sname, (K, N) in shapes.items():
+            def make_w4():
+                return w4.Q4Tensor(
+                    torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev,
+                                  dtype=torch.int8),
+                    (torch.rand((K // 128, N), generator=gen, device=dev) + 0.5)
+                    / (4.61 * math.sqrt(K)))
+            w = make_w4()
+            x = randn(rows, K)
+            chunks = [x[i:i + 32].contiguous() for i in range(0, rows, 32)]
+
+            def decode_forced(wc, chunks=chunks):
+                return torch.cat([w4.w4_matmul(c, wc, route="decode") for c in chunks])
+
+            ref = w4.w4_matmul_plain(x, w).float()
+            acc = torch.zeros((rows, N), dtype=torch.float32, device=dev)
+            for g in range(K // 128):
+                ints = w4._unpack_ints(w.q[g * 64:(g + 1) * 64])[0].float().abs()
+                acc += (x.float().abs()[:, g * 128:(g + 1) * 128] @ ints) * w.scale[g]
+            room = 2.0 ** -6 * ref.abs() + 1e-5 * acc
+            outs = {"tc": w4.w4_matmul(x, w), "decode": decode_forced(w)}
+            torch.cuda.synchronize()
+            over = {r: ((o.float() - ref).abs() / room).max().item() for r, o in outs.items()}
+            err = max((o.float() - ref).abs().max().item() for o in outs.values())
+            w_bf16 = w4.unpack_int4(w).to(torch.bfloat16)
+            rec = {"phase": "spec_k4_verify_rows", "case": sname, "rows": rows, "K": K, "N": N,
+                   "route": w4.w4_route(rows, K, N, torch.bfloat16), "err_over_limit": over,
+                   "max_abs_err": err,
+                   "ms": time_ms(lambda: w4.w4_matmul(x, w)),
+                   "decode_forced_ms": time_ms(lambda: decode_forced(w)),
+                   "plain_ms": time_ms(lambda: w4.w4_matmul_plain(x, w), iters=3, warmup=1),
+                   "library_ms": time_ms(lambda: torch.matmul(x, w_bf16))}
+            del w_bf16
+            flops = 2.0 * rows * K * N
+            nbytes = x.numel() * 2 + K // 2 * N + K // 128 * N * 4 + rows * N * 2
+            rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            cold = [make_w4() for _ in range(copies_for(K * N // 2 + K // 128 * N * 4))]
+            rec["device_ms"] = device_ms([lambda wc=wc: w4.w4_matmul(x, wc) for wc in cold])
+            rec["decode_forced_device_ms"] = device_ms(
+                [lambda wc=wc: decode_forced(wc) for wc in cold])
+            del cold
+            cold_bf16 = [randn(K, N, scale=0.02) for _ in range(copies_for(K * N * 2))]
+            rec["library_device_ms"] = device_ms(
+                [lambda wb=wb: torch.matmul(x, wb) for wb in cold_bf16])
+            del cold_bf16
+            rec["device_over_bound"] = rec["device_ms"] / rec["bound_ms"]
+            log(rec)
+            if max(over.values()) > 1.0 or rec["route"] != "tc":
+                raise AssertionError(f"w4_matmul at the verify's {rows} rows ({sname}): {rec}")
+            cases.append(rec)
+        torch.cuda.empty_cache()
+        # The draws of one verify iteration: one request's key folded with
+        # the iteration, position j as the step, row i as the index.
+        n_per, V = 8, 128256
+        keys = rnd.request_keys([3000000000], dev)
+        it = torch.tensor(5, dtype=torch.int32, device=dev)
+        got = rnd.threefry_uniform_verify(keys, it, n_per, SPEC_K + 1, V)
+        it_keys = rnd.fold_in(keys, 5)[:, None, None, :]
+        i = torch.arange(n_per, device=dev)[None, :, None]
+        j = torch.arange(SPEC_K + 1, device=dev)[None, None, :]
+
+        def plain_draw():
+            return rnd.uniform_tiny(rnd.fold_in(rnd.fold_in(it_keys, j), i).reshape(-1, 2), V)
+
+        equal = bool(torch.equal(got.view(torch.int32), plain_draw().view(torch.int32)))
+        swapped = rnd.uniform_tiny(rnd.fold_in(rnd.fold_in(it_keys, i), j).reshape(-1, 2), V)
+        mutant_caught = not torch.equal(got.view(torch.int32), swapped.view(torch.int32))
+        out_bytes = rows * V * 4
+        outs = []
+        draw = {"phase": "spec_draws_verify_rows", "rows": rows, "V": V, "bit_equal": equal,
+                "mutant_caught": mutant_caught,
+                "ms": time_ms(lambda: rnd.threefry_uniform_verify(keys, it, n_per, SPEC_K + 1, V),
+                              iters=50),
+                "plain_ms": time_ms(plain_draw, iters=3, warmup=1),
+                "device_ms": device_ms(
+                    [lambda: outs.append(rnd.threefry_uniform_verify(keys, it, n_per, SPEC_K + 1,
+                                                                     V))]
+                    * copies_for(out_bytes))}
+        # The kernel alone on the per-row vectors the call builds.
+        row_keys = rnd.fold_in(keys, 5).expand(rows, 2).contiguous()
+        steps_t = j.expand(1, n_per, SPEC_K + 1).reshape(-1).to(torch.int32).contiguous()
+        index_t = i.expand(1, n_per, SPEC_K + 1).reshape(-1).to(torch.int32).contiguous()
+        outs.clear()
+        draw["kernel_only_device_ms"] = device_ms(
+            [lambda: outs.append(rnd.threefry_uniform_rows(row_keys, steps_t, index_t, V))]
+            * copies_for(out_bytes))
+        del outs
+        draw["bound_ms"], draw["bound_by"] = bound_ms(0.0, out_bytes + rows * (16 + 4 + 4),
+                                                      PEAK_F32_FLOPS)
+        draw["device_over_bound"] = draw["device_ms"] / draw["bound_ms"]
+        log(draw)
+        if not equal or not mutant_caught:
+            raise AssertionError(f"verify draws at {rows} rows: {draw}")
+        return cases, draw
+
+    def spec_tiny():
+        """tiny fp32 on the card: greedy speculation equals the normal dense
+        greedy token for token (logprobs within 1e-4), on an ordinary prompt
+        and on a copy prompt that accepts drafts; the int4-eligible small
+        config with speculation, greedy and sampled, equals its plain
+        versions on the CPU (K4 in its verify rows, the draws). Every spec
+        launch's counts by formula."""
+        from k_llms_tpu_torch.models.quant import quantize_params
+
+        tiny = get_config("tiny").with_(attention_impl="flash")
+        tok = ByteTokenizer()
+        L = tiny.num_layers
+        gen_tiny = torch.Generator(device=dev).manual_seed(args.seed)
+        params = init_params(tiny, gen_tiny, dev)
+        eligible = get_config("tiny").with_(
+            hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2, head_dim=64,
+            vocab_size=384, max_seq_len=128, attention_impl="flash", decode_attention_impl="flash")
+        q4 = quantize_params(init_params(eligible, gen_tiny, dev), bits=4)
+        cpu_q4 = {k: ({kk: vv.to("cpu") for kk, vv in v.items()} if isinstance(v, dict)
+                      else v.to("cpu")) for k, v in q4.items()}
+        prompt = tok.apply_chat_template(
+            [{"role": "user", "content": "Extract the invoice total from: total due 41.20 EUR"}])
+        seven = ord("7")
+        base = dict(n=4, seed=1, max_new_tokens=32, eos_ids=tok.stop_ids)
+        for case, ids, extra in (("fp32_greedy", prompt, {}),
+                                 ("fp32_copy", [seven] * 60, {"logit_bias": {seven: 100.0}})):
+            kw = dict(base, temperature=0.0, **extra)
+            normal = LocalEngine(tiny, params=params, device=dev, kv_layout="dense")
+            spec_eng = LocalEngine(tiny, params=params, device=dev, kv_layout="dense",
+                                   speculative="prompt_lookup", spec_lookahead=SPEC_K)
+            rn = normal.generate(ids, **kw)
+            reset_counts()
+            rs = spec_eng.generate(ids, **kw)
+            counts = dict(_ext.LAUNCH_COUNTS)
+            st = dict(spec_eng.last_launch_stats)
+            expected = expected_spec([(1, st["n_per"], st["decode_steps"], 0.0)], [], L, False)
+            same = bool(np.array_equal(rn.tokens, rs.tokens))
+            lp_err = float(np.abs(rn.logprobs - rs.logprobs).max())
+            log({"phase": "spec_tiny", "case": case, "tokens_equal_normal": same,
+                 "logprob_max_abs_diff": lp_err, "spec_stats": st["spec"], "launches": counts,
+                 "expected": expected})
+            if not same or lp_err > 1e-4 or counts != expected:
+                raise AssertionError(f"spec tiny {case}: speculative greedy differs from normal")
+            if case == "fp32_copy" and st["spec"]["tokens_per_iteration"] <= 2.0:
+                raise AssertionError(f"spec tiny copy case accepted too little: {st['spec']}")
+            note_spec_counts(counts)
+        for temperature in (0.0, 1.0):
+            kw = dict(base, temperature=temperature)
+            runs = {}
+            for where, p, d in (("card", q4, dev), ("plain", cpu_q4, "cpu")):
+                eng = LocalEngine(eligible, params=p, device=d, kv_layout="dense",
+                                  speculative="prompt_lookup", spec_lookahead=SPEC_K)
+                reset_counts()
+                res = eng.generate(prompt, **kw)
+                runs[where] = (res, dict(_ext.LAUNCH_COUNTS), dict(eng.last_launch_stats))
+            (rc, counts, st), (rp, plain_counts, pst) = runs["card"], runs["plain"]
+            expected = expected_spec([(1, st["n_per"], st["decode_steps"], temperature)], [],
+                                     eligible.num_layers, True)
+            same = bool(np.array_equal(rc.tokens, rp.tokens))
+            lp_err = float(np.abs(rc.logprobs - rp.logprobs).max())
+            log({"phase": "spec_tiny", "case": f"int4_T{temperature}", "tokens_equal_plain": same,
+                 "logprob_max_abs_diff": lp_err, "spec_stats": st["spec"],
+                 "plain_spec_stats": pst["spec"], "launches": counts, "expected": expected,
+                 "verify_rows": st["rows"] * (SPEC_K + 1)})
+            if (not same or lp_err > 1e-4 or counts != expected or st["spec"] != pst["spec"]
+                    or max(plain_counts.values()) != 0):
+                raise AssertionError(f"spec tiny int4 T={temperature}: card differs from plain")
+            note_spec_counts(counts)
+
+    # 8b. Speculative decoding: K4 and the draws at the verify's rows, tiny
+    # on the card, and the 8B clients' spec runs (beside the 8b and 8b_int4
+    # phases' clients when those run, else on clients of their own).
+    spec_kernel_cases = spec_draw = None
+    if "spec" in phases:
+        spec_kernel_cases, spec_draw = spec_kernels()
+        spec_tiny()
+        for label, kw in (("8b", dict(kv_pool_pages=128)),
+                          ("8b_int4", dict(quantization="int4", paged_kv=False,
+                                           decode_attention_impl="flash"))):
+            if label not in phases:
+                client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed, **kw)
+                spec_8b(label, client)
+                client.close()
+                del client
+                gc.collect()
+                torch.cuda.empty_cache()
+
     # 9a. bf16 weights, paged decode: K2 and K1.
     if "8b" in phases:
         t0 = time.perf_counter()
@@ -3809,6 +4230,8 @@ def main(argv=None) -> int:
         if "serve" in phases:
             serve_http(client, requests[0], requests[1], sched_contents,
                        lambda launches, embeds: expected_bf16_paged(launches, embeds, L), log)
+        if "spec" in phases:
+            spec_8b("8b", client, outputs)
         if "sched" in phases:
             sched_coalesce("8b", client, sched_requests,
                            lambda launches, embeds: expected_bf16_paged(launches, embeds, L), log)
@@ -3871,6 +4294,8 @@ def main(argv=None) -> int:
         if not embeds or expected["decode_prefix_attention"] == 0 or counts != expected:
             raise AssertionError(f"8b_int4 launch counts {counts} != expected {expected}")
         check_consensus_window("8b_int4")
+        if "spec" in phases:
+            spec_8b("8b_int4", client)
         if "profile" in phases:
             for index in (0, 2):
                 profile_one("8b_int4", client, index)
@@ -3903,6 +4328,23 @@ def main(argv=None) -> int:
         sched_tiny(log)
     if "loop" in phases:
         loop_tiny(log)
+
+    if "spec" in phases:
+        # The spec phase's counted windows, and K4 and the draws at the
+        # verify's rows, beside each kernel's main-path record.
+        for name in ("flash_attention", "w4_matmul", "threefry_uniform_rows"):
+            if name in kernels:
+                kernels[name]["spec_launches"] = spec_launch_counts.get(name, 0)
+        if "w4_matmul" in kernels:
+            kernels["w4_matmul"]["verify_rows_cases"] = [
+                {k: c[k] for k in ("case", "rows", "route", "ms", "decode_forced_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by", "device_ms",
+                                   "decode_forced_device_ms", "library_device_ms")}
+                for c in spec_kernel_cases]
+        if "threefry_uniform_rows" in kernels:
+            kernels["threefry_uniform_rows"]["verify_case"] = {
+                k: spec_draw[k] for k in ("rows", "V", "ms", "plain_ms", "device_ms", "bound_ms",
+                                          "bound_by")}
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)

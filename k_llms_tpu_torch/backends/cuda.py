@@ -132,6 +132,12 @@ class BackendConfig(BaseModel):
     # Page pool size; None sizes it from the first paged launch (and, with a
     # prefix cache, from the cache's size).
     kv_pool_pages: Optional[int] = None
+    # Prompt-lookup speculative decoding (engine/engine.py ``_spec_decode``):
+    # None or "prompt_lookup"; spec_lookahead drafts are verified per forward.
+    # Speculative launches decode dense, and the continuous loop keeps
+    # serving its requests without speculation, as in the JAX package.
+    speculative: Optional[str] = None
+    spec_lookahead: int = 4
     # Compile response_format JSON schemas into token-level grammar masks
     # (engine/grammar.py) applied in-decode. Unsupported schema features
     # degrade to the generic JSON mask, compile errors to unconstrained
@@ -238,8 +244,7 @@ class BackendConfig(BaseModel):
 #: Fields of the JAX package's BackendConfig that this backend has not
 #: ported. A keyword naming one raises NotImplementedError.
 UNPORTED_FIELDS = frozenset({
-    "model_parallel", "sp_prefill_min_tokens", "sp_attention", "sp_decode", "speculative",
-    "spec_lookahead",
+    "model_parallel", "sp_prefill_min_tokens", "sp_attention", "sp_decode",
 })
 
 _MODEL_OVERRIDES = ("dtype", "max_seq_len", "attention_impl", "decode_attention_impl")
@@ -616,16 +621,19 @@ class CudaBackend(Backend):
             prefix_cache_size=cfg.prefix_cache_size,
             prefix_cache_min_reuse=cfg.prefix_cache_min_reuse,
             kv_pool_pages=cfg.kv_pool_pages,
+            speculative=cfg.speculative,
+            spec_lookahead=cfg.spec_lookahead,
         )
 
     def _wire_engine_hooks(self) -> None:
         """Device-OOM feedback (each caught OOM halves the scheduler's
-        coalescing width, clean launches step it back up) and the quarantine
-        feed. Re-run after every rebuild so the hooks follow the new
-        engine."""
+        coalescing width, clean launches step it back up), the quarantine
+        feed and the speculative launches' drafted/accepted accounting.
+        Re-run after every rebuild so the hooks follow the new engine."""
         self.engine.on_oom = self.scheduler.note_oom
         self.engine.on_launch_ok = self.scheduler.note_recovered
         self.engine.on_quarantine = self._on_quarantine
+        self.engine.on_spec_stats = self.scheduler.note_spec_stats
 
     def _on_quarantine(self, poisoned: int, total: int) -> None:
         # Fires after every launch (poisoned=0 when clean) so the
@@ -853,10 +861,12 @@ class CudaBackend(Backend):
             },
         }
         if os.getenv("KLLMS_TRACE") == "1":
-            # Serving stats captured at generation time for this request; the
-            # port has no speculative decoding, so its spec stats are empty.
+            # Serving stats captured at generation time for this request
+            # (result.spec_stats rides the GenerationResult, so a concurrent
+            # request cannot overwrite it before tracing reads it); cache and
+            # scheduler counters are cumulative snapshots.
             payload["engine_stats"] = {
-                "spec": {},
+                "spec": dict(result.spec_stats or {}),
                 "prefix_cache": dict(self.engine.prefix_cache_stats),
                 "scheduler": dict(self.scheduler.stats),
             }
@@ -973,8 +983,9 @@ class CudaBackend(Backend):
 
         # The memory model's row cap for this request's KV: any group it
         # joins is clipped to the tightest member's cap. Paged rows share
-        # their prompt's pages, so the cap is the paged per-group reserve.
-        if self.engine.kv_layout == "paged":
+        # their prompt's pages, so the cap is the paged per-group reserve;
+        # speculative launches decode dense, so theirs is the dense cap.
+        if self.engine.kv_layout == "paged" and self.backend_config.speculative is None:
             max_rows = self.memory_model.paged_max_rows(
                 len(prompt_ids), max_new, self.engine.kv_page_size, fanout=rows
             )

@@ -65,8 +65,19 @@ The continuous decode loop (``engine/continuous.py``) drives this engine's
 prefill, its prefix cache and its page pool between its own steps; it pins
 the pool once it is built.
 
+With ``speculative="prompt_lookup"`` a launch decodes by prompt-lookup
+speculation instead (``_spec_decode``, the JAX engine's spec loop): each
+row drafts ``spec_lookahead`` tokens from its own request's prompt and its
+generated text, one verify forward scores them, and the longest confirmed
+run is emitted, with the same composition with grammar, penalties, logit
+bias, stops, top logprobs, the quarantine and the abort poller. Such
+launches decode dense whatever the engine's layout, as in JAX, and have no
+token tap (a streamed request gets each sample's text at the end). Solo
+results carry ``spec_stats`` with drafted/accepted counts; coalesced ones
+their iterations and rate, with the launch's totals in ``engine.spec_stats``.
+
 Not ported yet: meshes, sequence-parallel and ring prefill (and their cache
-continuation) and speculative decoding.
+continuation).
 """
 
 from __future__ import annotations
@@ -95,11 +106,13 @@ from ..models.llama import (
     paged_verify_step,
     prefill,
     prefill_continue,
+    verify_step,
 )
 from ..models.quant import init_params_quantized, quantize_params, stored_quant_layout
 from ..ops.paged_attention import launch_paged_attention_impl, resolve_paged_attention_impl
-from ..ops.random import request_keys
+from ..ops.random import request_keys, threefry_uniform_verify
 from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
+from ..ops.speculative import accept_drafts, propose_prompt_lookup, scatter_rows, scatter_rows_k
 from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
 from ..types.wire import BackendUnavailableError, KLLMsError
@@ -284,6 +297,35 @@ class GenerationResult(NamedTuple):
     top_tokens: Optional[np.ndarray] = None  # [n, max_new, k] int32
     top_logprobs: Optional[np.ndarray] = None  # [n, max_new, k] f32
     sample_errors: Optional[List[Optional[Dict[str, Any]]]] = None
+    # This request's speculative-decoding stats, captured at generation time
+    # ({} for a launch without speculation; engine.spec_stats mirrors the
+    # latest launch, but a concurrent trace must read this field).
+    spec_stats: Optional[Dict[str, Any]] = None
+
+
+def _spec_acceptance_stats(
+    count_np: np.ndarray, iters_np: np.ndarray, lookahead: int = 0
+) -> Dict[str, Any]:
+    """Acceptance over a slice of rows: tokens each row emitted per verify
+    it entered (1.0 = no draft ever accepted). The first token comes from
+    the prefill's logits, not a verify (hence ``count - 1``). One source for
+    the solo launch, the coalesced per-request slices and the engine's
+    mirror. With ``lookahead`` (K, drafts proposed per verify) the dict also
+    carries ``drafted`` (K per verify entered) and ``accepted`` (emitted
+    tokens beyond the one each verify yields for free)."""
+    rates = (count_np - 1.0) / np.maximum(iters_np, 1)
+    ran = iters_np > 0
+    emitted = np.maximum(count_np - 1, 0)
+    stats: Dict[str, Any] = {
+        "verify_iterations": int(iters_np.max(initial=0)),
+        "tokens_per_iteration": (
+            round(float(rates[ran].mean()), 3) if ran.any() else None
+        ),
+    }
+    if lookahead:
+        stats["drafted"] = int(iters_np.sum()) * int(lookahead)
+        stats["accepted"] = int(np.maximum(emitted - iters_np, 0).sum())
+    return stats
 
 
 class GenRequestSpec(NamedTuple):
@@ -342,6 +384,8 @@ class LocalEngine:
         prefix_cache_size: int = 0,
         prefix_cache_min_reuse: int = 32,
         kv_pool_pages: Optional[int] = None,
+        speculative: Optional[str] = None,
+        spec_lookahead: int = 4,
     ):
         self.config = get_config(config) if isinstance(config, str) else config
         check_supported(self.config)
@@ -375,6 +419,22 @@ class LocalEngine:
         )
         self.kv_pool_pages = kv_pool_pages
         self._kv_pool: Optional[PagedKVPool] = None
+        # Speculative decoding: "prompt_lookup" drafts the next
+        # spec_lookahead tokens from the prompt's own text (and the row's
+        # generated text) and verifies them in one forward
+        # (ops/speculative.py). Opt-in; the sampling distribution is exact
+        # at any temperature (sample-and-match acceptance).
+        if speculative not in (None, "prompt_lookup"):
+            raise ValueError(
+                f"Unknown speculative mode {speculative!r}; use 'prompt_lookup'"
+            )
+        self.speculative = speculative
+        self.spec_lookahead = max(1, int(spec_lookahead))
+        # The latest launch's acceptance stats ({} after a launch without
+        # speculation), and the backend's hook, called with them after every
+        # speculative launch.
+        self.spec_stats: Dict[str, Any] = {}
+        self.on_spec_stats: Optional[Any] = None
         # Prompt-prefix KV cache (LRU over full prompts). 0 disables. Value:
         # (first_logits, prefix KVCache or PagedPrefixRun, prompt_len,
         # np.int32 token ids).
@@ -916,6 +976,9 @@ class LocalEngine:
         config = self.config
         device = self.device
         t_start = time.perf_counter()
+        # Stats describe this launch only: a launch without speculation must
+        # not leave an earlier one's numbers visible.
+        self.spec_stats = {}
         if len(items) == 1 and items[0].budget is not None:
             # A solo request fails before any device work; a coalesced
             # member's spent budget is seen by the abort poller at the first
@@ -961,24 +1024,53 @@ class LocalEngine:
             finally:
                 self._active_token_sinks = None
 
-        layout = self.kv_layout
-        if layout == "paged":
-            try:
-                out, t_prefill = self._generate_paged(
-                    preps, n_per, r_pad, live, max_new_tokens, run_loop
+        spec_np = None
+        if self.speculative == "prompt_lookup":
+            # Speculative launches decode dense whatever the engine's layout,
+            # as the JAX engine routes them (its paged arm excludes them).
+            layout = "dense"
+
+            def run_spec(first_logits, prefix, prompt_tokens, prompt_lens):
+                return self._spec_decode(
+                    first_logits, prefix, prompt_tokens, prompt_lens, n_per, r_pad, req_keys,
+                    _constraint_ops(constraint, device), budgets, poison0,
+                    max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+                    top_k=top_k, eos_t=eos_t,
+                    top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
+                    presence_penalty=presence_penalty,
+                    bias=self._bias_array(logit_bias) if logit_bias else None,
+                    stops=stops if use_stops else None,
                 )
-            except PagePoolExhausted:
-                # The JAX engine's rule: correctness never depends on pages
-                # being available.
-                logger.debug("paged launch exhausted the page pool; falling back to dense decode")
-                layout = "dense"
-        if layout == "dense":
-            out, t_prefill = self._generate_dense(preps, n_per, r_pad, max_new_tokens, run_loop)
+
+            (*out, count_np, iters_np), t_prefill = self._generate_speculative(
+                preps, r_pad, run_spec
+            )
+            spec_np = (count_np, iters_np)
+        else:
+            layout = self.kv_layout
+            if layout == "paged":
+                try:
+                    out, t_prefill = self._generate_paged(
+                        preps, n_per, r_pad, live, max_new_tokens, run_loop
+                    )
+                except PagePoolExhausted:
+                    # The JAX engine's rule: correctness never depends on
+                    # pages being available.
+                    logger.debug(
+                        "paged launch exhausted the page pool; falling back to dense decode"
+                    )
+                    layout = "dense"
+            if layout == "dense":
+                out, t_prefill = self._generate_dense(
+                    preps, n_per, r_pad, max_new_tokens, run_loop
+                )
         toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps, aborted = out
         t_end = time.perf_counter()
+        spec_launch = spec_np is not None
         self.last_launch_stats = {
             "prefill_s": t_prefill - t_start,
             "decode_s": t_end - t_prefill,
+            # Decode steps, or verify iterations on a speculative launch.
             "decode_steps": steps,
             "rows": B,
             "n_per": n_per,
@@ -988,6 +1080,18 @@ class LocalEngine:
             # froze its rows.
             "aborted": aborted,
         }
+
+        def member_spec_stats(lo: int, n_j: int) -> Dict[str, Any]:
+            """The JAX engine's two shapes: a solo launch's result carries
+            drafted/accepted, a coalesced member's only its iterations and
+            rate."""
+            if not spec_launch:
+                return {}
+            count_np, iters_np = spec_np
+            return _spec_acceptance_stats(
+                count_np[lo: lo + n_j], iters_np[lo: lo + n_j],
+                lookahead=self.spec_lookahead if len(items) == 1 else 0,
+            )
 
         results: List[Any] = []
         for j, (it, (_, prompt_len, _)) in enumerate(zip(items, preps)):
@@ -1001,6 +1105,7 @@ class LocalEngine:
                 prompt_len=prompt_len,
                 top_tokens=tt_np[lo: lo + n_j] if top_logprobs else None,
                 top_logprobs=tl_np[lo: lo + n_j] if top_logprobs else None,
+                spec_stats=member_spec_stats(lo, n_j),
             )
             res = self._quarantine_result(res, pois_np[lo: lo + n_j])
             # A member's lifecycle or injected fault replaces its result
@@ -1010,6 +1115,23 @@ class LocalEngine:
             except Exception as e:
                 results.append(e)
         self._note_quarantine(int(pois_np[np.asarray(live, np.int64)].sum()), len(live))
+        if spec_launch:
+            count_np, iters_np = spec_np
+            if len(items) == 1:
+                self.spec_stats = member_spec_stats(0, len(live))
+            else:
+                # The mirror summarises the whole coalesced launch over its
+                # real rows (row and request padding excluded).
+                idx = np.asarray(live, np.int64)
+                self.spec_stats = {
+                    "coalesced_requests": len(items),
+                    **_spec_acceptance_stats(
+                        count_np[idx], iters_np[idx], lookahead=self.spec_lookahead
+                    ),
+                }
+            self.last_launch_stats["spec"] = dict(self.spec_stats)
+            if self.on_spec_stats is not None:
+                self.on_spec_stats(self.spec_stats)
         return results
 
     def _apply_decode_faults(
@@ -1185,12 +1307,43 @@ class LocalEngine:
 
     def _generate_dense(self, preps, n_per, r_pad, max_new_tokens, run_loop):
         """The dense body (the JAX engine's ``generate_many`` without the
-        speculative and sequence-parallel arms): each prompt's KV (through
-        the prefix cache when it is on), zero-padded to the largest bucket,
-        stacked into one shared ``[L, r_pad, P, KVH, D]`` prefix; every
-        row's generated KV in a dense ``[L, B, max_new, KVH, D]`` cache.
-        Returns (loop output, prefill end time)."""
+        speculative and sequence-parallel arms): the stacked prefix of
+        :meth:`_dense_prefix`; every row's generated KV in a dense ``[L, B,
+        max_new, KVH, D]`` cache. Returns (loop output, prefill end time)."""
         config = self.config
+        first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad)
+        gen_cache = init_cache(config, r_pad * n_per, max_new_tokens, self.device)
+        self._sync()
+        t_prefill = time.perf_counter()
+
+        def step_fn(tok, step):
+            return decode_step(config, self.params, tok, step, prompt_lens, gen_cache, prefix)[0]
+
+        return run_loop(step_fn, first_logits), t_prefill
+
+    def _generate_speculative(self, preps, r_pad, run_spec):
+        """The speculative body: the stacked dense prefix of
+        :meth:`_dense_prefix` (speculative launches decode dense, as in the
+        JAX engine) and each request's prompt table ``[r_pad, P]`` for the
+        drafter, padding requests repeating the last one's. Returns (loop
+        output, prefill end time)."""
+        first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad)
+        bucket_max = max(bucket for _, _, bucket in preps)
+        table = np.full((r_pad, bucket_max), self.config.pad_token_id, np.int64)
+        for j, (ids, prompt_len, _) in enumerate(preps):
+            table[j, :prompt_len] = ids
+        table[len(preps):] = table[len(preps) - 1]
+        prompt_tokens = torch.as_tensor(table, device=self.device)
+        self._sync()
+        t_prefill = time.perf_counter()
+        return run_spec(first_logits, prefix, prompt_tokens, prompt_lens), t_prefill
+
+    def _dense_prefix(self, preps, r_pad):
+        """Each prompt's KV (through the prefix cache when it is on),
+        zero-padded to the largest bucket and stacked into one shared
+        ``[L, r_pad, P, KVH, D]`` prefix, padding requests repeating the
+        last one's. Returns (first logits [r_pad, V], the prefix, prompt
+        lengths [r_pad])."""
         extra = r_pad - len(preps)
         bucket_max = max(bucket for _, _, bucket in preps)
         first_list, k_list, v_list = [], [], []
@@ -1212,14 +1365,7 @@ class LocalEngine:
         prompt_lens = torch.as_tensor(
             [p for _, p, _ in preps] + [preps[-1][1]] * extra, device=self.device
         )
-        gen_cache = init_cache(config, r_pad * n_per, max_new_tokens, self.device)
-        self._sync()
-        t_prefill = time.perf_counter()
-
-        def step_fn(tok, step):
-            return decode_step(config, self.params, tok, step, prompt_lens, gen_cache, prefix)[0]
-
-        return run_loop(step_fn, first_logits), t_prefill
+        return first_logits, prefix, prompt_lens
 
     def _quarantine_result(self, result: GenerationResult, pois_rows: np.ndarray) -> GenerationResult:
         killed = np.flatnonzero(pois_rows[: result.tokens.shape[0]])
@@ -1400,6 +1546,262 @@ class LocalEngine:
         return (
             host(toks), host(lps), host(done), host(tt), host(tl), host(pois), n_steps - 1,
             aborted,
+        )
+
+    def _spec_decode(
+        self, first_logits, prefix, prompt_tokens, prompt_lens, n_per, r_pad, req_keys, cops,
+        budgets, poison0, *, max_new_tokens, temperature, top_p, top_k, eos_t, top_logprobs,
+        frequency_penalty, presence_penalty, bias, stops,
+    ):
+        """The prompt-lookup speculative loop over ``B = r_pad * n_per``
+        rows, the JAX engine's ``_get_spec_decode_loop`` step for step. Each
+        row keeps its own count of emitted tokens; an iteration drafts K =
+        ``spec_lookahead`` tokens per row from its own request's prompt
+        table ``prompt_tokens`` [r_pad, P] (and from its generated text),
+        verifies the row's last token and its drafts in one
+        :func:`models.llama.verify_step` at per-row offsets, samples every
+        position from its own conditional in one flattened call over
+        ``B * (K + 1)`` rows, and emits the longest confirmed run
+        (:func:`ops.speculative.accept_drafts`): 1 to K + 1 tokens a row.
+
+        It composes with the rest as the JAX loop does: position j's logits
+        are masked by the grammar state advanced through ``drafts[:j]``
+        (the state then re-anchors at the last emitted token); the pad
+        column; the quarantine, which gives a row whose verify logits go
+        non-finite a zero budget and freezes it; penalty counts at position
+        j are the emitted counts plus the drafts before j, with the logit
+        bias folded into the same penalty; stop sequences are matched at
+        every emitted position and the run truncated at the first match;
+        top logprobs come from the logits sampling sees. Draws: the first
+        token at step 0 as in :meth:`_decode`, iteration ``it`` (from 1)
+        through :func:`ops.random.threefry_uniform_verify`, one launch an
+        iteration. The abort poller reads the budgets on the host after each
+        iteration (block-granular, as in JAX). The gen cache holds
+        ``max_new + K + 1`` slots and so do the token buffers: a row's count
+        never passes ``max_new``, so no write needs JAX's clamp.
+
+        Returns numpy (tokens, logprobs, finish flags, top ids, top
+        logprobs, poisoned), the iteration count, the poller's aborts, and
+        numpy (emitted counts, verify iterations entered) per row."""
+        config = self.config
+        device = self.device
+        pad_id = config.pad_token_id
+        K = self.spec_lookahead
+        K1 = K + 1
+        B = r_pad * n_per
+        max_new = max_new_tokens
+        BUF = max_new + K1
+        V = first_logits.shape[-1]
+        pad_col = 0.0 if bool((eos_t == pad_id).any()) else -float("inf")
+        penalized = frequency_penalty != 0.0 or presence_penalty != 0.0
+        KT = top_logprobs or 0
+        rows = torch.arange(B, device=device)
+        jstate = None
+        if cops is not None:
+            jt, initial_state, mask_logits, advance = cops
+            jstate = initial_state(B)
+
+        def sample(logits, noise, pen):
+            return sample_logits(
+                logits, temperature=temperature, top_p=top_p, top_k=top_k,
+                noise=noise, penalty=pen,
+            )
+
+        def select(cond, a, b):
+            return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
+
+        prompt_row = prompt_tokens.repeat_interleave(n_per, dim=0)  # [B, P]
+        plen_row = prompt_lens.to(torch.int64).repeat_interleave(n_per)  # [B]
+
+        # Step 0: the first token from the prefill's logits.
+        logits0 = first_logits.repeat_interleave(n_per, dim=0)  # [B, V]
+        if jstate is not None:
+            logits0 = mask_logits(jt, logits0, *jstate, eos_t)
+        else:
+            logits0 = logits0.clone()
+        logits0[:, pad_id] += pad_col
+        if poison0 is not None:
+            logits0 = torch.where(poison0[:, None], float("nan"), logits0)
+        bad0 = _poisoned_logits(logits0)
+        logits0 = torch.where(bad0[:, None], torch.zeros_like(logits0), logits0)
+        noise0 = None
+        if req_keys is not None:
+            noise0 = draw_noise(req_keys, torch.zeros((), dtype=torch.int32, device=device),
+                                n_per, V)
+        tok0, lp0 = sample(logits0, noise0, -bias[None, :] if bias is not None else None)
+        tok0 = torch.where(bad0, torch.full_like(tok0, pad_id), tok0)
+        lp0 = torch.where(bad0, torch.zeros_like(lp0), lp0)
+        if jstate is not None:
+            jstate = advance(jt, tok0, *jstate)
+        toks = torch.full((B, BUF), pad_id, dtype=torch.int64, device=device)
+        toks[:, 0] = tok0
+        lps = torch.zeros((B, BUF), dtype=torch.float32, device=device)
+        lps[:, 0] = lp0
+        tt = tlb = None
+        if KT:
+            ti0, tl0 = model_top_logprobs(logits0, KT)
+            tt = torch.zeros((B, BUF, KT), dtype=torch.int64, device=device)
+            tlb = torch.zeros((B, BUF, KT), dtype=torch.float32, device=device)
+            tt[:, 0] = ti0
+            tlb[:, 0] = tl0
+        vcounts = None
+        if penalized:
+            vcounts = torch.zeros((B, V), dtype=torch.float32, device=device)
+            vcounts[rows, tok0] += 1.0
+        count = torch.ones((B,), dtype=torch.int64, device=device)
+        eos0 = torch.isin(tok0, eos_t)
+        recent = None
+        if stops is not None:
+            recent = torch.full((B, MAX_STOP_LEN), -1, dtype=torch.int64, device=device)
+            recent[:, -1] = tok0
+            eos0 = eos0 | stop_window_match(recent, stops)
+        done = eos0 | bad0 | (count >= max_new)
+        hit_eos_any = eos0
+        pois = bad0
+        row_iters = torch.zeros((B,), dtype=torch.int64, device=device)
+        gen_cache = init_cache(config, B, BUF, device)
+
+        polled = [b for b in budgets if b is not None]
+        aborted: Dict[int, Tuple[int, float]] = {}
+        # The iteration number lives on the device too, so no host value
+        # enters a draw.
+        it_dev = torch.ones((), dtype=torch.int32, device=device)
+        it = 1
+        while it < max_new and not bool(done.all()):
+            row_iters += (~done).to(torch.int64)
+            cur = toks.gather(1, (count - 1)[:, None])[:, 0]
+            prev = torch.where(
+                count >= 2,
+                toks.gather(1, (count - 2).clamp_min(0)[:, None])[:, 0],
+                prompt_row.gather(1, (plen_row - 1)[:, None])[:, 0],
+            )
+            drafts = propose_prompt_lookup(
+                prompt_row, plen_row, prev, cur, K, gen=toks, gen_len=count
+            ).to(torch.int64)  # [B, K]
+            block = torch.cat([cur[:, None], drafts], dim=1)  # [B, K+1]
+            logits, _ = verify_step(
+                config, self.params, block, count - 1, prompt_lens, gen_cache, prefix
+            )
+            # Position j is masked by the state after the emitted prefix
+            # advanced through drafts[:j], the only prefix under which its
+            # draw can be emitted.
+            sts = None
+            if jstate is not None:
+                sts = [jstate]
+                for j in range(K):
+                    sts.append(advance(jt, drafts[:, j], *sts[-1]))
+                logits = torch.stack(
+                    [mask_logits(jt, logits[:, j], *sts[j], eos_t) for j in range(K1)], dim=1
+                )
+            flat = logits.reshape(B * K1, V)
+            flat[:, pad_id] += pad_col
+            # Quarantine: a live row whose verify logits went non-finite at
+            # any position emits nothing and freezes; sanitised so the one
+            # flattened sampling call stays well defined.
+            badrow = _poisoned_logits(flat).reshape(B, K1).any(dim=1) & ~done
+            flat = torch.where(
+                badrow.repeat_interleave(K1)[:, None], torch.zeros_like(flat), flat
+            )
+            pen = None
+            if penalized:
+                # Position j's counts: the emitted counts plus drafts[:j].
+                inc = torch.zeros((B, K, V), dtype=torch.float32, device=device)
+                inc.scatter_(2, drafts[:, :, None], 1.0)
+                inc = inc.cumsum(dim=1)
+                cnts = torch.cat([vcounts[:, None, :], vcounts[:, None, :] + inc], dim=1)
+                pen = frequency_penalty * cnts + presence_penalty * (cnts > 0).float()
+                if bias is not None:
+                    pen = pen - bias[None, None, :]
+                pen = pen.reshape(B * K1, V)
+            elif bias is not None:
+                pen = (-bias)[None, :].expand(B * K1, V)
+            noise = None
+            if req_keys is not None:
+                noise = threefry_uniform_verify(req_keys, it_dev, n_per, K1, V)
+            t_flat, lp_flat = sample(flat, noise, pen)
+            sampled = t_flat.reshape(B, K1)
+            lp_arr = lp_flat.reshape(B, K1)
+
+            budget = torch.where(done | badrow, torch.zeros_like(count), max_new - count)
+            emit, counts_new, hit_eos = accept_drafts(sampled, drafts, eos_t, budget)
+            stop_hit = torch.zeros((B,), dtype=torch.bool, device=device)
+            if stops is not None:
+                # A stop can complete mid-run: match the window ending at
+                # every emitted position and cut the run at the first match
+                # (the matched position itself still emits).
+                buf2 = torch.cat([recent, sampled], dim=1)  # [B, L + K + 1]
+                hits = torch.stack(
+                    [stop_window_match(buf2[:, j + 1: j + 1 + MAX_STOP_LEN], stops)
+                     for j in range(K1)], dim=1,
+                ) & emit
+                stop_hit = hits.any(dim=1)
+                keep = torch.where(
+                    stop_hit, hits.to(torch.int32).argmax(dim=1), torch.full_like(count, K1)
+                )
+                emit = emit & (torch.arange(K1, device=device)[None, :] <= keep[:, None])
+                counts_new = emit.sum(dim=1).to(torch.int32)
+                hit_eos = (emit & torch.isin(sampled, eos_t)).any(dim=1)
+                # The window after emission: the L tokens ending at the new
+                # count (an empty run leaves it as it was).
+                recent = buf2.gather(
+                    1,
+                    counts_new.to(torch.int64)[:, None]
+                    + torch.arange(MAX_STOP_LEN, device=device)[None, :],
+                )
+            scatter_rows(toks, torch.where(emit, sampled, torch.full_like(sampled, pad_id)),
+                         count, max_offset=max_new)
+            scatter_rows(lps, torch.where(emit, lp_arr, torch.zeros_like(lp_arr)), count,
+                         max_offset=max_new)
+            if KT:
+                ti, tl_ = model_top_logprobs(flat, KT)
+                scatter_rows_k(tt, ti.reshape(B, K1, KT), count, max_offset=max_new)
+                scatter_rows_k(tlb, tl_.reshape(B, K1, KT), count, max_offset=max_new)
+            if penalized:
+                vcounts.scatter_add_(1, sampled, emit.float())
+            if jstate is not None:
+                # Re-anchor the automaton at the last emitted token: the
+                # state before it (counts_new - 1 drafts deep), advanced
+                # through the token emitted there.
+                c_idx = (counts_new.to(torch.int64) - 1).clamp_min(0)
+                s_last = tuple(
+                    torch.stack([st[q] for st in sts])[c_idx, rows] for q in range(len(jstate))
+                )
+                last_tok = sampled.gather(1, c_idx[:, None])[:, 0]
+                moved = counts_new > 0
+                jstate = tuple(
+                    select(moved, nw, old)
+                    for nw, old in zip(advance(jt, last_tok, *s_last), jstate)
+                )
+            count = count + counts_new
+            hit_eos_any = hit_eos_any | hit_eos | stop_hit
+            done = done | hit_eos | stop_hit | badrow | (count >= max_new)
+            pois = pois | badrow
+            if polled:
+                flipped = [
+                    j for j, b in enumerate(budgets)
+                    if b is not None and j not in aborted and b.should_abort()
+                ]
+                if flipped:
+                    seen = time.perf_counter()
+                    frozen = torch.zeros(B, dtype=torch.bool)
+                    for j in flipped:
+                        aborted[j] = (it, seen)
+                        frozen[j * n_per: (j + 1) * n_per] = True
+                    done = done | frozen.to(device)
+            it += 1
+            it_dev += 1
+
+        self._sync()
+
+        def host(t):
+            return None if t is None else t.cpu().numpy()
+
+        toks_np = host(toks[:, :max_new]).astype(np.int32)
+        tt_np = None if tt is None else host(tt[:, :max_new]).astype(np.int32)
+        return (
+            toks_np, host(lps[:, :max_new]), host(hit_eos_any), tt_np,
+            None if tlb is None else host(tlb[:, :max_new]), host(pois), it - 1, aborted,
+            host(count), host(row_iters),
         )
 
     # -- embeddings (similarity side-channel) -----------------------------

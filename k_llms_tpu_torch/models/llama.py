@@ -26,8 +26,9 @@ of each head. Score and value einsums accumulate in f32 (inputs widened to
 f32, which is exact for bf16).
 
 The dense decode step updates its generated-token cache in place (the JAX
-function returns a new one); ``verify_step`` at ``Sq == 1`` is that step
-with per-row write offsets (the continuous loop's dense step), and
+function returns a new one); ``verify_step`` is that step with per-row
+write offsets, at ``Sq == 1`` for the continuous loop's dense step and at
+``Sq = K + 1`` for speculative verification, and
 ``prefill_chunk_step``/``prefill_chunk_step_paged`` extend a staging prefix
 one prompt chunk at a time through ``prefill_continue``. With ``decode_attention_impl="flash"`` its
 attention over the shared prompt prefix runs the decode-prefix kernel
@@ -35,8 +36,10 @@ attention over the shared prompt prefix runs the decode-prefix kernel
 tail in plain tensor code, behind the JAX package's gate (which leaves out
 softcapped and windowed models, as the paged kernel's gate does).
 
-Not ported yet (raise ``NotImplementedError``): the verify step at
-``Sq > 1`` and the ring (sequence-parallel) decode arm.
+Not ported yet (raise ``NotImplementedError``): the ring
+(sequence-parallel) decode arm. ``paged_verify_step`` stays at ``Sq == 1``:
+the JAX package has no caller of it at ``Sq > 1`` (its paged block keeps
+only the first column, and speculative launches decode dense).
 """
 
 from __future__ import annotations
@@ -679,18 +682,20 @@ def _block_decode(
     prefix_mask: torch.Tensor,
     prefix_lengths: torch.Tensor,
 ) -> torch.Tensor:
-    """The dense decode branch of the JAX ``_block`` at ``Sq == 1``: this
-    step's k/v are written into the layer's cache (cache_k/cache_v [B, G,
+    """The dense decode branch of the JAX ``_block``: this step's ``Sq``
+    k/v columns are written into the layer's cache (cache_k/cache_v [B, G,
     KVH, D], updated in place) at ``write_index`` (an int for every row, or
-    a [B] tensor of per-row offsets), then the queries attend
-    the shared prefix (prefix_kv [R, P, KVH, D]) and the cache. Returns x."""
+    a [B] tensor of per-row offsets: column j of row b goes to slot
+    ``write_index[b] + j``), then the queries attend the shared prefix
+    (prefix_kv [R, P, KVH, D]) and the cache. Returns x."""
     B, Sq, _ = x.shape
     scale = config.query_scale or 1.0 / math.sqrt(config.head_dim)
     q, k, v = _attn_qkv(config, layer, x, positions)
     if isinstance(write_index, torch.Tensor):  # per-row offsets [B] (verify_step)
-        rows = torch.arange(B, device=x.device)
-        cache_k[rows, write_index] = k[:, 0].to(cache_k.dtype)
-        cache_v[rows, write_index] = v[:, 0].to(cache_v.dtype)
+        rows = torch.arange(B, device=x.device)[:, None]
+        slots = write_index[:, None] + torch.arange(Sq, device=x.device)[None, :]
+        cache_k[rows, slots] = k.to(cache_k.dtype)
+        cache_v[rows, slots] = v.to(cache_v.dtype)
     else:
         cache_k[:, write_index: write_index + Sq] = k.to(cache_k.dtype)
         cache_v[:, write_index: write_index + Sq] = v.to(cache_v.dtype)
@@ -704,23 +709,25 @@ def _block_decode(
     return _mlp_sublayer(config, layer, _attn_residual(config, layer, x, attn))
 
 
-def _step_masks(config: ModelConfig, lengths, pl_row, positions, G: int, P: int):
-    """The one-token verify step's masks, as the JAX ``verify_step`` and
-    ``paged_verify_step`` build them at ``Sq == 1``: (self_mask [B, 1, G],
-    prefix_mask [B, 1, P], and their global twins for an alternating config,
-    else None). Gen slot s is visible when ``s <= lengths``; with a window
-    also ``s > lengths - W``, and prefix column c when ``c > position - W``."""
+def _step_masks(config: ModelConfig, lengths, pl_row, positions, G: int, P: int, Sq: int = 1):
+    """The verify step's masks, as the JAX ``verify_step`` (and, at ``Sq ==
+    1``, ``paged_verify_step``) builds them: (self_mask [B, Sq, G],
+    prefix_mask [B, 1, P] or, with a window, [B, Sq, P], and their global
+    twins for an alternating config, else None). Query j of row b sees gen
+    slot s when ``s <= lengths[b] + j``; with a window also ``s > lengths[b]
+    + j - W``, and prefix column c when ``c > positions[b, j] - W``."""
     device = lengths.device
     s = torch.arange(G, device=device)[None, None, :]
     c = torch.arange(P, device=device)[None, None, :]
-    self_mask = s <= lengths[:, None, None]
+    qpos = (lengths[:, None] + torch.arange(Sq, device=device)[None, :])[:, :, None]
+    self_mask = s <= qpos
     prefix_mask = c < pl_row[:, None, None]
     self_global = prefix_global = None
     if config.sliding_window is not None:
         W = config.sliding_window
         if _alternating(config):
             self_global, prefix_global = self_mask, prefix_mask
-        self_mask = self_mask & (s > lengths[:, None, None] - W)
+        self_mask = self_mask & (s > qpos - W)
         prefix_mask = prefix_mask & (c > positions[:, :, None] - W)
     return self_mask, prefix_mask, self_global, prefix_global
 
@@ -776,22 +783,24 @@ def verify_step(
     gen_cache: KVCache,
     prefix: KVCache,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """The JAX ``verify_step`` at ``Sq == 1``: the continuous loop's dense
-    step, one token per row at per-row offsets.
+    """The JAX ``verify_step``: score ``Sq`` tokens per row in one forward
+    at per-row offsets. At ``Sq == 1`` it is the continuous loop's dense
+    step; at ``Sq = K + 1`` speculative verification (the row's last
+    accepted token followed by its K drafts).
 
-    tokens: [B, 1]; lengths: [B] generated counts (each row's write offset
-    into its gen cache slots); prompt_len: [R] per-request prompt lengths,
-    rows request-major; gen_cache [L, B, G, KVH, D], written in place;
-    prefix [L, R, P, KVH, D]. Masks as in the JAX function: slot s of row b
-    is visible when ``s <= lengths[b]``. Returns (logits f32 [B, 1, V],
-    gen_cache). ``Sq > 1`` (speculative verification) is not ported."""
+    tokens: [B, Sq]; lengths: [B] generated counts (each row's write offset
+    into its gen cache slots: column j goes to slot ``lengths[b] + j``, and
+    rejected slots are overwritten by a later verify); prompt_len: [R]
+    per-request prompt lengths, rows request-major; gen_cache [L, B, G,
+    KVH, D], written in place (the caller keeps ``lengths + Sq <= G``);
+    prefix [L, R, P, KVH, D]. Masks as in the JAX function: query j of row b
+    sees slot s when ``s <= lengths[b] + j``, at position ``prompt_len +
+    lengths[b] + j``. The attention is the plain concatenated softmax
+    whenever ``Sq > 1`` (the decode-prefix kernel's gate needs ``Sq == 1``,
+    as in JAX). Returns (logits f32 [B, Sq, V], where logits[b, j]
+    conditions on tokens[b, :j+1], and gen_cache)."""
     check_supported(config)
     B, Sq = tokens.shape
-    if Sq != 1:
-        raise NotImplementedError(
-            "verify_step: only Sq == 1 is ported (speculative verification "
-            "comes with speculative decoding)"
-        )
     device = tokens.device
     G = gen_cache.max_len
     P = prefix.max_len
@@ -799,10 +808,10 @@ def verify_step(
     pl_row = pl.repeat_interleave(B // pl.shape[0])  # [B]
     lengths = lengths.to(device=device, dtype=torch.int64)
 
-    positions = pl_row[:, None] + lengths[:, None]  # [B, 1]
+    positions = pl_row[:, None] + lengths[:, None] + torch.arange(Sq, device=device)[None, :]
     x = _embed(config, params, tokens)
     self_mask, prefix_mask, self_global, prefix_global = _step_masks(
-        config, lengths, pl_row, positions, G, P)
+        config, lengths, pl_row, positions, G, P, Sq)
     plen32 = pl.to(torch.int32)
     for i in range(config.num_layers):
         x = _block_decode(

@@ -18,7 +18,10 @@ The continuous decode loop keys each row on its own: row ``r`` at loop step
 ``s_r`` with sample index ``i_r`` takes ``fold_in(fold_in(key(seed_r), s_r), i_r)``.
 :func:`threefry_uniform_rows` draws with a key, step and index per row, one
 launch per step; a coalesced step (:func:`threefry_uniform`) is the case of
-one key per request, one step and the index of the row within its request.
+one key per request, one step and the index of the row within its request,
+and a speculative verify iteration (:func:`threefry_uniform_verify`) the
+case of the request's key folded with the iteration, the draft position as
+the step and the row within its request as the index.
 
 The plain version holds uint32 words in int64 tensors, masked to 32 bits
 after every add and shift (torch has no uint32 arithmetic on every device).
@@ -127,6 +130,35 @@ def threefry_uniform(req_keys: torch.Tensor, step: torch.Tensor, n_per: int,
     keys = req_keys[:, None, :].expand(R, n_per, 2).reshape(R * n_per, 2)
     steps = step.reshape(1).expand(R * n_per)
     index = torch.arange(n_per, dtype=torch.int32, device=req_keys.device).repeat(R)
+    return threefry_uniform_rows(keys, steps, index, V)
+
+
+def threefry_uniform_verify(req_keys: torch.Tensor, iteration: torch.Tensor, n_per: int,
+                            positions: int, V: int) -> torch.Tensor:
+    """One speculative verify iteration's uniforms, ``[R * n_per * positions,
+    V]`` float32, laid out row-major ``(row, position)`` as the flattened
+    verify logits are: position j of sample i of request r takes
+    ``uniform_tiny(fold_in(fold_in(fold_in(req_keys[r], iteration), j), i),
+    V)``, the JAX spec loop's keys. The per-row draw
+    (:func:`threefry_uniform_rows`) with keys ``fold_in(req_keys[r],
+    iteration)``, step j and index i: one launch an iteration.
+    ``iteration`` is a 0-d int32 tensor on the keys' device, so no host
+    value enters the draw."""
+    if req_keys.dim() != 2 or req_keys.shape[1] != 2 or n_per < 1 or positions < 1:
+        raise ValueError(f"threefry_uniform_verify: req_keys must be [R, 2], got "
+                         f"{tuple(req_keys.shape)}; n_per={n_per}, positions={positions}")
+    R = req_keys.shape[0]
+    device = req_keys.device
+    # fold_in with the iteration's words already on the device: no host
+    # value is copied in, so the call can be captured in a CUDA graph.
+    it = iteration.to(torch.int64).reshape(1).expand(R)
+    y0, y1 = threefry2x32(req_keys[:, 0], req_keys[:, 1], torch.zeros_like(it), it)
+    it_keys = torch.stack([y0, y1], dim=-1)  # [R, 2]
+    keys = it_keys[:, None, :].expand(R, n_per * positions, 2).reshape(-1, 2)
+    j = torch.arange(positions, dtype=torch.int32, device=device)
+    i = torch.arange(n_per, dtype=torch.int32, device=device)
+    steps = j[None, None, :].expand(R, n_per, positions).reshape(-1)
+    index = i[None, :, None].expand(R, n_per, positions).reshape(-1)
     return threefry_uniform_rows(keys, steps, index, V)
 
 

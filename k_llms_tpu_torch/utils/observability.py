@@ -123,8 +123,9 @@ FAILURE_EVENTS = EventCounters(declared=(
     "consensus.zero_survivors",
 ))
 
-#: Speculative-decoding counters; the scheduler's ``note_spec_stats`` has no
-#: caller until speculative decoding is ported.
+#: Speculative-decoding counters, fed by the scheduler's ``note_spec_stats``
+#: (the engine's ``on_spec_stats`` hook, called after every speculative
+#: launch).
 SPEC_EVENTS = EventCounters(declared=(
     "spec.launches",
     "spec.drafted",

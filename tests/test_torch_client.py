@@ -103,7 +103,7 @@ def test_backend_knobs_reach_the_engine(monkeypatch):
         KLLMs(backend="cuda", model="tiny", device="cpu", quantization="int3")
 
 
-@pytest.mark.parametrize("field,value", [("speculative", "prompt_lookup"), ("sp_decode", True),
+@pytest.mark.parametrize("field,value", [("model_parallel", 2), ("sp_decode", True),
                                          ("sp_attention", "ring")])
 def test_unported_backend_field_raises(field, value):
     """A keyword naming a JAX BackendConfig field the port has not ported
@@ -113,10 +113,12 @@ def test_unported_backend_field_raises(field, value):
 
 
 @pytest.mark.parametrize("field,value", [("prefix_cache_size", 4), ("prefix_cache_min_reuse", 8),
-                                         ("kv_pool_pages", 64), ("checkpoint_path", None)])
+                                         ("kv_pool_pages", 64), ("checkpoint_path", None),
+                                         ("speculative", "prompt_lookup"),
+                                         ("spec_lookahead", 2)])
 def test_moved_fields_are_served(field, value):
-    """The fields the checkpoint loader and the prefix cache brought over
-    no longer raise, and reach the backend config."""
+    """The fields the checkpoint loader, the prefix cache and speculative
+    decoding brought over no longer raise, and reach the backend config."""
     from k_llms_tpu_torch.backends.cuda import UNPORTED_FIELDS
 
     assert field not in UNPORTED_FIELDS

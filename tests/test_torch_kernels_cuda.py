@@ -576,6 +576,140 @@ def test_threefry_uniform_rows_kernel_bit_equal_plain(cuda_device, V):
     assert not torch.equal(bits, rnd.threefry_uniform_rows_plain(keys, index, steps, V).view(torch.int32))
 
 
+# -- speculative decoding: the verify step, its draws, K4 at its rows -----------
+
+VERIFY_ROWS = (40, 80)  # B * (K + 1) at K = 4 for n = 8 and n = 16
+
+
+@pytest.mark.parametrize("shape", sorted(LLAMA3_8B_W4))
+def test_w4_matmul_at_verify_rows_on_both_routes(cuda_device, shape):
+    """K4 at the speculative verify's rows (40 and 80) at every Llama-3-8B
+    weight: the wrapper's choice (the prefill tensor-core tile, above the
+    crossover) and the decode kernel forced over 32-row chunks (it takes at
+    most 32 rows), each within K4's limit, |out - ref| <= 2**-6 |ref| + 1e-5
+    (|x| @ |W|), one launch per call counted."""
+    from k_llms_tpu_torch.ops import w4matmul as w4
+
+    K, N = LLAMA3_8B_W4[shape]
+    rng = np.random.default_rng(K + N + 1)
+    for rows in VERIFY_ROWS:
+        x, w = _w4_case(rng, rows, K, N, cuda_device)
+        assert w4.w4_route(rows, K, N, torch.bfloat16) == "tc"
+        before = _ext.LAUNCH_COUNTS["w4_matmul"]
+        tc = w4.w4_matmul(x, w)
+        chunks = [x[i:i + 32].contiguous() for i in range(0, rows, 32)]
+        decode = torch.cat([w4.w4_matmul(c, w, route="decode") for c in chunks])
+        torch.cuda.synchronize()
+        assert _ext.LAUNCH_COUNTS["w4_matmul"] == before + 1 + len(chunks)
+        ref = w4.w4_matmul_plain(x, w).float()
+        room = 2.0 ** -6 * ref.abs() + 1e-5 * _w4_group_sums(x, w, absolute=True)
+        for out in (tc, decode):
+            assert out.dtype == torch.bfloat16 and out.shape == (rows, N)
+            assert ((out.float() - ref).abs() <= room).all()
+
+
+@pytest.mark.parametrize("V", [128256, 512])
+def test_verify_draws_bit_equal_plain(cuda_device, V):
+    """One verify iteration's draws at B * (K + 1) = 40 rows (two requests
+    of four rows, five positions): one launch, bit-equal to the plain chain
+    fold_in(fold_in(fold_in(key, it), j), i) row-major (row, position); the
+    position and the row folded the other way round break equality; the
+    call replays in a CUDA graph."""
+    from k_llms_tpu_torch.ops import random as rnd
+
+    keys = rnd.request_keys([3000000000, 7], cuda_device)
+    it = torch.tensor(3, dtype=torch.int32, device=cuda_device)
+    before = _ext.LAUNCH_COUNTS["threefry_uniform_rows"]
+    got = rnd.threefry_uniform_verify(keys, it, 4, 5, V)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["threefry_uniform_rows"] == before + 1
+    assert got.shape == (40, V)
+    it_keys = rnd.fold_in(keys, 3)[:, None, None, :]
+    i = torch.arange(4, device=cuda_device)[None, :, None]
+    j = torch.arange(5, device=cuda_device)[None, None, :]
+    plain = rnd.uniform_tiny(rnd.fold_in(rnd.fold_in(it_keys, j), i).reshape(-1, 2), V)
+    swapped = rnd.uniform_tiny(rnd.fold_in(rnd.fold_in(it_keys, i), j).reshape(-1, 2), V)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    assert not torch.equal(got.view(torch.int32), swapped.view(torch.int32))
+    # The iteration is read from the device: one captured call replays at
+    # whatever iteration the buffer holds.
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        captured = rnd.threefry_uniform_verify(keys, it, 4, 5, V)
+    it.fill_(9)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured.view(torch.int32),
+                       rnd.threefry_uniform_verify(keys, it, 4, 5, V).view(torch.int32))
+    assert not torch.equal(captured.view(torch.int32), got.view(torch.int32))
+
+
+def test_verify_step_at_five_tokens_on_card_matches_cpu(cuda_device):
+    """``verify_step`` at Sq = 5 with per-row offsets and prompt lengths,
+    fp32 tiny on the card against the same call on the CPU: logits within
+    1e-4, the written cache within 1e-5."""
+    from k_llms_tpu_torch.models import llama
+
+    cfg = get_config("tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: ({kk: vv.to(cuda_device) for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.to(cuda_device)) for k, v in params.items()}
+    rng = np.random.default_rng(7)
+    B, P, G = 3, 32, 16
+    L, KVH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    pk, pv, gk, gv = (_normal(rng, L, B, n, KVH, D) for n in (P, P, G, G))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 5)))
+    lengths, prompt_lens = torch.tensor([0, 11, 4]), torch.tensor([32, 7, 19])
+    outs = []
+    for p, dev in ((params, "cpu"), (on_card, cuda_device)):
+        gen = llama.KVCache(k=gk.clone().to(dev), v=gv.clone().to(dev))
+        logits, gen = llama.verify_step(cfg, p, tokens.to(dev), lengths.to(dev),
+                                        prompt_lens.to(dev), gen,
+                                        llama.KVCache(k=pk.to(dev), v=pv.to(dev)))
+        outs.append((logits.cpu(), gen.k.cpu(), gen.v.cpu()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(outs[1][1], outs[0][1], atol=1e-5, rtol=0)
+    torch.testing.assert_close(outs[1][2], outs[0][2], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["greedy", "sampled"])
+def test_int4_spec_engine_on_card_equals_cpu(cuda_device, temperature):
+    """The int4-eligible small config with prompt-lookup speculation on the
+    card (K2 per prefill, K4 in every verify, the draws) and on the CPU's
+    plain versions: the same tokens and stats; launches as the iterations
+    say: K4 per int4 matmul per prefill and per verify iteration, K1 and K3
+    none, a draw per sampled iteration plus the first token's."""
+    from k_llms_tpu_torch.models.quant import quantize_params
+
+    cfg = get_config("tiny").with_(
+        hidden_size=256, intermediate_size=512, num_heads=4, num_kv_heads=2, head_dim=64,
+        vocab_size=384, max_seq_len=128, attention_impl="flash", decode_attention_impl="flash",
+    )
+    params = quantize_params(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), bits=4)
+    on_card = {k: ({kk: vv.to(cuda_device) for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.to(cuda_device)) for k, v in params.items()}
+    prompt = ByteTokenizer().apply_chat_template([{"role": "user", "content": "total due 41.20"}])
+    outs = []
+    for p, dev in ((on_card, cuda_device), (params, "cpu")):
+        eng = LocalEngine(cfg, params=p, device=dev, kv_layout="dense",
+                          speculative="prompt_lookup", spec_lookahead=4)
+        _ext.reset_launch_counts()
+        res = eng.generate(prompt, n=4, seed=1, max_new_tokens=16, temperature=temperature)
+        outs.append((res, dict(_ext.LAUNCH_COUNTS), dict(eng.spec_stats)))
+    (card, counts, stats), (cpu, cpu_counts, cpu_stats) = outs
+    np.testing.assert_array_equal(card.tokens, cpu.tokens)
+    np.testing.assert_allclose(card.logprobs, cpu.logprobs, atol=1e-4, rtol=0)
+    assert stats == cpu_stats and max(cpu_counts.values()) == 0
+    its = stats["verify_iterations"]
+    assert its > 0
+    assert counts["flash_attention"] == cfg.num_layers
+    assert counts["w4_matmul"] == (7 * cfg.num_layers + 1) * (1 + its)
+    assert counts["paged_decode_attention"] == counts["decode_prefix_attention"] == 0
+    assert counts["threefry_uniform_rows"] == ((1 + its) if temperature else 0)
+
+
 def _code_pairs(rng, P, L):
     """P seeded pairs of ASCII strings of lengths 0..L over a small alphabet
     (so distances vary), with empty strings and the bucket's edge lengths."""

@@ -227,7 +227,9 @@ def test_verify_step_matches_jax_at_one_token_per_row(weights):
     """The continuous loop's dense step: ``verify_step`` at Sq == 1 with a
     prompt prefix per row and per-row write offsets (rows joined at
     different steps), logits and the written cache within 1e-5 of the JAX
-    function; Sq > 1 is not ported and raises."""
+    function. At Sq == 2 (speculative verification, held against JAX in
+    ``test_torch_speculative.py``) the first column is that step again: a
+    query never sees the columns after it."""
     jax_params, params = weights
     cfg, jcfg = get_config(CONFIG_NAME), jax_get_config(CONFIG_NAME)
     rng = np.random.default_rng(3)
@@ -250,7 +252,9 @@ def test_verify_step_matches_jax_at_one_token_per_row(weights):
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlog), atol=ATOL)
     np.testing.assert_allclose(gen.k.numpy(), np.asarray(jgen.k), atol=ATOL)
     np.testing.assert_allclose(gen.v.numpy(), np.asarray(jgen.v), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="Sq == 1"):
-        llama.verify_step(cfg, params, torch.tensor(np.zeros((3, 2), np.int32)),
-                          torch.tensor(lengths), torch.tensor(prompt_lens), gen,
-                          llama.KVCache(k=torch.tensor(pk), v=torch.tensor(pv)))
+    two = np.concatenate([tokens, np.array([[9], [10], [11]], np.int32)], axis=1)
+    logits2, _ = llama.verify_step(cfg, params, torch.tensor(two), torch.tensor(lengths),
+                                   torch.tensor(prompt_lens), gen,
+                                   llama.KVCache(k=torch.tensor(pk), v=torch.tensor(pv)))
+    assert logits2.shape == (3, 2, cfg.vocab_size)
+    np.testing.assert_allclose(logits2[:, :1].numpy(), np.asarray(jlog), atol=ATOL)
