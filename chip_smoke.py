@@ -61,7 +61,16 @@ fused into one launch, equal to the same group without streams; a client
 that hangs up after its first delta (the launch aborts, its pages return,
 the next request is served); ``/healthz``, ``/metrics`` and
 ``/debug/requests``; a 4-line batch job. ``loop`` adds a grammar-
-constrained stream through the continuous loop.
+constrained stream through the continuous loop. ``sanitize`` arms the
+lock-order and lockset sanitizers (``KLLMS_LOCKCHECK=1``,
+``KLLMS_RACECHECK=1``) over a continuous-batching backend on the ``8b``
+weights behind loopback HTTP: mixed traffic unarmed and armed in turns
+(both timed), then armed with two hangs healed by the watchdog and a
+poisoned launch, every request resolved, the plain requests equal to their
+unarmed solo runs, the pool conserved, READY, no violation; then a K1
+launch under a lock made without ``allow_dispatch`` and a two-thread lock
+inversion must each be caught once, and the lint
+(``python -m k_llms_tpu_torch.analysis --check``) runs once.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -97,7 +106,7 @@ from typing import Literal
 from pydantic import BaseModel, Field
 
 PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "serve", "ckpt", "loop",
-          "8b_int4", "sched", "spec", "gemma9b", "mistral7b", "mixtral_int4")
+          "8b_int4", "sched", "spec", "sanitize", "gemma9b", "mistral7b", "mixtral_int4")
 # The model-family phases, in the order they run.
 FAMILY_PHASES = ("gemma9b", "mistral7b", "mixtral_int4")
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
@@ -1303,6 +1312,376 @@ def loop_tiny(log):
     torch.cuda.synchronize()
 
 
+def sanitize_8b(client, plain_requests, long_text, log):
+    """The sanitize phase: both runtime sanitizers armed over the full
+    serving stack at Llama-3-8B width on the card. A continuous-batching
+    backend over the ``8b`` client's weight tensors (no copy: bf16, paged,
+    K1, K2 and the draws, device consensus) behind
+    ``ServerThread(create_app(client))`` on loopback serves, all at once:
+    two plain ``create()`` requests through the scheduler's coalesced path
+    (a logit bias keeps them out of the loop), a JSON request, a ``parse()``
+    under the grammar, an SSE stream whose prompt is chunked and a stream
+    whose client hangs up, through the loop, and a two-item batch job. The
+    set runs unarmed, then armed, both timed; then armed again with one
+    ``continuous.step`` hang and one ``continuous.prefill`` hang (healed by
+    the watchdog, whose budget comes from warm armed steps and launches, on
+    a backend built with it) and, once the plain requests have returned, one
+    ``engine.logits`` poison. Asserted:
+    every request resolves (success or a typed error), the plain requests'
+    texts equal their solo runs on the unarmed ``8b`` client, the page pool
+    ends conserved, the backend READY, no violation, and a lock-order graph
+    naming the launch lock, the pool, the loop and the scheduler. Then two
+    mutants, each of which must add exactly one violation: a K1 launch
+    through its wrapper under a checked lock made without
+    ``allow_dispatch``, and two threads taking two checked locks in opposite
+    orders. Last, the lint (``python -m k_llms_tpu_torch.analysis --check``)
+    runs once on this machine. Returns the armed window's launch counts."""
+    import threading
+
+    import torch
+
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.analysis import lockcheck
+    from k_llms_tpu_torch.backends.cuda import CudaBackend
+    from k_llms_tpu_torch.engine.engine import LocalEngine
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.ops import paged_attention as pa
+    from k_llms_tpu_torch.reliability import failpoints as fp
+    from k_llms_tpu_torch.reliability.failpoints import FailSpec
+    from k_llms_tpu_torch.serving import ServerThread, create_app
+    from k_llms_tpu_torch.types.wire import KLLMsError
+    from k_llms_tpu_torch.utils.observability import QUARANTINE_EVENTS, RECOVERY_EVENTS
+
+    t_phase = time.perf_counter()
+    base = client.backend
+    eng8 = base.engine
+    knobs = dict(continuous_batching=True, continuous_width=16, continuous_max_prompt=512,
+                 continuous_max_new=32, prefill_chunk_tokens=128, kv_pool_pages=128)
+
+    def engine_over_8b_weights():
+        return LocalEngine(eng8.config, params=eng8.params, device=eng8.device,
+                           kv_layout="paged", kv_page_size=eng8.kv_page_size,
+                           paged_attention_impl=base.backend_config.paged_attention_impl,
+                           kv_pool_pages=knobs["kv_pool_pages"])
+
+    def build(**watchdog):
+        backend = CudaBackend(config=base.backend_config.model_copy(update=dict(knobs, **watchdog)),
+                              engine=engine_over_8b_weights())
+        # A rebuild (the loop's watchdog heals a hang with one) stands up a
+        # new engine over the same weight tensors: the seeded weights a cold
+        # start would build, without a second 16 GB copy on the card.
+        backend._build_engine = engine_over_8b_weights
+        return KLLMs(backend=backend), backend
+
+    # The plain requests: the 8b phase's first two, at 16 tokens.
+    plain = {f"plain{i}": dict(req, max_tokens=16) for i, req in enumerate(plain_requests)}
+
+    def texts(resp):
+        return [c.message.content for c in resp.choices]
+
+    solo = {name: texts(client.chat.completions.create(**req)) for name, req in plain.items()}
+    chunked_prompt = long_text[:420] + "\nWhat is the total?"
+    loop_body = dict(n=8, temperature=0.8, max_tokens=16)
+
+    def run_set(san_client, port, faults=None):
+        """The request set, all at once; with ``faults`` the hangs are armed
+        for the whole set and the poison once the plain requests return.
+        Returns ({name: (kind, status, payload)}, wall seconds)."""
+        results, lock = {}, threading.Lock()
+
+        def keep(name, value):
+            with lock:
+                results[name] = value
+
+        def plain_req(name, req=None):
+            try:
+                resp = san_client.chat.completions.create(**(req or plain[name]))
+                keep(name, ("ok", 200, texts(resp)))
+            except KLLMsError as e:
+                keep(name, ("typed", e.status_code, str(e)))
+
+        def json_req(name, seed):
+            status, _, raw = http_call(port, "POST", "/v1/chat/completions", dict(
+                loop_body, messages=[{"role": "user", "content": "What is the capital of France?"}],
+                seed=seed))
+            keep(name, ("ok" if status == 200 else "typed", status, json.loads(raw)))
+
+        def parse_req():
+            try:
+                pc = san_client.chat.completions.parse(
+                    messages=[{"role": "user", "content": "Invoice 2024-0117 lists 12 widgets "
+                                                          "from Acme. Extract the record."}],
+                    response_format=Record, seed=17, **loop_body)
+                keep("parse", ("ok", 200, str(pc.choices[0].message.parsed)))
+            except KLLMsError as e:
+                keep("parse", ("typed", e.status_code, str(e)))
+
+        def stream_req():
+            status, frames, _, _ = http_stream(port, dict(
+                loop_body, messages=[{"role": "user", "content": chunked_prompt}], seed=21))
+            done = status == 200 and frames and frames[-1] == "[DONE]"
+            keep("stream", ("ok" if done else "typed", status, len(frames)))
+
+        def hangup_req():
+            status, frames, _, _ = http_stream(port, dict(
+                loop_body, messages=[{"role": "user", "content": "Name three prime numbers."}],
+                seed=22), disconnect_after_first_delta=True)
+            keep("hangup", ("ok" if status == 200 else "typed", status, len(frames)))
+
+        def batch_req():
+            lines = "\n".join(json.dumps({
+                "custom_id": f"c{i}", "method": "POST", "url": "/v1/chat/completions",
+                "body": {"messages": [{"role": "user", "content": f"Offline question {i}."}],
+                         "n": 2, "seed": 40 + i, "max_tokens": 8}}) for i in range(2))
+            status, _, raw = http_call(port, "POST", "/v1/batches", lines.encode())
+            job = json.loads(raw)
+            wire = job
+            deadline = time.monotonic() + 300
+            while status == 200 and time.monotonic() < deadline:
+                status, _, raw = http_call(port, "GET", f"/v1/batches/{job['id']}")
+                wire = json.loads(raw)
+                if wire["status"] in ("completed", "completed_with_errors", "cancelled"):
+                    break
+                time.sleep(0.05)
+            keep("batch", ("ok" if wire.get("status") == "completed" else "typed", status,
+                           wire.get("status")))
+
+        workers = [threading.Thread(target=plain_req, args=(name,)) for name in plain]
+        loop_workers = [threading.Thread(target=f, args=a) for f, a in (
+            (json_req, ("json", 11)), (parse_req, ()), (stream_req, ()), (hangup_req, ()),
+            (batch_req, ()))]
+        t0 = time.perf_counter()
+        with fp.failpoints(faults or {}):
+            for t in workers + loop_workers:
+                t.start()
+            join_all(workers, timeout=600)
+            if faults:
+                # Mid-traffic, once no plain request can take it: a poison
+                # window around one more coalesced request, so that its
+                # launch takes a NaN row (and so do the loop steps that run
+                # meanwhile).
+                with fp.failpoints({"engine.logits": FailSpec(action="nan", kill=1, seed=13,
+                                                              times=1000)}):
+                    poisoned = threading.Thread(target=plain_req, args=(
+                        "poisoned", dict(plain["plain0"], seed=99, max_tokens=8)))
+                    poisoned.start()
+                    join_all([poisoned], timeout=600)
+            join_all(loop_workers, timeout=600)
+        return results, time.perf_counter() - t0
+
+    def check_resolved(label, results, names):
+        if sorted(results) != sorted(names):
+            raise AssertionError(f"sanitize {label}: requests {sorted(results)} != {sorted(names)}")
+        for name, (kind, status, payload) in results.items():
+            if kind != "ok" and status not in (408, 429, 500, 503):
+                raise AssertionError(f"sanitize {label}: {name} answered {status}: {payload}")
+        for name in plain:  # the poisoned request is not a plain one
+            if results[name][0] != "ok" or results[name][2] != solo[name]:
+                raise AssertionError(f"sanitize {label}: {name}'s text differs from its solo run")
+
+    names = list(plain) + ["json", "parse", "stream", "hangup", "batch"]
+
+    def serve(san_client):
+        return ServerThread(create_app(san_client)).start()
+
+    def shut(srv, san_client):
+        srv.stop(drain=False)
+        san_client.close()
+
+    def arm(on):
+        for var in ("KLLMS_LOCKCHECK", "KLLMS_RACECHECK"):
+            if on:
+                os.environ[var] = "1"
+            else:
+                os.environ.pop(var, None)
+
+    # The same requests unarmed and armed, in turns (unarmed, armed, armed,
+    # unarmed: host clocks drift within a call): an unarmed backend, then an
+    # armed one built after the variables are set (a lock reads them when
+    # it is made), each warmed once first.
+    walls = {"unarmed": [], "armed": []}
+    san_u, backend_u = build()
+    srv_u = serve(san_u)
+    run_set(san_u, srv_u.port)
+    res, wall = run_set(san_u, srv_u.port)
+    check_resolved("unarmed", res, names)
+    walls["unarmed"].append(wall)
+    try:
+        arm(True)
+        lockcheck.reset_state()
+        san_a, backend_a = build()
+        if not (type(backend_a.engine)._kllms_is_tracked
+                and isinstance(backend_a.engine._launch_lock, lockcheck._CheckedBase)):
+            raise AssertionError("sanitize: the engine's locks are not armed")
+        srv_a = serve(san_a)
+        run_set(san_a, srv_a.port)
+        for _ in range(2):
+            res, wall = run_set(san_a, srv_a.port)
+            check_resolved("armed", res, names)
+            walls["armed"].append(wall)
+        arm(False)  # the unarmed backend's per-request objects stay plain
+        res, wall = run_set(san_u, srv_u.port)
+        check_resolved("unarmed", res, names)
+        walls["unarmed"].append(wall)
+        shut(srv_u, san_u)
+        del san_u, backend_u
+        arm(True)
+        # The watchdog's budget from warm armed work (the budget models'
+        # EWMAs): 20 loop steps or 10 coalesced launches of 16 tokens, at
+        # least 10 s. A hang must trip it, no armed step or launch may.
+        step_s = backend_a._continuous.budget_model.stats()["per_token_s"]
+        launch_s = 16 * backend_a.supervisor.budget_model.stats()["per_token_s"]
+        budget = max(10.0, 20.0 * step_s, 10.0 * launch_s)
+        shut(srv_a, san_a)
+        del san_a, backend_a
+        gc.collect()
+        torch.cuda.empty_cache()
+        san_client, backend = build(watchdog_min_budget_s=budget, watchdog_max_budget_s=budget,
+                                    max_rebuilds=4)
+        loop = backend._continuous
+        srv = serve(san_client)
+        hangs = RECOVERY_EVENTS.get("continuous.step_hangs")
+        restarts = loop.stats["restarts"]
+        chunks = loop.stats["prefill_chunks"]
+        poisoned = QUARANTINE_EVENTS.get("quarantine.samples")
+        loop_poisoned = loop.stats["quarantined_rows"]
+        stale = RECOVERY_EVENTS.get("continuous.stale_steps_discarded")
+        reset_counts()
+        faulted, faulted_wall = run_set(san_client, srv.port, faults={
+            "continuous.step": FailSpec(action="hang", times=1, delay=budget + 5.0),
+            "continuous.prefill": FailSpec(action="hang", times=1, delay=budget + 5.0),
+        })
+        counts = dict(_ext.LAUNCH_COUNTS)
+        # The two abandoned dispatch threads end (and let their engines go)
+        # once their hangs do: the phase leaves no thread behind.
+        deadline = time.monotonic() + budget + 60
+        while RECOVERY_EVENTS.get("continuous.stale_steps_discarded") < stale + 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("sanitize: an abandoned dispatch thread never ended")
+            time.sleep(0.1)
+        check_resolved("faulted", faulted, names + ["poisoned"])
+        check_consensus_window("sanitize")
+        st = loop.stats
+        deadline = time.monotonic() + 60
+        while loop.stats.get("pages", {}).get("loop_refs") != 0:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"sanitize: loop pages not returned: {loop.stats}")
+            time.sleep(0.05)
+        allocator = backend.engine._kv_pool.allocator
+        allocator.verify()
+        pages = allocator.snapshot()
+        state = backend.health()["state"]
+        shut(srv, san_client)
+        edges = lockcheck.graph()
+        found = lockcheck.violations()
+        named = sorted({name for edge in edges for name in edge})
+        cfg = eng8.config
+        unarmed_s, armed_s = sum(walls["unarmed"]) / 2, sum(walls["armed"]) / 2
+        rec = {"phase": "sanitize", "model": cfg.name, "layers": cfg.num_layers,
+               "hidden": cfg.hidden_size, "dtype": str(cfg.torch_dtype).replace("torch.", ""),
+               "kv": "paged", "front_door": "http loopback", "requests": names + ["poisoned"],
+               "unarmed_walls_s": walls["unarmed"], "armed_walls_s": walls["armed"],
+               "armed_over_unarmed": armed_s / unarmed_s, "faulted_wall_s": faulted_wall,
+               "watchdog_budget_s": {"loop_step": budget, "supervisor_launch": budget},
+               "warm_armed_step_s": step_s, "warm_armed_launch_s": launch_s,
+               "step_hangs": RECOVERY_EVENTS.get("continuous.step_hangs") - hangs,
+               "restarts": st["restarts"] - restarts,
+               "prefill_chunks": st["prefill_chunks"] - chunks,
+               "quarantined_samples": QUARANTINE_EVENTS.get("quarantine.samples") - poisoned,
+               "loop_quarantined_rows": st["quarantined_rows"] - loop_poisoned,
+               "all_resolved": True, "resolved": {k: v[:2] for k, v in faulted.items()},
+               "plain_equal_solo": {name: faulted[name][2] == solo[name] for name in plain},
+               "pool_conserved": {"verify": "clean", "loop_refs": 0, **pages},
+               "state": state, "launches": counts, "edges": len(edges),
+               "locks_in_graph": named, "violations": found}
+        log(rec)
+        problems = []
+        if rec["step_hangs"] != 2 or rec["restarts"] != 2 or rec["prefill_chunks"] < 1:
+            problems.append("hangs")
+        if rec["quarantined_samples"] < 1:
+            problems.append("poison")
+        if state != "ready":
+            problems.append("state")
+        if found:
+            problems.append("violations")
+        if not all(n in named for n in ("engine.paged_mutex", "engine.kv_pool",
+                                         "engine.continuous", "engine.scheduler")):
+            problems.append("graph")
+        if min(counts[k] for k in ("flash_attention", "paged_decode_attention",
+                                   "threefry_uniform_rows")) == 0:
+            problems.append("kernels")
+        if problems:
+            raise AssertionError(f"sanitize: {problems}")
+
+        # Mutant 1: a K1 launch through its wrapper under a checked lock made
+        # without allow_dispatch (held against its plain version).
+        dev = eng8.device
+        g = torch.Generator(device=dev).manual_seed(5)
+        B, QH, KVH, D, ps = 8, 32, 8, 128, 64
+        pool_k = torch.randn(12 * ps, KVH, D, generator=g, device=dev).to(torch.bfloat16)
+        pool_v = torch.randn(12 * ps, KVH, D, generator=g, device=dev).to(torch.bfloat16)
+        k1_args = (torch.randn(B, QH, D, generator=g, device=dev).to(torch.bfloat16), pool_k, pool_v,
+                   torch.tensor([[1, 2]], dtype=torch.int32, device=dev),
+                   torch.arange(3, 3 + B, dtype=torch.int32, device=dev)[:, None].contiguous(),
+                   torch.full((B,), 100 % ps, dtype=torch.int32, device=dev),
+                   torch.randn(B, KVH, D, generator=g, device=dev).to(torch.bfloat16),
+                   torch.randn(B, KVH, D, generator=g, device=dev).to(torch.bfloat16),
+                   torch.full((B,), 100, dtype=torch.int32, device=dev),
+                   torch.full((B,), 4, dtype=torch.int32, device=dev))
+        k1_kw = dict(page_size=ps, sm_scale=1.0 / math.sqrt(D))
+        before = len(lockcheck.violations())
+        guard = lockcheck.make_lock("smoke.mutant_guard")
+        with guard:
+            out = pa.paged_decode_attention(*k1_args, **k1_kw)
+        torch.cuda.synchronize()
+        k1_err = (out - pa.paged_decode_attention_plain(*k1_args, **k1_kw)).abs().max().item()
+        dispatch_found = lockcheck.violations()[before:]
+
+        # Mutant 2: two threads take two checked locks in opposite orders.
+        a, b = lockcheck.make_lock("smoke.mutant_a"), lockcheck.make_lock("smoke.mutant_b")
+
+        def nested(first, second):
+            with first:
+                with second:
+                    pass
+
+        before = len(lockcheck.violations())
+        for first, second in ((a, b), (b, a)):
+            t = threading.Thread(target=nested, args=(first, second))
+            t.start()
+            t.join(30)
+        cycle_found = lockcheck.violations()[before:]
+        log({"phase": "sanitize_mutants",
+             "caught": {"dispatch_under_lock": len(dispatch_found) == 1,
+                        "lock_order_inversion": len(cycle_found) == 1},
+             "dispatch_violations": dispatch_found, "k1_max_abs_err": k1_err,
+             "order_violations": cycle_found})
+        if (len(dispatch_found) != 1 or "kernel paged_decode_attention" not in dispatch_found[0]
+                or "smoke.mutant_guard" not in dispatch_found[0] or not k1_err <= 1e-5):
+            raise AssertionError(f"sanitize: the dispatch mutant was not caught once: {dispatch_found}")
+        if len(cycle_found) != 1 or "lock-order cycle" not in cycle_found[0]:
+            raise AssertionError(f"sanitize: the lock-order mutant was not caught once: {cycle_found}")
+    finally:
+        arm(False)
+        lockcheck.reset_state()
+    del san_client, backend, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The lint, once on this machine (its Python may differ from the CPU
+    # machine's).
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "k_llms_tpu_torch.analysis", "--check"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    log({"phase": "sanitize_lint", "exit_code": proc.returncode, "python": sys.version.split()[0],
+         "seconds": time.perf_counter() - t0, "tail": proc.stdout.strip().splitlines()[-1:]})
+    if proc.returncode != 0:
+        raise AssertionError(f"sanitize: the lint exited {proc.returncode}:\n{proc.stdout[-2000:]}")
+    log({"phase": "sanitize_done", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1318,6 +1697,8 @@ def main(argv=None) -> int:
         raise SystemExit("the sched phase drives the 8b phase's client: add 8b")
     if "serve" in phases and "8b" not in phases:
         raise SystemExit("the serve phase serves the 8b phase's client over HTTP: add 8b")
+    if "sanitize" in phases and "8b" not in phases:
+        raise SystemExit("the sanitize phase serves the 8b phase's weights: add 8b")
 
     import numpy as np
     import torch
@@ -4240,6 +4621,14 @@ def main(argv=None) -> int:
             # Last: the rebuilt engine holds the same seeded weights, which
             # the ckpt phase exports and compares with this phase's outputs.
             sched_rebuild("8b", client, sched_contents[1], log)
+        if "sanitize" in phases:
+            # After sched: its real OOM drill's memory window is narrow,
+            # and this phase's allocations move the allocator's slack.
+            sanitize_counts = sanitize_8b(client, requests[:2], long_text, log)
+            for name in ("flash_attention", "paged_decode_attention", "threefry_uniform_rows",
+                         "levenshtein"):
+                if name in kernels:
+                    kernels[name]["sanitize_launches"] = sanitize_counts[name]
         if "ckpt" in phases:
             # 9c serves this tree again from a checkpoint on disk.
             seeded = {"client": client, "launches": launches, "embeds": embeds,

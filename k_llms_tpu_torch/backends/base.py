@@ -24,7 +24,7 @@ from ..types.wire import (
     RequestTimeoutError,
     ServerDrainingError,
 )
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 
 if TYPE_CHECKING:  # pragma: no cover
     from ..consensus.similarity import SimilarityScorer

@@ -19,7 +19,7 @@ import time
 from collections import OrderedDict
 from typing import Any, Dict, Hashable, Optional
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 
 
 class TTLCache:

@@ -54,7 +54,7 @@ import torch
 from ..native import levenshtein_distance
 from ..ops.levenshtein import MAX_LEN, levenshtein
 from ..reliability import failpoints as _failpoints
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock, note_device_dispatch
 from ..utils.observability import CONSENSUS_EVENTS
 from .cache import TTLCache
 from .settings import (
@@ -454,9 +454,9 @@ class DeviceSimilarityScorer(SimilarityScorer):
         self._bucket_cache = TTLCache(maxsize=4096, ttl=300.0, name="pairs")
         # kllms: unguarded — threading.local: per-thread storage by design
         self._tls = threading.local()
-        # Held across each batched dispatch: concurrent consolidations queue
-        # on the device in turn.
-        self._device_lock = make_lock("consensus.device_chip")
+        # Held across each batched dispatch on purpose: concurrent
+        # consolidations queue on the device in turn.
+        self._device_lock = make_lock("consensus.device_chip", allow_dispatch=True)
 
     # -- consolidation hooks ----------------------------------------------
     def prepare(self, contents: List[Any]) -> None:
@@ -603,6 +603,7 @@ class DeviceSimilarityScorer(SimilarityScorer):
         """Batched device Levenshtein, after any other consolidation's
         device work (the device lock)."""
         with self._device_lock, self._on_device():
+            note_device_dispatch("consensus pair kernel")
             dists = batched_levenshtein(pairs, self.device)
         CONSENSUS_EVENTS.record("consensus.device_pairs", len(pairs))
         return dists
@@ -611,6 +612,7 @@ class DeviceSimilarityScorer(SimilarityScorer):
         """Batched device cosine, under the device lock as
         :meth:`_lev_distances`."""
         with self._device_lock, self._on_device():
+            note_device_dispatch("consensus cosine kernel")
             sims = batched_cosine(pairs, self.device)
         CONSENSUS_EVENTS.record("consensus.device_cosine", len(pairs))
         return sims
@@ -653,6 +655,7 @@ class DeviceSimilarityScorer(SimilarityScorer):
         if not jobs:
             return
         with self._device_lock, self._on_device():
+            note_device_dispatch("consensus vote kernel")
             results = batched_votes(jobs, self.device)
         for col, (best_val, best_count) in zip(jobs, results):
             if best_count > 0:

@@ -87,7 +87,6 @@ import functools
 import logging
 import os
 import random as _pyrandom
-import threading
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -95,6 +94,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from ..analysis.lockcheck import make_rlock, note_device_dispatch, race_exempt
 from ..models.config import ModelConfig, get_config
 from ..models.llama import (
     KVCache,
@@ -418,6 +418,10 @@ class LocalEngine:
             paged_attention_impl, device=self.device, config=self.config
         )
         self.kv_pool_pages = kv_pool_pages
+        # Published once under the launch lock by _ensure_kv_pool and never
+        # replaced (a rebuild swaps the whole engine); unsynchronized readers
+        # (health(), loop sizing) tolerate the pre-publish None via getattr.
+        # kllms: unguarded — publish-once under the launch lock; readers tolerate None
         self._kv_pool: Optional[PagedKVPool] = None
         # Speculative decoding: "prompt_lookup" drafts the next
         # spec_lookahead tokens from the prompt's own text (and the row's
@@ -432,7 +436,9 @@ class LocalEngine:
         self.spec_lookahead = max(1, int(spec_lookahead))
         # The latest launch's acceptance stats ({} after a launch without
         # speculation), and the backend's hook, called with them after every
-        # speculative launch.
+        # speculative launch. Published whole-object after each launch,
+        # snapshot via dict().
+        # kllms: unguarded — best-effort counters; losses skew stats only
         self.spec_stats: Dict[str, Any] = {}
         self.on_spec_stats: Optional[Any] = None
         # Prompt-prefix KV cache (LRU over full prompts). 0 disables. Value:
@@ -443,13 +449,18 @@ class LocalEngine:
         self._prefix_entries: "OrderedDict[Tuple[int, ...], Tuple[Any, Any, int, np.ndarray]]" = (
             OrderedDict()
         )
+        # Best-effort cache counters: a lost increment under concurrent
+        # routes skews stats, never correctness; readers snapshot via dict().
+        # kllms: unguarded — best-effort counters; losses skew stats only
         self.prefix_cache_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
         # Held by every launch: a paged launch picks the page pool, fills it
         # and frees its pages under it, so no other launch replaces the pool
-        # in between. It also stands in for the JAX engine's _paged_mutex:
-        # every prefix-cache read and write and every page allocation runs
-        # under it (reentrant, so the cache helpers take it inside a launch).
-        self._launch_lock = threading.RLock()
+        # in between. It also stands in for the JAX engine's _paged_mutex
+        # (and carries its lockcheck id): every prefix-cache read and write
+        # and every page allocation runs under it (reentrant, so the cache
+        # helpers take it inside a launch). allow_dispatch: the launch's
+        # prefill and decode run under it on purpose.
+        self._launch_lock = make_rlock("engine.paged_mutex", allow_dispatch=True)
         self.quarantine_stats: Dict[str, int] = {"samples": 0, "launches": 0}
         # Device-OOM recovery accounting and the backend's hooks: on_oom per
         # caught OOM, on_launch_ok after a clean launch, on_quarantine
@@ -462,10 +473,21 @@ class LocalEngine:
         # fenced by a device synchronise at each phase end.
         self.last_launch_stats: Dict[str, Any] = {}
         # The running launch's token sinks (one per member, None where a
-        # member does not stream) and the tap's next step; set per launch
-        # under the launch lock.
+        # member does not stream) and the tap's next step; published and
+        # retracted per launch by the launching thread under the launch lock.
+        # kllms: unguarded — single-writer publish; one launch in flight
         self._active_token_sinks: Optional[List[Any]] = None
         self._reset_tap_state()
+        # Runtime twin of the annotations above: the lockset sanitizer
+        # (KLLMS_RACECHECK=1) skips exactly the fields the static rule skips.
+        race_exempt(
+            self,
+            "prefix_cache_stats",
+            "spec_stats",
+            "_active_token_sinks",
+            "_tap_next",
+            "_kv_pool",
+        )
 
     def param_footprint_bytes(self) -> int:
         """Bytes of the resident parameters, quantized payloads and scales
@@ -973,6 +995,7 @@ class LocalEngine:
         (its rows froze at the step the abort poller saw it) or whose
         samples an injected fault killed, that member's exception."""
         _failpoints.fire("engine.launch")
+        note_device_dispatch("engine batched launch")
         config = self.config
         device = self.device
         t_start = time.perf_counter()
@@ -1170,6 +1193,7 @@ class LocalEngine:
     def _reset_tap_state(self) -> None:
         """Per-launch delivery state for the streaming token tap. One launch
         runs at a time (the launch lock), so one tap stream is live."""
+        # kllms: unguarded — one launch in flight; serialized by the launch lock
         self._tap_next = 0
 
     def _deliver_tap_step(self, step: int, toks: np.ndarray) -> None:
@@ -1281,18 +1305,22 @@ class LocalEngine:
             gen_idx = torch.as_tensor(gen_np, device=device)
 
             def step_fn(tok, step):
-                logits, k_cols, v_cols = paged_verify_step(
-                    config, self.params, tok[:, None],
-                    torch.full((B,), step, dtype=torch.int64, device=device),
-                    prompt_lens, pool.k, pool.v, prefix_idx, gen_idx,
-                    attn_impl=attn_impl, page_size=ps,
-                )
-                # This step's column goes into the pool after the step, at
-                # gen slot ``step`` of every row (dead rows write the trash
-                # page).
-                slots = gen_idx[:, step]
-                pool.k[:, slots] = k_cols
-                pool.v[:, slots] = v_cols
+                # Reentrant: run_loop already holds the pool lock for the
+                # whole decode; taken here too, so the step's in-place pool
+                # writes visibly happen under it.
+                with pool.lock:
+                    logits, k_cols, v_cols = paged_verify_step(
+                        config, self.params, tok[:, None],
+                        torch.full((B,), step, dtype=torch.int64, device=device),
+                        prompt_lens, pool.k, pool.v, prefix_idx, gen_idx,
+                        attn_impl=attn_impl, page_size=ps,
+                    )
+                    # This step's column goes into the pool after the step,
+                    # at gen slot ``step`` of every row (dead rows write the
+                    # trash page).
+                    slots = gen_idx[:, step]
+                    pool.k[:, slots] = k_cols
+                    pool.v[:, slots] = v_cols
                 return logits[:, 0]
 
             with pool.lock:
@@ -1408,6 +1436,7 @@ class LocalEngine:
         B = r_pad * n_per
         V = first_logits.shape[-1]
         # pad_id must never be sampled on a live row, unless it doubles as eos.
+        # kllms: ignore[host-sync-hot-path] — port-only: the pad column's value, read once per launch before the loop (JAX decides it on the device); ROADMAP Queue 2 item 2
         pad_col = 0.0 if bool((eos_t == pad_id).any()) else -float("inf")
         penalized = frequency_penalty != 0.0 or presence_penalty != 0.0
         K = top_logprobs or 0
@@ -1482,6 +1511,7 @@ class LocalEngine:
         pending = (0, tok.to("cpu", non_blocking=True)) if tapped else None
 
         step = 0
+        # kllms: ignore[host-sync-hot-path] — port-only: the host loop's exit test, one sync a step (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
         while step < max_new_tokens - 1 and not bool(done.all()):
             logits, bad = prepare(step_fn(tok, step), done)
             frozen = done | bad
@@ -1520,6 +1550,7 @@ class LocalEngine:
                         rows[j * n_per: (j + 1) * n_per] = True
                     done = done | rows.to(device)
             if tapped:
+                # kllms: ignore[host-sync-hot-path] — port-only: a view of the tap's non-blocking host copy, completed by the step's done.all() sync; no readback of its own (ROADMAP Queue 2 item 2)
                 self._deliver_tap_step(pending[0], pending[1].numpy().reshape(r_pad, n_per))
                 pending = (step + 1, nxt.to("cpu", non_blocking=True))
             tok = nxt
@@ -1538,6 +1569,7 @@ class LocalEngine:
             tl[:, :n_steps] = torch.stack(tl_steps, dim=1)
         self._sync()
         if tapped:
+            # kllms: ignore[host-sync-hot-path] — port-only: a view of the tap's last host copy, completed by the launch's final synchronize; no readback of its own (ROADMAP Queue 2 item 2)
             self._deliver_tap_step(pending[0], pending[1].numpy().reshape(r_pad, n_per))
 
         def host(t):
@@ -1592,6 +1624,7 @@ class LocalEngine:
         max_new = max_new_tokens
         BUF = max_new + K1
         V = first_logits.shape[-1]
+        # kllms: ignore[host-sync-hot-path] — port-only: the pad column's value, read once per launch before the loop (JAX decides it on the device); ROADMAP Queue 2 item 2
         pad_col = 0.0 if bool((eos_t == pad_id).any()) else -float("inf")
         penalized = frequency_penalty != 0.0 or presence_penalty != 0.0
         KT = top_logprobs or 0
@@ -1667,6 +1700,7 @@ class LocalEngine:
         # enters a draw.
         it_dev = torch.ones((), dtype=torch.int32, device=device)
         it = 1
+        # kllms: ignore[host-sync-hot-path] — port-only: the host loop's exit test, one sync an iteration (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
         while it < max_new and not bool(done.all()):
             row_iters += (~done).to(torch.int64)
             cur = toks.gather(1, (count - 1)[:, None])[:, 0]

@@ -54,7 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.locks import make_rlock
+from ..analysis.lockcheck import make_rlock, note_device_dispatch
 
 #: Page id 0 is the TRASH page: never allocated, never in a block table.
 #: Masked gather slots and inactive-row writes point into it, so every flat
@@ -277,7 +277,11 @@ def flat_slots(pages: Sequence[int], positions: np.ndarray, page_size: int) -> n
 class PagedKVPool:
     """The device-side page pool: ``k`` / ``v`` tensors of shape
     ``[L, total_pages * page_size, kv_heads, head_dim]`` on ``device``,
-    updated in place under ``self.lock``."""
+    updated in place under ``self.lock``. The pool is built by whichever
+    path first needs it (a coalesced launch under ``torch.inference_mode``
+    or the continuous loop outside it), so the in-place movers run under
+    inference mode themselves: an inference tensor takes in-place writes
+    only there."""
 
     def __init__(self, config, total_pages: int, page_size: int, device, dtype=None):
         import torch
@@ -285,30 +289,38 @@ class PagedKVPool:
         self.config = config
         self.page_size = int(page_size)
         self.allocator = PageAllocator(total_pages, page_size)
-        self.lock = make_rlock("engine.kv_pool")
+        # Held across the scatter/gather/copy and every paged decode step on
+        # purpose: the in-place writes into k/v must not interleave.
+        self.lock = make_rlock("engine.kv_pool", allow_dispatch=True)
         flat = int(total_pages) * int(page_size)
         shape = (config.num_layers, flat, config.num_kv_heads, config.head_dim)
         dtype = dtype or config.torch_dtype
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
+        # Immutable: the index uploads read it without the lock.
+        self.device = self.k.device
 
     @property
     def flat_size(self) -> int:
         return self.allocator.total_pages * self.page_size
 
     def pool_bytes(self) -> int:
-        return 2 * self.k.numel() * self.k.element_size()
+        with self.lock:
+            return 2 * self.k.numel() * self.k.element_size()
 
     def _index(self, slot_idx):
         import torch
 
-        return torch.as_tensor(np.asarray(slot_idx, np.int64), device=self.k.device)
+        return torch.as_tensor(np.asarray(slot_idx, np.int64), device=self.device)
 
     def scatter_tokens(self, k_src, v_src, slot_idx: np.ndarray) -> None:
         """Write token KV rows into flat pool slots. k_src/v_src:
         [L, n, KVH, D]; slot_idx: host int [n]."""
+        import torch
+
         idx = self._index(slot_idx)
-        with self.lock:
+        with self.lock, torch.inference_mode():
+            note_device_dispatch("paged kv scatter")
             self.k[:, idx] = k_src.to(self.k.dtype)
             self.v[:, idx] = v_src.to(self.v.dtype)
 
@@ -320,10 +332,13 @@ class PagedKVPool:
 
         idx = self._index(slot_idx)
         with self.lock:
+            note_device_dispatch("paged kv gather")
             return KVCache(k=self.k[:, idx][:, None], v=self.v[:, idx][:, None])
 
     def copy_pages(self, src_pages: Sequence[int], dst_pages: Sequence[int]) -> None:
         """Device copy of whole pages (the copy-on-write mover)."""
+        import torch
+
         assert len(src_pages) == len(dst_pages)
         if not src_pages:
             return
@@ -331,7 +346,8 @@ class PagedKVPool:
         src = np.concatenate([np.arange(p * ps, (p + 1) * ps) for p in src_pages])
         dst = np.concatenate([np.arange(p * ps, (p + 1) * ps) for p in dst_pages])
         src_i, dst_i = self._index(src), self._index(dst)
-        with self.lock:
+        with self.lock, torch.inference_mode():
+            note_device_dispatch("paged kv page copy")
             self.k[:, dst_i] = self.k[:, src_i]
             self.v[:, dst_i] = self.v[:, src_i]
 

@@ -69,7 +69,7 @@ from collections import deque
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ..utils.locks import make_condition, race_exempt
+from ..analysis.lockcheck import make_condition, race_exempt
 from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
 from ..reliability.tenancy import TenancyConfig, TenantContext

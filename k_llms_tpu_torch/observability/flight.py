@@ -16,7 +16,7 @@ from __future__ import annotations
 import collections
 from typing import Any, Deque, Dict, List, Optional
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 
 #: Default ring capacity: enough recent history to cover a watchdog rebuild
 #: plus the traffic around it, small enough to be always-on.

@@ -19,7 +19,7 @@ import bisect
 import fnmatch
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 
 #: Log-spaced bucket upper bounds in seconds (1-2.5-5 decades, 1ms → 60s).
 #: The +Inf bucket is implicit: its cumulative count is the sample count.

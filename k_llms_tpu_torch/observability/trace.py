@@ -30,7 +30,7 @@ import re
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 from ..reliability import failpoints as _failpoints
 from .flight import FLIGHT_RECORDER, FlightRecorder
 from .histograms import LATENCY, LatencyHistograms
@@ -108,7 +108,7 @@ class RequestTrace:
     free-form annotations (``replayed``, ``quarantined_rows``...).
 
     ``phase()`` keeps the old two-phase ``Trace`` API so existing call sites
-    and tests hold; mutation is guarded by a leaf lock because the
+    and tests hold; mutation is guarded by a lockcheck leaf lock because the
     stream sink thread and the caller can time phases concurrently."""
 
     def __init__(

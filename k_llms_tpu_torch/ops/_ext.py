@@ -24,9 +24,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from typing import Dict, Iterable, Optional
+
+from ..analysis.lockcheck import make_lock, note_device_dispatch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -79,7 +80,9 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "levenshtein": 0,
 }
 
-_lock = threading.Lock()
+# A leaf: held only while a library is built or loaded, or the semaphore
+# array made.
+_lock = make_lock("ops.kernel_libs")
 _libs: Dict[str, ctypes.CDLL] = {}
 _semaphores: Dict[str, "torch.Tensor"] = {}
 
@@ -90,7 +93,11 @@ def reset_launch_counts() -> None:
 
 
 def note_launch(name: str) -> None:
+    """Count one launch of the kernel ``name``; for the lock-order
+    sanitizer (``KLLMS_LOCKCHECK=1``) a launch is a device dispatch, which no
+    checked lock made without ``allow_dispatch=True`` may be held across."""
     LAUNCH_COUNTS[name] += 1
+    note_device_dispatch(f"kernel {name}")
 
 
 def nvcc_path() -> str:

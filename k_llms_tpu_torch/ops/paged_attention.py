@@ -109,7 +109,10 @@ def launch_paged_attention_impl(impl: str, *, device) -> str:
             )
         KERNEL_EVENTS.record("kernel.paged_attn_fallback.failpoint")
         impl = "xla"
-    KERNEL_EVENTS.record(f"kernel.paged_attn_{impl}_dispatch")
+    if impl == "cuda":
+        KERNEL_EVENTS.record("kernel.paged_attn_cuda_dispatch")
+    else:
+        KERNEL_EVENTS.record("kernel.paged_attn_xla_dispatch")
     return impl
 
 
@@ -320,10 +323,12 @@ def paged_decode_attention_split(
     ps = page_size
     R, NP = prefix_pages.shape
     num_pages = pool_k.shape[0] // ps
+    # kllms: ignore[host-sync-hot-path] — port-only: the plain model of K1's split runs on CPU tensors only; the card path launches the kernel with no host value
     plens, glens, phases = prompt_lens.tolist(), gen_lens.tolist(), gen_phase.tolist()
     splits, items = paged_work_items(B, R, QH, KVH, D, NP, gen_pages.shape[1], ps, q.dtype,
                                      plens, glens, phases, page_ranges)
     qf = q.float().reshape(B, KVH, G, D)
+    # kllms: ignore[host-sync-hot-path] — port-only: the plain model of K1's split runs on CPU tensors only; the card path launches the kernel with no host value
     tables = {"prefix": prefix_pages.tolist(), "gen": gen_pages.tolist()}
     parts = {b: [] for b in range(B)}  # row -> [(split, o, m, l, bad)]
     for kind, z, rows, table_row, pages in items:

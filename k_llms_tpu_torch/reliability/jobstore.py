@@ -53,7 +53,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 from ..utils.observability import BATCH_EVENTS
 from . import failpoints as _failpoints
 

@@ -52,7 +52,7 @@ from collections import deque
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, wait
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
-from ..utils.locks import make_lock, race_exempt
+from ..analysis.lockcheck import make_lock, race_exempt
 from ..backends.base import Backend, ChatRequest
 from ..types import ChatCompletion
 from ..types.wire import (

@@ -22,7 +22,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple, Type, TypeVar
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 from ..types.wire import BackendUnavailableError, KLLMsError
 from ..utils.observability import FAILURE_EVENTS
 from .deadline import RequestBudget

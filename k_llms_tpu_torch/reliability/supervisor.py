@@ -47,7 +47,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, Optional, Tuple
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 from ..types.wire import CheckpointCorruptError, EngineHungError
 from ..utils.observability import RECOVERY_EVENTS
 

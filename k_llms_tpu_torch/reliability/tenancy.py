@@ -32,7 +32,7 @@ import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 
 __all__ = [
     "SLO_CLASSES",

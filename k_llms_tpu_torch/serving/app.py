@@ -70,7 +70,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ..utils.locks import make_lock
+from ..analysis.lockcheck import make_lock
 from ..observability import prometheus as _prom
 from ..reliability import failpoints as _failpoints
 from ..reliability.tenancy import permissive as _permissive_tenancy

@@ -34,7 +34,7 @@ from collections import deque
 from hashlib import md5
 from typing import Any, Deque, Dict, List, Optional, Set, Tuple
 
-from ..utils.locks import make_condition
+from ..analysis.lockcheck import make_condition
 from ..reliability import failpoints as _failpoints
 from ..reliability.jobstore import JobStore, JobState
 from ..types.wire import InvalidRequestError, KLLMsError, RateLimitError

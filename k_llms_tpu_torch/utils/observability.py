@@ -33,7 +33,7 @@ from ..observability import (  # noqa: F401  (re-exported surface)
     parse_traceparent,
     use_trace,
 )
-from .locks import make_lock
+from ..analysis.lockcheck import make_lock
 
 #: The request-phase timer call sites construct directly (``phase()`` /
 #: ``as_dict()``), lock-guarded.
@@ -229,6 +229,7 @@ QUARANTINE_EVENTS = EventCounters(declared=(
 #: pairs scored by the batched cosine; consensus.device_votes — vote columns
 #: tallied in the batched vote), fed by consensus/device.py and surfaced in
 #: the backend's health().
+# kllms: ignore[counter-hygiene] — consensus.device_busy keeps the JAX package's vocabulary (tests/test_torch_observability.py holds the groups equal); the port's scorer waits for its device lock, so nothing records it
 CONSENSUS_EVENTS = EventCounters(declared=(
     "consensus.device_dispatch",
     "consensus.host_dispatch",

@@ -223,7 +223,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     ``transformers`` imported, and the prefix cache serves a repeat; the
     key aligner, the device consensus, the continuous loop (its greedy
     answer equal to the coalesced one), the observability layer and the
-    HTTP front door (a stream over a real socket) import neither either."""
+    HTTP front door (a stream over a real socket) import neither either, nor
+    does the lint (``python -m k_llms_tpu_torch.analysis --check``, run in
+    the same process, clean over the package)."""
     code = (
         "import json, os, sys\n"
         "import torch\n"
@@ -300,6 +302,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "    conn.close()\n"
         "assert sse.endswith(b'data: [DONE]\\n\\n') and b'chat.completion.chunk' in sse\n"
         "assert observability.TRACER is not None\n"
+        "from k_llms_tpu_torch.analysis.__main__ import main as lint\n"
+        "assert lint(['--check']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'k_llms_tpu' or m.startswith('k_llms_tpu.')"
         " or m.split('.')[0] in ('safetensors', 'transformers'))\n"

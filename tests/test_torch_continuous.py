@@ -319,3 +319,35 @@ def test_backend_loop_answers_equal_the_jax_backend_loop():
     finally:
         jc.close()
         pc.close()
+
+
+def test_loop_copies_pages_of_a_pool_a_coalesced_launch_built():
+    """The first paged use builds the engine's page pool; when that is a
+    coalesced launch (under ``torch.inference_mode``) its tensors are
+    inference tensors, and the loop's copy-on-write of a shared prompt page
+    (two rows of one request diverging) must still write them: the worker
+    serves the request instead of crashing into a restart."""
+    from k_llms_tpu_torch.backends.cuda import BackendConfig, CudaBackend
+
+    engine = LocalEngine("tiny", params=port_params(), device="cpu", kv_layout="paged",
+                         kv_page_size=8)
+    backend = CudaBackend(
+        config=BackendConfig(model="tiny", device="cpu", max_new_tokens=8,
+                             continuous_batching=True, continuous_width=4,
+                             continuous_max_prompt=128, continuous_max_new=64),
+        engine=engine)
+    from k_llms_tpu_torch import KLLMs
+
+    client = KLLMs(backend=backend, model="tiny")
+    messages = [{"role": "user", "content": "hi"}]
+    try:
+        wide = client.chat.completions.create(messages=messages, n=8, seed=1, temperature=0.8)
+        assert engine._kv_pool is not None and engine._kv_pool.k.is_inference()
+        cows = engine._kv_pool.allocator.snapshot()["cow_copies"]
+        out = client.chat.completions.create(messages=messages, n=2, seed=2, temperature=0.8)
+        loop = backend.health()["continuous"]
+        assert len(wide.choices) == 9 and len(out.choices) == 3
+        assert loop["admitted"] == 1 and loop["restarts"] == 0
+        assert loop["pages"]["cow_copies"] > cows
+    finally:
+        client.close()

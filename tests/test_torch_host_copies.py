@@ -12,7 +12,9 @@ paged-attention drill's target, the card's limits on healing a hang, and
 the default member backend; in the streaming and HTTP serving layer (the
 tracer, flight recorder and Prometheus exposition, the job store and batch
 lane, the ASGI app, its server and entry point, the fake backend, the
-resources) the port's backend names and profiler.
+resources) the port's backend names and profiler; in the lint (the
+runtime sanitizers of ``analysis/lockcheck.py``, the ``guarded-by`` and
+contract rules) the rule family's history without its tracking tags.
 
 Then a sample of the JAX package's own test vectors (``test_alignment``,
 ``test_translit``, ``test_native``, and TRUTH_DOCS consolidation) runs
@@ -135,9 +137,6 @@ EDITS.update({
     "serving/app.py": [
         ("on-demand jax.profiler capture", "on-demand torch.profiler capture"),
     ],
-    "observability/trace.py": [
-        ("guarded by a lockcheck leaf lock", "guarded by a leaf lock"),
-    ],
     "resources/completions.py": [
         ("# TpuBackend attaches engine_stats", "# CudaBackend attaches engine_stats"),
     ],
@@ -150,6 +149,13 @@ DEVICE_MARKERS = {
     "engine/token_constraint.py": "# Device side",
     "engine/grammar.py": "# Device side",
 }
+
+#: The lint's copies: the rule family's history without its tracking tags.
+EDITS.update({
+    "analysis/rules/guardedby.py": [
+        ("concurrent API, PR 14) could", "concurrent API) could"),
+    ],
+})
 
 #: Modules of the copied directories that the port rewrites rather than
 #: copies: the device consensus runs torch and the Levenshtein kernel where
@@ -167,7 +173,9 @@ COPIED = sorted(
        "observability/__init__.py", "observability/flight.py", "observability/prometheus.py",
        "observability/trace.py", "reliability/jobstore.py", "backends/fake.py",
        "resources/completions.py", "serving/__init__.py", "serving/__main__.py",
-       "serving/app.py", "serving/batch.py", "serving/server.py", "serving/sse.py"]
+       "serving/app.py", "serving/batch.py", "serving/server.py", "serving/sse.py",
+       "analysis/lockcheck.py", "analysis/rules/__init__.py", "analysis/rules/guardedby.py",
+       "analysis/rules/contracts.py"]
     + [f"keyalign/{f}" for f in ("__init__.py", "align.py", "fuzzy.py", "selection.py")]
     + list(DEVICE_MARKERS)
 )
