@@ -41,7 +41,8 @@ constrained ``parse()``, with a logit-bias request coalescing while the
 loop decodes; on an int4 dense 8B client two of them; at ``tiny`` a hung
 step and a hung chunk rebuilt and replayed. ``gemma9b``, ``mistral7b`` and
 ``mixtral_int4`` serve the other model families at their full published
-widths (seeded weights, the byte tokenizer's special ids) through
+widths (Mixtral at half its depth; seeded weights, the byte tokenizer's
+special ids) through
 ``KLLMs(backend="cuda", model=..., attention_impl="flash")``: Gemma-2-9B and
 Mistral-7B in bf16 on the paged path (K2 with softcap, the 4096-key window
 and head dim 256 in prefill, a prompt longer than the window; the paged
@@ -70,7 +71,25 @@ poisoned launch, every request resolved, the plain requests equal to their
 unarmed solo runs, the pool conserved, READY, no violation; then a K1
 launch under a lock made without ``allow_dispatch`` and a two-thread lock
 inversion must each be caught once, and the lint
-(``python -m k_llms_tpu_torch.analysis --check``) runs once.
+(``python -m k_llms_tpu_torch.analysis --check``) runs once. ``mesh``
+(last) serves Llama-3-8B on a mesh of two ranks spawned on the one card
+(``torch.multiprocessing``; NCCL refuses two ranks on one device, so the
+ranks talk over gloo, staging each collective's bytes through host
+memory), each rank building the same ``KLLMs`` with the mesh fields and
+cutting its shard of the same seeded tree: tensor-parallel (1, 2) int4
+(``8b_int4``'s client: K2 and K3 at 16/4 heads a rank, K4 through
+``w4_matmul_tp``) on requests 0 and 2, tensor-parallel bf16 paged (K2, K1
+at 4 kv heads a rank) on request 0, and sequence-parallel (2, 1) bf16 on
+request 2 (a ring prefill and ring decode, the prompt again as an exact
+prefix-cache hit, then a Ulysses client whose prefill runs K2 on each
+rank's 16/4 heads). Both ranks' texts, logits and counts agree, the first
+tokens equal the unsharded clients' (served here first), the prefill
+logits lie within ``MESH_LOGITS_REL_L2`` of theirs, every launch and
+collective count holds its formula and the ranks' peaks sum under 80 GB;
+then K4 at every TP = 2 shard shape against its plain version (timed),
+``w4_matmul_tp`` against two mutants across the ranks (a dropped partial,
+a column shard at the other rank's offset), the gloo ``psum``'s host time,
+and an nccl world of one on device tensors.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -106,9 +125,13 @@ from typing import Literal
 from pydantic import BaseModel, Field
 
 PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "serve", "ckpt", "loop",
-          "8b_int4", "sched", "spec", "sanitize", "gemma9b", "mistral7b", "mixtral_int4")
-# The model-family phases, in the order they run.
+          "8b_int4", "sched", "spec", "sanitize", "gemma9b", "mistral7b", "mixtral_int4", "mesh")
+# The model-family phases, in the order they run, and the cut of a
+# family's depth (layers // divisor; widths as published): Mixtral, the
+# longest phase and one with no grammar-constrained request, runs at half
+# depth so that the full smoke stays near half its time limit.
 FAMILY_PHASES = ("gemma9b", "mistral7b", "mixtral_int4")
+FAMILY_DEPTH_DIVISOR = {"mixtral_int4": 2}
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
 # (needs "8b" or "8b_int4").
 EXTRA_PHASES = ("profile",)
@@ -1680,6 +1703,337 @@ def sanitize_8b(client, plain_requests, long_text, log):
         raise AssertionError(f"sanitize: the lint exited {proc.returncode}:\n{proc.stdout[-2000:]}")
     log({"phase": "sanitize_done", "seconds": time.perf_counter() - t_phase})
     return counts
+
+
+# -- the mesh phase: ranks that share the one card -----------------------------
+#
+# Module-level so that spawned ranks can import them (``torch.multiprocessing``
+# with the spawn start method runs each rank from this file, main() guarded).
+# Every rank serves the same calls in the same order, as every rank of the
+# port's SPMD program must.
+
+# The relative L2 error allowed between a rank's last-position prefill
+# logits and the unsharded client's, fixed before the phase first ran
+# (PERF.md derives it): the sharded forward rounds each
+# row-parallel partial (and, on the ring, the attention) to bf16 once more
+# than the unsharded one, about 2^-9 of a sublayer's output at 64 points of
+# the residual stream, ~1.6% at most; K4's limit adds its 2^-6 bound per
+# matmul only where an output is near zero.
+MESH_LOGITS_REL_L2 = 0.05
+
+
+def mesh_host_memory() -> dict:
+    """This process's resident bytes and the machine's available memory
+    (read from /proc; empty where there is none)."""
+    out = {}
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    out["rss_bytes"] = int(line.split()[1]) * 1024
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith(("MemAvailable:", "MemTotal:")):
+                    out[line.split(":")[0]] = int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return out
+
+
+def mesh_rank_main(rank, world, store, transport, jobs, outq) -> None:
+    """One rank: join the world, run ``jobs`` in order, put each result."""
+    import traceback
+    from datetime import timedelta
+
+    os.environ["KLLMS_RANK_CHECK"] = "1"
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(transport, init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=600))
+    try:
+        for job in jobs:
+            t0 = time.perf_counter()
+            res = MESH_JOBS[job["kind"]](**job.get("args", {}))
+            res["job_s"] = time.perf_counter() - t0
+            res["host"] = mesh_host_memory()
+            outq.put((rank, job["name"], True, res))
+    except BaseException:
+        outq.put((rank, "error", False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world, transport, jobs, store_dir, timeout=900):
+    """Spawn ``world`` ranks on the card, run ``jobs`` in each, and return
+    {job name: [result per rank]}. Every rank is joined (or killed) before
+    this returns; a failed rank raises with its traceback."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    store = os.path.join(store_dir, f"mesh_store_{transport}_{world}_{time.time_ns()}")
+    procs = [ctx.Process(target=mesh_rank_main, args=(r, world, store, transport, jobs, outq))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {job["name"]: [None] * world for job in jobs}
+    pending = world * len(jobs)
+    deadline = time.perf_counter() + timeout
+    try:
+        while pending:
+            try:
+                rank, name, ok, payload = outq.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise RuntimeError(f"mesh ranks {dead} died or timed out") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"mesh rank {rank} failed:\n{payload}")
+            results[name][rank] = payload
+            pending -= 1
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(store):
+            os.remove(store)
+    return results
+
+
+def mesh_serve(client_kw, reqs, repeat_last=False):
+    """Build ``KLLMs(model="llama-3-8b", **client_kw)`` (in a rank: its
+    engine builds the world's auto mesh), serve ``reqs`` through create()
+    with every launch and collective count reset just before and read just
+    after, then (outside the counted window) each request's last-position
+    prefill logits. With ``repeat_last`` the last request is served once
+    more (a prefix-cache exact hit). Returns numpy-free values and arrays."""
+    import numpy as np
+    import torch
+
+    import gc
+
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.parallel import collectives as C
+
+    # An earlier call's client is freed only by a collection (its engine
+    # sits in reference cycles): free it before this client's peak counts.
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client = KLLMs(backend="cuda", model="llama-3-8b", **client_kw)
+    engine = client.backend.engine
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launches, embeds = [], []
+    generate_many, embed_tokens = engine.generate_many, engine.embed_tokens
+
+    def counted_generate_many(items, **kw):
+        out = generate_many(items, **kw)
+        st = engine.last_launch_stats
+        launches.append({"requests": len(items), "n_per": st["n_per"], "steps": st["decode_steps"],
+                         "temperature": kw["temperature"], "layout": st["kv_layout"],
+                         "ids": [list(it.prompt_ids) for it in items],
+                         "tokens": [np.asarray(r.tokens) for r in out],
+                         "prefill_s": st["prefill_s"], "decode_s": st["decode_s"]})
+        return out
+
+    def counted_embed_tokens(token_lists, *a, **kw):
+        embeds.append(len(token_lists))
+        return embed_tokens(token_lists, *a, **kw)
+
+    engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
+    torch.cuda.synchronize()
+    _ext.reset_launch_counts()
+    C.reset_collective_counts()
+    outs = []
+    t0 = time.perf_counter()
+    for req in list(reqs) + ([reqs[-1]] if repeat_last else []):
+        t1 = time.perf_counter()
+        resp = client.chat.completions.create(**req)
+        outs.append({"texts": [c.message.content for c in resp.choices],
+                     "likelihoods": resp.likelihoods, "wall_s": time.perf_counter() - t1})
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = dict(_ext.LAUNCH_COUNTS)
+    collectives = dict(C.COLLECTIVE_COUNTS)
+    del engine.generate_many, engine.embed_tokens, generate_many, embed_tokens
+    cache_stats = dict(engine.prefix_cache_stats)
+    logits = []
+    with torch.inference_mode():
+        for ln in launches[: len(reqs)]:
+            ids, plen, bucket = engine._prep_prompt(ln["ids"][0])
+            fl, _ = engine._prefill_full(ids, plen, bucket)
+            logits.append(fl[0].float().cpu().numpy())
+    mesh = engine.mesh
+    res = {"outs": outs, "launches": launches, "embeds": embeds, "counts": counts,
+           "collectives": collectives, "logits": logits, "cache_stats": cache_stats,
+           "init_s": init_s, "serve_s": serve_s, "L": engine.config.num_layers,
+           "mesh": None if mesh is None else dict(mesh.shape),
+           "transport": None if mesh is None else mesh.transport,
+           "param_bytes": engine.param_footprint_bytes(),
+           "allocated_before_bytes": allocated_before,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    client.close()
+    del client, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_w4_tp_check(shapes, rows_list, seed=0):
+    """w4_matmul_tp over the world's (1, world) mesh on each full (K, N)
+    problem, split ``col`` and ``row``: the whole result (the column blocks
+    gathered) against the unsharded plain product, beside two mutants of the
+    function that must be caught (the row split with one partial dropped;
+    the column shard cut at the other rank's offset). The limit: K4's, plus
+    two bf16 roundings of the row split's partials."""
+    import torch
+
+    from k_llms_tpu_torch.ops import w4matmul as w4
+    from k_llms_tpu_torch.parallel.collectives import all_gather, psum
+    from k_llms_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from k_llms_tpu_torch.parallel.sharding import P, shard_leaf
+
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    mesh = make_mesh(1, world)
+    me = mesh.axis_index(MODEL_AXIS)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for K, N in shapes:
+        q = torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev, dtype=torch.int8)
+        scale = (torch.rand((K // 128, N), generator=gen, device=dev) + 0.5) / (4.61 * math.sqrt(K))
+        full = w4.Q4Tensor(q, scale)
+        deq = w4.unpack_int4(full)
+        for rows in rows_list:
+            x = (torch.randn((rows, K), generator=gen, device=dev) * 1.0).to(torch.bfloat16)
+            ref = w4.w4_matmul_plain(x, full).float()
+            terms = x.float().abs() @ deq.abs()
+            for part in ("col", "row"):
+                wspec = P(None, MODEL_AXIS) if part == "col" else P(MODEL_AXIS, None)
+                xs = x if part == "col" else shard_leaf(x, P(None, MODEL_AXIS), mesh)
+                w = w4.Q4Tensor(shard_leaf(q, wspec, mesh), shard_leaf(scale, wspec, mesh),
+                                part=part, mesh=mesh)
+
+                def whole(out):
+                    return (all_gather(out, MODEL_AXIS, mesh, dim=1) if part == "col" else out).float()
+
+                out = whole(w4.w4_matmul_tp(xs, w))
+                torch.cuda.synchronize()
+                if part == "row":
+                    partial = w4.w4_matmul_plain(xs, w).float()
+                    partial_abs = psum(partial.abs(), MODEL_AXIS, mesh)
+                    mutant = whole(w4.w4_matmul(xs, w))  # one rank's partial: the others dropped
+                else:
+                    partial_abs = torch.zeros_like(ref)
+                    other = (me + 1) % world
+                    blk = N // world
+                    wrong = w4.Q4Tensor(q[:, other * blk:(other + 1) * blk].contiguous(),
+                                        scale[:, other * blk:(other + 1) * blk].contiguous())
+                    mutant = whole(w4.w4_matmul(xs, wrong))
+                limit = 2.0 ** -6 * ref.abs() + 1e-5 * terms + 2.0 ** -8 * partial_abs + 1e-30
+
+                def over(o):
+                    return ((o - ref).abs() / limit).max().item()
+
+                cases.append({"K": K, "N": N, "rows": rows, "part": part,
+                              "err_over_limit": over(out), "max_abs_err": (out - ref).abs().max().item(),
+                              "mutant_err_over_limit": over(mutant),
+                              "mutant": "partial dropped" if part == "row" else "wrong column offset"})
+    return {"cases": cases}
+
+
+def mesh_psum_times(shapes, iters=20):
+    """Host time of one ``psum`` over the world's model axis of a bf16
+    [rows, N] device tensor (the row split's), per shape, under the
+    world's transport; the bytes it stages through the host."""
+    import torch
+
+    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+
+    import torch.distributed as dist
+
+    mesh = make_mesh(1, dist.get_world_size())
+    out = []
+    for rows, N in shapes:
+        x = torch.ones((rows, N), dtype=torch.bfloat16, device="cuda")
+        y = C.psum(x, MODEL_AXIS, mesh)  # warm
+        torch.cuda.synchronize()
+        if not bool((y == dist.get_world_size()).all()):
+            raise AssertionError("psum of ones is not the world size")
+        C.reset_collective_counts()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            C.psum(x, MODEL_AXIS, mesh)
+        torch.cuda.synchronize()
+        out.append({"rows": rows, "N": N, "host_ms": (time.perf_counter() - t0) * 1e3 / iters,
+                    "staged_bytes_per_call": C.COLLECTIVE_COUNTS["host_staged_bytes"] // iters,
+                    "transport": mesh.transport})
+    return {"psum": out}
+
+
+def mesh_nccl_one(shapes, rows_list):
+    """A world of one over nccl on device tensors: the five collectives are
+    the identity, and w4_matmul_tp at TP = 1 equals w4_matmul bit for bit."""
+    import torch
+
+    from k_llms_tpu_torch.ops import w4matmul as w4
+    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+
+    mesh = make_mesh(1, 1)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((4, 8, 16), generator=gen, device=dev).to(torch.bfloat16)
+    ident = {}
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        ident[axis] = {
+            "psum": bool(torch.equal(C.psum(x, axis, mesh), x)),
+            "pmax": bool(torch.equal(C.pmax(x, axis, mesh), x)),
+            "all_gather": bool(torch.equal(C.all_gather(x, axis, mesh, dim=1), x)),
+            "ppermute": bool(torch.equal(C.ppermute(x, axis, mesh), x)),
+            "all_to_all": bool(torch.equal(C.all_to_all(x, axis, mesh, split_dim=1, concat_dim=2), x)),
+        }
+    torch.cuda.synchronize()
+    tp = []
+    for K, N in shapes:
+        q = torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev, dtype=torch.int8)
+        scale = (torch.rand((K // 128, N), generator=gen, device=dev) + 0.5) / (4.61 * math.sqrt(K))
+        for rows in rows_list:
+            xs = torch.randn((rows, K), generator=gen, device=dev).to(torch.bfloat16)
+            base = w4.w4_matmul(xs, w4.Q4Tensor(q, scale))
+            for part in ("col", "row"):
+                got = w4.w4_matmul_tp(xs, w4.Q4Tensor(q, scale, part=part, mesh=mesh))
+                tp.append({"K": K, "N": N, "rows": rows, "part": part,
+                           "bit_equal": bool(torch.equal(got, base))})
+    y = torch.ones((2048, 4096), dtype=torch.bfloat16, device=dev)
+    C.psum(y, MODEL_AXIS, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        C.psum(y, MODEL_AXIS, mesh)
+    torch.cuda.synchronize()
+    return {"identity": ident, "w4_tp": tp, "transport": mesh.transport,
+            "psum_2048x4096_host_ms": (time.perf_counter() - t0) * 1e3 / 20,
+            "staged_bytes": C.COLLECTIVE_COUNTS["host_staged_bytes"]}
+
+
+MESH_JOBS = {"serve": mesh_serve, "w4_tp": mesh_w4_tp_check, "psum": mesh_psum_times,
+             "nccl_one": mesh_nccl_one}
 
 
 def main(argv=None) -> int:
@@ -4085,7 +4439,8 @@ def main(argv=None) -> int:
                 "k1_unwindowed_device_ms_per_layer": device_ms([kernel])}
 
     def serve_family(label):
-        """One family at full published width: the client built with K2 on
+        """One family at its published width (Mixtral at half its depth):
+        the client built with K2 on
         prefill and paged decode, its requests served with every launch
         counted (K2 per layer per prefill and embeddings forward; the paged
         kernel per layer per step, or none where the reference attention
@@ -4096,9 +4451,12 @@ def main(argv=None) -> int:
         name, client_kw, reqs, parse_req = families[label]
         gc.collect()  # an earlier phase's client, so the peak is this model's
         torch.cuda.empty_cache()
-        # The byte tokenizer's special ids (as LLAMA3_8B_CONFIG has them).
-        register_config(get_config(name).with_(bos_token_id=256, eos_token_id=257,
-                                               pad_token_id=258))
+        # The byte tokenizer's special ids (as LLAMA3_8B_CONFIG has them),
+        # and the family's depth cut (every width as published).
+        full = get_config(name)
+        register_config(full.with_(bos_token_id=256, eos_token_id=257, pad_token_id=258,
+                                   num_layers=full.num_layers
+                                   // FAMILY_DEPTH_DIVISOR.get(label, 1)))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         client = KLLMs(backend="cuda", model=name, param_seed=args.seed, attention_impl="flash",
@@ -4699,7 +5057,8 @@ def main(argv=None) -> int:
         if "loop" in phases:
             loop_int4()
 
-    # 11. The other model families at full published width (seeded weights,
+    # 11. The other model families at their published widths, Mixtral at
+    # half its depth (seeded weights,
     # the byte tokenizer's special ids): Gemma-2-9B and Mistral-7B in bf16
     # on the paged path (K2 with softcap, window and head dim 256 in
     # prefill; the paged decode on the reference attention, which the JAX
@@ -4717,6 +5076,227 @@ def main(argv=None) -> int:
         sched_tiny(log)
     if "loop" in phases:
         loop_tiny(log)
+
+    # 12. The mesh (after sched and sanitize: a phase before sched moved
+    # the real OOM drill's memory window). Ranks spawned on the one card
+    # talk over the gloo transport (host-staged collectives); each serves
+    # the unsharded clients' requests at Llama-3-8B's full width from its
+    # shard of the same seeded tree. The unsharded references are computed
+    # here first, each client closed before the ranks start.
+    if "mesh" in phases:
+        from k_llms_tpu_torch.ops import w4matmul as w4
+
+        t_mesh = time.perf_counter()
+        store_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_tmp")
+        os.makedirs(store_dir, exist_ok=True)
+        int4_kw = dict(param_seed=args.seed, quantization="int4", paged_kv=False,
+                       decode_attention_impl="flash")
+        bf16_kw = dict(param_seed=args.seed, kv_pool_pages=128)
+        sp_kw = dict(param_seed=args.seed, sp_prefill_min_tokens=1024, sp_decode=True,
+                     prefix_cache_size=2)
+        mesh_reqs = [requests[0], requests[2]]
+        ref_int4 = mesh_serve(int4_kw, mesh_reqs)
+        ref_bf16 = mesh_serve(bf16_kw, mesh_reqs)
+        log({"phase": "mesh_references", "seconds": time.perf_counter() - t_mesh,
+             "int4_serve_s": ref_int4["serve_s"], "bf16_serve_s": ref_bf16["serve_s"],
+             "int4_peak_bytes": ref_int4["peak_bytes"], "bf16_peak_bytes": ref_bf16["peak_bytes"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_b, total_b = torch.cuda.mem_get_info()
+        log({"phase": "mesh_before_ranks", "device_free_bytes": free_b,
+             "device_total_bytes": total_b, "allocated_bytes": torch.cuda.memory_allocated(),
+             "reserved_bytes": torch.cuda.memory_reserved(), "host": mesh_host_memory()})
+        jobs = [
+            {"name": "mesh_tp2_int4", "kind": "serve",
+             "args": {"client_kw": dict(int4_kw, model_parallel=2), "reqs": mesh_reqs}},
+            {"name": "mesh_tp2_bf16", "kind": "serve",
+             "args": {"client_kw": dict(bf16_kw, model_parallel=2), "reqs": mesh_reqs[:1]}},
+            {"name": "mesh_sp2", "kind": "serve",
+             "args": {"client_kw": sp_kw, "reqs": mesh_reqs[1:], "repeat_last": True}},
+            {"name": "mesh_sp2_ulysses", "kind": "serve",
+             "args": {"client_kw": dict(sp_kw, sp_attention="ulysses"), "reqs": mesh_reqs[1:]}},
+            {"name": "mesh_k4tp_mutants", "kind": "w4_tp",
+             "args": {"shapes": [(4096, 4096), (14336, 4096)], "rows_list": [8, 2048]}},
+            {"name": "mesh_psum_gloo", "kind": "psum",
+             "args": {"shapes": [(8, 4096), (64, 4096), (2048, 4096)]}},
+        ]
+        t0 = time.perf_counter()
+        ranks = run_ranks(2, "gloo", jobs, store_dir)
+        ranks_s = time.perf_counter() - t0
+
+        def rel_l2(a, b):
+            return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+        def check_serve(name, ref, ref_idx, expected_fn):
+            res = ranks[name]
+            problems = []
+            for r in res[1:]:
+                if [o["texts"] for o in r["outs"]] != [o["texts"] for o in res[0]["outs"]]:
+                    problems.append("ranks' texts differ")
+                if not all(np.array_equal(a, b) for a, b in zip(r["logits"], res[0]["logits"])):
+                    problems.append("ranks' logits differ")
+            per_req = []
+            for i, j in enumerate(ref_idx):
+                mine = res[0]["launches"][i]["tokens"][0]
+                theirs = ref["launches"][j]["tokens"][0]
+                first_equal = bool(np.array_equal(mine[:, 0], theirs[:, 0]))
+                err = rel_l2(res[0]["logits"][i], ref["logits"][j])
+                per_req.append({"request": j, "first_tokens_equal": first_equal,
+                                "token_agreement": float((mine == theirs).mean()),
+                                "logits_rel_l2": err,
+                                "texts_equal_to_unsharded": res[0]["outs"][i]["texts"]
+                                == ref["outs"][j]["texts"]})
+                if not first_equal:
+                    problems.append(f"request {j}: first tokens differ from the unsharded client's")
+                if not err <= MESH_LOGITS_REL_L2:
+                    problems.append(f"request {j}: logits rel L2 {err} > {MESH_LOGITS_REL_L2}")
+            expected = expected_fn(res[0])
+            for r in res:
+                got = {k: (r["counts"] | r["collectives"])[k] for k in expected}
+                if got != expected:
+                    problems.append(f"counts {got} != expected {expected}")
+            peaks = [r["peak_bytes"] for r in res]
+            rec = {"phase": name, "mesh": res[0]["mesh"], "transport": res[0]["transport"],
+                   "requests": per_req, "expected_counts": expected,
+                   "counts": [r["counts"] for r in res], "collectives": [r["collectives"] for r in res],
+                   "cache_stats": res[0]["cache_stats"], "rank_peak_bytes": peaks,
+                   "rank_param_bytes": [r["param_bytes"] for r in res],
+                   "rank_allocated_before_bytes": [r["allocated_before_bytes"] for r in res],
+                   "rank_host": [r["host"] for r in res],
+                   "init_s": [r["init_s"] for r in res], "serve_s": [r["serve_s"] for r in res],
+                   "prefill_ms": [ln["prefill_s"] * 1e3 for ln in res[0]["launches"]],
+                   "decode_ms_per_step": [ln["decode_s"] * 1e3 / max(ln["steps"], 1)
+                                          for ln in res[0]["launches"]],
+                   "unsharded_prefill_ms": [ref["launches"][j]["prefill_s"] * 1e3 for j in ref_idx],
+                   "unsharded_decode_ms_per_step": [
+                       ref["launches"][j]["decode_s"] * 1e3 / max(ref["launches"][j]["steps"], 1)
+                       for j in ref_idx],
+                   "consensus": [o["texts"][0] for o in res[0]["outs"]]}
+            if sum(peaks) >= 80e9:
+                problems.append(f"summed rank peaks {sum(peaks)} >= 80 GB")
+            rec["ok"] = not problems
+            log(rec)
+            if problems:
+                raise AssertionError(f"{name}: {problems}")
+            return res
+
+        def forwards(res):
+            lns, E = res["launches"], len(res["embeds"])
+            prefills = sum(ln["requests"] for ln in lns)
+            steps = sum(ln["steps"] for ln in lns)
+            return res["L"], lns, E, prefills, steps
+
+        def expected_tp_int4(res):
+            L, lns, E, prefills, steps = forwards(res)
+            gated = sum(ln["steps"] for ln in lns if ln["n_per"] * 4 >= 8)
+            k4 = (7 * L + 1) * (prefills + steps) + 7 * L * E
+            return {"flash_attention": L * (prefills + E), "decode_prefix_attention": L * gated,
+                    "paged_decode_attention": 0, "w4_matmul": k4,
+                    "psum": (2 * L + 1) * (prefills + steps + E),
+                    "all_gather": prefills + steps, "ppermute": 0, "all_to_all": 0}
+
+        def expected_tp_bf16(res):
+            L, lns, E, prefills, steps = forwards(res)
+            return {"flash_attention": L * (prefills + E), "paged_decode_attention": L * steps,
+                    "decode_prefix_attention": 0, "w4_matmul": 0,
+                    "psum": (2 * L + 1) * (prefills + steps + E),
+                    "all_gather": prefills + steps, "ppermute": 0, "all_to_all": 0}
+
+        def expected_sp(ulysses):
+            def fn(res):
+                L, lns, E, _, steps = forwards(res)
+                sp_prefills = res["cache_stats"]["misses"]
+                return {"flash_attention": L * (E + (sp_prefills if ulysses else 0)),
+                        "paged_decode_attention": 0, "decode_prefix_attention": 0,
+                        "w4_matmul": 0, "psum": sp_prefills,
+                        "ppermute": L * (steps + (0 if ulysses else sp_prefills)),
+                        "all_gather": L * steps, "all_to_all": 4 * L * sp_prefills if ulysses else 0}
+            return fn
+
+        tp4 = check_serve("mesh_tp2_int4", ref_int4, [0, 1], expected_tp_int4)
+        check_serve("mesh_tp2_bf16", ref_bf16, [0], expected_tp_bf16)
+        sp = check_serve("mesh_sp2", ref_bf16, [1], expected_sp(False))
+        if sp[0]["cache_stats"] != {"hits": 1, "partial_hits": 0, "misses": 1} or \
+                sp[0]["outs"][1]["texts"] != sp[0]["outs"][0]["texts"]:
+            raise AssertionError(f"mesh_sp2: the exact hit {sp[0]['cache_stats']} or its texts")
+        check_serve("mesh_sp2_ulysses", ref_bf16, [1], expected_sp(True))
+        mut = ranks["mesh_k4tp_mutants"][0]["cases"]
+        log({"phase": "mesh_k4tp_mutants", "cases": mut})
+        if not all(c["err_over_limit"] <= 1.0 < c["mutant_err_over_limit"] for c in mut):
+            raise AssertionError(f"mesh_k4tp_mutants: {mut}")
+        psum_gloo = ranks["mesh_psum_gloo"][0]["psum"]
+        log({"phase": "mesh_psum", "transport": "gloo (host time, staged through host memory)",
+             "cases": psum_gloo})
+
+        # A world of one over nccl on device tensors (the path of a machine
+        # with a card per rank).
+        nccl = run_ranks(1, "nccl", [{"name": "nccl_one", "kind": "nccl_one", "args": {
+            "shapes": [(4096, 2048), (2048, 4096), (4096, 64128)], "rows_list": [8, 2048]}}],
+            store_dir)["nccl_one"][0]
+        log({"phase": "mesh_nccl1", **nccl})
+        if not all(all(v.values()) for v in nccl["identity"].values()) or \
+                not all(c["bit_equal"] for c in nccl["w4_tp"]):
+            raise AssertionError(f"mesh_nccl1: {nccl}")
+
+        # K4 at every Llama-3-8B shard shape of TP = 2, against its plain
+        # version, timed as the k4 phase times K4.
+        shard_shapes = {"wq": (4096, 2048), "wk_wv": (4096, 512), "w_gate_up": (4096, 7168),
+                        "lm_head": (4096, 64128), "wo": (2048, 4096), "w_down": (7168, 4096)}
+        k4tp_cases = []
+        for sname, (K, N) in shard_shapes.items():
+            q = torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev, dtype=torch.int8)
+            scale = (torch.rand((K // 128, N), generator=gen, device=dev) + 0.5) / (4.61 * math.sqrt(K))
+            w = w4.Q4Tensor(q, scale)
+            deq = w4.unpack_int4(w)
+            w_bf16 = deq.to(torch.bfloat16)
+            n4 = copies_for(K * N // 2 + K // 128 * N * 4)
+            nb = copies_for(K * N * 2)
+            cold4 = [w4.Q4Tensor(torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev,
+                                               dtype=torch.int8), scale) for _ in range(n4)]
+            coldb = [w_bf16.clone() for _ in range(nb)]
+            for rows in (8, 2048):
+                x = randn(rows, K)
+                out = w4.w4_matmul(x, w)
+                torch.cuda.synchronize()
+                ref = w4.w4_matmul_plain(x, w).float()
+                terms = x.float().abs() @ deq.abs()
+                ratio = ((out.float() - ref).abs()
+                         / (2.0 ** -6 * ref.abs() + 1e-5 * terms + 1e-30)).max().item()
+                flops = 2.0 * rows * K * N
+                nbytes = x.numel() * 2 + q.numel() + scale.numel() * 4 + out.numel() * 2
+                b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+                rec = {"shard": sname, "rows": rows, "K": K, "N": N,
+                       "route": w4.w4_route(rows, K, N, torch.bfloat16),
+                       "ksplit": w4.split_k(rows, K, N), "max_abs_err": (out.float() - ref).abs().max().item(),
+                       "max_err_over_limit": ratio,
+                       "ms": time_ms(lambda: w4.w4_matmul(x, w)),
+                       "device_ms": device_ms([lambda wc=wc: w4.w4_matmul(x, wc) for wc in cold4]),
+                       "plain_ms": time_ms(lambda: w4.w4_matmul_plain(x, w), iters=3, warmup=1),
+                       "library_ms": time_ms(lambda: torch.matmul(x, w_bf16)),
+                       "library_device_ms": device_ms([lambda wb=wb: torch.matmul(x, wb)
+                                                       for wb in coldb]),
+                       "bound_ms": b_ms, "bound_by": b_by, "rotation": {"w4": n4, "bf16": nb}}
+                k4tp_cases.append(rec)
+                log(dict(rec, phase="mesh_k4tp"))
+                if not ratio <= 1.0:
+                    raise AssertionError(f"mesh_k4tp {sname} rows={rows}: {ratio} x the limit")
+            del w, deq, w_bf16, cold4, coldb
+            torch.cuda.empty_cache()
+        main_case = next(c for c in k4tp_cases if c["shard"] == "w_down" and c["rows"] == 8)
+        kernels["w4_matmul_tp"] = {
+            "name": "w4_matmul_tp", "route": "cuda", "source": "k_llms_tpu_torch/csrc/w4_matmul.cu",
+            "replaces": "k_llms_tpu/ops/w4matmul.py:223",
+            "launches": tp4[0]["counts"]["w4_matmul"],  # K4 in the TP int4 window
+            "max_abs_err": max(c["max_abs_err"] for c in k4tp_cases),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"], "device_ms": main_case["device_ms"],
+            "case": "w_down shard [7168, 4096] at 8 rows, K4 on the shard (the row split's psum "
+                    "is timed apart)",
+            "shard_cases": k4tp_cases,
+            "psum_host_ms": {"gloo": psum_gloo, "nccl_world_of_one_2048x4096":
+                             nccl["psum_2048x4096_host_ms"]}}
+        log({"phase": "mesh_done", "seconds": time.perf_counter() - t_mesh, "ranks_s": ranks_s})
 
     if "spec" in phases:
         # The spec phase's counted windows, and K4 and the draws at the

@@ -118,6 +118,18 @@ class BackendConfig(BaseModel):
     # Weight quantization: None (model dtype), "int8" (per-channel) or
     # "int4" (group-wise, the w4a16 kernel).
     quantization: Optional[str] = None
+    # The mesh (parallel/): the tensor-parallel degree (the "model" axis)
+    # of the mesh an engine builds when torch.distributed runs a world
+    # larger than one (every rank builds the same backend); in a world of
+    # one these change nothing, as the JAX fields on one device.
+    model_parallel: Optional[int] = None
+    # Prompts at least this long prefill sequence-parallel over the data
+    # axis. None disables; needs a data axis larger than one.
+    sp_prefill_min_tokens: Optional[int] = None
+    # Context-parallel attention of that prefill: "ring" | "ulysses".
+    sp_attention: str = "ring"
+    # Ring decode against the sequence-sharded prefix of a solo request.
+    sp_decode: bool = False
     # KV layout: paged (pool pages, block tables) or dense (a stacked shared
     # prefix plus per-row generated caches).
     paged_kv: bool = True
@@ -242,10 +254,8 @@ class BackendConfig(BaseModel):
 
 
 #: Fields of the JAX package's BackendConfig that this backend has not
-#: ported. A keyword naming one raises NotImplementedError.
-UNPORTED_FIELDS = frozenset({
-    "model_parallel", "sp_prefill_min_tokens", "sp_attention", "sp_decode",
-})
+#: ported (none left). A keyword naming one raises NotImplementedError.
+UNPORTED_FIELDS: frozenset = frozenset()
 
 _MODEL_OVERRIDES = ("dtype", "max_seq_len", "attention_impl", "decode_attention_impl")
 
@@ -420,6 +430,7 @@ class CudaBackend(Backend):
         model: Optional[str] = None,
         config: Optional[BackendConfig] = None,
         engine: Optional[LocalEngine] = None,
+        mesh=None,
         **kwargs: Any,
     ):
         unported = sorted(UNPORTED_FIELDS.intersection(kwargs))
@@ -456,8 +467,13 @@ class CudaBackend(Backend):
             raise ValueError(
                 f"Unsupported quantization {cfg.quantization!r}; use 'int8' or 'int4'"
             )
+        if cfg.sp_attention not in ("ring", "ulysses"):
+            raise ValueError(
+                f"Unknown sp_attention {cfg.sp_attention!r}; use 'ring' or 'ulysses'"
+            )
         self.tokenizer = get_tokenizer(cfg.tokenizer_path)
         self._model_config = model_config
+        self._mesh = mesh
         self.param_summary: Optional[Dict[str, Any]] = None
         self.engine = engine if engine is not None else self._build_engine()
         if self.engine.device.type == "cuda":
@@ -623,6 +639,11 @@ class CudaBackend(Backend):
             kv_pool_pages=cfg.kv_pool_pages,
             speculative=cfg.speculative,
             spec_lookahead=cfg.spec_lookahead,
+            mesh=self._mesh,
+            model_parallel=cfg.model_parallel,
+            sp_prefill_min_tokens=cfg.sp_prefill_min_tokens,
+            sp_attention=cfg.sp_attention,
+            sp_decode=cfg.sp_decode,
         )
 
     def _wire_engine_hooks(self) -> None:

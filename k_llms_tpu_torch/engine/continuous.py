@@ -706,8 +706,8 @@ class ContinuousDecodeLoop:
                 engine.paged_attention_impl, device=engine.device
             )
         else:
-            self._prefix = init_cache(config, W, P, engine.device)
-            self._gen = init_cache(config, W, G, engine.device)
+            self._prefix = init_cache(engine.kv_config, W, P, engine.device)
+            self._gen = init_cache(engine.kv_config, W, G, engine.device)
         self._built = True
 
     def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
@@ -1246,7 +1246,7 @@ class ContinuousDecodeLoop:
                     for _ in range(extra_refs + 1):
                         alloc.decref(run_pages)
                     raise
-        cache = init_cache(engine.config, 1, bucket, engine.device)
+        cache = init_cache(engine.kv_config, 1, bucket, engine.device)
         req.chunk_cursor = 0
         self._prefilling = _Prefilling(
             req, list(rows), list(_ids), cache, _plen, bucket,

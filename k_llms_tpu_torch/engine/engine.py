@@ -76,8 +76,24 @@ token tap (a streamed request gets each sample's text at the end). Solo
 results carry ``spec_stats`` with drafted/accepted counts; coalesced ones
 their iterations and rate, with the launch's totals in ``engine.spec_stats``.
 
-Not ported yet: meshes, sequence-parallel and ring prefill (and their cache
-continuation).
+On a mesh (``parallel/``) the engine is one rank of an SPMD program:
+every rank builds the same engine and makes the same calls in the same
+order. ``torch.distributed`` started with a world larger than 1 gives the
+engine ``auto_mesh(model_parallel)``, as more than one device gives the JAX
+engine its mesh; a world of one builds none, and the mesh fields then
+change nothing. Each rank holds its shard of the weights
+(``parallel.shard_params``; the Megatron layout, int4 leaves marked for
+``w4_matmul_tp``) and of the KV (KVH/TP heads, in the page pool too), and
+keeps the decode rows whole; n is padded to a multiple of the data axis, as
+the JAX engine pads it, so the draws' rows line up. Prompts of at least
+``sp_prefill_min_tokens`` prefill sequence-parallel over the data axis
+(``engine/long_context.py``, ring or Ulysses attention); with
+``sp_decode`` a solo request keeps that KV sequence-sharded and decodes
+against it by ring attention (the ``sp_resident`` route), its prefix-cache
+entries labelled as such and never cross-matched with replicated ones.
+Every host decision must come out the same on every rank; with
+``rank_check`` (``KLLMS_RANK_CHECK=1``) each step's tokens are compared
+across ranks and a divergence raises.
 """
 
 from __future__ import annotations
@@ -108,15 +124,29 @@ from ..models.llama import (
     prefill_continue,
     verify_step,
 )
-from ..models.quant import init_params_quantized, quantize_params, stored_quant_layout
+from ..models.quant import (
+    init_params_quantized,
+    int4_mesh_compatible,
+    int4_off_kernel_shards,
+    mark_int4_partitioning,
+    quantize_params,
+    stored_quant_layout,
+    tree_has_q4,
+)
 from ..ops.paged_attention import launch_paged_attention_impl, resolve_paged_attention_impl
 from ..ops.random import request_keys, threefry_uniform_verify
 from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
 from ..ops.speculative import accept_drafts, propose_prompt_lookup, scatter_rows, scatter_rows_k
+from ..ops.w4matmul import Q4Tensor
+from ..parallel.collectives import assert_ranks_agree
+from ..parallel.distributed import world_size
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, auto_mesh
+from ..parallel.sharding import param_specs, shard_node, shard_params
 from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
 from ..types.wire import BackendUnavailableError, KLLMsError
 from ..utils.observability import FAILURE_EVENTS, QUARANTINE_EVENTS
+from .long_context import SeqShardedKV, forward_sp_continuation, gather_sequence, sp_prefill
 from .paging import (
     TRASH_PAGE,
     PagedKVPool,
@@ -386,10 +416,25 @@ class LocalEngine:
         kv_pool_pages: Optional[int] = None,
         speculative: Optional[str] = None,
         spec_lookahead: int = 4,
+        mesh: Optional[Mesh] = None,
+        model_parallel: Optional[int] = None,
+        use_mesh: bool = True,
+        sp_prefill_min_tokens: Optional[int] = None,
+        sp_attention: str = "ring",
+        sp_decode: bool = False,
     ):
         self.config = get_config(config) if isinstance(config, str) else config
         check_supported(self.config)
         self.device = resolve_device(device)
+        # Validated eagerly: a typo must fail at construction, not on the
+        # first long prompt.
+        if sp_attention not in ("ring", "ulysses"):
+            raise ValueError(
+                f"Unknown sp_attention {sp_attention!r}; use 'ring' or 'ulysses'"
+            )
+        if mesh is None and use_mesh and world_size() > 1:
+            mesh = auto_mesh(model_parallel=model_parallel)
+        self.mesh = mesh
         if quantize is True:
             quantize = "int8"
         quantize = quantize or None
@@ -400,18 +445,88 @@ class LocalEngine:
         if params is not None:
             # A pre-quantized tree keeps its stored layout whatever was asked.
             quantize = stored_quant_layout(params) or quantize
+        tp = mesh.shape[MODEL_AXIS] if mesh is not None else 1
+        if mesh is not None and quantize:
+            # The JAX engine's int4 mesh check, before any shard is cut.
+            stored_q4 = params is not None and tree_has_q4(params)
+            int4_ok = True
+            if quantize == "int4" or stored_q4:
+                int4_ok = int4_mesh_compatible(self.config, tp)
+            if stored_q4 and not int4_ok:
+                raise ValueError(
+                    f"checkpoint stores int4 weights whose quantization groups "
+                    f"cannot shard over model parallel={tp} for {self.config.name}; "
+                    "re-quantize to int8 or change the mesh"
+                )
+            if quantize == "int4" and not stored_q4 and not int4_ok:
+                logger.warning(
+                    "int4 shards don't align with model parallel=%s for %s; using int8",
+                    tp, self.config.name,
+                )
+                quantize = "int8"
+        # K4 takes no shard that misses its blocking, and the port has no
+        # dequantize fallback: on a card such a weight stays int8.
+        int8_keys = frozenset()
+        if quantize == "int4" and self.device.type == "cuda":
+            off = int4_off_kernel_shards(self.config, tp)
+            stored = [k for k in off if params is not None and isinstance(
+                params[k] if k == "lm_head" else params["layers"][k], Q4Tensor)]
+            if stored:
+                raise ValueError(
+                    f"checkpoint stores int4 weights {stored} whose model parallel={tp} "
+                    f"shards {[off[k] for k in stored]} miss the w4a16 kernel's blocking "
+                    "(K % 256, N % 128); re-quantize to int8 or change the mesh"
+                )
+            if off:
+                logger.warning(
+                    "int4 on model parallel=%d for %s: local shards %s miss the w4a16 "
+                    "kernel's blocking (K %% 256, N %% 128); keeping them int8",
+                    tp, self.config.name, off,
+                )
+            int8_keys = frozenset(off)
         bits = 4 if quantize == "int4" else 8
+        shard = None
+        if mesh is not None:
+            self._check_mesh_divides(tp)
+            specs = param_specs(self.config)
+            flat = {**specs["layers"], **{k: v for k, v in specs.items() if k != "layers"}}
+
+            def shard(key, leaf):
+                return shard_node(leaf, flat[key], mesh)
+
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(param_seed))
             if quantize:
                 # Built directly: an 8B bf16 tree never exists beside its copy.
-                params = init_params_quantized(self.config, gen, self.device, bits=bits)
+                params = init_params_quantized(self.config, gen, self.device, bits=bits,
+                                               shard=shard, int8_keys=int8_keys)
             else:
-                params = init_params(self.config, gen, self.device)
-        elif quantize and stored_quant_layout(params) is None:
-            params = quantize_params(params, bits=bits)
+                params = init_params(self.config, gen, self.device, shard=shard)
+            if mesh is not None:
+                params["mesh"] = mesh
+        else:
+            if quantize and stored_quant_layout(params) is None:
+                params = quantize_params(params, bits=bits, int8_keys=int8_keys)
+            if mesh is not None:
+                params = shard_params(params, mesh, self.config)
+        if tp > 1 and tree_has_q4(params):
+            # A model axis of one has nothing to sum: K4 runs unmarked.
+            params = mark_int4_partitioning(params, mesh)
         self.params = params
         self.quantized = quantize
+        # The KV this rank holds: KVH/TP heads (and QH/TP query heads).
+        self.kv_config = self.config.with_(
+            num_heads=self.config.num_heads // tp, num_kv_heads=self.config.num_kv_heads // tp
+        )
+        # Sequence-parallel prefill: prompts of at least this many tokens
+        # prefill over the data axis (None disables); "ring" or "ulysses"
+        # attention; sp_decode keeps a solo request's KV sequence-sharded and
+        # decodes against it by ring attention.
+        self.sp_prefill_min_tokens = sp_prefill_min_tokens
+        self.sp_attention = sp_attention
+        self.sp_decode = bool(sp_decode)
+        # The cross-rank token check (tests and the card smoke turn it on).
+        self.rank_check = os.environ.get("KLLMS_RANK_CHECK", "") not in ("", "0")
         self.kv_layout = kv_layout
         self.kv_page_size = int(kv_page_size)
         self.paged_attention_impl = resolve_paged_attention_impl(
@@ -489,6 +604,29 @@ class LocalEngine:
             "_kv_pool",
         )
 
+    def _check_mesh_divides(self, tp: int) -> None:
+        """The port cuts exact shards (GSPMD would pad): the heads, the MLP
+        width, the experts and the vocabulary must divide by the model
+        axis."""
+        c = self.config
+        sizes = {"num_heads": c.num_heads, "num_kv_heads": c.num_kv_heads,
+                 "intermediate_size": c.intermediate_size, "vocab_size": c.vocab_size}
+        if c.num_experts > 0:
+            sizes["num_experts"] = c.num_experts
+        bad = {k: v for k, v in sizes.items() if v % tp}
+        if bad:
+            raise ValueError(f"{c.name}: {bad} do not divide over model parallel={tp}")
+
+    @property
+    def data_parallel_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+
+    def _check_ranks(self, tokens: torch.Tensor, what: str) -> None:
+        """With ``rank_check`` on a mesh, raise unless every rank holds the
+        same ``tokens``."""
+        if self.rank_check and self.mesh is not None:
+            assert_ranks_agree(tokens, self.mesh, what)
+
     def param_footprint_bytes(self) -> int:
         """Bytes of the resident parameters, quantized payloads and scales
         included."""
@@ -526,18 +664,110 @@ class LocalEngine:
     @torch.inference_mode()
     def _prefill_full(self, prompt_ids: List[int], prompt_len: int, bucket: int):
         """One full-prompt prefill: (first logits [1, V], KVCache [L, 1,
-        bucket, KVH, D])."""
+        bucket, KVH, D]), dense or, when the prompt qualifies,
+        sequence-parallel (the single dispatch point, as in JAX): its KV is
+        then this rank's :class:`SeqShardedKV` chunk with ``sp_decode``, else
+        gathered into the replicated layout."""
         tokens = torch.tensor(
             [prompt_ids + [self.config.pad_token_id] * (bucket - prompt_len)],
             dtype=torch.int64, device=self.device,
         )
+        if self._use_sp_prefill(prompt_len, bucket):
+            first_logits, kv = sp_prefill(
+                self.config, self.params, tokens, prompt_len, self.mesh,
+                seq_axis=DATA_AXIS, attention=self.sp_attention,
+            )
+            return first_logits, kv if self.sp_decode else gather_sequence(kv, self.mesh)
         first_logits, (k, v) = prefill(self.config, self.params, tokens, prompt_len)
         return first_logits, KVCache(k=k, v=v)
 
-    def _prefill_routed(self, prompt_ids: List[int], prompt_len: int, bucket: int):
+    def _use_sp_prefill(self, prompt_len: int, bucket: int) -> bool:
+        config = self.config
+        return (
+            self.mesh is not None
+            and self.sp_prefill_min_tokens is not None
+            and prompt_len >= self.sp_prefill_min_tokens
+            and self.mesh.shape[DATA_AXIS] > 1
+            # The sequence-parallel forward needs S % ring == 0.
+            and bucket % self.mesh.shape[DATA_AXIS] == 0
+            and config.attn_softcap is None
+            and config.sliding_window is None
+        )
+
+    def _replicated(self, kv):
+        """A prefix KV in the replicated decode layout (a sequence-sharded
+        one gathered: the reshard of the JAX ``generate_many``)."""
+        if isinstance(kv, SeqShardedKV):
+            return gather_sequence(kv, self.mesh)
+        return kv
+
+    def _prefill_routed(self, prompt_ids: List[int], prompt_len: int, bucket: int,
+                        allow_seq_sharded: bool = False):
+        """The prefill through the prefix cache when it is on. Its KV is in
+        the replicated layout unless ``allow_seq_sharded``."""
         if self.prefix_cache_size > 0:
-            return self._prefill_with_cache(prompt_ids, prompt_len, bucket)
-        return self._prefill_full(prompt_ids, prompt_len, bucket)
+            fl, kv = self._prefill_with_cache(prompt_ids, prompt_len, bucket,
+                                              allow_seq_sharded=allow_seq_sharded)
+        else:
+            fl, kv = self._prefill_full(prompt_ids, prompt_len, bucket)
+        return fl, (kv if allow_seq_sharded else self._replicated(kv))
+
+    @staticmethod
+    def _kv_seq_sharded(kv) -> bool:
+        """Whether a prefix KV is stored sequence-sharded, read from its
+        type (the JAX engine reads the array's sharding): the label never
+        desyncs from the layout it describes."""
+        return isinstance(kv, SeqShardedKV)
+
+    def _sp_prefill_routed(self, prompt_ids: List[int], prompt_len: int, bucket: int):
+        """The sp_resident prefill through the prefix cache: an exact hit on
+        a sequence-sharded entry costs no device work (a replicated entry
+        for the same prompt is a miss, which the full SP prefill
+        overwrites); a partial hit past the reuse threshold on a
+        sequence-sharded entry continues in the ring layout
+        (``forward_sp_continuation``); else the full SP prefill. The result
+        is stored as a sequence-sharded entry."""
+        config = self.config
+        if not self.prefix_cache_size:
+            return self._prefill_full(prompt_ids, prompt_len, bucket)
+        key = tuple(prompt_ids)
+        with self._launch_lock:
+            hit = self._prefix_entries.get(key)
+            if hit is not None and self._kv_seq_sharded(hit[1]):
+                self._prefix_entries.move_to_end(key)
+                self.prefix_cache_stats["hits"] += 1
+                return hit[0], hit[1]
+            matched_kv, p = self._sp_prefix_match(prompt_ids)
+            if matched_kv is not None and p >= self.prefix_cache_min_reuse:
+                s_bucket = _bucket(max(1, prompt_len - p), minimum=32)
+                ring = self.mesh.shape[DATA_AXIS]
+                in_bucket = int(matched_kv.k.shape[2]) * ring
+                out_bucket = max(bucket, in_bucket)
+                # The suffix self-attention holds an f32 score tensor [QH,
+                # Ssuf, Ssuf] a layer; past the cap the full SP prefill is
+                # the better program.
+                continuation_ok = (
+                    p + s_bucket <= config.max_seq_len
+                    and out_bucket % ring == 0
+                    and config.num_heads * s_bucket * s_bucket * 4 <= self.MAX_CONT_SCORE_BYTES
+                )
+                if continuation_ok:
+                    self.prefix_cache_stats["partial_hits"] += 1
+                    suffix = prompt_ids[p:]
+                    suffix_tokens = torch.tensor(
+                        [suffix + [config.pad_token_id] * (s_bucket - len(suffix))],
+                        dtype=torch.int64, device=self.device,
+                    )
+                    first_logits, prefix = forward_sp_continuation(
+                        config, self.params, suffix_tokens, matched_kv, self.mesh,
+                        p, prompt_len, out_bucket, seq_axis=DATA_AXIS,
+                    )
+                    self._prefix_store(prompt_ids, first_logits, prefix)
+                    return first_logits, prefix
+            self.prefix_cache_stats["misses"] += 1
+            first_logits, prefix = self._prefill_full(prompt_ids, prompt_len, bucket)
+            self._prefix_store(prompt_ids, first_logits, prefix)
+            return first_logits, prefix
 
     # -- prefix cache --------------------------------------------------------
     def prefix_cached_len(self, prompt_ids: List[int]) -> int:
@@ -586,7 +816,7 @@ class LocalEngine:
         correctness never depends on pages being available."""
         with self._launch_lock:
             stored = prefix
-            if self.kv_layout == "paged":
+            if self.kv_layout == "paged" and not self._kv_seq_sharded(prefix):
                 try:
                     stored = self._run_from_dense(
                         prefix, len(ids), int(prefix.k.shape[2]),
@@ -600,11 +830,23 @@ class LocalEngine:
         """Longest common token prefix across cached prompts: the matched
         entry's KV and the usable common length, capped below the new
         prompt's length so there is always at least one suffix token to
-        prefill."""
+        prefill. Sequence-sharded entries are skipped: the replicated
+        continuation would gather the whole prefix (they continue in their
+        own layout, :meth:`_sp_prefix_match`)."""
+        return self._match_prefix_entries(ids, want_seq_sharded=False)
+
+    def _sp_prefix_match(self, ids: List[int]) -> Tuple[Any, int]:
+        """:meth:`_prefix_match` over the sequence-sharded entries only: the
+        two layouts never cross-match."""
+        return self._match_prefix_entries(ids, want_seq_sharded=True)
+
+    def _match_prefix_entries(self, ids: List[int], want_seq_sharded: bool) -> Tuple[Any, int]:
         ids_np = np.asarray(ids, np.int32)
         best_kv, best_p = None, 0
         with self._launch_lock:
             for _, kv, plen, arr in self._prefix_entries.values():
+                if self._kv_seq_sharded(kv) != want_seq_sharded:
+                    continue
                 limit = min(len(ids) - 1, plen)
                 neq = np.flatnonzero(arr[:limit] != ids_np[:limit])
                 p = int(neq[0]) if neq.size else limit
@@ -626,15 +868,18 @@ class LocalEngine:
     # tensor), so the cap, and the fallback, do not apply.
     MAX_CONT_SCORE_BYTES = 1 << 30
 
-    def _prefill_with_cache(self, prompt_ids: List[int], prompt_len: int, bucket: int):
+    def _prefill_with_cache(self, prompt_ids: List[int], prompt_len: int, bucket: int,
+                            allow_seq_sharded: bool = False):
         """Prefill through the prompt-prefix cache: exact hit -> no device
         work; partial hit past the reuse threshold -> suffix-only prefill;
         miss -> full prefill. Stores the full prompt's KV back into the
-        LRU. Returns (first logits [1, V], KVCache)."""
+        LRU. Returns (first logits [1, V], KVCache). An exact hit on a
+        sequence-sharded entry counts only when the caller takes that
+        layout (``allow_seq_sharded``); otherwise it is a miss."""
         with self._launch_lock:
             key = tuple(prompt_ids)
             hit = self._prefix_entries.get(key)
-            if hit is not None:
+            if hit is not None and (allow_seq_sharded or not self._kv_seq_sharded(hit[1])):
                 self._prefix_entries.move_to_end(key)
                 self.prefix_cache_stats["hits"] += 1
                 return hit[0], self._entry_prefix_kv(hit)
@@ -720,7 +965,7 @@ class LocalEngine:
                         min(self.config.max_seq_len, 2048), self.kv_page_size
                     )
                 total = max(int(self.kv_pool_pages or 0), int(min_pages), cache_pages, 8)
-                self._kv_pool = PagedKVPool(self.config, total, self.kv_page_size, self.device)
+                self._kv_pool = PagedKVPool(self.kv_config, total, self.kv_page_size, self.device)
             return self._kv_pool
 
     def _alloc_pages_with_evict(self, count: int) -> List[int]:
@@ -1010,7 +1255,10 @@ class LocalEngine:
         eos = list(eos_ids or [config.eos_token_id])[:MAX_EOS_IDS]
         self._validate_constraint(constraint, eos)
         preps = [self._prep_prompt(it.prompt_ids) for it in items]
-        n_per = max(max(1, it.n) for it in items)
+        # One row count for every request, rounded so the data axis divides
+        # the batch (the JAX engine's padding; its draws' rows line up).
+        dp = self.data_parallel_size
+        n_per = -(-max(max(1, it.n) for it in items) // dp) * dp
         r_pad = _bucket(len(items), minimum=1)
         extra = r_pad - len(items)
         B = r_pad * n_per
@@ -1047,6 +1295,11 @@ class LocalEngine:
             finally:
                 self._active_token_sinks = None
 
+        # The ring-decode route: a solo prompt that takes the SP prefill keeps
+        # its KV sequence-sharded and decodes against it in place.
+        ring_mesh = self.mesh if (
+            len(items) == 1 and self.sp_decode and self._use_sp_prefill(*preps[0][1:])
+        ) else None
         spec_np = None
         if self.speculative == "prompt_lookup":
             # Speculative launches decode dense whatever the engine's layout,
@@ -1056,6 +1309,7 @@ class LocalEngine:
             def run_spec(first_logits, prefix, prompt_tokens, prompt_lens):
                 return self._spec_decode(
                     first_logits, prefix, prompt_tokens, prompt_lens, n_per, r_pad, req_keys,
+                    ring_mesh,
                     _constraint_ops(constraint, device), budgets, poison0,
                     max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
                     top_k=top_k, eos_t=eos_t,
@@ -1066,11 +1320,12 @@ class LocalEngine:
                 )
 
             (*out, count_np, iters_np), t_prefill = self._generate_speculative(
-                preps, r_pad, run_spec
+                preps, r_pad, run_spec, ring_mesh
             )
             spec_np = (count_np, iters_np)
         else:
-            layout = self.kv_layout
+            # A sequence-parallel decode keeps the dense layouts, as in JAX.
+            layout = "dense" if (self.sp_decode and self.mesh is not None) else self.kv_layout
             if layout == "paged":
                 try:
                     out, t_prefill = self._generate_paged(
@@ -1085,7 +1340,7 @@ class LocalEngine:
                     layout = "dense"
             if layout == "dense":
                 out, t_prefill = self._generate_dense(
-                    preps, n_per, r_pad, max_new_tokens, run_loop
+                    preps, n_per, r_pad, max_new_tokens, run_loop, ring_mesh
                 )
         toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps, aborted = out
         t_end = time.perf_counter()
@@ -1333,29 +1588,32 @@ class LocalEngine:
                     pool.allocator.decref(pgs)
         return out, t_prefill
 
-    def _generate_dense(self, preps, n_per, r_pad, max_new_tokens, run_loop):
+    def _generate_dense(self, preps, n_per, r_pad, max_new_tokens, run_loop, ring_mesh=None):
         """The dense body (the JAX engine's ``generate_many`` without the
-        speculative and sequence-parallel arms): the stacked prefix of
-        :meth:`_dense_prefix`; every row's generated KV in a dense ``[L, B,
-        max_new, KVH, D]`` cache. Returns (loop output, prefill end time)."""
+        speculative arm): the stacked prefix of :meth:`_dense_prefix`, or
+        with ``ring_mesh`` the solo request's sequence-sharded prefix (the
+        ``sp_resident`` route, decoded by ring attention); every row's
+        generated KV in a dense ``[L, B, max_new, KVH, D]`` cache. Returns
+        (loop output, prefill end time)."""
         config = self.config
-        first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad)
-        gen_cache = init_cache(config, r_pad * n_per, max_new_tokens, self.device)
+        first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad, ring_mesh)
+        gen_cache = init_cache(self.kv_config, r_pad * n_per, max_new_tokens, self.device)
         self._sync()
         t_prefill = time.perf_counter()
 
         def step_fn(tok, step):
-            return decode_step(config, self.params, tok, step, prompt_lens, gen_cache, prefix)[0]
+            return decode_step(config, self.params, tok, step, prompt_lens, gen_cache, prefix,
+                               ring_mesh=ring_mesh)[0]
 
         return run_loop(step_fn, first_logits), t_prefill
 
-    def _generate_speculative(self, preps, r_pad, run_spec):
+    def _generate_speculative(self, preps, r_pad, run_spec, ring_mesh=None):
         """The speculative body: the stacked dense prefix of
         :meth:`_dense_prefix` (speculative launches decode dense, as in the
         JAX engine) and each request's prompt table ``[r_pad, P]`` for the
         drafter, padding requests repeating the last one's. Returns (loop
         output, prefill end time)."""
-        first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad)
+        first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad, ring_mesh)
         bucket_max = max(bucket for _, _, bucket in preps)
         table = np.full((r_pad, bucket_max), self.config.pad_token_id, np.int64)
         for j, (ids, prompt_len, _) in enumerate(preps):
@@ -1366,17 +1624,26 @@ class LocalEngine:
         t_prefill = time.perf_counter()
         return run_spec(first_logits, prefix, prompt_tokens, prompt_lens), t_prefill
 
-    def _dense_prefix(self, preps, r_pad):
+    def _dense_prefix(self, preps, r_pad, ring_mesh=None):
         """Each prompt's KV (through the prefix cache when it is on),
         zero-padded to the largest bucket and stacked into one shared
         ``[L, r_pad, P, KVH, D]`` prefix, padding requests repeating the
-        last one's. Returns (first logits [r_pad, V], the prefix, prompt
-        lengths [r_pad])."""
+        last one's. With ``ring_mesh`` (one request) the prefix is its
+        sequence-sharded chunk instead. A coalesced launch with
+        ``sp_decode`` takes sequence-sharded prefill results and cache hits
+        and gathers them (the JAX ``generate_many``'s reshard). Returns
+        (first logits [r_pad, V], the prefix, prompt lengths [r_pad])."""
+        if ring_mesh is not None:
+            (ids, prompt_len, bucket), = preps
+            fl, kv = self._sp_prefill_routed(ids, prompt_len, bucket)
+            return fl, kv, torch.as_tensor([prompt_len], device=self.device)
         extra = r_pad - len(preps)
         bucket_max = max(bucket for _, _, bucket in preps)
+        reshard = self.sp_decode and self.mesh is not None
         first_list, k_list, v_list = [], [], []
         for ids, prompt_len, bucket in preps:
-            fl, (k, v) = self._prefill_routed(ids, prompt_len, bucket)
+            fl, kv = self._prefill_routed(ids, prompt_len, bucket, allow_seq_sharded=reshard)
+            k, v = self._replicated(kv)
             if bucket < bucket_max:
                 pad = (0, 0, 0, 0, 0, bucket_max - bucket)  # masked by prompt_len
                 k = torch.nn.functional.pad(k, pad)
@@ -1481,6 +1748,7 @@ class LocalEngine:
         tok, lp = sample(logits0, counts)
         tok = torch.where(bad, torch.full_like(tok, pad_id), tok)
         lp = torch.where(bad, torch.zeros_like(lp), lp)
+        self._check_ranks(tok, "first tokens")
         if jstate is not None:
             jstate = advance(jt, tok, *jstate)
         done = torch.isin(tok, eos_t) | bad
@@ -1519,6 +1787,7 @@ class LocalEngine:
             nxt, lp = sample(logits, counts)
             nxt = torch.where(frozen, torch.full_like(nxt, pad_id), nxt)
             lp = torch.where(frozen, torch.zeros_like(lp), lp)
+            self._check_ranks(nxt, f"step {step} tokens")
             if jstate is not None:
                 jstate = advance(jt, nxt, *jstate)  # pad/eos freeze the row
             tok_steps.append(nxt)
@@ -1581,7 +1850,8 @@ class LocalEngine:
         )
 
     def _spec_decode(
-        self, first_logits, prefix, prompt_tokens, prompt_lens, n_per, r_pad, req_keys, cops,
+        self, first_logits, prefix, prompt_tokens, prompt_lens, n_per, r_pad, req_keys, ring_mesh,
+        cops,
         budgets, poison0, *, max_new_tokens, temperature, top_p, top_k, eos_t, top_logprobs,
         frequency_penalty, presence_penalty, bias, stops,
     ):
@@ -1692,7 +1962,7 @@ class LocalEngine:
         hit_eos_any = eos0
         pois = bad0
         row_iters = torch.zeros((B,), dtype=torch.int64, device=device)
-        gen_cache = init_cache(config, B, BUF, device)
+        gen_cache = init_cache(self.kv_config, B, BUF, device)
 
         polled = [b for b in budgets if b is not None]
         aborted: Dict[int, Tuple[int, float]] = {}
@@ -1713,8 +1983,10 @@ class LocalEngine:
                 prompt_row, plen_row, prev, cur, K, gen=toks, gen_len=count
             ).to(torch.int64)  # [B, K]
             block = torch.cat([cur[:, None], drafts], dim=1)  # [B, K+1]
+            self._check_ranks(block, "speculative block")
             logits, _ = verify_step(
-                config, self.params, block, count - 1, prompt_lens, gen_cache, prefix
+                config, self.params, block, count - 1, prompt_lens, gen_cache, prefix,
+                ring_mesh=ring_mesh,
             )
             # Position j is masked by the state after the emitted prefix
             # advanced through drafts[:j], the only prefix under which its
@@ -1848,6 +2120,8 @@ class LocalEngine:
         longest = max(len(ids) for ids in token_lists)
         bucket = _bucket(longest, minimum=32)
         batch = _bucket(len(token_lists), minimum=8)
+        dp = self.data_parallel_size
+        batch = -(-batch // dp) * dp
         tokens = np.full((batch, bucket), config.pad_token_id, np.int64)
         mask = np.zeros((batch, bucket), np.int64)
         for i, ids in enumerate(token_lists):

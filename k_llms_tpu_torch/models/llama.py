@@ -36,8 +36,18 @@ attention over the shared prompt prefix runs the decode-prefix kernel
 tail in plain tensor code, behind the JAX package's gate (which leaves out
 softcapped and windowed models, as the paged kernel's gate does).
 
-Not ported yet (raise ``NotImplementedError``): the ring
-(sequence-parallel) decode arm. ``paged_verify_step`` stays at ``Sq == 1``:
+On a mesh the parameters are this rank's shard (``parallel.shard_params``,
+which leaves the mesh under the tree's ``"mesh"`` key) and every function
+runs the rank's part of the Megatron layout, as GSPMD partitions the JAX
+functions: heads are read from the weights' shapes (QH/TP and KVH/TP a
+rank), the row-parallel ``wo`` and ``w_down`` (or the rank's experts) are
+followed by one ``psum`` over ``model``, the vocabulary-sharded embedding
+masks the rows it does not own and sums, and the head's vocabulary shards
+are gathered into whole logits. A decode or verify step given ``ring_mesh``
+attends a SEQUENCE-SHARDED prefix (each rank's chunk) through ring
+attention (``ops/ring_attention.py``), the JAX ``sp_ring_mesh`` arm.
+
+``paged_verify_step`` stays at ``Sq == 1``:
 the JAX package has no caller of it at ``Sq > 1`` (its paged block keeps
 only the first column, and speculative launches decode dense).
 """
@@ -52,6 +62,8 @@ import torch
 
 from ..ops.attention import NEG_INF, decode_prefix_attention, flash_attention
 from ..ops.w4matmul import Q4Tensor
+from ..parallel.collectives import all_gather, psum
+from ..parallel.mesh import MODEL_AXIS, is_tensor_parallel
 from .config import ModelConfig
 from .quant import QTensor, qdot, qeinsum
 
@@ -91,14 +103,17 @@ def check_supported(config: ModelConfig) -> None:
 
 
 def init_params(
-    config: ModelConfig, generator: torch.Generator, device, dtype=None
+    config: ModelConfig, generator: torch.Generator, device, dtype=None, shard=None
 ) -> Params:
     """Random scaled-normal parameters drawn from ``generator`` on ``device``
     (same shapes and scales as the JAX package's ``init_params``; the draws
     differ, since torch and jax.random are different generators). Large
     tensors are drawn one layer at a time so the f32 draw never holds more
-    than one layer."""
+    than one layer. ``shard(key, leaf)``, when given, takes each leaf as
+    soon as it is drawn (a mesh rank keeps its shard and frees the rest, so
+    the full tree never exists at once); the draws are the same."""
     check_supported(config)
+    S = shard or (lambda key, leaf: leaf)
     dtype = dtype or config.torch_dtype
     device = torch.device(device)
     H, I, V = config.hidden_size, config.intermediate_size, config.vocab_size
@@ -118,35 +133,35 @@ def init_params(
         return fill(shape, dtype=dtype, device=device)
 
     layers = {
-        "attn_norm": norm((L, H)),
-        "wq": normal((L, H, Q), 1.0 / math.sqrt(H), True),
-        "wk": normal((L, H, KV), 1.0 / math.sqrt(H), True),
-        "wv": normal((L, H, KV), 1.0 / math.sqrt(H), True),
-        "wo": normal((L, Q, H), 1.0 / math.sqrt(Q), True),
-        "mlp_norm": norm((L, H)),
+        "attn_norm": S("attn_norm", norm((L, H))),
+        "wq": S("wq", normal((L, H, Q), 1.0 / math.sqrt(H), True)),
+        "wk": S("wk", normal((L, H, KV), 1.0 / math.sqrt(H), True)),
+        "wv": S("wv", normal((L, H, KV), 1.0 / math.sqrt(H), True)),
+        "wo": S("wo", normal((L, Q, H), 1.0 / math.sqrt(Q), True)),
+        "mlp_norm": S("mlp_norm", norm((L, H))),
     }
     if config.num_experts > 0:  # Mixtral: a router and E experts per layer
         E = config.num_experts
-        layers["w_router"] = normal((L, H, E), 1.0 / math.sqrt(H), True)
-        layers["w_gate"] = normal((L, E, H, I), 1.0 / math.sqrt(H), True)
-        layers["w_up"] = normal((L, E, H, I), 1.0 / math.sqrt(H), True)
-        layers["w_down"] = normal((L, E, I, H), 1.0 / math.sqrt(I), True)
+        layers["w_router"] = S("w_router", normal((L, H, E), 1.0 / math.sqrt(H), True))
+        layers["w_gate"] = S("w_gate", normal((L, E, H, I), 1.0 / math.sqrt(H), True))
+        layers["w_up"] = S("w_up", normal((L, E, H, I), 1.0 / math.sqrt(H), True))
+        layers["w_down"] = S("w_down", normal((L, E, I, H), 1.0 / math.sqrt(I), True))
     else:
-        layers["w_gate"] = normal((L, H, I), 1.0 / math.sqrt(H), True)
-        layers["w_up"] = normal((L, H, I), 1.0 / math.sqrt(H), True)
-        layers["w_down"] = normal((L, I, H), 1.0 / math.sqrt(I), True)
+        layers["w_gate"] = S("w_gate", normal((L, H, I), 1.0 / math.sqrt(H), True))
+        layers["w_up"] = S("w_up", normal((L, H, I), 1.0 / math.sqrt(H), True))
+        layers["w_down"] = S("w_down", normal((L, I, H), 1.0 / math.sqrt(I), True))
     if config.qkv_bias:
-        layers["bq"] = torch.zeros((L, Q), dtype=dtype, device=device)
-        layers["bk"] = torch.zeros((L, KV), dtype=dtype, device=device)
-        layers["bv"] = torch.zeros((L, KV), dtype=dtype, device=device)
+        layers["bq"] = S("bq", torch.zeros((L, Q), dtype=dtype, device=device))
+        layers["bk"] = S("bk", torch.zeros((L, KV), dtype=dtype, device=device))
+        layers["bv"] = S("bv", torch.zeros((L, KV), dtype=dtype, device=device))
     if config.post_block_norms:  # Gemma-2: norms on the attention and MLP outputs
-        layers["post_attn_norm"] = norm((L, H))
-        layers["post_mlp_norm"] = norm((L, H))
+        layers["post_attn_norm"] = S("post_attn_norm", norm((L, H)))
+        layers["post_mlp_norm"] = S("post_mlp_norm", norm((L, H)))
     return {
-        "embed": normal((V, H), 1.0 / math.sqrt(H)),
+        "embed": S("embed", normal((V, H), 1.0 / math.sqrt(H))),
         "layers": layers,
-        "final_norm": norm((H,)),
-        "lm_head": normal((H, V), 1.0 / math.sqrt(H)),
+        "final_norm": S("final_norm", norm((H,))),
+        "lm_head": S("lm_head", normal((H, V), 1.0 / math.sqrt(H))),
     }
 
 
@@ -190,8 +205,27 @@ def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cpu") -
 
 def _layer(params: Params, i: int) -> Params:
     """Layer ``i``'s weights; quantized leaves slice their payload and
-    scales together."""
-    return {k: v[i] for k, v in params["layers"].items()}
+    scales together. A sharded tree's mesh rides along under ``"mesh"``."""
+    layer = {k: v[i] for k, v in params["layers"].items()}
+    if params.get("mesh") is not None:
+        layer["mesh"] = params["mesh"]
+    return layer
+
+
+def _tp_mesh(tree: Params):
+    """The tree's mesh when its model axis is sharded, else None."""
+    mesh = tree.get("mesh")
+    return mesh if is_tensor_parallel(mesh) else None
+
+
+def _row_parallel_dot(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """``x @ w`` for a row-parallel weight: on a tensor-parallel mesh the
+    rank's partial product summed over ``model`` (one ``psum``; a marked
+    int4 weight's ``w4_matmul_tp`` makes it)."""
+    out = qdot(x, w)
+    if mesh is not None and not (isinstance(w, Q4Tensor) and w.part == "row" and w.mesh is not None):
+        out = psum(out, MODEL_AXIS, mesh)
+    return out
 
 
 class KVCache(NamedTuple):
@@ -260,11 +294,17 @@ def _moe_mlp(config: ModelConfig, layer: Params, h: torch.Tensor) -> torch.Tenso
     top_w = torch.softmax(top_vals, dim=-1)  # [B, S, K]
     one_hot = torch.nn.functional.one_hot(top_idx, E).float()  # [B, S, K, E]
     combine = (one_hot * top_w[..., None]).sum(dim=-2)  # [B, S, E]
+    mesh = _tp_mesh(layer)
+    if mesh is not None:  # this rank's experts, combined by a psum below
+        e_local = layer["w_gate"].shape[0]
+        lo = mesh.axis_index(MODEL_AXIS) * e_local
+        combine = combine[..., lo: lo + e_local]
 
     gate = _activation(config, qeinsum("bsh,ehi->bsei", h, layer["w_gate"]))
     up = qeinsum("bsh,ehi->bsei", h, layer["w_up"])
     expert_out = qeinsum("bsei,eih->bseh", gate * up, layer["w_down"])
-    return torch.einsum("bseh,bse->bsh", expert_out, combine.to(expert_out.dtype))
+    out = torch.einsum("bseh,bse->bsh", expert_out, combine.to(expert_out.dtype))
+    return out if mesh is None else psum(out, MODEL_AXIS, mesh)
 
 
 def _rope_inv_freq(d: int, theta: float, scaling, device) -> torch.Tensor:
@@ -342,9 +382,10 @@ def _attn_qkv(config: ModelConfig, layer: Params, x: torch.Tensor, positions: to
     q, k, v = qdot(h, layer["wq"]), qdot(h, layer["wk"]), qdot(h, layer["wv"])
     if "bq" in layer:  # Qwen2-family QKV biases
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    q = q.reshape(B, Sq, config.num_heads, config.head_dim)
-    k = k.reshape(B, Sq, config.num_kv_heads, config.head_dim)
-    v = v.reshape(B, Sq, config.num_kv_heads, config.head_dim)
+    # Heads from the weights: QH/TP and KVH/TP on a tensor-parallel rank.
+    q = q.reshape(B, Sq, -1, config.head_dim)
+    k = k.reshape(B, Sq, -1, config.head_dim)
+    v = v.reshape(B, Sq, -1, config.head_dim)
     q = rope_embed(q, positions, config.rope_theta, config.rope_scaling)
     k = rope_embed(k, positions, config.rope_theta, config.rope_scaling)
     return q, k, v
@@ -359,7 +400,7 @@ def _mlp_sublayer(config: ModelConfig, layer: Params, x: torch.Tensor) -> torch.
         out = _moe_mlp(config, layer, h)
     else:
         gate = _activation(config, qdot(h, layer["w_gate"]))
-        out = qdot(gate * qdot(h, layer["w_up"]), layer["w_down"])
+        out = _row_parallel_dot(gate * qdot(h, layer["w_up"]), layer["w_down"], _tp_mesh(layer))
     if "post_mlp_norm" in layer:
         out = rms_norm(out, layer["post_mlp_norm"], config.rms_eps, offset)
     return x + out
@@ -368,7 +409,7 @@ def _mlp_sublayer(config: ModelConfig, layer: Params, x: torch.Tensor) -> torch.
 def _attn_residual(config: ModelConfig, layer: Params, x: torch.Tensor,
                    attn: torch.Tensor) -> torch.Tensor:
     """Attention output projection plus the block's first residual."""
-    out = qdot(attn, layer["wo"])
+    out = _row_parallel_dot(attn, layer["wo"], _tp_mesh(layer))
     if "post_attn_norm" in layer:
         out = rms_norm(out, layer["post_attn_norm"], config.rms_eps, config.norm_offset)
     return x + out
@@ -436,7 +477,7 @@ def flash_prefix_gate(config: ModelConfig, B: int, R: int, Sq: int) -> bool:
 
 def decode_attention(q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
                      *, scale: float, flash_prefix: bool,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     softcap: Optional[float] = None, ring_mesh=None) -> torch.Tensor:
     """Decode-step attention over a shared prefix (pk/pv [R, P, KVH, D],
     prefix_mask [B, Sq, P], prefix_lengths [R]) and each row's own cache
     (cache_k/cache_v [B, G, KVH, D], key_mask [B, Sq, G]) for queries q
@@ -445,7 +486,16 @@ def decode_attention(q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_
     models out); otherwise one concatenated softmax, the ``softcap`` applied
     to the scaled scores before the masks. Returns [B, Sq, QH, D] f32.
     Shared by the dense and the paged reference step, so the two agree
-    operation for operation."""
+    operation for operation. With ``ring_mesh`` the prefix is this rank's
+    chunk of a single request's SEQUENCE-SHARDED prefix (R = 1) and ring
+    attention scores it (the JAX ``sp_ring_mesh`` arm, any ``Sq``)."""
+    if ring_mesh is not None:
+        from ..ops.ring_attention import ring_prefix_rows
+
+        out_p, m_p, l_p = ring_prefix_rows(
+            ring_mesh, q.transpose(1, 2), pk, pv, prefix_lengths.reshape(-1)[0], sm_scale=scale
+        )
+        return _merge_prefix_tail(q, cache_k, cache_v, key_mask, scale, out_p, m_p, l_p)
     if flash_prefix:
         out_p, m_p, l_p = decode_prefix_attention(
             q[:, 0].contiguous(), pk, pv, prefix_lengths, sm_scale=scale
@@ -500,7 +550,7 @@ def _block(
             scores = _softcap(scores, config.attn_softcap)
         scores = torch.where(key_mask[:, None], scores, torch.full_like(scores, NEG_INF))
         attn = _gqa_values(torch.softmax(scores, dim=-1), v)
-    attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
+    attn = attn.to(x.dtype).reshape(B, Sq, -1)
     return _mlp_sublayer(config, layer, _attn_residual(config, layer, x, attn)), (k, v)
 
 
@@ -521,7 +571,17 @@ def _apply_stack(config, params, x, positions, key_mask, key_lengths, key_mask_g
 
 
 def _embed(config: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+    mesh = _tp_mesh(params)
+    if mesh is None:
+        x = params["embed"][tokens.long()]
+    else:
+        # Vocabulary-sharded table: each rank looks up the rows it owns,
+        # zeroes the rest, and one psum assembles every row exactly.
+        v_local = params["embed"].shape[0]
+        local = tokens.long() - mesh.axis_index(MODEL_AXIS) * v_local
+        owned = (local >= 0) & (local < v_local)
+        x = params["embed"][local.clamp(0, v_local - 1)]
+        x = psum(torch.where(owned[..., None], x, torch.zeros_like(x)), MODEL_AXIS, mesh)
     if config.embed_scale:  # Gemma: sqrt(H), rounded to the model dtype first
         x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=x.dtype, device=x.device)
     return x
@@ -533,6 +593,9 @@ def _final_norm(config: ModelConfig, params: Params, x: torch.Tensor) -> torch.T
 
 def _logits(config: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     logits = qdot(h, params["lm_head"]).float()
+    mesh = _tp_mesh(params)
+    if mesh is not None:  # vocabulary shards -> whole logits
+        logits = all_gather(logits, MODEL_AXIS, mesh, dim=-1)
     if config.logit_softcap is not None:
         logits = _softcap(logits, config.logit_softcap)
     return logits
@@ -663,7 +726,7 @@ def prefill_continue(
             mask = _pick(config, i, key_mask, key_mask_global)
             scores = torch.where(mask[:, None], scores, torch.full_like(scores, NEG_INF))
             attn = _gqa_values(torch.softmax(scores, dim=-1), cache_v)
-        attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
+        attn = attn.to(x.dtype).reshape(B, Sq, -1)
         x = _mlp_sublayer(config, layer, _attn_residual(config, layer, x, attn))
     h = _final_norm(config, params, x[:, total - p - 1])
     return _logits(config, params, h), cache
@@ -681,6 +744,7 @@ def _block_decode(
     prefix_kv: Tuple[torch.Tensor, torch.Tensor],
     prefix_mask: torch.Tensor,
     prefix_lengths: torch.Tensor,
+    ring_mesh=None,
 ) -> torch.Tensor:
     """The dense decode branch of the JAX ``_block``: this step's ``Sq``
     k/v columns are written into the layer's cache (cache_k/cache_v [B, G,
@@ -703,9 +767,9 @@ def _block_decode(
     attn = decode_attention(
         q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
         scale=scale, flash_prefix=flash_prefix_gate(config, B, pk.shape[0], Sq),
-        softcap=config.attn_softcap,
+        softcap=config.attn_softcap, ring_mesh=ring_mesh,
     )
-    attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
+    attn = attn.to(x.dtype).reshape(B, Sq, -1)
     return _mlp_sublayer(config, layer, _attn_residual(config, layer, x, attn))
 
 
@@ -740,13 +804,15 @@ def decode_step(
     prompt_len: torch.Tensor,
     gen_cache: KVCache,
     prefix: KVCache,
+    ring_mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for all samples against their shared prefix(es).
 
     token: [B] current tokens; step: decode index (0-based); prompt_len: [R]
     per-request prompt lengths (rows request-major, B % R == 0); gen_cache:
     [L, B, G, KVH, D], written in place at slot ``step``; prefix: [L, R, P,
-    KVH, D]. Returns (logits f32 [B, V], gen_cache)."""
+    KVH, D], or with ``ring_mesh`` this rank's chunk [L, 1, P/ring, KVH, D]
+    of a sequence-sharded prefix. Returns (logits f32 [B, V], gen_cache)."""
     check_supported(config)
     B = token.shape[0]
     device = token.device
@@ -769,6 +835,7 @@ def decode_step(
             step, _pick(config, i, self_mask, self_global),
             prefix_mask=_pick(config, i, prefix_mask, prefix_global),
             prefix_kv=(prefix.k[i], prefix.v[i]), prefix_lengths=plen32,
+            ring_mesh=ring_mesh,
         )
     h = _final_norm(config, params, x)
     return _logits(config, params, h[:, 0]), gen_cache
@@ -782,6 +849,7 @@ def verify_step(
     prompt_len: torch.Tensor,
     gen_cache: KVCache,
     prefix: KVCache,
+    ring_mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """The JAX ``verify_step``: score ``Sq`` tokens per row in one forward
     at per-row offsets. At ``Sq == 1`` it is the continuous loop's dense
@@ -797,8 +865,9 @@ def verify_step(
     sees slot s when ``s <= lengths[b] + j``, at position ``prompt_len +
     lengths[b] + j``. The attention is the plain concatenated softmax
     whenever ``Sq > 1`` (the decode-prefix kernel's gate needs ``Sq == 1``,
-    as in JAX). Returns (logits f32 [B, Sq, V], where logits[b, j]
-    conditions on tokens[b, :j+1], and gen_cache)."""
+    as in JAX); ``ring_mesh`` as in :func:`decode_step`. Returns (logits
+    f32 [B, Sq, V], where logits[b, j] conditions on tokens[b, :j+1], and
+    gen_cache)."""
     check_supported(config)
     B, Sq = tokens.shape
     device = tokens.device
@@ -819,6 +888,7 @@ def verify_step(
             lengths, _pick(config, i, self_mask, self_global),
             prefix_mask=_pick(config, i, prefix_mask, prefix_global),
             prefix_kv=(prefix.k[i], prefix.v[i]), prefix_lengths=plen32,
+            ring_mesh=ring_mesh,
         )
     h = _final_norm(config, params, x)
     return _logits(config, params, h), gen_cache
@@ -907,7 +977,7 @@ def _block_paged(
             prefix_lengths=prefix_lengths,
             flash_prefix=flash_prefix_gate(config, B, prefix_idx.shape[0], Sq),
         )
-    attn = attn.to(x.dtype).reshape(B, Sq, config.q_dim)
+    attn = attn.to(x.dtype).reshape(B, Sq, -1)
     x = _attn_residual(config, layer, x, attn)
     return _mlp_sublayer(config, layer, x), (k_col, v_col)
 

@@ -30,16 +30,21 @@ _HALF = GROUP // 2
 class Q4Tensor:
     """Packed int4 weight: ``q`` int8 [..., K/2, N] (two nibbles per byte
     along the contraction axis), ``scale`` f32 [..., K/GROUP, N]. ``w[i]``
-    indexes the leading (layer) axis of both."""
+    indexes the leading (layer) axis of both. On a mesh, ``part`` ("col" or
+    "row") and ``mesh`` mark this rank's shard of a tensor-parallel weight,
+    and ``quant.qdot`` takes :func:`w4_matmul_tp`."""
 
-    __slots__ = ("q", "scale")
+    __slots__ = ("q", "scale", "part", "mesh")
 
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, part: Optional[str] = None,
+                 mesh=None):
         self.q = q
         self.scale = scale
+        self.part = part
+        self.mesh = mesh
 
     def __getitem__(self, idx) -> "Q4Tensor":
-        return Q4Tensor(self.q[idx], self.scale[idx])
+        return Q4Tensor(self.q[idx], self.scale[idx], self.part, self.mesh)
 
     def __repr__(self) -> str:
         return f"Q4Tensor(q={tuple(self.q.shape)}, scale={tuple(self.scale.shape)})"
@@ -57,7 +62,7 @@ class Q4Tensor:
         return self.q.dtype
 
     def to(self, device) -> "Q4Tensor":
-        return Q4Tensor(self.q.to(device), self.scale.to(device))
+        return Q4Tensor(self.q.to(device), self.scale.to(device), self.part, self.mesh)
 
     def nbytes(self) -> int:
         return self.q.numel() * self.q.element_size() + self.scale.numel() * 4
@@ -239,3 +244,38 @@ def w4_matmul(x: torch.Tensor, w: Q4Tensor, *, route: Optional[str] = None) -> t
     _ext.check_status("w4_matmul", status)
     _ext.note_launch("w4_matmul")
     return out
+
+
+def _w4_matmul_tp(x: torch.Tensor, w: Q4Tensor, matmul) -> torch.Tensor:
+    from ..parallel.collectives import psum
+    from ..parallel.mesh import MODEL_AXIS
+
+    if w.part == "col":
+        return matmul(x, w)
+    if w.part == "row":
+        return psum(matmul(x, w), MODEL_AXIS, w.mesh)
+    raise ValueError(f"unknown partition kind {w.part!r}")
+
+
+def w4_matmul_tp(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
+    """``x @ dequant(w)`` over the weight's tensor-parallel layout
+    (``w.part``/``w.mesh``), the JAX function's ``shard_map`` body on this
+    rank: K4 (:func:`w4_matmul`) on the rank's shard, then
+
+    - ``col``: nothing; x [rows, K] replicated over model, the weight and
+      the output [rows, N/TP] sharded on their columns;
+    - ``row``: the partials [rows, N] summed over model (one ``psum``); x
+      [rows, K/TP] arrives sharded on its last dimension, the Megatron
+      row-parallel input.
+
+    Rows are whatever this rank holds (the JAX function's rows over
+    ``data`` when they divide, else replicated): no collective crosses
+    ``data``. On the CPU the shard's product is :func:`w4_matmul_plain`.
+    Its launches are K4's (``w4_matmul``'s count)."""
+    return _w4_matmul_tp(x, w, w4_matmul)
+
+
+def w4_matmul_tp_plain(x: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
+    """:func:`w4_matmul_tp` built on :func:`w4_matmul_plain` (the CPU and
+    the tests; never the card path)."""
+    return _w4_matmul_tp(x, w, w4_matmul_plain)

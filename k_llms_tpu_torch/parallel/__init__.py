@@ -1,0 +1,24 @@
+"""The mesh: SPMD tensor and sequence parallelism over ``torch.distributed``.
+
+Counterpart of ``k_llms_tpu/parallel/``. JAX drives a whole mesh from one
+process; here every rank is a process that builds the same engine, holds
+its own shard of the weights and of the KV, and makes the same calls in the
+same order. The ``(data, model)`` axes keep the JAX names: samples and
+sequence chunks ride ``data``, the Megatron weight split rides ``model``.
+The collectives of JAX's ``shard_map`` bodies are in :mod:`.collectives`.
+"""
+
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, auto_mesh, make_mesh
+from .sharding import batch_spec, cache_specs, param_specs, shard_params
+
+__all__ = [
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "Mesh",
+    "auto_mesh",
+    "make_mesh",
+    "param_specs",
+    "cache_specs",
+    "batch_spec",
+    "shard_params",
+]

@@ -1,0 +1,419 @@
+"""Gloo worlds of spawned ranks for the port's mesh tests.
+
+A :class:`World` spawns ``size`` processes that join one ``torch.distributed``
+world over gloo (a ``FileStore`` rendezvous under the test's temporary
+directory, so concurrent files never race for a port) and then serve cases
+through queues: ``world.run("case", **kwargs)`` hands every rank the same
+case and returns the ranks' results in rank order. A case is a function of
+this module named ``case_<name>(rank, **kwargs)``; it runs the port as a
+user would, one rank of an SPMD program, and returns numpy values.
+
+This module imports torch and the port only, never JAX: the ranks are the
+port's processes. The JAX references are computed in the test process.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import time
+import traceback
+from datetime import timedelta
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+CASE_TIMEOUT_S = 240.0
+
+
+class World:
+    """``size`` spawned ranks of one gloo world, serving cases in order."""
+
+    def __init__(self, size: int, store_dir: str, env: Dict[str, str] | None = None):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.size = size
+        self._in = [ctx.Queue() for _ in range(size)]
+        self._out = ctx.Queue()
+        store = os.path.join(str(store_dir), "world_store")
+        self._procs = [
+            ctx.Process(target=_main, args=(r, size, store, self._in[r], self._out, env or {}),
+                        daemon=True)
+            for r in range(size)
+        ]
+        for p in self._procs:
+            p.start()
+
+    def run(self, case: str, **kwargs) -> List[Any]:
+        for q in self._in:
+            q.put((case, kwargs))
+        results: Dict[int, Any] = {}
+        errors = []
+        deadline = time.monotonic() + CASE_TIMEOUT_S
+        while len(results) + len(errors) < self.size:
+            try:
+                rank, ok, payload = self._out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self._procs) if not p.is_alive()]
+                if dead or time.monotonic() > deadline:
+                    self.close()
+                    raise RuntimeError(
+                        f"world case {case!r}: ranks {dead} died" if dead
+                        else f"world case {case!r}: a rank did not answer"
+                    ) from None
+                continue
+            if ok:
+                results[rank] = payload
+            else:
+                errors.append((rank, payload))
+        if errors:
+            raise RuntimeError(
+                "\n".join(f"rank {r} failed case {case!r}:\n{tb}" for r, tb in errors)
+            )
+        return [results[r] for r in range(self.size)]
+
+    def close(self) -> None:
+        for q in self._in:
+            try:
+                q.put(None)
+            except Exception:
+                pass
+        for p in self._procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+
+
+def _main(rank, size, store, inq, outq, env) -> None:
+    os.environ.update(env)
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=size,
+        timeout=timedelta(seconds=120),
+    )
+    try:
+        while True:
+            item = inq.get()
+            if item is None:
+                break
+            case, kwargs = item
+            try:
+                outq.put((rank, True, globals()[f"case_{case}"](rank, **kwargs)))
+            except BaseException:
+                outq.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+# -- helpers ------------------------------------------------------------------
+
+_MESHES: Dict[tuple, Any] = {}
+
+
+def mesh(shape):
+    """The world's (data, model) mesh of ``shape``, made once per world."""
+    from k_llms_tpu_torch.parallel.mesh import make_mesh
+
+    shape = tuple(shape)
+    if shape not in _MESHES:
+        _MESHES[shape] = make_mesh(*shape)
+    return _MESHES[shape]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return x
+
+
+def _result(r) -> Dict[str, Any]:
+    return {
+        "tokens": np.asarray(r.tokens),
+        "logprobs": np.asarray(r.logprobs),
+        "finish_reasons": list(r.finish_reasons),
+        "lengths": np.asarray(r.lengths),
+        "top_tokens": None if r.top_tokens is None else np.asarray(r.top_tokens),
+        "spec_stats": r.spec_stats,
+    }
+
+
+# -- cases --------------------------------------------------------------------
+
+def case_collectives(rank, shape):
+    """psum, pmax, all_gather, ppermute and all_to_all over each axis."""
+    from k_llms_tpu_torch.parallel import collectives as C
+
+    m = mesh(shape)
+    out = {}
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+    for axis in ("data", "model"):
+        out[axis] = {
+            "psum": _np(C.psum(x, axis, m)),
+            "pmax": _np(C.pmax(x, axis, m)),
+            "all_gather": _np(C.all_gather(x, axis, m, dim=1)),
+            "ppermute": _np(C.ppermute(x, axis, m)),
+            "all_to_all": _np(C.all_to_all(
+                torch.arange(4 * m.axis_size(axis), dtype=torch.float32)[None] + 100 * rank,
+                axis, m, split_dim=1, concat_dim=0)),
+            "index": m.axis_index(axis),
+        }
+    return out
+
+
+def case_w4_tp(rank, shape, x, q, scale, part):
+    """w4_matmul_tp_plain on this rank's blocks of a full problem: rows over
+    data when they divide (else replicated), the weight cut by ``part``."""
+    from k_llms_tpu_torch.ops.w4matmul import Q4Tensor, w4_matmul_tp, w4_matmul_tp_plain
+    from k_llms_tpu_torch.parallel.sharding import P, shard_leaf
+
+    m = mesh(shape)
+    x, q, scale = torch.as_tensor(x), torch.as_tensor(q), torch.as_tensor(scale)
+    rows_axis = "data" if x.shape[0] % m.axis_size("data") == 0 else None
+    if part == "col":
+        xs = shard_leaf(x, P(rows_axis, None), m)
+        wspec = P(None, "model")
+    else:
+        xs = shard_leaf(x, P(rows_axis, "model"), m)
+        wspec = P("model", None)
+    w = Q4Tensor(shard_leaf(q, wspec, m), shard_leaf(scale, wspec, m), part=part, mesh=m)
+    plain = w4_matmul_tp_plain(xs, w)
+    routed = w4_matmul_tp(xs, w)  # on CPU tensors: the same plain product
+    return {"out": _np(plain), "routed_equal": bool(torch.equal(plain, routed)),
+            "coords": (m.axis_index("data"), m.axis_index("model")), "rows_axis": rows_axis}
+
+
+def case_ring_attention(rank, shape, q, k, v, causal):
+    from k_llms_tpu_torch.ops.ring_attention import ring_attention
+    from k_llms_tpu_torch.parallel.sharding import P, shard_leaf
+
+    m = mesh(shape)
+    spec = P(None, None, "data", None)
+    qs, ks, vs = (shard_leaf(torch.as_tensor(t), spec, m) for t in (q, k, v))
+    return _np(ring_attention(m, qs, ks, vs, seq_axis="data", causal=causal))
+
+
+def case_ring_decode(rank, shape, q, pk, pv, plen, verify=False):
+    """ring_decode_prefix (or ring_verify_prefix) on this rank's rows and
+    prefix chunk; returns the rank's (out, m, l) blocks."""
+    from k_llms_tpu_torch.ops.ring_attention import ring_decode_prefix, ring_verify_prefix
+    from k_llms_tpu_torch.parallel.sharding import P, shard_leaf
+
+    m = mesh(shape)
+    q = torch.as_tensor(q)
+    qspec = P("data", "model", None, None) if verify else P("data", "model", None)
+    kvspec = P(None, "data", "model", None)
+    fn = ring_verify_prefix if verify else ring_decode_prefix
+    out = fn(m, shard_leaf(q, qspec, m), shard_leaf(torch.as_tensor(pk), kvspec, m),
+             shard_leaf(torch.as_tensor(pv), kvspec, m), plen)
+    return tuple(_np(t) for t in out)
+
+
+def case_suffix_prefix(rank, shape, q, pk, pv, plen):
+    from k_llms_tpu_torch.ops.ring_attention import suffix_prefix_attention
+    from k_llms_tpu_torch.parallel.sharding import P, shard_leaf
+
+    m = mesh(shape)
+    kvspec = P(None, "data", "model", None)
+    out = suffix_prefix_attention(
+        m, shard_leaf(torch.as_tensor(q), P(None, "model", None, None), m),
+        shard_leaf(torch.as_tensor(pk), kvspec, m), shard_leaf(torch.as_tensor(pv), kvspec, m),
+        plen)
+    return tuple(_np(t) for t in out)
+
+
+def case_scatter_ring(rank, shape, buf, suf, start, total):
+    from k_llms_tpu_torch.ops.ring_attention import scatter_into_ring
+    from k_llms_tpu_torch.parallel.sharding import P, shard_leaf
+
+    m = mesh(shape)
+    out = scatter_into_ring(
+        m, shard_leaf(torch.as_tensor(buf), P(None, "data", "model", None), m),
+        shard_leaf(torch.as_tensor(suf), P(None, None, "model", None), m), start, total)
+    return _np(out)
+
+
+def case_sp_forward(rank, shape, config, params, tokens, attention="ring"):
+    """forward_sequence_parallel on this rank's chunk: (logits, hidden, k,
+    v) blocks, or the raised exception's type and message."""
+    from k_llms_tpu_torch.engine.long_context import forward_sequence_parallel
+    from k_llms_tpu_torch.parallel.sharding import shard_params
+
+    m = mesh(shape)
+    try:
+        logits, h, kv = forward_sequence_parallel(
+            config, shard_params(params, m, config), torch.as_tensor(tokens), m,
+            attention=attention)
+    except (ValueError, NotImplementedError) as e:
+        return {"error": type(e).__name__, "message": str(e)}
+    return {"logits": _np(logits), "h": _np(h), "k": _np(kv.k), "v": _np(kv.v)}
+
+
+def case_model_fn(rank, shape, config, params, fn, args):
+    """A models/llama.py entry point on this rank's shard of ``params``."""
+    from k_llms_tpu_torch.models import llama
+    from k_llms_tpu_torch.parallel.sharding import shard_params
+
+    m = mesh(shape)
+    sharded = shard_params(params, m, config)
+    args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in args]
+    out = getattr(llama, fn)(config, sharded, *args)
+    if isinstance(out, tuple):
+        return [_np(o) if isinstance(o, torch.Tensor) else tuple(_np(t) for t in o) for o in out]
+    return _np(out)
+
+
+_ENGINES: Dict[Any, Any] = {}
+
+
+def case_engine(rank, shape, config, params, engine_kwargs, calls, key=None, fresh=False):
+    """Build (or reuse, by ``key``) an engine on the world's mesh of
+    ``shape`` (None: the engine's own auto mesh) over ``params`` (a port
+    tree; None: seeded), then run ``calls``: a list of (method, args,
+    kwargs) on the engine, or ("attr", name) to read an attribute. Returns
+    one value per call."""
+    from k_llms_tpu_torch.engine.engine import GenRequestSpec, LocalEngine
+
+    eng = _ENGINES.get(key) if key is not None and not fresh else None
+    if eng is None:
+        m = mesh(shape) if shape is not None else None
+        eng = LocalEngine(config, params=params, device="cpu", mesh=m, **engine_kwargs)
+        if key is not None:
+            _ENGINES[key] = eng
+    out = []
+    for call in calls:
+        if call[0] == "collectives":  # the collective counts, then reset
+            from k_llms_tpu_torch.parallel import collectives as C
+
+            out.append(dict(C.COLLECTIVE_COUNTS))
+            C.reset_collective_counts()
+            continue
+        if call[0] == "fn":  # ("fn", name, args): a helper below on the engine
+            out.append(globals()[f"_eng_{call[1]}"](eng, *call[2]))
+            continue
+        if call[0] == "attr":
+            val = getattr(eng, call[1])
+            out.append(dict(val) if isinstance(val, dict) else val)
+            continue
+        if call[0] == "leaf":  # ("leaf", key, attr) of the parameter tree
+            node = eng.params["layers"].get(call[1], eng.params.get(call[1]))
+            out.append(getattr(node, call[2]) if call[2] else type(node).__name__)
+            continue
+        method, args, kwargs = call
+        if method == "generate_many":
+            args = ([GenRequestSpec(*a) for a in args[0]],)
+        res = getattr(eng, method)(*args, **kwargs)
+        if method == "generate":
+            out.append(_result(res))
+        elif method == "generate_many":
+            out.append([_result(r) if not isinstance(r, BaseException) else repr(r) for r in res])
+        elif method == "_prefill_full":
+            fl, kv = res
+            out.append({"logits": _np(fl), "type": type(kv).__name__,
+                        "k": _np(kv.k), "v": _np(kv.v)})
+        else:
+            out.append(_np(res))
+    return out
+
+
+def case_engine_error(rank, shape, config, params, engine_kwargs):
+    """The exception building an engine raises: (type, message)."""
+    from k_llms_tpu_torch.engine.engine import LocalEngine
+
+    try:
+        LocalEngine(config, params=params, device="cpu", mesh=mesh(shape), **engine_kwargs)
+    except Exception as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def case_rank_check(rank, shape, perturb_rank):
+    """assert_ranks_agree on equal tokens, then with one rank's perturbed."""
+    from k_llms_tpu_torch.parallel.collectives import RankDivergenceError, assert_ranks_agree
+
+    m = mesh(shape)
+    tok = torch.arange(8)
+    assert_ranks_agree(tok, m, "tokens")
+    if rank == perturb_rank:
+        tok = tok.clone()
+        tok[3] += 1
+    try:
+        assert_ranks_agree(tok, m, "tokens")
+    except RankDivergenceError as e:
+        return str(e)
+    return None
+
+
+def case_client(rank, engine_kwargs, request, rank_check=True):
+    """A KLLMs client in every rank (its engine builds the auto mesh of the
+    world), one create() call; returns the texts."""
+    from k_llms_tpu_torch import KLLMs
+
+    client = KLLMs(backend="cuda", device="cpu", **engine_kwargs)
+    client.backend.engine.rank_check = rank_check
+    try:
+        r = client.chat.completions.create(**request)
+        mesh_shape = client.backend.engine.mesh.shape if client.backend.engine.mesh else None
+        return {"texts": [c.message.content for c in r.choices], "mesh": mesh_shape}
+    finally:
+        client.close()
+
+
+def case_mesh_shapes(rank):
+    from k_llms_tpu_torch.parallel.mesh import auto_mesh, make_mesh
+
+    out = {"auto": dict(auto_mesh().shape), "coords": None}
+    m = auto_mesh(model_parallel=2)
+    out["auto_mp2"] = dict(m.shape)
+    out["coords"] = (m.axis_index("data"), m.axis_index("model"))
+    for key, fn in (("too_big", lambda: make_mesh(4, 4)),
+                    ("mp3", lambda: auto_mesh(model_parallel=3))):
+        try:
+            fn()
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    return out
+
+
+def case_decode_on_shards(rank, shape, config, params, tokens, prompt_len, n):
+    """prefill then one decode step of ``n`` rows on this rank's shard."""
+    from k_llms_tpu_torch.models import llama
+    from k_llms_tpu_torch.parallel.sharding import shard_params
+
+    m = mesh(shape)
+    sharded = shard_params(params, m, config)
+    tokens = torch.as_tensor(tokens, dtype=torch.int64)
+    _, (k, v) = llama.prefill(config, sharded, tokens, prompt_len)
+    kv_cfg = config.with_(num_kv_heads=k.shape[3])
+    gen = llama.init_cache(kv_cfg, n, 4, "cpu")
+    tk = torch.full((n,), int(tokens[0, prompt_len]), dtype=torch.int64)
+    logits, _ = llama.decode_step(config, sharded, tk, 0, torch.tensor([prompt_len]), gen,
+                                  llama.KVCache(k=k, v=v))
+    return _np(logits)
+
+
+def _eng_plant_replicated(eng, ids):
+    """Store the replicated layout of a prompt's prefill under its key (what
+    a replicated-path run sharing the cache would leave behind)."""
+    ids, plen, bucket = eng._prep_prompt(ids)
+    fl, kv = eng._prefill_full(ids, plen, bucket)
+    eng._prefix_store(ids, fl, eng._replicated(kv))
+    return eng._kv_seq_sharded(eng._prefix_entries[tuple(ids)][1])
+
+
+def _eng_entry_layout(eng, ids):
+    """(sequence-sharded?, this rank's stored positions) of a cache entry."""
+    kv = eng._prefix_entries[tuple(ids)][1]
+    return eng._kv_seq_sharded(kv), int(kv.k.shape[2])
+
+
+def _eng_prefill_routed(eng, ids, bucket):
+    fl, kv = eng._prefill_routed(ids, len(ids), bucket)
+    return _np(fl)
+
+
+def _eng_prefill_full_layout(eng, ids, bucket):
+    fl, kv = eng._prefill_full(ids, len(ids), bucket)
+    return type(kv).__name__, int(kv.k.shape[2]), _np(fl)

@@ -106,10 +106,19 @@ def test_backend_knobs_reach_the_engine(monkeypatch):
 @pytest.mark.parametrize("field,value", [("model_parallel", 2), ("sp_decode", True),
                                          ("sp_attention", "ring")])
 def test_unported_backend_field_raises(field, value):
-    """A keyword naming a JAX BackendConfig field the port has not ported
-    raises and names the field; it is never dropped."""
-    with pytest.raises(NotImplementedError, match=field):
-        KLLMs(backend="cuda", model="tiny", device="cpu", **{field: value})
+    """The mesh fields were the last JAX BackendConfig fields the port had
+    not ported: none is left to raise. Each now reaches the backend config
+    and the engine, and in a world of one builds no mesh, as the JAX
+    engine on one device; a misspelled keyword still raises."""
+    from k_llms_tpu_torch.backends.cuda import UNPORTED_FIELDS
+
+    assert not UNPORTED_FIELDS
+    client = KLLMs(backend="cuda", model="tiny", device="cpu", **{field: value})
+    assert getattr(client.backend.backend_config, field) == value
+    assert client.backend.engine.mesh is None
+    client.close()
+    with pytest.raises(TypeError, match="unknown keyword"):
+        KLLMs(backend="cuda", model="tiny", device="cpu", **{field + "_": value})
 
 
 @pytest.mark.parametrize("field,value", [("prefix_cache_size", 4), ("prefix_cache_min_reuse", 8),
@@ -302,6 +311,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "    conn.close()\n"
         "assert sse.endswith(b'data: [DONE]\\n\\n') and b'chat.completion.chunk' in sse\n"
         "assert observability.TRACER is not None\n"
+        "from k_llms_tpu_torch.parallel import collectives, distributed, mesh, sharding\n"
+        "from k_llms_tpu_torch.ops import ring_attention\n"
+        "from k_llms_tpu_torch.engine import long_context\n"
+        "assert distributed.initialize_multihost() is False\n"
         "from k_llms_tpu_torch.analysis.__main__ import main as lint\n"
         "assert lint(['--check']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

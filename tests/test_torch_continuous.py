@@ -232,7 +232,7 @@ def test_loop_fields_take_the_jax_defaults():
                   "continuous_max_new", "prefill_chunk_tokens", "device_consensus"):
         assert field not in UNPORTED_FIELDS
         assert BackendConfig.model_fields[field].default == JaxBackendConfig.model_fields[field].default
-    assert len(UNPORTED_FIELDS) == 4
+    assert len(UNPORTED_FIELDS) == 0
     mm = HbmMemoryModel(get_config("tiny"), param_bytes=1 << 20)
     assert mm.prefill_chunk_tokens(4, 32) == 0
     assert mm.prefill_chunk_tokens(32, 2048) == 128

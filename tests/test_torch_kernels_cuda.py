@@ -1047,3 +1047,197 @@ def test_disconnect_aborts_the_launch(served_8b):
         assert engine._kv_pool.allocator.snapshot()["in_use"] == 0
     nxt = http_call(port, "POST", "/v1/chat/completions", dict(body, max_tokens=8, stream=False))
     assert nxt[0] == 200
+
+
+# -- the mesh: K4 at the tensor-parallel shard shapes, a world of one -------
+
+#: Llama-3-8B's int4 weights cut for TP = 2 (the rank's [K, N]): column
+#: splits of wq, wk/wv, w_gate/w_up and lm_head, row splits of wo, w_down.
+LLAMA3_8B_W4_TP2 = {"wq": (4096, 2048), "wk_wv": (4096, 512), "w_gate_up": (4096, 7168),
+                    "lm_head": (4096, 64128), "wo": (2048, 4096), "w_down": (7168, 4096)}
+
+
+@pytest.mark.parametrize("shape", sorted(LLAMA3_8B_W4_TP2))
+@pytest.mark.parametrize("rows", [8, 2048])
+def test_w4_matmul_at_tp2_shard_shapes(cuda_device, shape, rows):
+    """K4 on each TP = 2 shard of the 8B weights (new split-K plans at N =
+    64128 and K = 7168), at a decode batch and the long prefill's bucket,
+    within K4's limit of its plain version; through ``w4_matmul_tp`` on a
+    trivial mesh (TP = 1) it is the same bits and counts K4's launch."""
+    from k_llms_tpu_torch.ops import w4matmul as w4
+    from k_llms_tpu_torch.parallel.mesh import Mesh
+
+    K, N = LLAMA3_8B_W4_TP2[shape]
+    rng = np.random.default_rng(K + N + rows)
+    x, w = _w4_case(rng, rows, K, N, cuda_device)
+    assert w4.kernel_supports(K, N)
+    out = w4.w4_matmul(x, w)
+    before = _ext.LAUNCH_COUNTS["w4_matmul"]
+    for part in ("col", "row"):
+        tp = w4.w4_matmul_tp(x, w4.Q4Tensor(w.q, w.scale, part=part, mesh=Mesh(1, 1)))
+        assert torch.equal(tp, out)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCH_COUNTS["w4_matmul"] == before + 2
+    ref = w4.w4_matmul_plain(x, w).float()
+    room = 2.0 ** -6 * ref.abs() + 1e-5 * _w4_group_sums(x, w, absolute=True)
+    assert ((out.float() - ref).abs() <= room).all()
+
+
+def _nccl_world_of_one(store, outq):
+    import os
+    import sys
+    from datetime import timedelta
+
+    sys.path.insert(0, os.getcwd())
+    import torch.distributed as dist
+
+    from k_llms_tpu_torch.ops import w4matmul as w4
+    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                                timeout=timedelta(seconds=120))
+        mesh = make_mesh(1, 1)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn((4, 8, 16), generator=g, device="cuda").to(torch.bfloat16)
+        same = [torch.equal(f(x), x) for f in (
+            lambda t: C.psum(t, "model", mesh), lambda t: C.pmax(t, "data", mesh),
+            lambda t: C.all_gather(t, "model", mesh, dim=1), lambda t: C.ppermute(t, "data", mesh),
+            lambda t: C.all_to_all(t, "model", mesh, split_dim=1, concat_dim=2))]
+        q = torch.randint(-128, 128, (2048, 4096), generator=g, device="cuda", dtype=torch.int8)
+        scale = torch.rand((32, 4096), generator=g, device="cuda") / 64
+        xs = torch.randn((8, 4096), generator=g, device="cuda").to(torch.bfloat16)
+        base = w4.w4_matmul(xs, w4.Q4Tensor(q, scale))
+        tp = [torch.equal(w4.w4_matmul_tp(xs, w4.Q4Tensor(q, scale, part=p, mesh=mesh)), base)
+              for p in ("col", "row")]
+        outq.put((mesh.transport, same, tp, C.COLLECTIVE_COUNTS["host_staged_bytes"]))
+        dist.destroy_process_group()
+    except BaseException as e:
+        outq.put(repr(e))
+
+
+def test_nccl_world_of_one(cuda_device, tmp_path):
+    """The path of a machine with a card per rank: an nccl world of one on
+    device tensors. Every collective is the identity, nothing is staged
+    through the host, and w4_matmul_tp at TP = 1 equals w4_matmul bit for
+    bit."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    p = ctx.Process(target=_nccl_world_of_one, args=(str(tmp_path / "store"), outq))
+    p.start()
+    try:
+        res = outq.get(timeout=180)
+    finally:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+    assert not isinstance(res, str), res
+    transport, same, tp, staged = res
+    assert transport == "nccl" and all(same) and all(tp) and staged == 0
+
+
+def _spawn_ranks(target, size, tmp_path, timeout=240):
+    """Run ``target(rank, size, store, outq)`` in ``size`` spawned processes;
+    returns each rank's answer (None where a rank gave none in time)."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    store = str(tmp_path / "store")
+    procs = [ctx.Process(target=target, args=(r, size, store, outq)) for r in range(size)]
+    for p in procs:
+        p.start()
+    res = [None] * size
+    try:
+        for _ in range(size):
+            try:
+                rank, answer = outq.get(timeout=timeout)
+            except queue.Empty:
+                break
+            res[rank] = answer
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return res
+
+
+def _nccl_two_ranks(rank, size, store, outq):
+    import os
+    import sys
+    from datetime import timedelta
+
+    sys.path.insert(0, os.getcwd())
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                                world_size=size, timeout=timedelta(seconds=60),
+                                device_id=torch.device("cuda", 0))
+        x = torch.full((1024,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        outq.put((rank, float(x[0].item())))
+        dist.destroy_process_group()
+    except BaseException as e:  # the refusal is the answer
+        outq.put((rank, f"{type(e).__name__}: {e}"))
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda_device, tmp_path):
+    """Why ranks that share a card take gloo (``parallel/distributed.py``):
+    NCCL refuses two ranks on one device ("Duplicate GPU detected"). If it
+    ever takes them, the transport rule is to be revisited."""
+    res = _spawn_ranks(_nccl_two_ranks, 2, tmp_path, timeout=150)
+    assert any(isinstance(r, str) and "Duplicate GPU" in r for r in res), res
+
+
+def _int4_tp4_rank(rank, size, store, outq):
+    import os
+    import sys
+
+    sys.path.insert(0, os.getcwd())
+    os.environ["KLLMS_RANK_CHECK"] = "1"
+    import torch.distributed as dist
+
+    from k_llms_tpu_torch.engine.engine import LocalEngine
+    from k_llms_tpu_torch.models.config import get_config
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=size)
+        cfg = get_config("llama-3-8b").with_(num_layers=2)
+        eng = LocalEngine(cfg, device="cuda", quantize="int4", kv_layout="dense",
+                          mesh=make_mesh(1, size))
+        _ext.reset_launch_counts()
+        out = eng.generate(list(range(5, 40)), n=2, max_new_tokens=4, temperature=0.0, seed=1)
+        torch.cuda.synchronize()
+        outq.put((rank, {"lm_head": type(eng.params["lm_head"]).__name__,
+                         "wq": eng.params["layers"]["wq"].part,
+                         "tokens": np.asarray(out.tokens).tolist(),
+                         "k4": _ext.LAUNCH_COUNTS["w4_matmul"]}))
+        dist.destroy_process_group()
+    except BaseException as e:
+        outq.put((rank, f"{type(e).__name__}: {e}"))
+
+
+def test_int4_tp4_keeps_off_kernel_lm_head_int8(cuda_device, tmp_path):
+    """Llama-3-8B int4 at model parallel = 4 (depth cut to two layers): the
+    lm_head shard [4096, 32064] misses K4's blocking, so it stays int8; the
+    other weights take K4 through w4_matmul_tp, and the four ranks serve a
+    request with the same tokens."""
+    _ext.build_all()  # once, before the ranks start
+    res = _spawn_ranks(_int4_tp4_rank, 4, tmp_path)
+    assert all(isinstance(r, dict) for r in res), res
+    assert all(r["lm_head"] == "QTensor" and r["wq"] == "col" and r["k4"] > 0 for r in res)
+    assert all(r["tokens"] == res[0]["tokens"] for r in res)
