@@ -89,7 +89,17 @@ collective count holds its formula and the ranks' peaks sum under 80 GB;
 then K4 at every TP = 2 shard shape against its plain version (timed),
 ``w4_matmul_tp`` against two mutants across the ranks (a dropped partial,
 a column shard at the other rank's offset), the gloo ``psum``'s host time,
-and an nccl world of one on device tensors.
+and an nccl world of one on device tensors. ``train`` (last) drives the
+causal-LM train step (``engine/training.py``): tiny fp32, three steps on the
+card against the same steps on the CPU; Llama-3-8B's widths at 8 of its 32
+layers in bf16 with the reference attention, five AdamW steps on one
+seeded batch (losses, step time, peak memory), that trained tree then
+served on the paged path through K2 and K1 (counts asserted) with the same
+greedy tokens as the tree carried through ``params_to_numpy`` and back; 2
+layers in f32, the card's loss and gradient norms against the CPU's; the
+flash config refused before any allocation; and two ranks on the one card
+over gloo, tensor-parallel (1, 2) in bf16, their losses equal, within the
+unsharded card step's and every step's collectives by formula.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
@@ -125,7 +135,8 @@ from typing import Literal
 from pydantic import BaseModel, Field
 
 PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "serve", "ckpt", "loop",
-          "8b_int4", "sched", "spec", "sanitize", "gemma9b", "mistral7b", "mixtral_int4", "mesh")
+          "8b_int4", "sched", "spec", "sanitize", "gemma9b", "mistral7b", "mixtral_int4", "mesh",
+          "train")
 # The model-family phases, in the order they run, and the cut of a
 # family's depth (layers // divisor; widths as published): Mixtral, the
 # longest phase and one with no grammar-constrained request, runs at half
@@ -2032,8 +2043,118 @@ def mesh_nccl_one(shapes, rows_list):
             "staged_bytes": C.COLLECTIVE_COUNTS["host_staged_bytes"]}
 
 
+# -- the train phase: the causal-LM train step on the card --------------------
+#
+# Limits, fixed before the phase first ran. fp32 card against fp32 CPU
+# (parts a and c): the loss to
+# 1e-5 relative and the parameters after three AdamW steps to 5e-5 absolute
+# (the CPU twins' limits against JAX: Adam moves an element with a
+# near-zero gradient by up to the learning rate whatever sign its float
+# noise has); each leaf's gradient norm to 1e-4 relative. bf16 (parts e and
+# the card-only test): the loss to 1e-2 relative, since the sharded forward
+# rounds each row-parallel partial to bf16 once more than the unsharded one
+# (about 2^-9 of a sublayer's output) and the card's and the CPU's bf16
+# matmuls round at other points.
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_PARAM_ATOL = 5e-5
+TRAIN_F32_GRAD_NORM_RTOL = 1e-4
+TRAIN_BF16_LOSS_RTOL = 1e-2
+
+
+def train_config(layers: int, dtype: str):
+    """Llama-3-8B at its published widths with the reference attention
+    (the flash kernel has no backward), cut to ``layers``."""
+    from k_llms_tpu_torch.models.config import get_config
+
+    return get_config("llama-3-8b").with_(attention_impl="xla", num_layers=layers, dtype=dtype)
+
+
+def train_batch(config, B: int, S: int, valid_last: int, seed: int):
+    """Seeded byte tokens [B, S] (int64, CPU) whose last row holds
+    ``valid_last`` real tokens and pads the rest, and its mask."""
+    import numpy as np
+    import torch
+
+    tokens = np.random.default_rng(seed).integers(0, 256, (B, S))
+    mask = np.ones_like(tokens)
+    mask[-1, valid_last:] = 0
+    tokens[mask == 0] = config.pad_token_id
+    return torch.from_numpy(tokens), torch.from_numpy(mask)
+
+
+def tree_to(tree: dict, device) -> dict:
+    """A copy of a plain (unsharded, unquantized) tree on ``device``."""
+    return {"embed": tree["embed"].to(device, copy=True),
+            "layers": {k: v.to(device, copy=True) for k, v in tree["layers"].items()},
+            "final_norm": tree["final_norm"].to(device, copy=True),
+            "lm_head": tree["lm_head"].to(device, copy=True)}
+
+
+def loss_and_grad_norms(config, tree, tokens, mask):
+    """The port's loss on ``tree``'s device and each leaf's gradient norm
+    (f64), with the tree left as it was."""
+    import torch
+
+    from k_llms_tpu_torch.engine.training import _leaves, causal_lm_loss
+
+    leaves = dict(_leaves(tree))
+    for p in leaves.values():
+        p.requires_grad_(True)
+    try:
+        dev = tree["embed"].device
+        loss = causal_lm_loss(config, tree, tokens.to(dev), mask.to(dev))
+        loss.backward()
+    finally:
+        for p in leaves.values():
+            p.requires_grad_(False)
+    norms = {path: p.grad.double().norm().item() for path, p in leaves.items()}
+    for p in leaves.values():
+        p.grad = None
+    return loss.item(), norms
+
+
+def mesh_train(layers, B, S, valid_last, steps, seed):
+    """``steps`` train steps of the seeded Llama-3-8B-width tree (bf16,
+    ``layers`` deep) on the world's (1, world) mesh, each rank drawing the
+    whole tree leaf by leaf and keeping its shard (the unsharded draws);
+    each step's loss, collective counts and host seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from k_llms_tpu_torch.engine.training import make_train_step
+    from k_llms_tpu_torch.models.llama import init_params
+    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.mesh import make_mesh
+    from k_llms_tpu_torch.parallel.sharding import param_specs, shard_node
+
+    mesh = make_mesh(1, dist.get_world_size())
+    cfg = train_config(layers, "bfloat16")
+    specs = param_specs(cfg)
+    flat = {**specs["layers"], **{k: v for k, v in specs.items() if k != "layers"}}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    tree = init_params(cfg, gen, "cuda", shard=lambda key, leaf: shard_node(leaf, flat[key], mesh))
+    tree["mesh"] = mesh
+    tokens, mask = train_batch(cfg, B, S, valid_last, seed)
+    init_state, step = make_train_step(cfg, mesh=mesh)
+    opt = init_state(tree)
+    out = []
+    for _ in range(steps):
+        C.reset_collective_counts()
+        t0 = time.perf_counter()
+        tree, opt, loss = step(tree, opt, tokens, mask)
+        loss = loss.item()
+        out.append({"loss": loss, "step_s": time.perf_counter() - t0,
+                    "collectives": dict(C.COLLECTIVE_COUNTS)})
+    res = {"steps": out, "L": cfg.num_layers, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "mesh": dict(mesh.shape), "transport": mesh.transport}
+    del tree, opt
+    torch.cuda.empty_cache()
+    return res
+
+
 MESH_JOBS = {"serve": mesh_serve, "w4_tp": mesh_w4_tp_check, "psum": mesh_psum_times,
-             "nccl_one": mesh_nccl_one}
+             "nccl_one": mesh_nccl_one, "train": mesh_train}
 
 
 def main(argv=None) -> int:
@@ -5297,6 +5418,217 @@ def main(argv=None) -> int:
             "psum_host_ms": {"gloo": psum_gloo, "nccl_world_of_one_2048x4096":
                              nccl["psum_2048x4096_host_ms"]}}
         log({"phase": "mesh_done", "seconds": time.perf_counter() - t_mesh, "ranks_s": ranks_s})
+
+    # 13. The causal-LM train step (last: it must not move an earlier
+    # phase's memory). (a) tiny fp32 on the card against the CPU; (b) the
+    # 8B widths at 8 layers in bf16, five steps; (f) that trained tree
+    # served through the kernels; (c) 2 layers in f32, the card's loss and
+    # gradient norms against the CPU's; (d) the flash config refused before
+    # any allocation; (e) two ranks on the one card over gloo, TP (1, 2).
+    if "train" in phases:
+        from k_llms_tpu_torch.engine.engine import LocalEngine
+        from k_llms_tpu_torch.engine.training import UntrainableError, make_train_step
+        from k_llms_tpu_torch.models.config import get_config
+        from k_llms_tpu_torch.models.llama import (init_params, params_from_numpy,
+                                                   params_to_numpy)
+
+        t_train = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) tiny fp32: three steps on the card and three on the CPU.
+        t0 = time.perf_counter()
+        tiny_cfg = get_config("tiny")
+        host_tree = init_params(tiny_cfg, torch.Generator().manual_seed(args.seed), "cpu")
+        card_tree = tree_to(host_tree, dev)
+        tokens, mask = train_batch(tiny_cfg, 4, 32, 19, args.seed)
+        init_state, step = make_train_step(tiny_cfg)
+        opt_h, opt_c = init_state(host_tree), init_state(card_tree)
+        losses = []
+        for _ in range(3):
+            _, _, lh = step(host_tree, opt_h, tokens, mask)
+            _, _, lc = step(card_tree, opt_c, tokens, mask)
+            losses.append((lc.item(), lh.item()))
+        param_err = max((card_tree["layers"][k].cpu() - v).abs().max().item()
+                        for k, v in host_tree["layers"].items())
+        for key in ("embed", "final_norm", "lm_head"):
+            param_err = max(param_err, (card_tree[key].cpu() - host_tree[key]).abs().max().item())
+        loss_err = max(abs(c - h) / abs(h) for c, h in losses)
+        log({"phase": "train_tiny", "losses_card_cpu": losses, "loss_rel_err": loss_err,
+             "param_max_abs_err": param_err, "loss_limit": TRAIN_F32_LOSS_RTOL,
+             "param_limit": TRAIN_F32_PARAM_ATOL, "card_device": str(lc.device),
+             "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+        if not (loss_err <= TRAIN_F32_LOSS_RTOL and param_err <= TRAIN_F32_PARAM_ATOL
+                and lc.device.type == "cuda"):
+            raise AssertionError(f"train tiny: card against CPU {loss_err}, {param_err}")
+        del host_tree, card_tree, opt_h, opt_c
+
+        # (b) Llama-3-8B widths, 8 of 32 layers, bf16, five steps on one batch.
+        t0 = time.perf_counter()
+        cfg8 = train_config(8, "bfloat16")
+        torch.cuda.synchronize()
+        allocated_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tree8 = init_params(cfg8, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        tokens, mask = train_batch(cfg8, 2, 512, 384, args.seed)
+        init_state, step = make_train_step(cfg8)
+        opt8 = init_state(tree8)
+        wq0 = tree8["layers"]["wq"][0].clone()
+        losses, step_s = [], []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            tree8, opt8, loss = step(tree8, opt8, tokens, mask)
+            losses.append(loss.item())
+            step_s.append(time.perf_counter() - t1)
+        changed = int((tree8["layers"]["wq"][0] != wq0).sum().item())
+        n_params = sum(p.numel() for g in opt8.param_groups for p in g["params"])
+        rec = {"phase": "train_8b", "layers": cfg8.num_layers, "dtype": cfg8.dtype,
+               "batch": [2, 512], "valid_tokens": int(mask.sum()), "params": n_params,
+               "losses": losses, "step_s": step_s, "wq0_elements_changed": changed,
+               "allocated_before_bytes": allocated_before,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+               "peak_above_before_bytes": torch.cuda.max_memory_allocated() - allocated_before,
+               "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+        log(rec)
+        if not all(math.isfinite(x) for x in losses) or changed == 0:
+            raise AssertionError(f"train 8b: losses {losses}, {changed} elements of wq[0] changed")
+        del opt8, wq0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (f) The trained tree served on the paged path through the kernels
+        # (K2 each prefill layer, K1 each decode step's layer), against the
+        # same engine on the tree carried through params_to_numpy and back.
+        t0 = time.perf_counter()
+        serve_cfg = cfg8.with_(attention_impl="flash")
+        prompt = list(range(32, 96)) * 2
+        gen_kw = dict(n=4, max_new_tokens=16, temperature=0.0, seed=0)
+        served = {}
+        for label in ("trained", "round_trip"):
+            params = tree8 if label == "trained" else params_from_numpy(
+                params_to_numpy(tree8), serve_cfg, device=dev)
+            eng = LocalEngine(serve_cfg, params=params, device=dev)
+            torch.cuda.synchronize()
+            reset_counts()
+            res = eng.generate(prompt, **gen_kw)
+            torch.cuda.synchronize()
+            counts = dict(_ext.LAUNCH_COUNTS)
+            st = dict(eng.last_launch_stats)
+            expected = {name: 0 for name in counts}
+            expected.update(flash_attention=serve_cfg.num_layers,
+                            paged_decode_attention=serve_cfg.num_layers * st["decode_steps"])
+            served[label] = (np.asarray(res.tokens), counts, expected, st["kv_layout"])
+            del eng, params, res
+            gc.collect()
+            torch.cuda.empty_cache()
+        (tok_t, counts_t, exp_t, layout_t), (tok_r, counts_r, exp_r, layout_r) = (
+            served["trained"], served["round_trip"])
+        same = bool(np.array_equal(tok_t, tok_r))
+        log({"phase": "train_serve", "tokens_equal_round_trip": same, "launches": counts_t,
+             "expected": exp_t, "round_trip_launches": counts_r, "kv_layout": layout_t,
+             "tokens": tok_t[:, :8].tolist(), "seconds": time.perf_counter() - t0})
+        if (not same or counts_t != exp_t or counts_r != exp_r or exp_t["flash_attention"] == 0
+                or layout_t != "paged" or layout_r != "paged"):
+            raise AssertionError(f"train_serve: tokens equal {same}, {counts_t} vs {exp_t}, "
+                                 f"{counts_r} vs {exp_r}, layouts {layout_t} {layout_r}")
+        del tree8
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) The same widths at 2 layers in f32: the card's loss and
+        # per-leaf gradient norms against the port's CPU step on the tree.
+        t0 = time.perf_counter()
+        cfg2 = train_config(2, "float32")
+        card_tree = init_params(cfg2, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        host_tree = tree_to(card_tree, "cpu")
+        tokens, mask = train_batch(cfg2, 1, 128, 128, args.seed)
+        t1 = time.perf_counter()
+        card_loss, card_norms = loss_and_grad_norms(cfg2, card_tree, tokens, mask)
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host_loss, host_norms = loss_and_grad_norms(cfg2, host_tree, tokens, mask)
+        host_s = time.perf_counter() - t1
+        loss_err = abs(card_loss - host_loss) / abs(host_loss)
+        norm_err = {k: abs(card_norms[k] - v) / v for k, v in host_norms.items()}
+        log({"phase": "train_f32_2l", "card_loss": card_loss, "cpu_loss": host_loss,
+             "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+             "card_grad_norms": card_norms, "loss_limit": TRAIN_F32_LOSS_RTOL,
+             "grad_norm_limit": TRAIN_F32_GRAD_NORM_RTOL, "card_s": card_s, "cpu_s": host_s,
+             "seconds": time.perf_counter() - t0})
+        if not (loss_err <= TRAIN_F32_LOSS_RTOL
+                and max(norm_err.values()) <= TRAIN_F32_GRAD_NORM_RTOL):
+            raise AssertionError(f"train f32 2 layers: loss {loss_err}, norms {norm_err}")
+        del card_tree, host_tree
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) The 8B flash config: refused before any allocation.
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            make_train_step(get_config("llama-3-8b"))
+            refused = None
+        except UntrainableError as e:
+            refused = str(e)
+        after = torch.cuda.memory_allocated()
+        log({"phase": "train_refuse_flash", "refused": refused, "allocated_delta": after - before})
+        if refused is None or "attention_impl" not in refused or after != before:
+            raise AssertionError(f"train refuse: {refused!r}, allocated {after - before} bytes")
+
+        # (e) Two ranks on the one card over gloo (NCCL refuses two ranks on
+        # one card): TP (1, 2) at 2 layers in bf16, two steps, against the
+        # unsharded card step on the same seeded tree. A step's collectives:
+        # forward, a psum of each row-parallel output (2L) and of the
+        # embedding (1); backward, a psum of the gradient entering each
+        # column-parallel input (attention, MLP: 2L; the head: 1); one
+        # all_gather of the logits. No data axis: nothing else.
+        t0 = time.perf_counter()
+        batch_e = dict(B=2, S=256, valid_last=200)
+        cfg_e = train_config(2, "bfloat16")
+        ref_tree = init_params(cfg_e, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        tokens, mask = train_batch(cfg_e, batch_e["B"], batch_e["S"], batch_e["valid_last"],
+                                   args.seed)
+        init_state, step = make_train_step(cfg_e)
+        opt_e = init_state(ref_tree)
+        ref_losses = [step(ref_tree, opt_e, tokens, mask)[2].item() for _ in range(2)]
+        del ref_tree, opt_e
+        gc.collect()
+        torch.cuda.empty_cache()
+        store_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_tmp")
+        os.makedirs(store_dir, exist_ok=True)
+        t1 = time.perf_counter()
+        ranks = run_ranks(2, "gloo", [{"name": "train_tp2", "kind": "train", "args": dict(
+            layers=2, steps=2, seed=args.seed, **batch_e)}], store_dir)["train_tp2"]
+        ranks_s = time.perf_counter() - t1
+        L = cfg_e.num_layers
+        expected = {"psum": 4 * L + 2, "pmax": 0, "all_gather": 1, "ppermute": 0,
+                    "all_to_all": 0}
+        problems = []
+        rank_losses = [[s["loss"] for s in r["steps"]] for r in ranks]
+        if rank_losses[1] != rank_losses[0]:
+            problems.append(f"ranks' losses differ: {rank_losses}")
+        errs = [abs(a - b) / abs(b) for a, b in zip(rank_losses[0], ref_losses)]
+        if not max(errs) <= TRAIN_BF16_LOSS_RTOL:
+            problems.append(f"loss against the unsharded step {errs} > {TRAIN_BF16_LOSS_RTOL}")
+        for r in ranks:
+            for s in r["steps"]:
+                got = {k: s["collectives"][k] for k in expected}
+                if got != expected:
+                    problems.append(f"collectives {got} != {expected}")
+        log({"phase": "train_tp2", "mesh": ranks[0]["mesh"], "transport": ranks[0]["transport"],
+             "losses": rank_losses, "unsharded_losses": ref_losses, "loss_rel_err": errs,
+             "loss_limit": TRAIN_BF16_LOSS_RTOL, "expected_collectives_per_step": expected,
+             "collectives": [[s["collectives"] for s in r["steps"]] for r in ranks],
+             "host_staged_bytes_per_step": [s["collectives"]["host_staged_bytes"]
+                                            for s in ranks[0]["steps"]],
+             "step_s": [[s["step_s"] for s in r["steps"]] for r in ranks],
+             "rank_peak_bytes": [r["peak_bytes"] for r in ranks], "ranks_s": ranks_s,
+             "seconds": time.perf_counter() - t0, "ok": not problems})
+        if problems:
+            raise AssertionError(f"train_tp2: {problems}")
+        log({"phase": "train_done", "seconds": time.perf_counter() - t_train,
+             "nvidia_smi": smi})
 
     if "spec" in phases:
         # The spec phase's counted windows, and K4 and the draws at the

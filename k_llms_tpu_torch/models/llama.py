@@ -43,7 +43,10 @@ functions: heads are read from the weights' shapes (QH/TP and KVH/TP a
 rank), the row-parallel ``wo`` and ``w_down`` (or the rank's experts) are
 followed by one ``psum`` over ``model``, the vocabulary-sharded embedding
 masks the rows it does not own and sums, and the head's vocabulary shards
-are gathered into whole logits. A decode or verify step given ``ring_mesh``
+are gathered into whole logits. Those boundaries go through the
+differentiable collectives (``reduce_from_model``, ``copy_to_model``,
+``gather_from_model``), so a train step's gradients are the unsharded
+ones, cut the same way. A decode or verify step given ``ring_mesh``
 attends a SEQUENCE-SHARDED prefix (each rank's chunk) through ring
 attention (``ops/ring_attention.py``), the JAX ``sp_ring_mesh`` arm.
 
@@ -62,7 +65,7 @@ import torch
 
 from ..ops.attention import NEG_INF, decode_prefix_attention, flash_attention
 from ..ops.w4matmul import Q4Tensor
-from ..parallel.collectives import all_gather, psum
+from ..parallel.collectives import copy_to_model, gather_from_model, reduce_from_model
 from ..parallel.mesh import MODEL_AXIS, is_tensor_parallel
 from .config import ModelConfig
 from .quant import QTensor, qdot, qeinsum
@@ -203,6 +206,28 @@ def params_from_numpy(tree: Dict[str, Any], config: ModelConfig, device="cpu") -
     }
 
 
+def params_to_numpy(tree: Params) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy` for an unsharded tree of
+    plain tensors (a trained tree): the JAX package's layout with numpy
+    leaves, bf16 widened to f32 (numpy has no bf16; the widening is exact,
+    and ``params_from_numpy`` rounds it back bit for bit)."""
+    if _tp_mesh(tree) is not None:
+        raise ValueError("params_to_numpy takes an unsharded tree, not a tensor-parallel shard")
+
+    def array(t):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"params_to_numpy takes plain tensors, not {type(t).__name__}")
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return {
+        "embed": array(tree["embed"]),
+        "layers": {k: array(v) for k, v in tree["layers"].items()},
+        "final_norm": array(tree["final_norm"]),
+        "lm_head": array(tree["lm_head"]),
+    }
+
+
 def _layer(params: Params, i: int) -> Params:
     """Layer ``i``'s weights; quantized leaves slice their payload and
     scales together. A sharded tree's mesh rides along under ``"mesh"``."""
@@ -224,7 +249,7 @@ def _row_parallel_dot(x: torch.Tensor, w, mesh) -> torch.Tensor:
     int4 weight's ``w4_matmul_tp`` makes it)."""
     out = qdot(x, w)
     if mesh is not None and not (isinstance(w, Q4Tensor) and w.part == "row" and w.mesh is not None):
-        out = psum(out, MODEL_AXIS, mesh)
+        out = reduce_from_model(out, mesh)
     return out
 
 
@@ -298,13 +323,16 @@ def _moe_mlp(config: ModelConfig, layer: Params, h: torch.Tensor) -> torch.Tenso
     if mesh is not None:  # this rank's experts, combined by a psum below
         e_local = layer["w_gate"].shape[0]
         lo = mesh.axis_index(MODEL_AXIS) * e_local
-        combine = combine[..., lo: lo + e_local]
+        # The replicated router's gradient reaches each rank through its
+        # experts' columns only: summed over model, as the expert inputs'.
+        combine = copy_to_model(combine, mesh)[..., lo: lo + e_local]
+        h = copy_to_model(h, mesh)
 
     gate = _activation(config, qeinsum("bsh,ehi->bsei", h, layer["w_gate"]))
     up = qeinsum("bsh,ehi->bsei", h, layer["w_up"])
     expert_out = qeinsum("bsei,eih->bseh", gate * up, layer["w_down"])
     out = torch.einsum("bseh,bse->bsh", expert_out, combine.to(expert_out.dtype))
-    return out if mesh is None else psum(out, MODEL_AXIS, mesh)
+    return out if mesh is None else reduce_from_model(out, mesh)
 
 
 def _rope_inv_freq(d: int, theta: float, scaling, device) -> torch.Tensor:
@@ -378,7 +406,8 @@ def _gqa_values_shared(weights: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _attn_qkv(config: ModelConfig, layer: Params, x: torch.Tensor, positions: torch.Tensor):
     """Pre-norm -> QKV projection (+ optional biases) -> head split -> RoPE."""
     B, Sq, _ = x.shape
-    h = rms_norm(x, layer["attn_norm"], config.rms_eps, config.norm_offset)
+    h = copy_to_model(rms_norm(x, layer["attn_norm"], config.rms_eps, config.norm_offset),
+                      _tp_mesh(layer))
     q, k, v = qdot(h, layer["wq"]), qdot(h, layer["wk"]), qdot(h, layer["wv"])
     if "bq" in layer:  # Qwen2-family QKV biases
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
@@ -399,8 +428,10 @@ def _mlp_sublayer(config: ModelConfig, layer: Params, x: torch.Tensor) -> torch.
     if "w_router" in layer:  # MoE (Mixtral)
         out = _moe_mlp(config, layer, h)
     else:
+        mesh = _tp_mesh(layer)
+        h = copy_to_model(h, mesh)
         gate = _activation(config, qdot(h, layer["w_gate"]))
-        out = _row_parallel_dot(gate * qdot(h, layer["w_up"]), layer["w_down"], _tp_mesh(layer))
+        out = _row_parallel_dot(gate * qdot(h, layer["w_up"]), layer["w_down"], mesh)
     if "post_mlp_norm" in layer:
         out = rms_norm(out, layer["post_mlp_norm"], config.rms_eps, offset)
     return x + out
@@ -581,7 +612,7 @@ def _embed(config: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.T
         local = tokens.long() - mesh.axis_index(MODEL_AXIS) * v_local
         owned = (local >= 0) & (local < v_local)
         x = params["embed"][local.clamp(0, v_local - 1)]
-        x = psum(torch.where(owned[..., None], x, torch.zeros_like(x)), MODEL_AXIS, mesh)
+        x = reduce_from_model(torch.where(owned[..., None], x, torch.zeros_like(x)), mesh)
     if config.embed_scale:  # Gemma: sqrt(H), rounded to the model dtype first
         x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=x.dtype, device=x.device)
     return x
@@ -592,10 +623,9 @@ def _final_norm(config: ModelConfig, params: Params, x: torch.Tensor) -> torch.T
 
 
 def _logits(config: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    logits = qdot(h, params["lm_head"]).float()
     mesh = _tp_mesh(params)
-    if mesh is not None:  # vocabulary shards -> whole logits
-        logits = all_gather(logits, MODEL_AXIS, mesh, dim=-1)
+    # Vocabulary shards -> whole logits on a tensor-parallel mesh.
+    logits = gather_from_model(qdot(copy_to_model(h, mesh), params["lm_head"]).float(), mesh)
     if config.logit_softcap is not None:
         logits = _softcap(logits, config.logit_softcap)
     return logits

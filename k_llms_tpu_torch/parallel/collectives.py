@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from ..analysis.lockcheck import note_device_dispatch
-from .mesh import Mesh
+from .mesh import MODEL_AXIS, Mesh
 
 #: Calls per collective, and the bytes staged through host memory under
 #: ``gloo``, since the last :func:`reset_collective_counts`.
@@ -146,6 +146,78 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh, split_dim: int,
     dist.all_to_all_single(recv, send, group=group)
     recv = _from_wire(mesh, recv, x)
     return torch.cat(list(recv.unbind(0)), dim=concat_dim)
+
+
+# -- differentiable collectives over ``model`` (Megatron's conjugate pair) -----
+#
+# The collectives above detach (``_to_wire``). The tensor-parallel boundaries
+# of ``models/llama.py`` go through these three instead, so that a train
+# step's backward crosses the ranks as GSPMD's transpose does in JAX. Each
+# backward collective is one of the functions above, counted and staged as
+# they are; the forward is the plain collective, so forward results and
+# counts are those of ``psum`` and ``all_gather``. Over a mesh without a
+# model group each is the identity.
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return psum(x, MODEL_AXIS, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum(grad, MODEL_AXIS, ctx.mesh), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.me, ctx.size, ctx.dim = mesh.axis_index(MODEL_AXIS), x.shape[dim], dim
+        return all_gather(x, MODEL_AXIS, mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.me * ctx.size, ctx.size), None, None
+
+
+def _has_model_group(mesh: Mesh) -> bool:
+    return mesh is not None and mesh.group(MODEL_AXIS) is not None
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum of the ranks' partial ``x`` over ``model`` (a row-parallel
+    output, the vocabulary-sharded embedding). Its gradient passes through
+    unchanged: every model rank holds the whole sum and receives the whole
+    gradient. (``torch.distributed.nn``'s all-reduce would sum that gradient
+    again, M times the right one.)"""
+    return _ReduceFromModel.apply(x, mesh) if _has_model_group(mesh) else x
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x``, replicated over ``model``, entering rank-specific work (a
+    column-parallel projection, this rank's experts): the identity, whose
+    gradient is the sum of the ranks' partial gradients."""
+    return _CopyToModel.apply(x, mesh) if _has_model_group(mesh) else x
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int = -1) -> torch.Tensor:
+    """The ranks' shards of ``x`` concatenated along ``dim`` over ``model``
+    (:func:`all_gather`); the gradient is this rank's slice of the whole
+    one."""
+    if not _has_model_group(mesh):
+        return x
+    return _GatherFromModel.apply(x, mesh, dim % x.dim())
 
 
 class RankDivergenceError(RuntimeError):

@@ -14,6 +14,7 @@ port's processes. The JAX references are computed in the test process.
 
 from __future__ import annotations
 
+import copy
 import os
 import queue
 import time
@@ -113,12 +114,25 @@ _MESHES: Dict[tuple, Any] = {}
 
 
 def mesh(shape):
-    """The world's (data, model) mesh of ``shape``, made once per world."""
-    from k_llms_tpu_torch.parallel.mesh import make_mesh
+    """The world's (data, model) mesh of ``shape``, made once per world. A
+    shape smaller than the world is one of ``world // (data * model)``
+    identical replicas of that mesh (a leading ``replica`` axis of the
+    device mesh), each rank in the replica its rank order gives it."""
+    import torch.distributed as dist
+
+    from k_llms_tpu_torch.parallel.mesh import AXES, Mesh, make_mesh
 
     shape = tuple(shape)
     if shape not in _MESHES:
-        _MESHES[shape] = make_mesh(*shape)
+        world = dist.get_world_size()
+        if shape[0] * shape[1] == world:
+            _MESHES[shape] = make_mesh(*shape)
+        else:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            dm = init_device_mesh("cpu", (world // (shape[0] * shape[1]), *shape),
+                                  mesh_dim_names=("replica", *AXES))
+            _MESHES[shape] = Mesh(*shape, dm[AXES], transport=dist.get_backend())
     return _MESHES[shape]
 
 
@@ -417,3 +431,50 @@ def _eng_prefill_routed(eng, ids, bucket):
 def _eng_prefill_full_layout(eng, ids, bucket):
     fl, kv = eng._prefill_full(ids, len(ids), bucket)
     return type(kv).__name__, int(kv.k.shape[2]), _np(fl)
+
+
+def case_train_step(rank, shape, config, params, tokens, mask, steps):
+    """``steps`` of the port's train step on this rank's shard of ``params``
+    over the mesh of ``shape``, each rank passing the whole batch: the
+    losses, each step's collective counts, the forward's counts under
+    inference mode, and the rank's updated shard (numpy, by leaf path)."""
+    from k_llms_tpu_torch.engine.training import _leaves, make_train_step
+    from k_llms_tpu_torch.models import llama
+    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.sharding import shard_params
+
+    m = mesh(shape)
+    # The tree arrived in memory the ranks share, and a shard keeps the
+    # leaves it does not cut: each rank trains its own copy.
+    sharded = shard_params(copy.deepcopy(params), m, config)
+    C.reset_collective_counts()
+    with torch.inference_mode():
+        llama.forward(config, sharded, torch.as_tensor(tokens), torch.as_tensor(mask))
+    forward_counts = dict(C.COLLECTIVE_COUNTS)
+    init_state, step = make_train_step(config, mesh=m)
+    opt = init_state(sharded)
+    losses, counts = [], []
+    for _ in range(steps):
+        C.reset_collective_counts()
+        sharded, opt, loss = step(sharded, opt, tokens, mask)
+        counts.append(dict(C.COLLECTIVE_COUNTS))
+        losses.append(loss.item())
+    return {"losses": losses, "counts": counts, "forward_counts": forward_counts,
+            "coords": (m.axis_index("data"), m.axis_index("model")),
+            "params": {path: _np(leaf) for path, leaf in _leaves(sharded)}}
+
+
+def case_train_error(rank, shape, config, params, tokens, mask):
+    """The exception a train step on this rank's shard raises: (type,
+    message)."""
+    from k_llms_tpu_torch.engine.training import make_train_step
+    from k_llms_tpu_torch.parallel.sharding import shard_params
+
+    m = mesh(shape)
+    sharded = shard_params(params, m, config)
+    init_state, step = make_train_step(config, mesh=m)
+    try:
+        step(sharded, init_state(sharded), tokens, mask)
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    return None

@@ -232,8 +232,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     ``transformers`` imported, and the prefix cache serves a repeat; the
     key aligner, the device consensus, the continuous loop (its greedy
     answer equal to the coalesced one), the observability layer and the
-    HTTP front door (a stream over a real socket) import neither either, nor
-    does the lint (``python -m k_llms_tpu_torch.analysis --check``, run in
+    HTTP front door (a stream over a real socket) and the train step (one
+    step of a seeded tree) import neither either, nor does the lint (``python -m k_llms_tpu_torch.analysis --check``, run in
     the same process, clean over the package)."""
     code = (
         "import json, os, sys\n"
@@ -315,6 +315,12 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "from k_llms_tpu_torch.ops import ring_attention\n"
         "from k_llms_tpu_torch.engine import long_context\n"
         "assert distributed.initialize_multihost() is False\n"
+        "from k_llms_tpu_torch.engine.training import make_train_step\n"
+        "from k_llms_tpu_torch.models.llama import init_params\n"
+        "tp = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "init_state, step = make_train_step(cfg)\n"
+        "tp, st, loss = step(tp, init_state(tp), torch.randint(0, 256, (2, 16)), torch.ones(2, 16))\n"
+        "assert loss.dim() == 0 and bool(torch.isfinite(loss))\n"
         "from k_llms_tpu_torch.analysis.__main__ import main as lint\n"
         "assert lint(['--check']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

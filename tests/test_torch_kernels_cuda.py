@@ -1241,3 +1241,117 @@ def test_int4_tp4_keeps_off_kernel_lm_head_int8(cuda_device, tmp_path):
     assert all(isinstance(r, dict) for r in res), res
     assert all(r["lm_head"] == "QTensor" and r["wq"] == "col" and r["k4"] > 0 for r in res)
     assert all(r["tokens"] == res[0]["tokens"] for r in res)
+
+
+# The train phase's bf16 loss limit (chip_smoke.py, TRAIN_BF16_LOSS_RTOL):
+# the card's and the CPU's bf16 matmuls round at other points.
+TRAIN_BF16_LOSS_RTOL = 1e-2
+
+
+def test_bf16_tiny_train_step_on_card_equals_cpu(cuda_device):
+    """Two steps of the train step on tiny in bf16, on the card and on the
+    CPU from the same tree and batch: each step's loss within the train
+    phase's bf16 limit, and each parameter within what two AdamW steps can
+    leave between them, per step twice the learning rate (an early Adam
+    step moves an element by at most about lr, whatever its gradient's
+    rounding) plus one bf16 ulp (2^-7 |p|)."""
+    from k_llms_tpu_torch.engine.training import _leaves, make_train_step
+
+    cfg = get_config("tiny").with_(dtype="bfloat16")
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = {k: ({n: t.to(cuda_device) for n, t in v.items()} if isinstance(v, dict)
+                else v.to(cuda_device)) for k, v in host.items()}
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, 256, (4, 32)))
+    mask = torch.ones_like(tokens)
+    mask[3, 19:] = 0
+    init_state, step = make_train_step(cfg)
+    opt_h, opt_c = init_state(host), init_state(card)
+    steps, lr = 2, 1e-4
+    for _ in range(steps):
+        lh = step(host, opt_h, tokens, mask)[2].item()
+        lc = step(card, opt_c, tokens, mask)[2]
+        assert lc.device.type == "cuda"
+        assert abs(lc.item() - lh) <= TRAIN_BF16_LOSS_RTOL * abs(lh)
+    for (path, h), (_, c) in zip(_leaves(host), _leaves(card)):
+        h = h.float()
+        limit = steps * (2.1 * lr + 2.0 ** -7 * h.abs())
+        assert ((c.float().cpu() - h).abs() <= limit).all(), path
+
+
+def _differentiable_collectives_world_of_one(store, outq):
+    import os
+    import sys
+    from datetime import timedelta
+
+    sys.path.insert(0, os.getcwd())
+    import torch.distributed as dist
+
+    from k_llms_tpu_torch.models import llama
+    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.mesh import make_mesh
+    from k_llms_tpu_torch.parallel.sharding import shard_params
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                                timeout=timedelta(seconds=120))
+        mesh = make_mesh(1, 1)
+        x = torch.randn((4, 8), device="cuda")
+        counts = {}
+        with torch.inference_mode():
+            for name, fn, plain in (
+                    ("reduce", C.reduce_from_model, lambda t, m: C.psum(t, "model", m)),
+                    ("copy", C.copy_to_model, lambda t, m: t),
+                    ("gather", C.gather_from_model, lambda t, m: C.all_gather(t, "model", m, -1))):
+                C.reset_collective_counts()
+                want = plain(x, mesh)
+                plain_counts = dict(C.COLLECTIVE_COUNTS)
+                C.reset_collective_counts()
+                got = fn(x, mesh)
+                counts[name] = (bool(torch.equal(got, want)), plain_counts == C.COLLECTIVE_COUNTS)
+            cfg = get_config("tiny")
+            tree = shard_params(init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                            "cuda"), mesh, cfg)
+            C.reset_collective_counts()
+            llama.forward(cfg, tree, torch.zeros((1, 8), dtype=torch.long, device="cuda"),
+                          torch.ones((1, 8), device="cuda"))
+            forward_counts = dict(C.COLLECTIVE_COUNTS)
+        # With a gradient: only copy_to_model's backward adds a collective.
+        w = x.clone().requires_grad_(True)
+        C.reset_collective_counts()
+        y = C.gather_from_model(C.reduce_from_model(C.copy_to_model(w, mesh) * 2, mesh), mesh)
+        forward_grad_counts = dict(C.COLLECTIVE_COUNTS)
+        y.sum().backward()
+        grad_ok = bool(torch.equal(w.grad, torch.full_like(w, 2.0)))
+        outq.put((counts, forward_counts, forward_grad_counts, dict(C.COLLECTIVE_COUNTS), grad_ok))
+        dist.destroy_process_group()
+    except BaseException as e:
+        outq.put(repr(e))
+
+
+def test_differentiable_collectives_keep_forward_counts(cuda_device, tmp_path):
+    """An nccl world of one on device tensors: under inference mode each
+    differentiable collective returns and counts what its plain collective
+    does, and the model's forward on a (1, 1) mesh counts nothing, as before
+    the train step; with a gradient only ``copy_to_model``'s backward adds
+    one psum."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    p = ctx.Process(target=_differentiable_collectives_world_of_one,
+                    args=(str(tmp_path / "store"), outq))
+    p.start()
+    try:
+        res = outq.get(timeout=180)
+    finally:
+        p.join(timeout=60)
+        if p.is_alive():
+            p.kill()
+    assert not isinstance(res, str), res
+    counts, forward_counts, forward_grad, after, grad_ok = res
+    assert all(equal and same for equal, same in counts.values()), counts
+    assert forward_counts["psum"] == forward_counts["all_gather"] == 0
+    assert forward_grad["psum"] == 1 and forward_grad["all_gather"] == 1
+    assert after["psum"] == 2 and after["all_gather"] == 1 and grad_ok
