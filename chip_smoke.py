@@ -71,7 +71,14 @@ poisoned launch, every request resolved, the plain requests equal to their
 unarmed solo runs, the pool conserved, READY, no violation; then a K1
 launch under a lock made without ``allow_dispatch`` and a two-thread lock
 inversion must each be caught once, and the lint
-(``python -m k_llms_tpu_torch.analysis --check``) runs once. ``mesh``
+(``python -m k_llms_tpu_torch.analysis --check``) runs once. ``parity``
+(on the ``8b`` client after ``sanitize``, or on a client of its own)
+embeds the texts of ``tests/test_embedding_signal.py`` in one forward
+through K2 (one launch a layer, nothing else), records their cosines and
+orderings, asserts the majority medoid election over a cluster and an
+outlier under the card's embeddings and under Levenshtein, and serves one
+seeded sampled request twice: tokens, logprobs, choices and likelihoods
+byte-identical, every launch counted. ``mesh``
 (last) serves Llama-3-8B on a mesh of two ranks spawned on the one card
 (``torch.multiprocessing``; NCCL refuses two ranks on one device, so the
 ranks talk over gloo, staging each collective's bytes through host
@@ -134,13 +141,17 @@ from typing import Literal
 
 from pydantic import BaseModel, Field
 
-PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "serve", "ckpt", "loop",
-          "8b_int4", "sched", "spec", "sanitize", "gemma9b", "mistral7b", "mixtral_int4", "mesh",
-          "train")
+PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "parity", "serve",
+          "ckpt", "loop", "8b_int4", "sched", "spec", "sanitize", "gemma9b", "mistral7b",
+          "mixtral_int4", "mesh", "train")
 # The model-family phases, in the order they run, and the cut of a
 # family's depth (layers // divisor; widths as published): Mixtral, the
 # longest phase and one with no grammar-constrained request, runs at half
-# depth so that the full smoke stays near half its time limit.
+# depth so that the full smoke stays near half its time limit. Gemma-2 and
+# Mistral stay whole: at half depth the seeded samples of their parse
+# request write counts so large that the consensus' count is a float beyond
+# pydantic's integer range, so ``parsed`` is None, as the JAX package's
+# consensus gives on those samples (tests/test_torch_gemma_parse.py).
 FAMILY_PHASES = ("gemma9b", "mistral7b", "mixtral_int4")
 FAMILY_DEPTH_DIVISOR = {"mixtral_int4": 2}
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
@@ -4632,6 +4643,110 @@ def main(argv=None) -> int:
         client.close()
         del client, engine
 
+    # -- the parity phase: the embedding signal and seeded reproducibility --
+    # The texts of tests/test_embedding_signal.py.
+    parity_paraphrases = [
+        "The shipment of industrial widgets departed the Rotterdam warehouse on "
+        "Tuesday morning and is expected at the Hamburg depot within three days.",
+        "The shipment of industrial widgets left the Rotterdam warehouse on "
+        "Tuesday morning and should reach the Hamburg depot within three days.",
+    ]
+    parity_unrelated = [
+        "Payment terms are net thirty days from the invoice issue date, with a "
+        "two percent discount applied for settlement within ten calendar days.",
+        "All customer support inquiries should be directed to the billing "
+        "department via email and will be answered within two business days.",
+    ]
+
+    def parity_8b(client):
+        """Llama-3-8B's embeddings as a similarity signal, through K2: the
+        cosines of the paraphrase, corruption, identical and unrelated pairs
+        (recorded: seeded weights need not order them as the tiny model
+        does, which the CPU twin asserts), the six texts' one forward with
+        K2 once a layer and nothing else, and the majority medoid election over a
+        cluster and an outlier under the card's embeddings and under
+        Levenshtein (asserted). Then two seeded sampled requests: their
+        choices and likelihoods byte-identical, every launch counted."""
+        from k_llms_tpu_torch.consensus.similarity import SimilarityScorer, cosine_similarity
+
+        t_phase = time.perf_counter()
+        backend = client.backend
+        L = backend.engine.config.num_layers
+        reset_counts()
+        base = parity_paraphrases[0]
+        corrupted = base.replace("Tuesday", "Tuesdya").replace("widgets", "widgtes")
+        texts = parity_paraphrases + parity_unrelated + [corrupted, base]
+        t0 = time.perf_counter()
+        vecs = backend.embeddings(texts)
+        embed_s = time.perf_counter() - t0
+        # One forward over the six texts: K2 once a layer, nothing else.
+        counts = dict(_ext.LAUNCH_COUNTS)
+        expected = dict.fromkeys(counts, 0)
+        expected["flash_attention"] = L
+        if counts != expected:
+            raise AssertionError(f"parity embeddings: counts {counts} != {expected}")
+        if "flash_attention" in kernels:
+            kernels["flash_attention"]["parity_launches"] = counts["flash_attention"]
+        vec = dict(zip(["p0", "p1", "u0", "u1", "corrupted", "p0_again"], vecs))
+        cos = {pair: cosine_similarity(vec[pair.split("/")[0]], vec[pair.split("/")[1]])
+               for pair in ("p0/p1", "p0/u0", "p0/u1", "p0/corrupted", "p0/p0_again")}
+        orderings = {
+            "paraphrases_outscore_unrelated": cos["p0/p1"] > max(cos["p0/u0"], cos["p0/u1"]),
+            "small_corruptions_stay_close": cos["p0/corrupted"] > cos["p0/u0"],
+            "identical_near_one": cos["p0/p0_again"] > 0.999,
+        }
+        # The medoid election: a majority cluster of three and an outlier.
+        cluster = [base, base.replace("Tuesday", "Wednesday"),
+                   base.replace("three days", "four days")]
+        variants = cluster + [parity_unrelated[0]]
+
+        def row_means(scorer):
+            sims = np.array([[scorer.generic(a, b) for b in variants] for a in variants],
+                            np.float64)
+            return sims.mean(axis=1)
+
+        emb_means = row_means(SimilarityScorer(method="embeddings",
+                                               embed_fn=backend.embeddings))
+        lev_means = row_means(SimilarityScorer(method="levenshtein"))
+        medoids = {"embeddings": variants[int(emb_means.argmax())],
+                   "levenshtein": variants[int(lev_means.argmax())]}
+        log({"phase": "parity_embeddings", "texts": len(texts),
+             "token_lengths": [len(backend.tokenizer.encode(t)) for t in texts],
+             "embed_s": embed_s, "dim": len(vecs[0]), "launches": counts, "cosines": cos,
+             "orderings": orderings,
+             "embedding_row_means": emb_means.tolist(),
+             "levenshtein_row_means": lev_means.tolist(),
+             "medoid_in_cluster": {k: v in cluster for k, v in medoids.items()},
+             "outlier_lowest_under_embeddings":
+                 int(emb_means.argmin()) == len(variants) - 1})
+        if (any(m not in cluster for m in medoids.values())
+                or int(emb_means.argmin()) != len(variants) - 1):
+            raise AssertionError(f"parity medoid election: {medoids}, row means "
+                                 f"{emb_means.tolist()}")
+
+        # Seeded reproducibility: the same sampled request twice.
+        req = dict(messages=[{"role": "user", "content": "Name three prime numbers."}],
+                   n=8, temperature=0.8, top_p=0.95, seed=23, max_tokens=32,
+                   logit_bias=printable)
+        counts, launches, embeds, outputs, *_ = serve_8b("parity_seeded", client, [req, req],
+                                                         None)
+        expected = expected_bf16_paged(launches, embeds, L)
+        if counts != expected:
+            raise AssertionError(f"parity seeded launch counts {counts} != {expected}")
+        check_consensus_window("parity_seeded")
+        responses = [client.chat.completions.create(**req) for _ in range(2)]
+        dumps = [json.dumps({"choices": [c.model_dump() for c in r.choices],
+                             "likelihoods": r.likelihoods, "usage": r.usage.model_dump()},
+                            sort_keys=True) for r in responses]
+        (tokens_a, logprobs_a), (tokens_b, logprobs_b) = outputs[0][0], outputs[1][0]
+        same_launches = (np.array_equal(tokens_a, tokens_b)
+                         and np.array_equal(logprobs_a, logprobs_b))
+        log({"phase": "parity_seeded", "same_tokens_and_logprobs": same_launches,
+             "same_responses": dumps[0] == dumps[1], "response_bytes": len(dumps[0]),
+             "phase_s": time.perf_counter() - t_phase})
+        if not same_launches or dumps[0] != dumps[1]:
+            raise AssertionError("parity: two seeded requests differ")
+
     # -- the spec phase: prompt-lookup speculative decoding ------------------
     # Drafts verified per forward, as the JAX package's default.
     SPEC_K = 4
@@ -5108,12 +5223,24 @@ def main(argv=None) -> int:
                          "levenshtein"):
                 if name in kernels:
                     kernels[name]["sanitize_launches"] = sanitize_counts[name]
+        if "parity" in phases:
+            # After sched and sanitize, whose windows it must not move.
+            parity_8b(client)
         if "ckpt" in phases:
             # 9c serves this tree again from a checkpoint on disk.
             seeded = {"client": client, "launches": launches, "embeds": embeds,
                       "outputs": outputs, "counts": counts}
         else:
             client.close()  # its scheduler's worker holds the backend until it exits
+        del client
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if "parity" in phases and "8b" not in phases:
+        client = KLLMs(backend="cuda", model="llama-3-8b", param_seed=args.seed,
+                       kv_pool_pages=128)
+        parity_8b(client)
+        client.close()
         del client
         gc.collect()
         torch.cuda.empty_cache()

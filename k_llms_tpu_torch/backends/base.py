@@ -232,6 +232,7 @@ _BACKEND_ALIASES: Dict[str, str] = {
     "fake": "fake",
     "cuda": "cuda",
     "local": "cuda",
+    "openai": "openai",
     "replicas": "replicas",
     "replica": "replicas",
     "replicaset": "replicas",
@@ -240,9 +241,9 @@ _BACKEND_ALIASES: Dict[str, str] = {
 
 
 def resolve_backend(backend: Union[str, Backend, None], **kwargs: Any) -> Backend:
-    """Instantiate a backend from a name ("cuda" | "fake" | "replicas", plus
-    aliases; None defaults to "cuda") or pass a Backend instance through
-    unchanged."""
+    """Instantiate a backend from a name ("cuda" | "fake" | "openai" |
+    "replicas", plus aliases; None defaults to "cuda") or pass a Backend
+    instance through unchanged."""
     if isinstance(backend, Backend):
         return backend
     known = sorted(_BACKEND_ALIASES)
@@ -257,6 +258,10 @@ def resolve_backend(backend: Union[str, Backend, None], **kwargs: Any) -> Backen
         from .cuda import CudaBackend
 
         return CudaBackend(**kwargs)
+    if name == "openai":
+        from .openai_backend import OpenAIBackend
+
+        return OpenAIBackend(**kwargs)
     if name == "replicas":
         from ..reliability.replicas import ReplicaSet
 

@@ -3,7 +3,9 @@
 Counterpart of ``k_llms_tpu/client.py``.
 ``KLLMs(backend="cuda", model="llama-3-8b")`` runs everything locally on the
 CUDA card; ``device="cpu"`` runs the same path with the kernels' plain
-PyTorch versions. A Backend instance is passed through unchanged.
+PyTorch versions. ``backend="openai"`` is the HTTP passthrough to the
+OpenAI API (it needs the ``openai`` package). A Backend instance is passed
+through unchanged.
 """
 
 from __future__ import annotations

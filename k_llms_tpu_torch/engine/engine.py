@@ -1515,9 +1515,6 @@ class LocalEngine:
             + len(live) * gp + 1
         )
         ps = pool.page_size
-        # Resolved per launch: the ops.paged_attn drill sends a CPU launch to
-        # the plain version and fails a card launch, before any page is taken.
-        attn_impl = launch_paged_attention_impl(self.paged_attention_impl, device=device)
 
         pinned: List[PagedPrefixRun] = []
         gen_pages_rows: List[Optional[List[int]]] = [None] * B
@@ -1534,6 +1531,12 @@ class LocalEngine:
             t_prefill = time.perf_counter()
             for row in live:
                 gen_pages_rows[row] = self._alloc_pages_with_evict(gp)
+            # Resolved and counted per launch once its pages are held, where
+            # the JAX engine resolves it: a launch the pool cannot hold
+            # decodes dense and counts no paged dispatch. The ops.paged_attn
+            # drill sends a CPU launch to the plain version and fails a card
+            # launch (the finally returns its pages).
+            attn_impl = launch_paged_attention_impl(self.paged_attention_impl, device=device)
 
             # Block tables: prefix_idx is request-level [r_pad, P]; positions
             # past each prompt, and every dead row's gen slots, point into the

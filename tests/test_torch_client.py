@@ -233,7 +233,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     key aligner, the device consensus, the continuous loop (its greedy
     answer equal to the coalesced one), the observability layer and the
     HTTP front door (a stream over a real socket) and the train step (one
-    step of a seeded tree) import neither either, nor does the lint (``python -m k_llms_tpu_torch.analysis --check``, run in
+    step of a seeded tree), the OpenAI passthrough (which raises
+    ``ImportError`` without the ``openai`` package) and the quality eval
+    import neither either, nor does the lint (``python -m k_llms_tpu_torch.analysis --check``, run in
     the same process, clean over the package)."""
     code = (
         "import json, os, sys\n"
@@ -321,6 +323,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "init_state, step = make_train_step(cfg)\n"
         "tp, st, loss = step(tp, init_state(tp), torch.randint(0, 256, (2, 16)), torch.ones(2, 16))\n"
         "assert loss.dim() == 0 and bool(torch.isfinite(loss))\n"
+        "import importlib.util\n"
+        "from k_llms_tpu_torch.backends.openai_backend import OpenAIBackend\n"
+        "if importlib.util.find_spec('openai') is None:\n"
+        "    try:\n"
+        "        KLLMs(backend='openai')\n"
+        "        raise AssertionError('backend=openai built without the openai package')\n"
+        "    except ImportError as e:\n"
+        "        assert 'requires the openai package' in str(e), e\n"
+        "from k_llms_tpu_torch.utils.quality import consensus_quality_eval\n"
+        "q = consensus_quality_eval(n_values=(3,), trials=2, seed=1)\n"
+        "assert 0 < q['consensus_n3'] <= 1 and q['truth_docs'] == 3, q\n"
         "from k_llms_tpu_torch.analysis.__main__ import main as lint\n"
         "assert lint(['--check']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

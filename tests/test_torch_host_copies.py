@@ -14,7 +14,10 @@ tracer, flight recorder and Prometheus exposition, the job store and batch
 lane, the ASGI app, its server and entry point, the fake backend, the
 resources) the port's backend names and profiler; in the lint (the
 runtime sanitizers of ``analysis/lockcheck.py``, the ``guarded-by`` and
-contract rules) the rule family's history without its tracking tags.
+contract rules) the rule family's history without its tracking tags; in
+the quality eval its own test file and a review round's tag written out.
+In the OpenAI passthrough (``backends/openai_backend.py``) the port's
+backend name, in its docstring and in the advice of its ``ImportError``.
 
 Then a sample of the JAX package's own test vectors (``test_alignment``,
 ``test_translit``, ``test_native``, and TRUTH_DOCS consolidation) runs
@@ -157,6 +160,27 @@ EDITS.update({
     ],
 })
 
+#: The consensus-quality eval: the port's own test file, and the review
+#: round's tag written out.
+EDITS.update({
+    "utils/quality.py": [
+        ("Used by ``bench.py`` (quality metrics in the headline JSON) and\n"
+         "``tests/test_quality_eval.py``.\n",
+         "Its tests are ``tests/test_torch_quality_eval.py``.\n"),
+        ("# (VERDICT r2: >=3 truth documents): a purchase",
+         "# (at least three truth documents): a purchase"),
+    ],
+})
+
+#: The OpenAI passthrough: the port's local backend is ``cuda``, which its
+#: docstring and its ``ImportError`` name where the reference names ``tpu``.
+EDITS.update({
+    "backends/openai_backend.py": [
+        ("TPU hosts never need it.", "the local CUDA backend never needs it."),
+        ("use backend='tpu' ", "use backend='cuda' "),
+    ],
+})
+
 #: Modules of the copied directories that the port rewrites rather than
 #: copies: the device consensus runs torch and the Levenshtein kernel where
 #: the reference runs jitted JAX.
@@ -175,7 +199,7 @@ COPIED = sorted(
        "resources/completions.py", "serving/__init__.py", "serving/__main__.py",
        "serving/app.py", "serving/batch.py", "serving/server.py", "serving/sse.py",
        "analysis/lockcheck.py", "analysis/rules/__init__.py", "analysis/rules/guardedby.py",
-       "analysis/rules/contracts.py"]
+       "analysis/rules/contracts.py", "backends/openai_backend.py", "utils/quality.py"]
     + [f"keyalign/{f}" for f in ("__init__.py", "align.py", "fuzzy.py", "selection.py")]
     + list(DEVICE_MARKERS)
 )
