@@ -1742,6 +1742,10 @@ def sanitize_8b(client, plain_requests, long_text, log):
 # the residual stream, ~1.6% at most; K4's limit adds its 2^-6 bound per
 # matmul only where an output is near zero.
 MESH_LOGITS_REL_L2 = 0.05
+#: Seconds within which a follower's fault must reach the controller's
+#: request as the typed 503 (the follower ends its process, so every
+#: collective waiting on it fails at once; fixed before the first run).
+FAULT_LIMIT_S = 60.0
 
 
 def mesh_host_memory() -> dict:
@@ -1827,25 +1831,86 @@ def run_ranks(world, transport, jobs, store_dir, timeout=900):
                 p.join()
         if os.path.exists(store):
             os.remove(store)
+    results["_exitcodes"] = [p.exitcode for p in procs]
     return results
 
 
-def mesh_serve(client_kw, reqs, repeat_last=False):
-    """Build ``KLLMs(model="llama-3-8b", **client_kw)`` (in a rank: its
-    engine builds the world's auto mesh), serve ``reqs`` through create()
-    with every launch and collective count reset just before and read just
-    after, then (outside the counted window) each request's last-position
-    prefill logits. With ``repeat_last`` the last request is served once
-    more (a prefix-cache exact hit). Returns numpy-free values and arrays."""
+#: What each rank's mesh hooks recorded (each rank is a process of its own).
+MESH_STATE: dict = {}
+
+
+def mesh_register_hooks() -> None:
+    """The hooks every rank runs on its engine in the controller's plan
+    order (``HostController.hook``): the counting window's reset and read,
+    the last-position prefill logits of given prompts, and a snapshot of the
+    last launch's stats."""
+    import torch
+
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.controller import register_hook
+
+    def reset(engine):
+        torch.cuda.synchronize()
+        _ext.reset_launch_counts()
+        C.reset_collective_counts()
+
+    def read(engine):
+        torch.cuda.synchronize()
+        MESH_STATE["counts"] = dict(_ext.LAUNCH_COUNTS)
+        MESH_STATE["collectives"] = dict(C.COLLECTIVE_COUNTS)
+
+    def logits(engine, prompts):
+        out = []
+        with torch.inference_mode():
+            for ids in prompts:
+                ids, plen, bucket = engine._prep_prompt(ids)
+                fl, _ = engine._prefill_full(ids, plen, bucket)
+                out.append(fl[0].float().cpu().numpy())
+        MESH_STATE["logits"] = out
+
+    def snapshot(engine):
+        st = engine.last_launch_stats
+        MESH_STATE.setdefault("snapshots", []).append(
+            {"decode_steps": st["decode_steps"], "rows": st["rows"],
+             "rank_rows": st["rank_rows"],
+             "aborted": {int(k): v[0] for k, v in st["aborted"].items()}})
+
+    for name, fn in (("reset", reset), ("read", read), ("logits", logits),
+                     ("snapshot", snapshot)):
+        register_hook(name, fn)
+
+
+def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=None,
+               http=None):
+    """Build ``KLLMs(model="llama-3-8b", **client_kw)`` and serve ``reqs``.
+
+    In a world of ranks every rank builds it and the controller (rank 0)
+    alone serves: the followers' constructors replay its plans and return
+    after its ``close()``. Every launch and collective count is reset just
+    before the requests and read just after (the ``reset``/``read`` hooks,
+    on every rank in plan order); then, outside the counted window, the
+    last-position prefill logits of the launches' prompts (the ``logits``
+    hook: each rank's own). ``concurrent`` sends ``reqs`` from one thread
+    each at once (the scheduler fuses them), else in turn, the last once
+    more with ``repeat_last`` (a prefix-cache exact hit); ``parse_req`` adds
+    one parse(); ``http`` (a request body) then runs :func:`mesh_http` on
+    the controller. In
+    the parent process (a world of one) the same calls run unsharded.
+    Returns numpy-free values and arrays; a follower returns its own
+    counts, logits, snapshots and plan count."""
+    import threading
+
     import numpy as np
     import torch
 
     import gc
 
     from k_llms_tpu_torch import KLLMs
-    from k_llms_tpu_torch.ops import _ext
-    from k_llms_tpu_torch.parallel import collectives as C
+    from k_llms_tpu_torch.parallel.controller import HOOKS
 
+    mesh_register_hooks()
+    MESH_STATE.clear()
     # An earlier call's client is freed only by a collection (its engine
     # sits in reference cycles): free it before this client's peak counts.
     gc.collect()
@@ -1854,7 +1919,28 @@ def mesh_serve(client_kw, reqs, repeat_last=False):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     client = KLLMs(backend="cuda", model="llama-3-8b", **client_kw)
-    engine = client.backend.engine
+    backend = client.backend
+    engine = backend.engine
+    mesh = engine.mesh
+    common = {"mesh": None if mesh is None else dict(mesh.shape),
+              "transport": None if mesh is None else mesh.transport,
+              "param_bytes": engine.param_footprint_bytes(),
+              "allocated_before_bytes": allocated_before, "L": engine.config.num_layers}
+    if not backend.is_controller:
+        res = dict(common, role="follower", counts=MESH_STATE["counts"],
+                   collectives=MESH_STATE["collectives"], logits=MESH_STATE["logits"],
+                   snapshots=MESH_STATE.get("snapshots", []), plans=backend.controller.plans,
+                   session_s=time.perf_counter() - t0, init_s=None, serve_s=None,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        del client, backend, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+    ctl = backend.controller
+
+    def hook(name, *args):
+        return ctl.hook(name, *args) if ctl is not None else HOOKS[name](engine, *args)
+
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     launches, embeds = [], []
@@ -1864,6 +1950,7 @@ def mesh_serve(client_kw, reqs, repeat_last=False):
         out = generate_many(items, **kw)
         st = engine.last_launch_stats
         launches.append({"requests": len(items), "n_per": st["n_per"], "steps": st["decode_steps"],
+                         "rows": st["rows"], "rank_rows": st["rank_rows"],
                          "temperature": kw["temperature"], "layout": st["kv_layout"],
                          "ids": [list(it.prompt_ids) for it in items],
                          "tokens": [np.asarray(r.tokens) for r in out],
@@ -1875,42 +1962,189 @@ def mesh_serve(client_kw, reqs, repeat_last=False):
         return embed_tokens(token_lists, *a, **kw)
 
     engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
-    torch.cuda.synchronize()
-    _ext.reset_launch_counts()
-    C.reset_collective_counts()
+    hook("reset")
     outs = []
     t0 = time.perf_counter()
-    for req in list(reqs) + ([reqs[-1]] if repeat_last else []):
+
+    def create(req):
         t1 = time.perf_counter()
         resp = client.chat.completions.create(**req)
-        outs.append({"texts": [c.message.content for c in resp.choices],
-                     "likelihoods": resp.likelihoods, "wall_s": time.perf_counter() - t1})
+        return {"texts": [c.message.content for c in resp.choices],
+                "likelihoods": resp.likelihoods, "wall_s": time.perf_counter() - t1}
+
+    if concurrent:
+        outs = [None] * len(reqs)
+
+        def go(i):
+            outs[i] = create(reqs[i])
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    else:
+        for req in list(reqs) + ([reqs[-1]] if repeat_last else []):
+            outs.append(create(req))
+    if parse_req is not None:
+        t1 = time.perf_counter()
+        parsed = client.chat.completions.parse(**parse_req)
+        outs.append({"texts": [c.message.content for c in parsed.choices],
+                     "parsed": parsed.choices[0].message.parsed is not None,
+                     "wall_s": time.perf_counter() - t1})
+    hook("read")
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    counts = dict(_ext.LAUNCH_COUNTS)
-    collectives = dict(C.COLLECTIVE_COUNTS)
     del engine.generate_many, engine.embed_tokens, generate_many, embed_tokens
     cache_stats = dict(engine.prefix_cache_stats)
-    logits = []
-    with torch.inference_mode():
-        for ln in launches[: len(reqs)]:
-            ids, plen, bucket = engine._prep_prompt(ln["ids"][0])
-            fl, _ = engine._prefill_full(ids, plen, bucket)
-            logits.append(fl[0].float().cpu().numpy())
-    mesh = engine.mesh
-    res = {"outs": outs, "launches": launches, "embeds": embeds, "counts": counts,
-           "collectives": collectives, "logits": logits, "cache_stats": cache_stats,
-           "init_s": init_s, "serve_s": serve_s, "L": engine.config.num_layers,
-           "mesh": None if mesh is None else dict(mesh.shape),
-           "transport": None if mesh is None else mesh.transport,
-           "param_bytes": engine.param_footprint_bytes(),
-           "allocated_before_bytes": allocated_before,
-           "peak_bytes": torch.cuda.max_memory_allocated()}
+    scope = launches if concurrent else launches[: len(reqs)]
+    hook("logits", [ids for ln in scope for ids in ln["ids"]])
+    res = dict(common, role="controller", outs=outs, launches=launches, embeds=embeds,
+               counts=MESH_STATE["counts"], collectives=MESH_STATE["collectives"],
+               logits=MESH_STATE["logits"], cache_stats=cache_stats, init_s=init_s,
+               serve_s=serve_s, plans=None if ctl is None else ctl.plans,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if http is not None:
+        res["http"] = mesh_http(client, hook, http)
+        res["plans"] = ctl.plans
     client.close()
-    del client, engine
+    del client, backend, engine
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def mesh_http(client, hook, body):
+    """The controller's OpenAI-wire front door over a world of ranks, with
+    ``body`` (a sampled request): two concurrent requests (one non-streamed,
+    one streamed); a 256-token stream whose client hangs up after its first
+    delta (the launch aborts; the ``snapshot`` hook shows its rows stopped
+    at the same step on every rank); then the next request. Returns the
+    observations."""
+    import threading
+
+    from k_llms_tpu_torch.serving import ServerThread, create_app
+    from k_llms_tpu_torch.utils.observability import FAILURE_EVENTS
+
+    engine = client.backend.engine
+    srv = ServerThread(create_app(client)).start()
+    port = srv.port
+    out = {}
+    try:
+        got = {}
+
+        def plain():
+            got["plain"] = http_call(port, "POST", "/v1/chat/completions", body)[0]
+
+        def streamed():
+            status, frames, ttfd, _ = http_stream(port, dict(body, seed=42))
+            got["stream"] = (status, frames[-1] == "[DONE]", ttfd)
+
+        threads = [threading.Thread(target=plain), threading.Thread(target=streamed)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["concurrent"] = {"plain_status": got["plain"], "stream_status": got["stream"][0],
+                             "stream_done": got["stream"][1], "ttfd_s": got["stream"][2]}
+        aborts = FAILURE_EVENTS.get("engine.decode_abort")
+        before = engine.last_launch_stats
+        t0 = time.perf_counter()
+        status, frames, ttfd, _ = http_stream(port, dict(body, seed=43, max_tokens=256),
+                                              disconnect_after_first_delta=True)
+        deadline = time.monotonic() + 120
+        while FAILURE_EVENTS.get("engine.decode_abort") == aborts:
+            if time.monotonic() > deadline or engine.last_launch_stats is not before:
+                time.sleep(0.5)  # the abort is recorded after the launch's stats
+                if FAILURE_EVENTS.get("engine.decode_abort") != aborts:
+                    break
+                raise AssertionError(
+                    "mesh_dp2_serve: the disconnect did not abort the launch: "
+                    f"{ {k: v for k, v in engine.last_launch_stats.items() if k != 'aborted'} }")
+            time.sleep(0.01)
+        out["abort"] = {"status": status, "ttfd_s": ttfd, "abort_s": time.perf_counter() - t0,
+                        "decode_steps": engine.last_launch_stats["decode_steps"],
+                        "aborted": {int(k): v[0] for k, v in
+                                    engine.last_launch_stats["aborted"].items()}}
+        hook("snapshot")
+        out["next_status"] = http_call(port, "POST", "/v1/chat/completions",
+                                       dict(body, seed=44, max_tokens=8))[0]
+    finally:
+        srv.stop(drain=False)
+    return out
+
+
+def mesh_fault_rank(rank, world, store, outq) -> None:
+    """One rank of the follower-fault drill at ``tiny`` on the card: rank
+    1's first launch raises a kernel error (the ``engine.launch`` failpoint
+    armed in its process only), which ends it; rank 0, the controller,
+    reports the typed 503 it got and how long it took, twice."""
+    import traceback
+    from datetime import timedelta
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.ops.paged_attention import KernelUnavailableError
+    from k_llms_tpu_torch.reliability.failpoints import FailSpec, failpoints
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world, timeout=timedelta(seconds=300))
+        armed = failpoints({"engine.launch": FailSpec(
+            error_factory=lambda: KernelUnavailableError("drilled kernel fault on a follower"),
+            times=1)}) if rank == 1 else contextlib.nullcontext()
+        with armed:
+            client = KLLMs(backend="cuda", model="tiny", max_new_tokens=8)
+        errors = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            try:
+                client.chat.completions.create(messages=[{"role": "user", "content": "hi"}],
+                                               n=2, seed=1)
+                errors.append(None)
+            except Exception as e:
+                errors.append({"type": type(e).__name__, "status": getattr(e, "status_code", None),
+                               "seconds": time.perf_counter() - t0, "message": str(e)})
+        client.close()
+        outq.put((rank, errors))
+    except BaseException:
+        outq.put((rank, traceback.format_exc()))
+
+
+def run_fault_drill(store_dir, timeout=300):
+    """Spawn the two ranks of :func:`mesh_fault_rank`; returns (rank 0's
+    errors, each rank's exit code)."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    store = os.path.join(store_dir, f"fault_store_{time.time_ns()}")
+    procs = [ctx.Process(target=mesh_fault_rank, args=(r, 2, store, outq)) for r in range(2)]
+    for p in procs:
+        p.start()
+    answer = None
+    try:
+        try:
+            rank, answer = outq.get(timeout=timeout)
+        except queue.Empty:
+            answer = "no answer from the controller"
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(store):
+            os.remove(store)
+    return answer, [p.exitcode for p in procs]
 
 
 def mesh_w4_tp_check(shapes, rows_list, seed=0):
@@ -3010,6 +3244,23 @@ def main(argv=None) -> int:
     if "k4" in phases:
         from k_llms_tpu_torch.ops import w4matmul as w4
 
+        # The ragged column edge's mutant of K4's source, built by nvcc in
+        # the background while the cases below run: every route's store
+        # mask one 16-column chunk short, so the last valid columns of a
+        # ragged last tile are never written.
+        with open(os.path.join(_ext.CSRC_DIR, "w4_matmul.cu")) as f:
+            k4_src = f.read()
+        edge_old = "if (col >= N) continue;"
+        if k4_src.count(edge_old) != 3:
+            raise AssertionError(f"k4 edge mutant: {k4_src.count(edge_old)} masked stores, not 3")
+        os.makedirs(_ext.BUILD_DIR, exist_ok=True)
+        edge_path = os.path.join(_ext.BUILD_DIR, "mutant_w4_matmul_edge.cu")
+        with open(edge_path, "w") as f:
+            f.write(k4_src.replace(edge_old, "if (col + 16 >= N) continue;"))
+        edge_build = subprocess.Popen(
+            [_ext.nvcc_path(), *_ext.NVCC_FLAGS, "-I", _ext.CSRC_DIR, "-o", edge_path[:-3] + ".so",
+             edge_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
         def group_sums(x, w, *, scale=None, swap_halves=False, absolute=False):
             """Plain w4 arithmetic with knobs for the limit and the mutants:
             sum_g (x_g . ints_g) * scale_g, optionally on |x| and |ints| (the
@@ -3174,6 +3425,57 @@ def main(argv=None) -> int:
             mixtral_head[rows], e = k4_case(f"mixtral_lm_head_rows{rows}", rows, 4096, 32000,
                                             torch.bfloat16, timed=True, mutants=rows in (8, 64))
             errs.append(e)
+        # Llama-3-8B's lm_head shards at TP = 4 and 8 end inside K4's last
+        # column tile ([4096, 32064] is 64 columns into its 251st, [4096,
+        # 16032] 32 into its 126th): the masked tile on the decode route (8
+        # rows; at N = 16032 split over two CTAs, so the last CTA's sum is
+        # masked too) and the tensor-core route (2048 rows), held to K4's
+        # limit and timed; then the edge mutant on the same inputs, its
+        # output pre-filled with NaN, must miss the limit.
+        ragged = {}
+        for tp, (K, N) in ((4, (4096, 32064)), (8, (4096, 16032))):
+            for rows in (8, 2048):
+                ragged[(tp, rows)], e = k4_case(f"lm_head_tp{tp}_rows{rows}", rows, K, N,
+                                                torch.bfloat16, timed=True, mutants=True)
+                errs.append(e)
+        out_b, _ = edge_build.communicate()
+        if edge_build.returncode != 0:
+            raise AssertionError(f"k4 edge mutant failed to build: {out_b.decode()[-2000:]}")
+        import ctypes
+        edge_lib = ctypes.CDLL(edge_path[:-3] + ".so")
+        edge_lib.kllms_w4_matmul.argtypes = _ext.KERNELS["w4_matmul"][1]["kllms_w4_matmul"]
+        edge_lib.kllms_w4_matmul.restype = ctypes.c_int
+        edge_cases = []
+        for tp, (K, N) in ((4, (4096, 32064)), (8, (4096, 16032))):
+            for rows in (8, 2048):
+                q = torch.randint(-128, 128, (K // 2, N), generator=gen, device=dev, dtype=torch.int8)
+                scale = (torch.rand((K // 128, N), generator=gen, device=dev) + 0.5) / (4.61 * math.sqrt(K))
+                w = w4.Q4Tensor(q, scale)
+                x = randn(rows, K)
+                route = w4.w4_route(rows, K, N, torch.bfloat16)
+                ksplit = w4.split_k(rows, K, N)
+                out = torch.full((rows, N), float("nan"), dtype=torch.bfloat16, device=dev)
+                partial = torch.empty((ksplit, rows, N), dtype=torch.float32, device=dev)
+                sem = torch.zeros((-(-N // 128),), dtype=torch.int32, device=dev)
+                status = edge_lib.kllms_w4_matmul(
+                    x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                    sem.data_ptr(), rows, K, N, 1, w4.ROUTES[route], ksplit,
+                    torch.cuda.current_stream().cuda_stream)
+                _ext.check_status("w4_matmul edge mutant", status)
+                torch.cuda.synchronize()
+                ref = w4.w4_matmul_plain(x, w).float()
+                room = 2.0 ** -6 * ref.abs() + 1e-5 * group_sums(x, w, absolute=True)
+                real = w4.w4_matmul(x, w).float()
+                torch.cuda.synchronize()
+                edge_cases.append({
+                    "tp": tp, "rows": rows, "N": N, "route": route, "ksplit": ksplit,
+                    "kernel_within_limit": bool(((real - ref).abs() <= room).all().item()),
+                    "mutant_caught": not bool(((out.float() - ref).abs() <= room).all().item()),
+                    "mutant_columns_unwritten": int(torch.isnan(out.float()).any(0).sum().item())})
+                del q, scale, w, x, out, partial
+        log({"phase": "k4_ragged_edge_mutant", "cases": edge_cases})
+        if not all(c["kernel_within_limit"] and c["mutant_caught"] for c in edge_cases):
+            raise AssertionError(f"k4 ragged edge: {edge_cases}")
         cold_copies.clear()
         # Crossover, in device time on cold weights: the largest row count at
         # which the decode route is faster than the prefill tensor-core route
@@ -3215,6 +3517,12 @@ def main(argv=None) -> int:
                                      "library_ms", "device_ms", "library_device_ms",
                                      "device_over_bound")}
                                    for r in mixtral_head.values()],
+            "ragged_shard_cases": [{k: r.get(k) for k in
+                                    ("case", "impl", "route", "ksplit", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "device_ms", "library_device_ms",
+                                     "device_over_bound", "max_err_over_limit")}
+                                   for r in ragged.values()],
+            "ragged_edge_mutant": edge_cases,
         }
 
     # 7. K3 decode-prefix attention against its plain version
@@ -5345,9 +5653,21 @@ def main(argv=None) -> int:
         mesh_reqs = [requests[0], requests[2]]
         ref_int4 = mesh_serve(int4_kw, mesh_reqs)
         ref_bf16 = mesh_serve(bf16_kw, mesh_reqs)
+        # The data axis's traffic: the sched phase's four same-config
+        # requests (n = 8) sent at once, fused into one launch, then the
+        # parse request; unsharded here, then on two data ranks.
+        # A half-second batch window: the four threads fuse however they
+        # are scheduled.
+        dp2_kw, dp2_int4_kw = dict(bf16_kw, batch_window=0.5), dict(int4_kw, batch_window=0.5)
+        ref_dp2 = mesh_serve(dp2_kw, sched_requests, concurrent=True, parse_req=parse_request)
+        ref_dp2_int4 = mesh_serve(dp2_int4_kw, sched_requests, concurrent=True,
+                                  parse_req=parse_request)
         log({"phase": "mesh_references", "seconds": time.perf_counter() - t_mesh,
              "int4_serve_s": ref_int4["serve_s"], "bf16_serve_s": ref_bf16["serve_s"],
-             "int4_peak_bytes": ref_int4["peak_bytes"], "bf16_peak_bytes": ref_bf16["peak_bytes"]})
+             "dp2_bf16_serve_s": ref_dp2["serve_s"], "dp2_int4_serve_s": ref_dp2_int4["serve_s"],
+             "int4_peak_bytes": ref_int4["peak_bytes"], "bf16_peak_bytes": ref_bf16["peak_bytes"],
+             "dp2_launches": [(ln["requests"], ln["rows"], ln["steps"])
+                              for ln in ref_dp2["launches"]]})
         gc.collect()
         torch.cuda.empty_cache()
         free_b, total_b = torch.cuda.mem_get_info()
@@ -5363,6 +5683,15 @@ def main(argv=None) -> int:
              "args": {"client_kw": sp_kw, "reqs": mesh_reqs[1:], "repeat_last": True}},
             {"name": "mesh_sp2_ulysses", "kind": "serve",
              "args": {"client_kw": dict(sp_kw, sp_attention="ulysses"), "reqs": mesh_reqs[1:]}},
+            {"name": "mesh_dp2", "kind": "serve",
+             "args": {"client_kw": dp2_kw, "reqs": sched_requests, "concurrent": True,
+                      "parse_req": parse_request,
+                      "http": dict(messages=[{"role": "user", "content": "Count to fifty."}],
+                                   n=4, temperature=0.8, seed=41, max_tokens=24,
+                                   logit_bias=printable)}},
+            {"name": "mesh_dp2_int4", "kind": "serve",
+             "args": {"client_kw": dp2_int4_kw, "reqs": sched_requests, "concurrent": True,
+                      "parse_req": parse_request}},
             {"name": "mesh_k4tp_mutants", "kind": "w4_tp",
              "args": {"shapes": [(4096, 4096), (14336, 4096)], "rows_list": [8, 2048]}},
             {"name": "mesh_psum_gloo", "kind": "psum",
@@ -5371,55 +5700,79 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         ranks = run_ranks(2, "gloo", jobs, store_dir)
         ranks_s = time.perf_counter() - t0
+        if ranks["_exitcodes"] != [0, 0]:
+            raise AssertionError(f"mesh: the ranks ended with {ranks['_exitcodes']}")
 
         def rel_l2(a, b):
             return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
-        def check_serve(name, ref, ref_idx, expected_fn):
+        def by_prompt(res, n_launches):
+            """(launch, member, logits index) of each prompt in the first
+            ``n_launches`` launches (the logits hook's order)."""
+            out, k = {}, 0
+            for j, ln in enumerate(res["launches"][:n_launches]):
+                for m, ids in enumerate(ln["ids"]):
+                    out[tuple(ids)] = (j, m, k)
+                    k += 1
+            return out
+
+        def check_serve(name, ref, n_launches, expected_fn):
+            """The controller's first ``n_launches`` launches against the
+            unsharded client's, member by member (matched by prompt: fused
+            members may arrive in another order). Every rank's logits equal
+            the controller's, and every rank's counts hold."""
             res = ranks[name]
+            ctl = res[0]
             problems = []
+            if ctl["role"] != "controller" or any(r["role"] != "follower" for r in res[1:]):
+                problems.append(f"roles {[r['role'] for r in res]}")
             for r in res[1:]:
-                if [o["texts"] for o in r["outs"]] != [o["texts"] for o in res[0]["outs"]]:
-                    problems.append("ranks' texts differ")
-                if not all(np.array_equal(a, b) for a, b in zip(r["logits"], res[0]["logits"])):
+                if not all(np.array_equal(a, b) for a, b in zip(r["logits"], ctl["logits"])):
                     problems.append("ranks' logits differ")
+                if r["plans"] != ctl["plans"]:
+                    problems.append(f"follower ran {r['plans']} plans, controller sent {ctl['plans']}")
             per_req = []
-            for i, j in enumerate(ref_idx):
-                mine = res[0]["launches"][i]["tokens"][0]
-                theirs = ref["launches"][j]["tokens"][0]
+            theirs_at = by_prompt(ref, len(ref["launches"]))
+            for ids, (i, m, k) in by_prompt(ctl, n_launches).items():
+                j, rm, rk = theirs_at[ids]
+                mine = ctl["launches"][i]["tokens"][m]
+                theirs = ref["launches"][j]["tokens"][rm]
                 first_equal = bool(np.array_equal(mine[:, 0], theirs[:, 0]))
-                err = rel_l2(res[0]["logits"][i], ref["logits"][j])
-                per_req.append({"request": j, "first_tokens_equal": first_equal,
+                err = rel_l2(ctl["logits"][k], ref["logits"][rk])
+                per_req.append({"launch": i, "member": m, "prompt_tokens": len(ids),
+                                "first_tokens_equal": first_equal,
                                 "token_agreement": float((mine == theirs).mean()),
-                                "logits_rel_l2": err,
-                                "texts_equal_to_unsharded": res[0]["outs"][i]["texts"]
-                                == ref["outs"][j]["texts"]})
+                                "logits_rel_l2": err})
                 if not first_equal:
-                    problems.append(f"request {j}: first tokens differ from the unsharded client's")
+                    problems.append(f"launch {i} member {m}: first tokens differ from the "
+                                    "unsharded client's")
                 if not err <= MESH_LOGITS_REL_L2:
-                    problems.append(f"request {j}: logits rel L2 {err} > {MESH_LOGITS_REL_L2}")
-            expected = expected_fn(res[0])
+                    problems.append(f"launch {i} member {m}: logits rel L2 {err} > "
+                                    f"{MESH_LOGITS_REL_L2}")
+            expected = expected_fn(ctl)
             for r in res:
-                got = {k: (r["counts"] | r["collectives"])[k] for k in expected}
+                got = {key: (r["counts"] | r["collectives"])[key] for key in expected}
                 if got != expected:
-                    problems.append(f"counts {got} != expected {expected}")
+                    problems.append(f"{r['role']} counts {got} != expected {expected}")
             peaks = [r["peak_bytes"] for r in res]
-            rec = {"phase": name, "mesh": res[0]["mesh"], "transport": res[0]["transport"],
+            rec = {"phase": name, "mesh": ctl["mesh"], "transport": ctl["transport"],
                    "requests": per_req, "expected_counts": expected,
                    "counts": [r["counts"] for r in res], "collectives": [r["collectives"] for r in res],
-                   "cache_stats": res[0]["cache_stats"], "rank_peak_bytes": peaks,
+                   "plans": [r["plans"] for r in res],
+                   "cache_stats": ctl["cache_stats"], "rank_peak_bytes": peaks,
                    "rank_param_bytes": [r["param_bytes"] for r in res],
                    "rank_allocated_before_bytes": [r["allocated_before_bytes"] for r in res],
-                   "rank_host": [r["host"] for r in res],
-                   "init_s": [r["init_s"] for r in res], "serve_s": [r["serve_s"] for r in res],
-                   "prefill_ms": [ln["prefill_s"] * 1e3 for ln in res[0]["launches"]],
+                   "rank_host": [r["host"] for r in res], "rank_job_s": [r["job_s"] for r in res],
+                   "init_s": ctl["init_s"], "serve_s": ctl["serve_s"],
+                   "launch_rows": [(ln["requests"], ln["rows"], ln["rank_rows"])
+                                   for ln in ctl["launches"]],
+                   "prefill_ms": [ln["prefill_s"] * 1e3 for ln in ctl["launches"]],
                    "decode_ms_per_step": [ln["decode_s"] * 1e3 / max(ln["steps"], 1)
-                                          for ln in res[0]["launches"]],
-                   "unsharded_prefill_ms": [ref["launches"][j]["prefill_s"] * 1e3 for j in ref_idx],
-                   "unsharded_decode_ms_per_step": [
-                       ref["launches"][j]["decode_s"] * 1e3 / max(ref["launches"][j]["steps"], 1)
-                       for j in ref_idx],
-                   "consensus": [o["texts"][0] for o in res[0]["outs"]]}
+                                          for ln in ctl["launches"]],
+                   "unsharded_prefill_ms": [ln["prefill_s"] * 1e3 for ln in ref["launches"]],
+                   "unsharded_decode_ms_per_step": [ln["decode_s"] * 1e3 / max(ln["steps"], 1)
+                                                    for ln in ref["launches"]],
+                   "consensus": [o["texts"][0] for o in ctl["outs"]]}
             if sum(peaks) >= 80e9:
                 problems.append(f"summed rank peaks {sum(peaks)} >= 80 GB")
             rec["ok"] = not problems
@@ -5433,6 +5786,18 @@ def main(argv=None) -> int:
             prefills = sum(ln["requests"] for ln in lns)
             steps = sum(ln["steps"] for ln in lns)
             return res["L"], lns, E, prefills, steps
+
+        def loop_tests(ctl, res, name):
+            """The decode loop's per-step max over the mesh (its loop test,
+            which carries the aborts) on rank ``res``: one a step of the
+            controller's launches, and one more where the rows finished
+            before max_tokens; none on an axis of one."""
+            lns = ctl["launches"]
+            steps = sum(ln["steps"] for ln in lns)
+            got = res["collectives"]["pmax"]
+            if not steps <= got <= steps + len(lns):
+                raise AssertionError(f"{name}: {got} loop tests for {steps} steps")
+            return got
 
         def expected_tp_int4(res):
             L, lns, E, prefills, steps = forwards(res)
@@ -5461,13 +5826,73 @@ def main(argv=None) -> int:
                         "all_gather": L * steps, "all_to_all": 4 * L * sp_prefills if ulysses else 0}
             return fn
 
-        tp4 = check_serve("mesh_tp2_int4", ref_int4, [0, 1], expected_tp_int4)
-        check_serve("mesh_tp2_bf16", ref_bf16, [0], expected_tp_bf16)
-        sp = check_serve("mesh_sp2", ref_bf16, [1], expected_sp(False))
+        def draws(lns):
+            return sum(ln["steps"] + 1 for ln in lns if ln["temperature"] != 0.0)
+
+        def expected_dp2(int4):
+            """Each data rank, per launch of B rows: K2 once a layer per
+            prefill (replicated) and per embeddings forward; on its B/2 rows
+            K1 once a layer per step (bf16 paged) or K3 where n_per * G >= 8
+            and K4 (7 a layer and the head) per step (int4 dense); a draw
+            per sampled step; one gather of the results a launch."""
+            def fn(res):
+                L, lns, E, prefills, steps = forwards(res)
+                out = {"flash_attention": L * (prefills + E), "threefry_uniform_rows": draws(lns),
+                       "all_gather": len(lns), "gather": 0, "psum": 0, "ppermute": 0,
+                       "all_to_all": 0}
+                if int4:
+                    gated = sum(ln["steps"] for ln in lns if ln["n_per"] * 4 >= 8)
+                    out.update(paged_decode_attention=0, decode_prefix_attention=L * gated,
+                               w4_matmul=(7 * L + 1) * (prefills + steps) + 7 * L * E)
+                else:
+                    out.update(paged_decode_attention=L * steps, decode_prefix_attention=0,
+                               w4_matmul=0)
+                return out
+            return fn
+
+        tp4 = check_serve("mesh_tp2_int4", ref_int4, 2, expected_tp_int4)
+        check_serve("mesh_tp2_bf16", ref_bf16, 1, expected_tp_bf16)
+        sp = check_serve("mesh_sp2", ref_bf16, 1, expected_sp(False))
+        sp_outs = sp[0]["outs"]
         if sp[0]["cache_stats"] != {"hits": 1, "partial_hits": 0, "misses": 1} or \
-                sp[0]["outs"][1]["texts"] != sp[0]["outs"][0]["texts"]:
+                sp_outs[1]["texts"] != sp_outs[0]["texts"]:
             raise AssertionError(f"mesh_sp2: the exact hit {sp[0]['cache_stats']} or its texts")
-        check_serve("mesh_sp2_ulysses", ref_bf16, [1], expected_sp(True))
+        check_serve("mesh_sp2_ulysses", ref_bf16, 1, expected_sp(True))
+        dp_tests = {}
+        for name, ref, int4 in (("mesh_dp2", ref_dp2, False), ("mesh_dp2_int4", ref_dp2_int4, True)):
+            res = check_serve(name, ref, len(ref["launches"]), expected_dp2(int4))
+            ctl = res[0]
+            fused = [ln["requests"] for ln in ctl["launches"]]
+            if fused != [4, 1] or any(ln["rank_rows"] * 2 != ln["rows"] for ln in ctl["launches"]):
+                raise AssertionError(f"{name}: launches {fused}, rows "
+                                     f"{[(ln['rows'], ln['rank_rows']) for ln in ctl['launches']]}")
+            dp_tests[name] = [loop_tests(ctl, r, name) for r in res]
+        http = ranks["mesh_dp2"][0]["http"]
+        fol_snap = ranks["mesh_dp2"][1]["snapshots"]
+        serve_ok = (http["concurrent"]["plain_status"] == 200
+                    and http["concurrent"]["stream_status"] == 200
+                    and http["concurrent"]["stream_done"] and http["next_status"] == 200
+                    and http["abort"]["aborted"] and http["abort"]["decode_steps"] < 255
+                    and len(fol_snap) == 1 and fol_snap[0]["aborted"] == http["abort"]["aborted"]
+                    and fol_snap[0]["decode_steps"] == http["abort"]["decode_steps"])
+        log({"phase": "mesh_dp2_serve", "http": http, "follower_snapshot": fol_snap,
+             "loop_tests": dp_tests, "follower_exit_code": ranks["_exitcodes"][1], "ok": serve_ok})
+        if not serve_ok:
+            raise AssertionError(f"mesh_dp2_serve: {http} / follower {fol_snap}")
+        # A follower's fault: tiny on two ranks of the card, the follower's
+        # first launch raising a kernel error; the controller's request ends
+        # as the typed 503 within FAULT_LIMIT_S, the world stays stopped.
+        fault, codes = run_fault_drill(store_dir)
+        from k_llms_tpu_torch.parallel.controller import FOLLOWER_FAULT_EXIT
+
+        fault_ok = (isinstance(fault, list) and codes == [0, FOLLOWER_FAULT_EXIT]
+                    and all(e is not None and e["type"] == "KernelUnavailableError"
+                            and e["status"] == 503 and e["seconds"] <= FAULT_LIMIT_S
+                            for e in fault))
+        log({"phase": "mesh_dp2_fault", "errors": fault, "exit_codes": codes,
+             "limit_s": FAULT_LIMIT_S, "ok": fault_ok})
+        if not fault_ok:
+            raise AssertionError(f"mesh_dp2_fault: {fault} exit codes {codes}")
         mut = ranks["mesh_k4tp_mutants"][0]["cases"]
         log({"phase": "mesh_k4tp_mutants", "cases": mut})
         if not all(c["err_over_limit"] <= 1.0 < c["mutant_err_over_limit"] for c in mut):

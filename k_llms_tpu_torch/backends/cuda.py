@@ -46,6 +46,13 @@ which turns each step's tokens into per-sample text deltas; the serving
 app's keep-alive, debug-surface and batch-lane settings are carried too. A
 keyword that names one of the JAX package's other ``BackendConfig`` fields
 raises ``NotImplementedError`` rather than being dropped.
+
+In a ``torch.distributed`` world larger than one, the backend takes its role
+from its rank (``parallel/controller.py``): on each host's first rank it is
+the controller and builds all of the above, announcing every launch and
+embeddings forward to the host's other ranks; on those it is a follower,
+whose constructor replays the controller's plans and returns after the
+controller's ``close()``. ``is_controller`` tells the two apart.
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ from ..models.config import get_config
 from ..reliability.supervisor import EngineSupervisor, LaunchBudgetModel
 from ..reliability.tenancy import TenancyConfig
 from ..types import ChatCompletion
+from ..types.wire import BackendUnavailableError
 from ..utils.observability import LATENCY, current_trace
 from .base import Backend, ChatRequest
 
@@ -345,19 +353,27 @@ class _IncrementalDetok:
 class HbmMemoryModel:
     """Static device-memory accounting for the coalesced decode: how many
     rows (samples) fit beside the resident parameters? The JAX package's
-    model on one card (no tensor or data parallelism):
+    model, per card of a (data, model) mesh of ``dp`` x ``tp`` ranks:
 
-        params + R * S * kv_bytes_per_token + R * row_margin
+        params / tp                               (weights, sharded over TP)
+      + (R / dp) * S * kv_bytes_per_token / tp    (KV: heads over TP, rows
+                                                   over DP)
+      + (R / dp) * row_margin                     (f32 logits, sampling)
 
-    Inverting for R against ``hbm * headroom`` gives the row cap the
+    ``param_bytes`` is the whole tree's (the JAX engine's measure;
+    ``LocalEngine.param_footprint_bytes(whole_tree=True)`` on a rank of a
+    mesh). Inverting for R against ``hbm * headroom`` gives the row cap the
     scheduler may coalesce to for a request shape. Conservative and static:
     it keeps the first launch inside the card; the engine's OOM guard
     (split and retry) catches what it underestimates."""
 
     def __init__(self, config, param_bytes: int, hbm_bytes: Optional[int] = None,
-                 headroom: float = 0.85, device: Optional[torch.device] = None):
+                 headroom: float = 0.85, device: Optional[torch.device] = None,
+                 tp: int = 1, dp: int = 1):
         self.config = config
         self.param_bytes = int(param_bytes)
+        self.tp = max(1, int(tp))
+        self.dp = max(1, int(dp))
         detected = hbm_bytes if hbm_bytes is not None else _detect_hbm_bytes(
             torch.device(device or "cpu")
         )
@@ -371,15 +387,16 @@ class HbmMemoryModel:
         self.row_margin_bytes = 4 * config.vocab_size + (64 << 10)
 
     def budget_bytes(self) -> int:
-        """Bytes available for per-row state after the parameters."""
-        return int(self.hbm_bytes * self.headroom) - self.param_bytes
+        """Bytes available for per-row state after the parameters, per
+        card."""
+        return int(self.hbm_bytes * self.headroom) - self.param_bytes // self.tp
 
     def max_rows(self, seq_len: int) -> int:
         """Row cap for a dense decode whose rows each hold ``seq_len``
         tokens of KV. Always >= 1: a row that does not fit is the OOM
         guard's problem, not admission's."""
-        per_row = max(1, int(seq_len)) * self.kv_bytes_per_token + self.row_margin_bytes
-        return max(1, max(0, self.budget_bytes()) // max(1, per_row))
+        per_row = max(1, int(seq_len)) * self.kv_bytes_per_token // self.tp + self.row_margin_bytes
+        return max(1, self.dp * max(0, self.budget_bytes()) // max(1, per_row))
 
     def paged_max_rows(self, prompt_len: int, max_new: int, page_size: int,
                        fanout: int = 1) -> int:
@@ -390,13 +407,13 @@ class HbmMemoryModel:
         fanout = max(1, int(fanout))
         prompt_len = max(1, int(prompt_len))
         max_new = max(1, int(max_new))
-        page_bytes = ps * self.kv_bytes_per_token
+        page_bytes = ps * self.kv_bytes_per_token // self.tp
         prompt_pages = -(-prompt_len // ps)
         reserve = (prompt_len + max_new - 1) // ps - prompt_len // ps + 1
         per_row = (
             reserve * page_bytes + -(-prompt_pages * page_bytes // fanout) + self.row_margin_bytes
         )
-        return max(1, max(0, self.budget_bytes()) // max(1, per_row))
+        return max(1, self.dp * max(0, self.budget_bytes()) // max(1, per_row))
 
     def prefill_chunk_tokens(self, width: int, max_prompt: int) -> int:
         """Auto chunk size for interleaved prefill. A decode step computes
@@ -420,6 +437,8 @@ class HbmMemoryModel:
             "headroom": self.headroom,
             "param_bytes": self.param_bytes,
             "kv_bytes_per_token": self.kv_bytes_per_token,
+            "tp": self.tp,
+            "dp": self.dp,
             "max_rows_at_max_seq": self.max_rows(self.config.max_seq_len),
         }
 
@@ -475,7 +494,35 @@ class CudaBackend(Backend):
         self._model_config = model_config
         self._mesh = mesh
         self.param_summary: Optional[Dict[str, Any]] = None
+        from ..parallel.distributed import world_size
+
+        if cfg.continuous_batching and world_size() > 1:
+            # Checked on every rank, before any group is made.
+            raise NotImplementedError(
+                "continuous_batching across a world of ranks is not ported: the loop's "
+                "slots are not replayed on the followers"
+            )
         self.engine = engine if engine is not None else self._build_engine()
+        from ..parallel.controller import HostController
+
+        # Every rank of a world larger than one: the host's first rank
+        # controls, the others follow (a follower's constructor serves the
+        # controller's plans until its close() and owns nothing else).
+        self.controller = HostController.for_world(self.engine)
+        self.is_controller = self.controller is None or self.controller.is_controller
+        self._schemas: Dict[str, Any] = {}
+        if self.controller is not None:
+            self.controller.encode_constraint = self._encode_constraint
+            self.controller.decode_constraint = self._decode_constraint
+        if not self.is_controller:
+            if self.engine.device.type == "cuda":
+                from ..ops import _ext
+
+                _ext.build_all()
+            self.default_max_new_tokens = cfg.max_new_tokens
+            self._closed = True
+            self.controller.serve()
+            return
         if self.engine.device.type == "cuda":
             # Every kernel is built here, so no nvcc build ever runs inside
             # a watched launch (a cold build of the five sources takes tens
@@ -486,12 +533,17 @@ class CudaBackend(Backend):
         self.default_max_new_tokens = cfg.max_new_tokens
         # Row cap per request shape: prompt + max_new KV per row, paged or
         # dense, against the card's memory.
+        # On a mesh: TP = the model axis, DP = the data axis (JAX's wiring),
+        # over the whole tree's bytes, which the model divides by TP once.
+        mesh = self.engine.mesh
         self.memory_model = HbmMemoryModel(
             self.engine.config,
-            param_bytes=self.engine.param_footprint_bytes(),
+            param_bytes=self.engine.param_footprint_bytes(whole_tree=True),
             hbm_bytes=cfg.hbm_bytes,
             headroom=cfg.hbm_headroom,
             device=self.engine.device,
+            tp=1 if mesh is None else mesh.shape["model"],
+            dp=self.engine.data_parallel_size,
         )
         self.tenancy = TenancyConfig.from_options(
             default_weight=cfg.tenant_default_weight,
@@ -669,6 +721,12 @@ class CudaBackend(Backend):
         ends (a kernel wedged on the card cannot be killed from the
         process): its memory goes back once that thread has ended, and
         until then the card holds both engines' weights."""
+        if self.controller is not None:
+            # A rebuild across the host's ranks is not ported: the world is
+            # stopped instead (the supervisor then answers 503s).
+            raise BackendUnavailableError(
+                "engine rebuild across a world of ranks is not supported; the world is stopped"
+            )
         old = weakref.ref(self.engine)
         launch = self._launch_thread
         self.engine = self._build_engine()
@@ -1051,7 +1109,10 @@ class CudaBackend(Backend):
         from ..engine.grammar import grammar_for_schema
 
         vocab, vocab_digest = self._grammar_vocab()
-        return grammar_for_schema(schema, vocab, vocab_digest=vocab_digest)
+        compiled = grammar_for_schema(schema, vocab, vocab_digest=vocab_digest)
+        if compiled is not None and getattr(self, "controller", None) is not None:
+            self._schemas[compiled.digest] = schema
+        return compiled
 
     def _grammar_vocab(self):
         """(per-token byte strings, digest) for this backend's tokenizer —
@@ -1166,11 +1227,39 @@ class CudaBackend(Backend):
         return self.scheduler.drain(timeout=t) and ok
 
     def close(self) -> None:
+        if not self.is_controller:
+            return  # a follower's world ended with its controller's close()
         if self._closed and self.scheduler.state.value == "stopped":
             return
         self.drain()
         if self._continuous is not None:
             self._continuous.stop()
+        if self.controller is not None:
+            self.controller.close()
+
+    # -- the controller's constraint codec ----------------------------------
+    def _encode_constraint(self, constraint):
+        """A launch's constraint for the followers: a grammar this backend
+        compiled from a schema travels as that schema."""
+        digest = getattr(constraint, "digest", None)
+        if digest is not None and digest in self._schemas:
+            return ("schema", self._schemas[digest], digest)
+        return ("object", constraint)
+
+    def _decode_constraint(self, encoded):
+        if encoded[0] != "schema":
+            return encoded[1]
+        from ..engine.grammar import grammar_for_schema
+
+        _, schema, digest = encoded
+        vocab, vocab_digest = self._grammar_vocab()
+        compiled = grammar_for_schema(schema, vocab, vocab_digest=vocab_digest)
+        if compiled is None or compiled.digest != digest:
+            raise RuntimeError(
+                f"follower compiled schema grammar {getattr(compiled, 'digest', None)} "
+                f"where the controller has {digest}"
+            )
+        return compiled
 
     # -- on-device consensus ----------------------------------------------
     def similarity_scorer(self, method: str):

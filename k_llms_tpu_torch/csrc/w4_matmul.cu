@@ -66,6 +66,14 @@
 //     into a [128, 128] f32 shared tile.
 // Routes 0 and 2 split long contractions over CTAs too (`ksplit`); their
 // f32 partials w4_reduce adds in a fixed order.
+//
+// N need not fill the column tiles: every route masks its last column tile
+// (a tensor-parallel shard such as Llama-3-8B's lm_head over 4 ranks,
+// [4096, 32064], ends 64 columns into a 128-column tile). Loads past N are
+// zero-filled (cp.async with a source size of 0) or skipped, and no store
+// passes N. N must keep the packed rows 16-byte aligned (N % 16 == 0), so a
+// 16-byte chunk of columns is wholly in or wholly out; K keeps whole
+// 256-row blocks (the 128-row scale groups and the tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,7 +131,7 @@ w4_gemv(const T* __restrict__ x, const uint8_t* __restrict__ q,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int col0 = blockIdx.x * kGemvCols + lane * 8;
-  const bool col_ok = col0 < N;  // N % 8 == 0: a lane's 8 columns are all in or out
+  const bool col_ok = col0 < N;  // N % 16 == 0: a lane's 8 columns are all in or out
   const int row0 = blockIdx.z * RT;
   const int groups = K / kGroup;
   const int per_split = groups / ksplit;
@@ -269,12 +277,14 @@ w4_gemm(const T* __restrict__ x, const uint8_t* __restrict__ q,
       xs[(kc + 2) * kXStride + r] = v.z;
       xs[(kc + 3) * kXStride + r] = v.w;
     }
-    // Packed bytes [64, 128] -> ws[k][col] (f32): 16 bytes per load.
+    // Packed bytes [64, 128] -> ws[k][col] (f32): 16 bytes per load;
+    // columns past N read as zero bytes (the masked last tile).
     for (int c = tid; c < kHalf * (kBN / 16); c += kGemmThreads) {
       const int pk = c / (kBN / 16);
       const int cc = (c % (kBN / 16)) * 16;
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-          q + ((size_t)g * kHalf + pk) * N + colt + cc));
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);  // nibble 0 is the value 0
+      if (colt + cc < N)
+        raw = __ldg(reinterpret_cast<const uint4*>(q + ((size_t)g * kHalf + pk) * N + colt + cc));
       const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
       for (int wi = 0; wi < 4; ++wi) {
@@ -306,8 +316,10 @@ w4_gemm(const T* __restrict__ x, const uint8_t* __restrict__ q,
         for (int j = 0; j < 8; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
     }
     const float* sg = scale + (size_t)g * N + colt;
-    const float4 s0 = __ldg(reinterpret_cast<const float4*>(sg + tx * 4));
-    const float4 s1 = __ldg(reinterpret_cast<const float4*>(sg + 64 + tx * 4));
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 s0 = colt + tx * 4 < N ? __ldg(reinterpret_cast<const float4*>(sg + tx * 4)) : zero4;
+    const float4 s1 =
+        colt + 64 + tx * 4 < N ? __ldg(reinterpret_cast<const float4*>(sg + 64 + tx * 4)) : zero4;
     const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -323,7 +335,7 @@ w4_gemm(const T* __restrict__ x, const uint8_t* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = colt + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      store_out(out + (size_t)row * N + col, acc[i][j]);
+      if (col < N) store_out(out + (size_t)row * N + col, acc[i][j]);
     }
   }
 }
@@ -394,14 +406,17 @@ w4_gemm_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
       cp_async_16(xs + r * kTcXStride + ch * 8,
                   x + (size_t)(ok ? row0 + r : 0) * K + (size_t)gg * kGroup + ch * 8, ok ? 16 : 0);
     }
+    // Columns past N (the masked last tile) are zero-filled.
     for (int c = tid; c < kHalf * 8; c += Tile::kThreads) {
       const int r = c >> 3;
       const int ch = c & 7;
-      cp_async_16(qs + r * kTcQStride + ch * 16, q + ((size_t)gg * kHalf + r) * N + col0 + ch * 16,
-                  16);
+      const bool in = col0 + ch * 16 < N;
+      cp_async_16(qs + r * kTcQStride + ch * 16,
+                  q + ((size_t)gg * kHalf + r) * N + (in ? col0 + ch * 16 : 0), in ? 16 : 0);
     }
     for (int c = tid; c < kTcBN / 4; c += Tile::kThreads) {
-      cp_async_16(ss + c * 4, scale + (size_t)gg * N + col0 + c * 4, 16);
+      const bool in = col0 + c * 4 < N;
+      cp_async_16(ss + c * 4, scale + (size_t)gg * N + (in ? col0 + c * 4 : 0), in ? 16 : 0);
     }
   };
 
@@ -501,6 +516,7 @@ w4_gemm_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = col0 + wn * 32 + c * 16 + 4 * t;
+        if (col >= N) continue;  // the masked last tile: 4 columns wholly in or out
         const float v0 = acc[mt][2 * c][2 * hr];
         const float v1 = acc[mt][2 * c + 1][2 * hr];
         const float v2 = acc[mt][2 * c][2 * hr + 1];
@@ -528,7 +544,7 @@ int launch_tc(const __nv_bfloat16* x, const uint8_t* q, const float* scale, __nv
   if (err != cudaSuccess) return (int)err;
   const int row_tiles = (rows + BM - 1) / BM;
   if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / kTcBN, ksplit, row_tiles);
+  const dim3 grid((N + kTcBN - 1) / kTcBN, ksplit, row_tiles);
   w4_gemm_tc<BM><<<grid, TcTile<BM>::kThreads, smem, stream>>>(x, q, scale, out, partial, rows,
                                                                 K, N, ksplit);
   err = cudaGetLastError();
@@ -588,13 +604,18 @@ w4_decode_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     float* ss = reinterpret_cast<float*>(qs + Tile::kQBytes);
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(qs + Tile::kQBytes + Tile::kSBytes);
     const int gg = g_begin + i;
+    // Columns past N (the masked last tile) are zero-filled.
     for (int c = tid; c < kHalf * (kDecBN / 16); c += kDecThreads) {
       const int r = c / (kDecBN / 16);
       const int ch = c % (kDecBN / 16);
+      const bool in = col0 + ch * 16 < N;
       cp_async_16(qs + r * kDecQStride + ch * 16,
-                  q + ((size_t)gg * kHalf + r) * N + col0 + ch * 16, 16);
+                  q + ((size_t)gg * kHalf + r) * N + (in ? col0 + ch * 16 : 0), in ? 16 : 0);
     }
-    if (tid < kDecBN / 4) cp_async_16(ss + tid * 4, scale + (size_t)gg * N + col0 + tid * 4, 16);
+    if (tid < kDecBN / 4) {
+      const bool in = col0 + tid * 4 < N;
+      cp_async_16(ss + tid * 4, scale + (size_t)gg * N + (in ? col0 + tid * 4 : 0), in ? 16 : 0);
+    }
     for (int c = tid; c < Tile::kRows * (kGroup / 8); c += kDecThreads) {
       const int r = c >> 4;
       const int ch = c & 15;
@@ -696,6 +717,7 @@ w4_decode_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
         const int row = n * 8 + 2 * t + hr;
         if (row >= rows) continue;
         const int col = col0 + warp * 32 + c * 16 + 2 * g;
+        if (col >= N) continue;  // the masked last tile
         const float v0 = acc[c][n][hr];
         const float v1 = acc[c][n][2 + hr];
         if (ksplit == 1) {
@@ -721,6 +743,7 @@ w4_decode_tc(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
   for (int idx = tid; idx < rows * (kDecBN / 4); idx += kDecThreads) {
     const int row = idx / (kDecBN / 4);
     const int col = col0 + (idx % (kDecBN / 4)) * 4;
+    if (col >= N) continue;  // the masked last tile
     // The splits' loads are issued ahead of their (ordered) sum.
     constexpr int kUnroll = 8;
     const float4* src = reinterpret_cast<const float4*>(partial + (size_t)row * N + col);
@@ -755,7 +778,7 @@ int launch_decode(const __nv_bfloat16* x, const uint8_t* q, const float* scale,
   cudaError_t err = cudaFuncSetAttribute(w4_decode_tc<NT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / kDecBN, ksplit);
+  const dim3 grid((N + kDecBN - 1) / kDecBN, ksplit);
   w4_decode_tc<NT><<<grid, kDecThreads, smem, stream>>>(x, q, scale, out, partial, sem, rows, K,
                                                         N, ksplit);
   return (int)cudaGetLastError();
@@ -789,7 +812,7 @@ int launch_f32(const float* x, const uint8_t* q, const float* scale, float* out,
   cudaError_t err = cudaFuncSetAttribute(w4_gemm<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kGemmSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / kBN, (rows + kBM - 1) / kBM);
+  const dim3 grid((N + kBN - 1) / kBN, (rows + kBM - 1) / kBM);
   w4_gemm<float><<<grid, kGemmThreads, kGemmSmem, stream>>>(x, q, scale, out, rows, K, N);
   return (int)cudaGetLastError();
 }
@@ -801,12 +824,13 @@ int launch_f32(const float* x, const uint8_t* q, const float* scale, float* out,
 // tensor-core kernel (bf16 x; 64-row tiles when rows <= 64, else 128), 3 the
 // decode kernel (bf16 x, rows <= 32). `partial` is f32 scratch of
 // ksplit * rows * N floats (unused when ksplit == 1); `sem` (route 3 with
-// ksplit > 1) is N / 128 ints, zero before the launch and zero after it.
+// ksplit > 1) is ceil(N / 128) ints, zero before the launch and zero after
+// it. K % 256 == 0 and N % 16 == 0.
 // Returns the CUDA status of the launches (0 = success).
 extern "C" int kllms_w4_matmul(const void* x, const void* q, const float* scale, void* out,
                                float* partial, int* sem, int rows, int K, int N, int is_bf16,
                                int route, int ksplit, void* stream) {
-  if (rows <= 0 || K <= 0 || N <= 0 || K % (2 * kGroup) != 0 || N % kBN != 0 ||
+  if (rows <= 0 || K <= 0 || N <= 0 || K % (2 * kGroup) != 0 || N % 16 != 0 ||
       ksplit <= 0 || (K / kGroup) % ksplit != 0 || (ksplit > 1 && partial == nullptr) ||
       route < 0 || route > 3 || (route >= 2) != (is_bf16 != 0) ||
       (route == 3 && (rows > 32 || (ksplit > 1 && sem == nullptr)))) {

@@ -77,15 +77,21 @@ results carry ``spec_stats`` with drafted/accepted counts; coalesced ones
 their iterations and rate, with the launch's totals in ``engine.spec_stats``.
 
 On a mesh (``parallel/``) the engine is one rank of an SPMD program:
-every rank builds the same engine and makes the same calls in the same
-order. ``torch.distributed`` started with a world larger than 1 gives the
-engine ``auto_mesh(model_parallel)``, as more than one device gives the JAX
-engine its mesh; a world of one builds none, and the mesh fields then
-change nothing. Each rank holds its shard of the weights
-(``parallel.shard_params``; the Megatron layout, int4 leaves marked for
-``w4_matmul_tp``) and of the KV (KVH/TP heads, in the page pool too), and
-keeps the decode rows whole; n is padded to a multiple of the data axis, as
-the JAX engine pads it, so the draws' rows line up. Prompts of at least
+every rank builds the same engine and runs the same launches in the same
+order, either because every rank makes the same calls or because a
+controlling rank announces each launch to the host's other ranks
+(``parallel/controller.py``, JAX's single controller). ``torch.distributed``
+started with a world larger than 1 gives the engine
+``auto_mesh(model_parallel)``, as more than one device gives the JAX engine
+its mesh; a world of one builds none, and the mesh fields then change
+nothing. Each rank holds its shard of the weights (``parallel.shard_params``;
+the Megatron layout, int4 leaves marked for ``w4_matmul_tp``) and of the KV
+(KVH/TP heads, in the page pool too). n is padded to a multiple of the data
+axis, as the JAX engine pads it, and the coalesced bodies split the decode
+rows over ``data`` (``P(DATA)``'s contiguous blocks, :class:`RowShare`):
+each data rank decodes B/D rows against the replicated prompts, with its
+rows' own draws and per-row state, and the results are gathered once at
+the end of the launch. Prompts of at least
 ``sp_prefill_min_tokens`` prefill sequence-parallel over the data axis
 (``engine/long_context.py``, ring or Ulysses attention); with
 ``sp_decode`` a solo request keeps that KV sequence-sharded and decodes
@@ -138,7 +144,7 @@ from ..ops.random import request_keys, threefry_uniform_verify
 from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
 from ..ops.speculative import accept_drafts, propose_prompt_lookup, scatter_rows, scatter_rows_k
 from ..ops.w4matmul import Q4Tensor
-from ..parallel.collectives import assert_ranks_agree
+from ..parallel.collectives import all_gather, assert_ranks_agree, gather_to_first, pmax
 from ..parallel.distributed import world_size
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, auto_mesh
 from ..parallel.sharding import param_specs, shard_node, shard_params
@@ -374,6 +380,52 @@ class GenRequestSpec(NamedTuple):
     token_sink: Optional[Callable[[int, np.ndarray], None]] = None
 
 
+def _gather_rows(mesh: Mesh, T: int, K: int, toks, lps, done, tt, tl, pois):
+    """A data rank's decode results [Bl, ...] gathered over ``data`` into the
+    launch's [B, ...] in row order: one ``all_gather`` of every field packed
+    bit for bit into f32 columns (int32 tokens and ids viewed as f32)."""
+    Bl = toks.shape[0]
+    f32 = torch.float32
+    parts = [toks.view(f32), lps, done.to(f32)[:, None], pois.to(f32)[:, None]]
+    if K:
+        parts += [tt.reshape(Bl, T * K).view(f32), tl.reshape(Bl, T * K)]
+    full = all_gather(torch.cat(parts, dim=1), DATA_AXIS, mesh, dim=0)
+    B = full.shape[0]
+    toks, lps = full[:, :T].contiguous().view(torch.int32), full[:, T:2 * T].contiguous()
+    done, pois = full[:, 2 * T] != 0, full[:, 2 * T + 1] != 0
+    if K:
+        at = 2 * T + 2
+        tt = full[:, at: at + T * K].contiguous().view(torch.int32).reshape(B, T, K)
+        tl = full[:, at + T * K:].contiguous().reshape(B, T, K)
+    return toks, lps, done, tt, tl, pois
+
+
+class RowShare(NamedTuple):
+    """A data rank's share of a launch's ``B = r_pad * n_per`` rows: rows
+    [lo, hi), ``P(DATA)``'s contiguous block of B/D, laid out for the model
+    step as ``len(groups)`` groups of ``n_loc`` rows, group g reading
+    request ``groups[g]``'s prompt."""
+
+    lo: int
+    hi: int
+    groups: List[int]
+    n_loc: int
+
+
+def row_share(B: int, n_per: int, D: int, d: int) -> RowShare:
+    """Data coordinate ``d`` of ``D``'s rows [d*B/D, (d+1)*B/D): whole
+    requests when B/D covers them, one request's run of samples when B/D
+    divides n_per, else one group per row (a D that is not a power of
+    two)."""
+    per = B // D
+    lo, hi = d * per, (d + 1) * per
+    if per % n_per == 0:
+        return RowShare(lo, hi, list(range(lo // n_per, hi // n_per)), n_per)
+    if n_per % per == 0:
+        return RowShare(lo, hi, [lo // n_per], per)
+    return RowShare(lo, hi, [g // n_per for g in range(lo, hi)], 1)
+
+
 def _one_launch_at_a_time(method):
     """Run an engine method under the engine's launch lock, with the
     engine's card as the calling thread's current device (a scheduler or
@@ -383,12 +435,7 @@ def _one_launch_at_a_time(method):
 
     @functools.wraps(method)
     def locked(self, *args, **kwargs):
-        on_card = (
-            torch.cuda.device(self.device)
-            if self.device.type == "cuda"
-            else contextlib.nullcontext()
-        )
-        with self._launch_lock, on_card:
+        with self._launch_lock, self._on_card():
             return method(self, *args, **kwargs)
 
     return locked
@@ -475,12 +522,12 @@ class LocalEngine:
                 raise ValueError(
                     f"checkpoint stores int4 weights {stored} whose model parallel={tp} "
                     f"shards {[off[k] for k in stored]} miss the w4a16 kernel's blocking "
-                    "(K % 256, N % 128); re-quantize to int8 or change the mesh"
+                    "(K % 256, N % 16); re-quantize to int8 or change the mesh"
                 )
             if off:
                 logger.warning(
                     "int4 on model parallel=%d for %s: local shards %s miss the w4a16 "
-                    "kernel's blocking (K %% 256, N %% 128); keeping them int8",
+                    "kernel's blocking (K %% 256, N %% 16); keeping them int8",
                     tp, self.config.name, off,
                 )
             int8_keys = frozenset(off)
@@ -593,6 +640,14 @@ class LocalEngine:
         # kllms: unguarded — single-writer publish; one launch in flight
         self._active_token_sinks: Optional[List[Any]] = None
         self._reset_tap_state()
+        # The controlling rank's broadcaster (parallel/controller.py): set on
+        # a host's first rank of a world, it hands every launch to the
+        # host's other ranks before running it. None elsewhere. ``controlled``
+        # marks every rank of such a world: only the controller polls the
+        # members' budgets, so its aborts reach the others through the loop
+        # test's reduction.
+        self.controller = None
+        self.controlled = False
         # Runtime twin of the annotations above: the lockset sanitizer
         # (KLLMS_RACECHECK=1) skips exactly the fields the static rule skips.
         race_exempt(
@@ -621,23 +676,47 @@ class LocalEngine:
     def data_parallel_size(self) -> int:
         return 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
 
-    def _check_ranks(self, tokens: torch.Tensor, what: str) -> None:
-        """With ``rank_check`` on a mesh, raise unless every rank holds the
-        same ``tokens``."""
+    def _check_ranks(self, tokens: torch.Tensor, what: str, axis: Optional[str] = None) -> None:
+        """With ``rank_check`` on a mesh, raise unless every rank (or every
+        rank of this rank's group on ``axis``) holds the same ``tokens``."""
         if self.rank_check and self.mesh is not None:
-            assert_ranks_agree(tokens, self.mesh, what)
+            if axis is not None and self.mesh.axis_size(axis) == 1:
+                return
+            assert_ranks_agree(tokens, self.mesh, what, axis=axis)
 
-    def param_footprint_bytes(self) -> int:
+    def param_footprint_bytes(self, whole_tree: bool = False) -> int:
         """Bytes of the resident parameters, quantized payloads and scales
-        included."""
+        included: this rank's shard, or with ``whole_tree`` the whole tree's
+        (each shard's bytes times the ranks its spec cuts it over; the JAX
+        engine's measure, which the memory model divides by TP)."""
+        from ..parallel.sharding import scale_spec
 
-        def size(t) -> int:
-            if hasattr(t, "nbytes") and callable(t.nbytes):
-                return t.nbytes()
-            return t.numel() * t.element_size()
+        mesh = self.mesh if whole_tree else None
+        specs = param_specs(self.config) if mesh is not None else None
 
-        leaves = [self.params["embed"], self.params["final_norm"], self.params["lm_head"]]
-        return sum(size(t) for t in leaves + list(self.params["layers"].values()))
+        def cut(spec) -> int:
+            out = 1
+            for axis in spec or ():
+                out *= mesh.axis_size(axis) if axis is not None else 1
+            return out
+
+        def size(t, spec=None) -> int:
+            if isinstance(t, Q4Tensor):
+                return (t.q.numel() * t.q.element_size() + t.scale.numel() * 4) * cut(spec)
+            if hasattr(t, "q") and hasattr(t, "scale"):  # QTensor
+                return (t.q.numel() * t.q.element_size() * cut(spec)
+                        + t.scale.numel() * t.scale.element_size()
+                        * cut(None if spec is None else scale_spec(spec)))
+            return t.numel() * t.element_size() * cut(spec)
+
+        def spec_of(key, top=True):
+            if specs is None:
+                return None
+            return specs[key] if top else specs["layers"][key]
+
+        total = sum(size(self.params[k], spec_of(k)) for k in ("embed", "final_norm", "lm_head"))
+        return total + sum(size(t, spec_of(k, top=False))
+                           for k, t in self.params["layers"].items())
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1215,11 +1294,63 @@ class LocalEngine:
                 raise
             return [e]
 
+    def _launch_rows(self, items: Sequence[GenRequestSpec]) -> Tuple[int, int, List[int]]:
+        """(n_per, r_pad, live rows) of a launch: one row count for every
+        request, rounded so the data axis divides the batch (the JAX
+        engine's padding; its draws' rows line up), and a power-of-two
+        request count."""
+        dp = self.data_parallel_size
+        n_per = -(-max(max(1, it.n) for it in items) // dp) * dp
+        r_pad = _bucket(len(items), minimum=1)
+        live = [i for j, it in enumerate(items) for i in range(j * n_per, j * n_per + max(1, it.n))]
+        return n_per, r_pad, live
+
     @_one_launch_at_a_time
+    def _launch(self, items: Sequence[GenRequestSpec], **kwargs) -> List[Any]:
+        """Decode several same-config requests as one batch, in the engine's
+        KV layout (:meth:`_run_launch`). The host-only checks run first;
+        then the seeds the caller left unset are drawn and the
+        ``engine.logits`` drill's rows chosen, so that a controlling rank
+        (``parallel/controller.py``) hands its followers the launch they
+        must run, before any device work."""
+        _failpoints.fire("engine.launch")
+        note_device_dispatch("engine batched launch")
+        if len(items) == 1 and items[0].budget is not None:
+            # A solo request fails before any device work; a coalesced
+            # member's spent budget is seen by the abort poller at the first
+            # step and fails that member alone, as in the JAX engine.
+            items[0].budget.check("engine prefill")
+        eos = list(kwargs.get("eos_ids") or [self.config.eos_token_id])[:MAX_EOS_IDS]
+        self._validate_constraint(kwargs.get("constraint"), eos)
+        items = [
+            it if it.seed is not None else it._replace(
+                seed=int.from_bytes(os.urandom(4), "little"))
+            for it in items
+        ]
+        poison_rows = self._poison_rows(self._launch_rows(items)[2])
+        if self.controller is not None:
+            self.controller.announce_launch(items, kwargs, poison_rows)
+            return self.controller.guard(self._run_launch, items, poison_rows, **kwargs)
+        return self._run_launch(items, poison_rows, **kwargs)
+
+    def replay_launch(self, items: Sequence[GenRequestSpec], kwargs: Dict[str, Any],
+                      poison_rows: Optional[List[int]]) -> List[Any]:
+        """A follower's run of a launch its controller announced: the same
+        :meth:`_run_launch`, its seeds and drill rows as sent."""
+        with self._launch_lock, self._on_card():
+            return self._run_launch(items, poison_rows, **kwargs)
+
+    def _on_card(self):
+        """The engine's card as the calling thread's current device (a no-op
+        on the CPU)."""
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+
     @torch.inference_mode()
-    def _launch(
+    def _run_launch(
         self,
         items: Sequence[GenRequestSpec],
+        poison_rows: Optional[List[int]],
         *,
         max_new_tokens: int = 128,
         temperature: float = 1.0,
@@ -1233,40 +1364,29 @@ class LocalEngine:
         stop_sequences: Optional[Sequence[Sequence[int]]] = None,
         constraint: Any = None,
     ) -> List[Any]:
-        """Decode several same-config requests as one batch, in the engine's
-        KV layout. ``constraint`` masks every row's logits with a grammar
-        automaton (see :func:`_constraint_ops`). Returns one
-        GenerationResult per item, or, for a member whose budget was spent
-        (its rows froze at the step the abort poller saw it) or whose
-        samples an injected fault killed, that member's exception."""
-        _failpoints.fire("engine.launch")
-        note_device_dispatch("engine batched launch")
+        """One launch of seeded ``items``. ``constraint`` masks every row's
+        logits with a grammar automaton (see :func:`_constraint_ops`).
+        Returns one GenerationResult per item, or, for a member whose budget
+        was spent (its rows froze at the step the abort poller saw it) or
+        whose samples an injected fault killed, that member's exception.
+
+        On a mesh with a data axis of D > 1 the coalesced bodies split the
+        rows: data coordinate d decodes rows [d*B/D, (d+1)*B/D) (its
+        :class:`RowShare`) against the replicated prompts, and the tokens,
+        logprobs and flags are gathered over ``data`` once, at the end. The
+        speculative launches and the ring-decode route keep whole rows."""
         config = self.config
         device = self.device
         t_start = time.perf_counter()
         # Stats describe this launch only: a launch without speculation must
         # not leave an earlier one's numbers visible.
         self.spec_stats = {}
-        if len(items) == 1 and items[0].budget is not None:
-            # A solo request fails before any device work; a coalesced
-            # member's spent budget is seen by the abort poller at the first
-            # step and fails that member alone, as in the JAX engine.
-            items[0].budget.check("engine prefill")
         eos = list(eos_ids or [config.eos_token_id])[:MAX_EOS_IDS]
-        self._validate_constraint(constraint, eos)
         preps = [self._prep_prompt(it.prompt_ids) for it in items]
-        # One row count for every request, rounded so the data axis divides
-        # the batch (the JAX engine's padding; its draws' rows line up).
-        dp = self.data_parallel_size
-        n_per = -(-max(max(1, it.n) for it in items) // dp) * dp
-        r_pad = _bucket(len(items), minimum=1)
+        n_per, r_pad, live = self._launch_rows(items)
         extra = r_pad - len(items)
         B = r_pad * n_per
-        live = [i for j, it in enumerate(items) for i in range(j * n_per, j * n_per + max(1, it.n))]
-        seeds = [
-            it.seed if it.seed is not None else int.from_bytes(os.urandom(4), "little")
-            for it in items
-        ]
+        seeds = [it.seed for it in items]
         # The JAX engine's request keys: key(seed) per request, key(0) for
         # the padding requests.
         req_keys = request_keys(seeds + [0] * extra, device) if temperature != 0.0 else None
@@ -1274,9 +1394,19 @@ class LocalEngine:
         eos_t = torch.as_tensor(eos + [-1] * (MAX_EOS_IDS - len(eos)), device=device)
 
         budgets = [it.budget for it in items]
-        poison0 = self._poison0_array(B, live)
+        poison0 = self._poison_mask(B, poison_rows)
 
         sinks = [it.token_sink for it in items]
+
+        # The ring-decode route: a solo prompt that takes the SP prefill keeps
+        # its KV sequence-sharded and decodes against it in place.
+        ring_mesh = self.mesh if (
+            len(items) == 1 and self.sp_decode and self._use_sp_prefill(*preps[0][1:])
+        ) else None
+        share = None
+        if (self.data_parallel_size > 1 and ring_mesh is None
+                and self.speculative != "prompt_lookup"):
+            share = row_share(B, n_per, self.data_parallel_size, self.mesh.axis_index(DATA_AXIS))
 
         def run_loop(step_fn, first_logits):
             self._active_token_sinks = sinks if any(sinks) else None
@@ -1290,16 +1420,10 @@ class LocalEngine:
                     top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
                     presence_penalty=presence_penalty,
                     bias=self._bias_array(logit_bias) if logit_bias else None,
-                    stops=stops if use_stops else None,
+                    stops=stops if use_stops else None, share=share,
                 )
             finally:
                 self._active_token_sinks = None
-
-        # The ring-decode route: a solo prompt that takes the SP prefill keeps
-        # its KV sequence-sharded and decodes against it in place.
-        ring_mesh = self.mesh if (
-            len(items) == 1 and self.sp_decode and self._use_sp_prefill(*preps[0][1:])
-        ) else None
         spec_np = None
         if self.speculative == "prompt_lookup":
             # Speculative launches decode dense whatever the engine's layout,
@@ -1329,7 +1453,7 @@ class LocalEngine:
             if layout == "paged":
                 try:
                     out, t_prefill = self._generate_paged(
-                        preps, n_per, r_pad, live, max_new_tokens, run_loop
+                        preps, n_per, r_pad, live, max_new_tokens, run_loop, share
                     )
                 except PagePoolExhausted:
                     # The JAX engine's rule: correctness never depends on
@@ -1340,7 +1464,7 @@ class LocalEngine:
                     layout = "dense"
             if layout == "dense":
                 out, t_prefill = self._generate_dense(
-                    preps, n_per, r_pad, max_new_tokens, run_loop, ring_mesh
+                    preps, n_per, r_pad, max_new_tokens, run_loop, ring_mesh, share
                 )
         toks_np, lps_np, done_np, tt_np, tl_np, pois_np, steps, aborted = out
         t_end = time.perf_counter()
@@ -1351,6 +1475,8 @@ class LocalEngine:
             # Decode steps, or verify iterations on a speculative launch.
             "decode_steps": steps,
             "rows": B,
+            # The rows this rank decoded: B, or its data share B/D.
+            "rank_rows": B if share is None else share.hi - share.lo,
             "n_per": n_per,
             "live_rows": len(live),
             "kv_layout": layout,
@@ -1471,19 +1597,29 @@ class LocalEngine:
         self._tap_next += 1
 
     # -- numeric-integrity quarantine --------------------------------------
-    def _poison0_array(self, n_rows: int, live_rows: Sequence[int]) -> Optional[torch.Tensor]:
-        """First-step poison-injection mask [n_rows] bool, or None (nothing
-        to inject, the production path): with an active ``engine.logits``
-        nan failpoint, a seeded subset of the live rows (padding rows
-        excluded, their poison would be invisible)."""
+    def _poison_rows(self, live_rows: Sequence[int]) -> Optional[List[int]]:
+        """The rows whose first-step logits are forced to NaN, or None
+        (nothing to inject, the production path): with an active
+        ``engine.logits`` nan failpoint, a seeded subset of the live rows
+        (padding rows excluded, their poison would be invisible)."""
         fp = _failpoints.fire("engine.logits")
         if fp is None or fp.action != "nan" or fp.kill <= 0:
             return None
         rows = list(live_rows)
-        chosen = _pyrandom.Random(fp.seed).sample(rows, min(fp.kill, len(rows)))
+        return sorted(_pyrandom.Random(fp.seed).sample(rows, min(fp.kill, len(rows))))
+
+    def _poison_mask(self, n_rows: int, rows: Optional[List[int]]) -> Optional[torch.Tensor]:
+        """[n_rows] bool on the device with ``rows`` set, or None."""
+        if not rows:
+            return None
         mask = np.zeros((n_rows,), np.bool_)
-        mask[chosen] = True
+        mask[rows] = True
         return torch.as_tensor(mask, device=self.device)
+
+    def _poison0_array(self, n_rows: int, live_rows: Sequence[int]) -> Optional[torch.Tensor]:
+        """First-step poison-injection mask [n_rows] bool (the continuous
+        loop's rows), or None: :meth:`_poison_rows` as a mask."""
+        return self._poison_mask(n_rows, self._poison_rows(live_rows))
 
     def _note_quarantine(self, poisoned: int, total: int) -> None:
         """Per-launch quarantine accounting and the supervisor's hook, called
@@ -1498,26 +1634,40 @@ class LocalEngine:
         if self.on_quarantine is not None:
             self.on_quarantine(poisoned, total)
 
-    def _generate_paged(self, preps, n_per, r_pad, live, max_new_tokens, run_loop):
+    def _generate_paged(self, preps, n_per, r_pad, live, max_new_tokens, run_loop, share=None):
         """The paged body: prompts admitted as pool page runs (through the
         prefix cache when it is on), rows decode through block tables.
-        Returns (loop output, prefill end time). Raises PagePoolExhausted
-        (after releasing every reference it took) when admission or the gen
-        pages cannot be had even with eviction."""
+        With ``share`` (a data rank's :class:`RowShare`) the prompts' pages
+        stay replicated and this rank holds only its own rows' generation
+        pages; every data rank takes as many generation runs as the rank
+        with the most live rows (the surplus is held unused and freed), so
+        the ranks' pools, evictions and exhaustion stay identical. Returns
+        (loop output, prefill end time). Raises PagePoolExhausted (after
+        releasing every reference it took) when admission or the gen pages
+        cannot be had even with eviction."""
         config = self.config
         device = self.device
         extra = r_pad - len(preps)
         B = r_pad * n_per
+        lo, hi = (share.lo, share.hi) if share is not None else (0, B)
+        groups = share.groups if share is not None else list(range(r_pad))
+        mine = [r for r in live if lo <= r < hi]
+        runs = len(live)
+        if share is not None:
+            per = hi - lo
+            runs = max(sum(1 for r in live if d * per <= r < (d + 1) * per)
+                       for d in range(B // per))
         bucket_max = max(bucket for _, _, bucket in preps)
         gp = pages_for(max_new_tokens, self.kv_page_size)
         pool = self._ensure_kv_pool(
             min_pages=sum(pages_for(p, self.kv_page_size) for _, p, _ in preps)
-            + len(live) * gp + 1
+            + runs * gp + 1
         )
         ps = pool.page_size
 
         pinned: List[PagedPrefixRun] = []
-        gen_pages_rows: List[Optional[List[int]]] = [None] * B
+        gen_pages_rows: Dict[int, List[int]] = {}
+        surplus: List[List[int]] = []
         try:
             first_list = []
             for ids, prompt_len, bucket in preps:
@@ -1529,8 +1679,12 @@ class LocalEngine:
                 first_list.append(fl)
             self._sync()
             t_prefill = time.perf_counter()
-            for row in live:
-                gen_pages_rows[row] = self._alloc_pages_with_evict(gp)
+            for j in range(runs):
+                pages = self._alloc_pages_with_evict(gp)
+                if j < len(mine):
+                    gen_pages_rows[mine[j]] = pages
+                else:
+                    surplus.append(pages)
             # Resolved and counted per launch once its pages are held, where
             # the JAX engine resolves it: a launch the pool cannot hold
             # decodes dense and counts no paged dispatch. The ops.paged_attn
@@ -1550,17 +1704,20 @@ class LocalEngine:
             if extra:
                 prefix_np[len(preps):] = prefix_np[len(preps) - 1]
             trash_gen = (np.arange(max_new_tokens) % ps + TRASH_PAGE * ps).astype(np.int64)
-            gen_np = np.empty((B, max_new_tokens), np.int64)
-            for row in range(B):
-                pgs = gen_pages_rows[row]
-                gen_np[row] = flat_slots(pgs, np.arange(max_new_tokens), ps) if pgs else trash_gen
+            gen_np = np.empty((hi - lo, max_new_tokens), np.int64)
+            for row in range(lo, hi):
+                pgs = gen_pages_rows.get(row)
+                gen_np[row - lo] = (flat_slots(pgs, np.arange(max_new_tokens), ps)
+                                    if pgs else trash_gen)
             first_list += [first_list[-1]] * extra
-            first_logits = torch.cat(first_list, dim=0)  # [r_pad, V]
-            prompt_lens = torch.as_tensor(
-                [p for _, p, _ in preps] + [preps[-1][1]] * extra, device=device
-            )
-            prefix_idx = torch.as_tensor(prefix_np, device=device)
+            lens = [p for _, p, _ in preps] + [preps[-1][1]] * extra
+            # This rank's row groups: every request for whole rows.
+            first_logits = torch.cat([first_list[g] for g in groups], dim=0)  # [groups, V]
+            prompt_lens = torch.as_tensor([lens[g] for g in groups], device=device)
+            prefix_idx = torch.as_tensor(prefix_np[groups], device=device)
             gen_idx = torch.as_tensor(gen_np, device=device)
+            rows_here = hi - lo
+            n_per_gate = n_per if share is not None else None
 
             def step_fn(tok, step):
                 # Reentrant: run_loop already holds the pool lock for the
@@ -1569,9 +1726,9 @@ class LocalEngine:
                 with pool.lock:
                     logits, k_cols, v_cols = paged_verify_step(
                         config, self.params, tok[:, None],
-                        torch.full((B,), step, dtype=torch.int64, device=device),
+                        torch.full((rows_here,), step, dtype=torch.int64, device=device),
                         prompt_lens, pool.k, pool.v, prefix_idx, gen_idx,
-                        attn_impl=attn_impl, page_size=ps,
+                        attn_impl=attn_impl, page_size=ps, n_per=n_per_gate,
                     )
                     # This step's column goes into the pool after the step,
                     # at gen slot ``step`` of every row (dead rows write the
@@ -1586,27 +1743,35 @@ class LocalEngine:
         finally:
             for run in pinned:
                 pool.allocator.decref(run.pages)
-            for pgs in gen_pages_rows:
-                if pgs is not None:
-                    pool.allocator.decref(pgs)
+            for pgs in list(gen_pages_rows.values()) + surplus:
+                pool.allocator.decref(pgs)
         return out, t_prefill
 
-    def _generate_dense(self, preps, n_per, r_pad, max_new_tokens, run_loop, ring_mesh=None):
+    def _generate_dense(self, preps, n_per, r_pad, max_new_tokens, run_loop, ring_mesh=None,
+                        share=None):
         """The dense body (the JAX engine's ``generate_many`` without the
         speculative arm): the stacked prefix of :meth:`_dense_prefix`, or
         with ``ring_mesh`` the solo request's sequence-sharded prefix (the
         ``sp_resident`` route, decoded by ring attention); every row's
-        generated KV in a dense ``[L, B, max_new, KVH, D]`` cache. Returns
-        (loop output, prefill end time)."""
+        generated KV in a dense ``[L, B, max_new, KVH, D]`` cache. With
+        ``share`` the gen cache holds this data rank's B/D rows and the
+        prefix its row groups' prompts. Returns (loop output, prefill end
+        time)."""
         config = self.config
         first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad, ring_mesh)
-        gen_cache = init_cache(self.kv_config, r_pad * n_per, max_new_tokens, self.device)
+        rows, n_per_gate = r_pad * n_per, None
+        if share is not None:
+            idx = torch.as_tensor(share.groups, device=self.device)
+            first_logits, prompt_lens = first_logits[idx], prompt_lens[idx]
+            prefix = KVCache(k=prefix.k.index_select(1, idx), v=prefix.v.index_select(1, idx))
+            rows, n_per_gate = share.hi - share.lo, n_per
+        gen_cache = init_cache(self.kv_config, rows, max_new_tokens, self.device)
         self._sync()
         t_prefill = time.perf_counter()
 
         def step_fn(tok, step):
             return decode_step(config, self.params, tok, step, prompt_lens, gen_cache, prefix,
-                               ring_mesh=ring_mesh)[0]
+                               ring_mesh=ring_mesh, n_per=n_per_gate)[0]
 
         return run_loop(step_fn, first_logits), t_prefill
 
@@ -1681,7 +1846,7 @@ class LocalEngine:
     def _decode(
         self, step_fn, first_logits, n_per, r_pad, req_keys, cops, budgets, poison0, *,
         max_new_tokens, temperature, top_p, top_k, eos_t, top_logprobs, frequency_penalty,
-        presence_penalty, bias, stops,
+        presence_penalty, bias, stops, share=None,
     ):
         """The decode loop over ``B = r_pad * n_per`` rows, the JAX engine's
         ``_run_loop``: ``step_fn(tokens [B], step) -> logits [B, V]`` runs one
@@ -1698,12 +1863,27 @@ class LocalEngine:
         flag changed adds no device work and no sync. ``poison0`` [B] bool
         (or None) forces rows' first-step logits to NaN (the
         ``engine.logits`` drill).
+        With ``share`` (a data rank's :class:`RowShare`) the loop runs this
+        rank's rows [lo, hi) only: ``first_logits`` holds its row groups'
+        logits, ``poison0`` is the launch's [B] mask, each step draws the
+        rows' own (request key, step, index), and the grammar states,
+        penalty counts, stop windows and poison flags are the rows'. On any
+        mesh the loop test is one small max over the mesh a step (which
+        carries the abort poller's flags, so a member aborted on one rank
+        stops on every rank at the same step); a streamed launch gathers
+        each step's tokens to the data axis's first rank, and the results
+        are gathered over ``data`` once, at the end, in JAX's order.
         Returns numpy (tokens, logprobs, done, top ids, top logprobs,
         poisoned), the step count and the poller's aborts."""
         config = self.config
         device = self.device
         pad_id = config.pad_token_id
         B = r_pad * n_per
+        lo, hi = (share.lo, share.hi) if share is not None else (0, B)
+        Bl = hi - lo
+        n_loc = share.n_loc if share is not None else n_per
+        draw_rows = (lo, hi) if share is not None else None
+        mesh = self.mesh
         V = first_logits.shape[-1]
         # pad_id must never be sampled on a live row, unless it doubles as eos.
         # kllms: ignore[host-sync-hot-path] — port-only: the pad column's value, read once per launch before the loop (JAX decides it on the device); ROADMAP Queue 2 item 2
@@ -1716,7 +1896,7 @@ class LocalEngine:
         jstate = None
         if cops is not None:
             jt, initial_state, mask_logits, advance = cops
-            jstate = initial_state(B)
+            jstate = initial_state(Bl)
 
         def sample(logits, counts):
             pen = None
@@ -1726,7 +1906,7 @@ class LocalEngine:
                 pen = -bias[None, :] if pen is None else pen - bias[None, :]
             noise = None
             if req_keys is not None:
-                noise = draw_noise(req_keys, draw_step, n_per, V)
+                noise = draw_noise(req_keys, draw_step, n_per, V, rows=draw_rows)
             return sample_logits(
                 logits, temperature=temperature, top_p=top_p, top_k=top_k,
                 noise=noise, penalty=pen,
@@ -1744,14 +1924,19 @@ class LocalEngine:
             logits = torch.where(bad[:, None], torch.zeros_like(logits), logits)
             return logits, bad
 
-        counts = torch.zeros((B, V if penalized else 0), dtype=torch.float32, device=device)
-        logits0 = first_logits.repeat_interleave(n_per, dim=0)  # [B, V]
-        done = torch.zeros(B, dtype=torch.bool, device=device)
+        counts = torch.zeros((Bl, V if penalized else 0), dtype=torch.float32, device=device)
+        logits0 = first_logits.repeat_interleave(n_loc, dim=0)  # [Bl, V]
+        done = torch.zeros(Bl, dtype=torch.bool, device=device)
+        if poison0 is not None:
+            poison0 = poison0[lo:hi]
         logits0, bad = prepare(logits0, done, poison0)
         tok, lp = sample(logits0, counts)
         tok = torch.where(bad, torch.full_like(tok, pad_id), tok)
         lp = torch.where(bad, torch.zeros_like(lp), lp)
-        self._check_ranks(tok, "first tokens")
+        # Split rows differ across data ranks: the check compares the ranks
+        # that hold the same rows (the model axis).
+        check_axis = MODEL_AXIS if share is not None else None
+        self._check_ranks(tok, "first tokens", check_axis)
         if jstate is not None:
             jstate = advance(jt, tok, *jstate)
         done = torch.isin(tok, eos_t) | bad
@@ -1762,9 +1947,9 @@ class LocalEngine:
             tt_steps.append(ids)
             tl_steps.append(vals)
         if penalized:
-            counts[torch.arange(B, device=device), tok] += 1.0
+            counts[torch.arange(Bl, device=device), tok] += 1.0
         if stops is not None:
-            recent = torch.full((B, MAX_STOP_LEN), -1, dtype=torch.int64, device=device)
+            recent = torch.full((Bl, MAX_STOP_LEN), -1, dtype=torch.int64, device=device)
             recent[:, -1] = tok
             done = done | stop_window_match(recent, stops)
 
@@ -1772,25 +1957,77 @@ class LocalEngine:
         # were folded into done.
         polled = [b for b in budgets if b is not None]
         aborted: Dict[int, Tuple[int, float]] = {}
+        # Members the poller saw spent on this rank since the last loop test
+        # (folded in there on a mesh, at once without one).
+        flips: List[int] = []
+
+        def member_rows(members) -> torch.Tensor:
+            """[Bl] bool on the device: this rank's rows of ``members``."""
+            rows = torch.zeros(Bl, dtype=torch.bool)
+            for j in members:
+                a, b = max(j * n_per, lo), min((j + 1) * n_per, hi)
+                if a < b:
+                    rows[a - lo: b - lo] = True
+            return rows.to(device)
+
+        row_member = torch.arange(lo, hi, device=device) // n_per
+
+        def keep_going() -> bool:
+            """The loop test. Without a mesh, any row not done. On a mesh,
+            one max over every rank of [member has a live row here, member
+            aborted here]: a member runs on while some rank holds a live row
+            of it and no rank has seen its budget spent."""
+            nonlocal done
+            if mesh is None or (share is None and not self.controlled):
+                # kllms: ignore[host-sync-hot-path] — port-only: the host loop's exit test, one sync a step (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
+                return not bool(done.all())
+            live_m = torch.zeros(r_pad, dtype=torch.int32, device=device).index_add_(
+                0, row_member, (~done).to(torch.int32)).clamp_(max=1)
+            flagged = torch.zeros(r_pad, dtype=torch.int32)
+            flagged[flips] = 1
+            vec = torch.cat([live_m, flagged.to(device)])
+            for axis in (DATA_AXIS, MODEL_AXIS):
+                if mesh.axis_size(axis) > 1:
+                    vec = pmax(vec, axis, mesh)
+            # kllms: ignore[host-sync-hot-path] — port-only: the mesh's loop test, the step's one sync (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
+            live_g, abort_g = vec.cpu().numpy().reshape(2, r_pad)
+            flips.clear()
+            new = [j for j in range(r_pad) if abort_g[j] and j not in aborted]
+            if new:
+                seen = time.perf_counter()
+                for j in new:
+                    aborted[j] = (step, seen)
+                done = done | member_rows(new)
+            return any(live_g[j] and j not in aborted for j in range(r_pad))
 
         # The streaming tap: each step's tokens go to the host in one
-        # non-blocking copy, which the next ``bool(done.all())`` sync
-        # completes; they are delivered after the following step's work is
-        # queued, so the card computes while the sinks run. A launch without
-        # sinks copies nothing and syncs no more than before.
+        # non-blocking copy, which the next loop test's sync completes; they
+        # are delivered after the following step's work is queued, so the
+        # card computes while the sinks run. A launch without sinks copies
+        # nothing and syncs no more than before. Split rows are gathered to
+        # the data axis's first rank, which delivers them.
         tapped = self._active_token_sinks is not None
-        pending = (0, tok.to("cpu", non_blocking=True)) if tapped else None
+
+        def tap_copy(t):
+            if share is not None:
+                t = gather_to_first(t, DATA_AXIS, mesh)
+            return None if t is None else t.to("cpu", non_blocking=True)
+
+        def deliver(pend):
+            if pend[1] is not None:
+                self._deliver_tap_step(pend[0], pend[1].numpy().reshape(r_pad, n_per))
+
+        pending = (0, tap_copy(tok)) if tapped else None
 
         step = 0
-        # kllms: ignore[host-sync-hot-path] — port-only: the host loop's exit test, one sync a step (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
-        while step < max_new_tokens - 1 and not bool(done.all()):
+        while step < max_new_tokens - 1 and keep_going():
             logits, bad = prepare(step_fn(tok, step), done)
             frozen = done | bad
             draw_step += 1
             nxt, lp = sample(logits, counts)
             nxt = torch.where(frozen, torch.full_like(nxt, pad_id), nxt)
             lp = torch.where(frozen, torch.zeros_like(lp), lp)
-            self._check_ranks(nxt, f"step {step} tokens")
+            self._check_ranks(nxt, f"step {step} tokens", check_axis)
             if jstate is not None:
                 jstate = advance(jt, nxt, *jstate)  # pad/eos freeze the row
             tok_steps.append(nxt)
@@ -1800,7 +2037,7 @@ class LocalEngine:
                 tt_steps.append(ids)
                 tl_steps.append(vals)
             if penalized:
-                counts[torch.arange(B, device=device), nxt] += (~frozen).float()
+                counts[torch.arange(Bl, device=device), nxt] += (~frozen).float()
             done = frozen | torch.isin(nxt, eos_t)
             pois = pois | bad
             if stops is not None:
@@ -1812,37 +2049,40 @@ class LocalEngine:
                     if b is not None and j not in aborted and b.should_abort()
                 ]
                 if flipped:
-                    # Token-granularity cancellation: the member's row group
-                    # (rows are request-major) freezes like eos rows.
-                    seen = time.perf_counter()
-                    for j in flipped:
-                        aborted[j] = (step, seen)
-                    rows = torch.zeros(B, dtype=torch.bool)
-                    for j in flipped:
-                        rows[j * n_per: (j + 1) * n_per] = True
-                    done = done | rows.to(device)
+                    if mesh is not None and (share is not None or self.controlled):
+                        flips.extend(flipped)  # folded in at the loop test
+                    else:
+                        # Token-granularity cancellation: the member's row
+                        # group (rows are request-major) freezes like eos rows.
+                        seen = time.perf_counter()
+                        for j in flipped:
+                            aborted[j] = (step, seen)
+                        done = done | member_rows(flipped)
             if tapped:
-                # kllms: ignore[host-sync-hot-path] — port-only: a view of the tap's non-blocking host copy, completed by the step's done.all() sync; no readback of its own (ROADMAP Queue 2 item 2)
-                self._deliver_tap_step(pending[0], pending[1].numpy().reshape(r_pad, n_per))
-                pending = (step + 1, nxt.to("cpu", non_blocking=True))
+                # kllms: ignore[host-sync-hot-path] — port-only: a view of the tap's non-blocking host copy, completed by the step's loop-test sync; no readback of its own (ROADMAP Queue 2 item 2)
+                deliver(pending)
+                pending = (step + 1, tap_copy(nxt))
             tok = nxt
             step += 1
 
         n_steps = len(tok_steps)
-        toks = torch.full((B, max_new_tokens), pad_id, dtype=torch.int32, device=device)
-        lps = torch.zeros((B, max_new_tokens), dtype=torch.float32, device=device)
+        toks = torch.full((Bl, max_new_tokens), pad_id, dtype=torch.int32, device=device)
+        lps = torch.zeros((Bl, max_new_tokens), dtype=torch.float32, device=device)
         toks[:, :n_steps] = torch.stack(tok_steps, dim=1).to(torch.int32)
         lps[:, :n_steps] = torch.stack(lp_steps, dim=1)
         tt = tl = None
         if K:
-            tt = torch.zeros((B, max_new_tokens, K), dtype=torch.int32, device=device)
-            tl = torch.zeros((B, max_new_tokens, K), dtype=torch.float32, device=device)
+            tt = torch.zeros((Bl, max_new_tokens, K), dtype=torch.int32, device=device)
+            tl = torch.zeros((Bl, max_new_tokens, K), dtype=torch.float32, device=device)
             tt[:, :n_steps] = torch.stack(tt_steps, dim=1).to(torch.int32)
             tl[:, :n_steps] = torch.stack(tl_steps, dim=1)
+        if share is not None:
+            toks, lps, done, tt, tl, pois = _gather_rows(
+                mesh, max_new_tokens, K, toks, lps, done, tt, tl, pois)
         self._sync()
         if tapped:
             # kllms: ignore[host-sync-hot-path] — port-only: a view of the tap's last host copy, completed by the launch's final synchronize; no readback of its own (ROADMAP Queue 2 item 2)
-            self._deliver_tap_step(pending[0], pending[1].numpy().reshape(r_pad, n_per))
+            deliver(pending)
 
         def host(t):
             return None if t is None else t.cpu().numpy()
@@ -1967,7 +2207,11 @@ class LocalEngine:
         row_iters = torch.zeros((B,), dtype=torch.int64, device=device)
         gen_cache = init_cache(self.kv_config, B, BUF, device)
 
-        polled = [b for b in budgets if b is not None]
+        # Under a controller the speculative loop keeps whole rows and a
+        # host exit test of its own: only the controller holds budgets, so it
+        # polls none, and a spent member fails at the launch's end
+        # (_apply_decode_faults) rather than mid-loop.
+        polled = [b for b in budgets if b is not None] if not self.controlled else []
         aborted: Dict[int, Tuple[int, float]] = {}
         # The iteration number lives on the device too, so no host value
         # enters a draw.
@@ -2115,9 +2359,16 @@ class LocalEngine:
 
     # -- embeddings (similarity side-channel) -----------------------------
     @_one_launch_at_a_time
-    @torch.inference_mode()
     def embed_tokens(self, token_lists: List[List[int]], max_tokens: int = 512) -> np.ndarray:
-        """Mean-pooled final hidden states."""
+        """Mean-pooled final hidden states (announced to the followers first
+        under a controller)."""
+        if self.controller is not None:
+            return self.controller.call("_embed", [list(map(int, t)) for t in token_lists],
+                                        max_tokens)
+        return self._embed(token_lists, max_tokens)
+
+    @torch.inference_mode()
+    def _embed(self, token_lists: List[List[int]], max_tokens: int = 512) -> np.ndarray:
         config = self.config
         token_lists = [ids[:max_tokens] or [config.bos_token_id] for ids in token_lists]
         longest = max(len(ids) for ids in token_lists)

@@ -493,16 +493,19 @@ def _merge_prefix_tail(q, cache_k, cache_v, key_mask, scale, out_p, m_p, l_p):
     return merged.transpose(1, 2)
 
 
-def flash_prefix_gate(config: ModelConfig, B: int, R: int, Sq: int) -> bool:
+def flash_prefix_gate(config: ModelConfig, B: int, R: int, Sq: int,
+                      n_per: Optional[int] = None) -> bool:
     """Whether a decode step takes the decode-prefix kernel: the JAX
     package's gate (``models/llama.py`` ``_block``), at least 8 query rows
-    per request and kv head."""
+    per request and kv head. ``n_per`` is the launch's rows per request
+    where a data rank holds only a share of them (JAX judges the global
+    batch); else ``B // R``."""
     return (
         config.decode_attention_impl == "flash"
         and config.sliding_window is None
         and config.attn_softcap is None
         and Sq == 1
-        and (B // R) * (config.num_heads // config.num_kv_heads) >= 8
+        and (n_per or B // R) * (config.num_heads // config.num_kv_heads) >= 8
     )
 
 
@@ -775,6 +778,7 @@ def _block_decode(
     prefix_mask: torch.Tensor,
     prefix_lengths: torch.Tensor,
     ring_mesh=None,
+    n_per: Optional[int] = None,
 ) -> torch.Tensor:
     """The dense decode branch of the JAX ``_block``: this step's ``Sq``
     k/v columns are written into the layer's cache (cache_k/cache_v [B, G,
@@ -796,7 +800,7 @@ def _block_decode(
     pk, pv = prefix_kv
     attn = decode_attention(
         q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_lengths,
-        scale=scale, flash_prefix=flash_prefix_gate(config, B, pk.shape[0], Sq),
+        scale=scale, flash_prefix=flash_prefix_gate(config, B, pk.shape[0], Sq, n_per),
         softcap=config.attn_softcap, ring_mesh=ring_mesh,
     )
     attn = attn.to(x.dtype).reshape(B, Sq, -1)
@@ -835,6 +839,7 @@ def decode_step(
     gen_cache: KVCache,
     prefix: KVCache,
     ring_mesh=None,
+    n_per: Optional[int] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for all samples against their shared prefix(es).
 
@@ -842,7 +847,9 @@ def decode_step(
     per-request prompt lengths (rows request-major, B % R == 0); gen_cache:
     [L, B, G, KVH, D], written in place at slot ``step``; prefix: [L, R, P,
     KVH, D], or with ``ring_mesh`` this rank's chunk [L, 1, P/ring, KVH, D]
-    of a sequence-sharded prefix. Returns (logits f32 [B, V], gen_cache)."""
+    of a sequence-sharded prefix. ``n_per``: the launch's rows per request
+    when these B rows are a data rank's share (the decode-prefix gate's
+    count). Returns (logits f32 [B, V], gen_cache)."""
     check_supported(config)
     B = token.shape[0]
     device = token.device
@@ -865,7 +872,7 @@ def decode_step(
             step, _pick(config, i, self_mask, self_global),
             prefix_mask=_pick(config, i, prefix_mask, prefix_global),
             prefix_kv=(prefix.k[i], prefix.v[i]), prefix_lengths=plen32,
-            ring_mesh=ring_mesh,
+            ring_mesh=ring_mesh, n_per=n_per,
         )
     h = _final_norm(config, params, x)
     return _logits(config, params, h[:, 0]), gen_cache
@@ -978,6 +985,7 @@ def _block_paged(
     page_size: int,
     attn_impl: str,
     prefix_lengths: Optional[torch.Tensor],
+    n_per: Optional[int] = None,
 ):
     """Paged twin of the decode block at ``Sq == 1``: KV comes from one
     layer's flat page pool through block tables. "cuda" runs the fused
@@ -1005,7 +1013,7 @@ def _block_paged(
             q, pool_k_l, pool_v_l, prefix_idx, gen_idx, k, v, write_index,
             key_mask, prefix_mask, sm_scale=scale, softcap=config.attn_softcap,
             prefix_lengths=prefix_lengths,
-            flash_prefix=flash_prefix_gate(config, B, prefix_idx.shape[0], Sq),
+            flash_prefix=flash_prefix_gate(config, B, prefix_idx.shape[0], Sq, n_per),
         )
     attn = attn.to(x.dtype).reshape(B, Sq, -1)
     x = _attn_residual(config, layer, x, attn)
@@ -1024,6 +1032,7 @@ def paged_verify_step(
     gen_idx: torch.Tensor,
     attn_impl: str = "xla",
     page_size: Optional[int] = None,
+    n_per: Optional[int] = None,
 ):
     """One paged decode step at ``Sq == 1`` for every row.
 
@@ -1031,8 +1040,9 @@ def paged_verify_step(
     write offset into its gen slots); prompt_len: [R] per-request prompt
     lengths (rows request-major); pool_k/pool_v: ``[L, pages * ps, KVH,
     D]``; prefix_idx [R, P] / gen_idx [B, G]: flat pool slots per logical
-    position. Masks are built as in the JAX function. Returns (logits f32
-    [B, 1, V], k_cols, v_cols [L, B, KVH, D]). The pool is only read here.
+    position. Masks are built as in the JAX function. ``n_per`` as in
+    :func:`decode_step`. Returns (logits f32 [B, 1, V], k_cols, v_cols [L,
+    B, KVH, D]). The pool is only read here.
     """
     from ..ops.paged_attention import paged_attention_page_tables
 
@@ -1071,7 +1081,7 @@ def paged_verify_step(
             config, _layer(params, i), x, positions, pool_k[i], pool_v[i],
             prefix_idx, gen_idx, lengths, _pick(config, i, self_mask, self_global),
             _pick(config, i, prefix_mask, prefix_global),
-            page_tables, page_size, attn_impl, plen32,
+            page_tables, page_size, attn_impl, plen32, n_per,
         )
         k_cols.append(kc)
         v_cols.append(vc)

@@ -196,12 +196,14 @@ def int4_mesh_compatible(config, tp: int) -> bool:
 
 
 def int4_off_kernel_shards(config, tp: int) -> Dict[str, tuple]:
-    """The int4-eligible weights whose local shard on ``tp`` ranks misses
-    K4's blocking (K % 256, N % 128), with that shard's (K, N): Llama-3-8B's
-    ``lm_head`` at tp = 4 ([4096, 32064]) and 8. The JAX package takes such
-    a shard through its dequantize fallback; the port has none, so on a card
-    the engine keeps these weights int8 (the plain version on the CPU takes
-    any shard)."""
+    """The int4-eligible weights whose local shard on ``tp`` ranks K4 does
+    not take (``kernel_supports``: K % 256, N % 16), with that shard's (K,
+    N). K4 masks its last column tile, so Llama-3-8B's ``lm_head`` shards
+    at tp = 4 ([4096, 32064]) and 8 ([4096, 16032]) run on it, and no
+    registered model lists a weight at tp <= 8. The JAX package takes such a
+    shard through its dequantize fallback; the port has none, so on a card
+    the engine keeps a listed weight int8 (the plain version on the CPU
+    takes any shard)."""
     if not int4_mesh_compatible(config, tp):
         return {}
     local = _int4_local_shards(config, tp) or {}

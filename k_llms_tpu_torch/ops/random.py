@@ -34,7 +34,7 @@ for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,22 +114,28 @@ def request_keys(seeds: Sequence[int], device) -> torch.Tensor:
 
 
 def threefry_uniform(req_keys: torch.Tensor, step: torch.Tensor, n_per: int,
-                     V: int) -> torch.Tensor:
-    """One decode step's uniforms for every row of a coalesced launch,
+                     V: int, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One decode step's uniforms for the rows of a coalesced launch,
     ``[R * n_per, V]`` float32, request-major: row ``j * n_per + i`` is
     ``uniform_tiny(fold_in(fold_in(req_keys[j], step), i), V)``. The per-row
     draw (:func:`threefry_uniform_rows`) with each request's key repeated
     ``n_per`` times, the step shared and the index the row within its
     request. ``req_keys`` [R, 2] int64 key words, ``step`` one int32 on the
     same device (a device scalar, so the call needs no host value and
-    replays in a CUDA graph)."""
+    replays in a CUDA graph). ``rows`` ``(lo, hi)`` draws only the launch's
+    rows [lo, hi) (a data rank's share), the same bits as those rows of the
+    whole draw."""
     if req_keys.dim() != 2 or req_keys.shape[1] != 2 or n_per < 1:
         raise ValueError(f"threefry_uniform: req_keys must be [R, 2], got "
                          f"{tuple(req_keys.shape)}; n_per={n_per}")
     R = req_keys.shape[0]
-    keys = req_keys[:, None, :].expand(R, n_per, 2).reshape(R * n_per, 2)
-    steps = step.reshape(1).expand(R * n_per)
-    index = torch.arange(n_per, dtype=torch.int32, device=req_keys.device).repeat(R)
+    lo, hi = rows if rows is not None else (0, R * n_per)
+    if not 0 <= lo < hi <= R * n_per:
+        raise ValueError(f"threefry_uniform: rows {rows} outside the launch's {R * n_per}")
+    g = torch.arange(lo, hi, device=req_keys.device)
+    keys = req_keys[g // n_per]
+    steps = step.reshape(1).expand(hi - lo)
+    index = (g % n_per).to(torch.int32)
     return threefry_uniform_rows(keys, steps, index, V)
 
 

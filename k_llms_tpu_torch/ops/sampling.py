@@ -110,13 +110,15 @@ def sample_logits(
     return tokens, logprobs
 
 
-def draw_noise(req_keys: torch.Tensor, step: torch.Tensor, n_per: int, vocab: int) -> torch.Tensor:
+def draw_noise(req_keys: torch.Tensor, step: torch.Tensor, n_per: int, vocab: int,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``[R * n_per, vocab]`` float32 uniforms of one decode step, rows
     request-major: the JAX engine's ``jax.random.uniform(fold_in(fold_in(
     key(seed_j), step), i), (vocab,), minval=tiny)`` for row i of request j.
     ``req_keys`` [R, 2] int64 key words (:func:`.random.request_keys`),
-    ``step`` a 0-d int32 tensor on their device."""
-    return threefry_uniform(req_keys, step, n_per, vocab)
+    ``step`` a 0-d int32 tensor on their device; ``rows`` ``(lo, hi)`` draws
+    only those rows (a data rank's share of the launch)."""
+    return threefry_uniform(req_keys, step, n_per, vocab, rows=rows)
 
 
 def model_top_logprobs(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -150,6 +150,7 @@ _TARGET_CTAS = 264
 _GEMV_COLS = 256
 _TC_COLS = 128
 _SMS = 132
+_ROW_ALIGN = 16  # packed row bytes: the kernels' 16-byte column chunks
 
 
 def w4_route(rows: int, K: int, N: int, dtype: torch.dtype) -> str:
@@ -188,7 +189,10 @@ def split_k(rows: int, K: int, N: int, dtype: torch.dtype = torch.bfloat16,
 
 
 def kernel_supports(K: int, N: int) -> bool:
-    return supports_int4(K) and N % 128 == 0
+    """K4 takes whole 256-row K blocks and any N that keeps its packed rows
+    16-byte aligned: each route masks its last column tile, so a shard
+    such as Llama-3-8B's lm_head over 4 ranks ([4096, 32064]) runs on it."""
+    return supports_int4(K) and N % _ROW_ALIGN == 0
 
 
 def w4_matmul(x: torch.Tensor, w: Q4Tensor, *, route: Optional[str] = None) -> torch.Tensor:
@@ -211,7 +215,7 @@ def w4_matmul(x: torch.Tensor, w: Q4Tensor, *, route: Optional[str] = None) -> t
     if K != 2 * Kh or w.scale.shape != (K // GROUP, N) or not kernel_supports(K, N) or rows == 0:
         raise ValueError(
             f"w4_matmul: shape x={tuple(x.shape)} q={tuple(w.q.shape)} "
-            f"scale={tuple(w.scale.shape)} not taken by the kernel (K % 256, N % 128)"
+            f"scale={tuple(w.scale.shape)} not taken by the kernel (K % 256, N % 16)"
         )
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"w4_matmul: activations {x.dtype} unsupported")
@@ -232,7 +236,7 @@ def w4_matmul(x: torch.Tensor, w: Q4Tensor, *, route: Optional[str] = None) -> t
     if ksplit > 1:
         partial = torch.empty((ksplit, rows, N), dtype=torch.float32, device=x.device)
         if route == "decode":
-            sem = _ext.semaphores(x.device, N // _TC_COLS)
+            sem = _ext.semaphores(x.device, -(-N // _TC_COLS))
     lib = _ext.load("w4_matmul")
     status = lib.kllms_w4_matmul(
         x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),

@@ -34,6 +34,7 @@ COLLECTIVE_COUNTS: Dict[str, int] = {
     "all_gather": 0,
     "ppermute": 0,
     "all_to_all": 0,
+    "gather": 0,
     "host_staged_bytes": 0,
 }
 
@@ -100,6 +101,21 @@ def all_gather(x: torch.Tensor, axis: str, mesh: Mesh, dim: int = 0) -> torch.Te
     parts: List[torch.Tensor] = [torch.empty_like(y) for _ in range(mesh.axis_size(axis))]
     dist.all_gather(parts, y, group=group)
     return _from_wire(mesh, torch.cat(parts, dim=dim), x)
+
+
+def gather_to_first(x: torch.Tensor, axis: str, mesh: Mesh, dim: int = 0):
+    """The ranks' ``x`` concatenated along ``dim`` in axis order, on the
+    axis's first rank only (``dist.gather``); the others send theirs and get
+    None. Over a trivial mesh, ``x``."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    _note("gather")
+    y = _to_wire(mesh, x)
+    first = mesh.axis_index(axis) == 0
+    parts = [torch.empty_like(y) for _ in range(mesh.axis_size(axis))] if first else None
+    dist.gather(y, parts, dst=mesh.axis_ranks(axis)[0], group=group)
+    return _from_wire(mesh, torch.cat(parts, dim=dim), x) if first else None
 
 
 def ppermute(x: torch.Tensor, axis: str, mesh: Mesh, shift: int = 1) -> torch.Tensor:
@@ -225,17 +241,22 @@ class RankDivergenceError(RuntimeError):
     must hold the same (a host decision would branch apart and deadlock)."""
 
 
-def assert_ranks_agree(x: torch.Tensor, mesh: Mesh, what: str = "value") -> None:
+def assert_ranks_agree(x: torch.Tensor, mesh: Mesh, what: str = "value",
+                       axis: str = None) -> None:
     """Raise :class:`RankDivergenceError` on every rank unless every rank of
-    the world holds the same ``x`` (one ``all_gather`` over the default
-    group; a trivial mesh has nothing to compare)."""
+    the world (or of this rank's group on ``axis``) holds the same ``x``
+    (one ``all_gather`` over that group; a trivial mesh has nothing to
+    compare)."""
     if mesh.device_mesh is None:
         return
+    group = None if axis is None else mesh.group(axis)
+    ranks = list(range(dist.get_world_size())) if axis is None else mesh.axis_ranks(axis)
     y = _to_wire(mesh, x)
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, y)
-    differ = [r for r, p in enumerate(parts) if not torch.equal(p, parts[0])]
+    parts = [torch.empty_like(y) for _ in ranks]
+    dist.all_gather(parts, y, group=group)
+    differ = [ranks[i] for i, p in enumerate(parts) if not torch.equal(p, parts[0])]
     if differ:
         raise RankDivergenceError(
-            f"ranks {differ} hold another {what} than rank 0 (rank {dist.get_rank()} checking)"
+            f"ranks {differ} hold another {what} than rank {ranks[0]} "
+            f"(rank {dist.get_rank()} checking)"
         )

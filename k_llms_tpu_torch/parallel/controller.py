@@ -1,0 +1,278 @@
+"""The controlling rank: JAX's single controller, mapped onto one process per
+card.
+
+JAX drives every chip of its host from one process, so the scheduler, the
+abort poller and the HTTP front door live in that process and concurrent
+clients coalesce into one launch across all chips. The port runs one process
+per card. On each host the first rank (:func:`.distributed.host_ranks`) is
+the *controller*: it builds the whole serving stack (``KLLMs`` over
+``CudaBackend``: scheduler, supervisor, tenancy, the front door). The host's
+other ranks are *followers*: they build the same engine on their own shard of
+the weights, own no serving state, and replay what the controller announces.
+
+Every engine entry the serving stack calls announces itself before it runs,
+under the engine's launch lock, so the followers run the launches in the
+controller's order: a *plan* goes to the host's ranks over a gloo group
+(``broadcast_object_list``) and every rank then runs the entry, taking part
+in its collectives. A launch's plan holds its members' prompt ids, n and
+seeds (those left unset are drawn on the controller), which members stream,
+the sampling settings, stop sequences and max tokens, the ``engine.logits``
+drill's rows, and its constraint: a compiled schema grammar travels as its
+schema and is compiled on the follower through the port's grammar cache
+(its digest checked), anything else as the object. The members' budgets
+stay on the controller: its abort poller's flags ride the decode loop's
+per-step reduction, so an aborted member stops on every rank at the same
+step.
+
+The same script runs on every rank::
+
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.parallel.distributed import initialize_multihost
+
+    initialize_multihost()                   # the KLLMS_* variables
+    client = KLLMs(backend="cuda", model="llama-3-8b", model_parallel=2)
+    if client.backend.is_controller:         # the host's first rank
+        serve(client)                        # threads, the HTTP front door
+    client.close()                           # a follower's close is a no-op
+
+On a follower, building the client hands the rank to the controller: the
+constructor replays plans and returns only after the controller's
+``close()``. A follower whose plan raises records its error in the
+coordinator's store and ends its process (:data:`FOLLOWER_FAULT_EXIT`),
+which closes its connections: every collective the others wait in fails at
+once, and the controller's launch fails as the typed 503
+(``BackendUnavailableError``, ``KernelUnavailableError`` for a kernel) with
+the follower's error. The world is then stopped, not rebuilt: every later
+request gets the same 503.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+import traceback
+from datetime import timedelta
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch.distributed as dist
+
+from ..reliability import failpoints as _failpoints
+from ..types.wire import BackendUnavailableError
+from .distributed import host_ranks
+
+logger = logging.getLogger(__name__)
+
+#: The plan group waits this long for the next plan: an idle server is not
+#: a fault.
+PLAN_TIMEOUT = timedelta(days=365)
+#: Where a failing follower leaves its error, in the default group's store.
+FAULT_KEY = "kllms/controller/fault"
+#: A follower's exit code after a fault.
+FOLLOWER_FAULT_EXIT = 70
+
+#: Functions every rank runs on its engine when the controller calls
+#: :meth:`HostController.hook` (counting windows in tests and the card
+#: smoke), by name: ``fn(engine, *args)``.
+HOOKS: Dict[str, Callable[..., Any]] = {}
+
+
+def register_hook(name: str, fn: Callable[..., Any]) -> None:
+    HOOKS[name] = fn
+
+
+class FollowerFaultError(BackendUnavailableError):
+    """A follower failed while the world served: the world is stopped."""
+
+    code = "follower_fault"
+
+
+def _discard(step, tokens) -> None:
+    """A follower's stand-in token sink: it marks the member as streamed so
+    the decode loop gathers each step, and drops the tokens."""
+
+
+class HostController:
+    """One host's controller or follower, beside its engine. Built on every
+    rank of a world larger than one (:meth:`for_world`, a collective)."""
+
+    def __init__(self, engine, group, ranks: Sequence[int]):
+        self.engine = engine
+        self.group = group
+        self.ranks = list(ranks)
+        self.root = self.ranks[0]
+        self.is_controller = dist.get_rank() == self.root
+        # The backend's constraint codec (a schema grammar travels as its
+        # schema); identity by default.
+        self.encode_constraint: Callable[[Any], Any] = lambda c: ("object", c)
+        self.decode_constraint: Callable[[Any], Any] = lambda c: c[1]
+        # kllms: unguarded — set once, under the launch lock, when the world stops
+        self.stopped: Optional[BackendUnavailableError] = None
+        self.plans = 0
+        engine.controlled = True
+        if self.is_controller:
+            engine.controller = self
+
+    @classmethod
+    def for_world(cls, engine) -> Optional["HostController"]:
+        """The controller (on each host's first rank) or follower for
+        ``engine``; None in a world of one. Every rank of the world must
+        call it, in the same order as its other group calls: each host's
+        plan group is made by every rank."""
+        if not dist.is_initialized() or dist.get_world_size() <= 1:
+            return None
+        mine = host_ranks().ranks
+        hosts: List[Optional[List[int]]] = [None] * dist.get_world_size()
+        dist.all_gather_object(hosts, mine)
+        group = None
+        for ranks in sorted({tuple(h) for h in hosts}):
+            g = dist.new_group(list(ranks), backend="gloo", timeout=PLAN_TIMEOUT)
+            if list(ranks) == mine:
+                group = g
+        return cls(engine, group, mine)
+
+    # -- the controller -------------------------------------------------------
+    def _send(self, plan) -> None:
+        if self.stopped is not None:
+            raise self.stopped
+        with self.engine._launch_lock:
+            try:
+                dist.broadcast_object_list([plan], src=self.root, group=self.group)
+            except Exception as e:
+                raise self._stop(e) from e
+            self.plans += 1
+
+    def announce_launch(self, items, kwargs: Dict[str, Any],
+                        poison_rows: Optional[List[int]]) -> None:
+        """Hand the followers a coalesced launch (the engine's ``_launch``
+        calls it under the launch lock, before any device work)."""
+        kw = dict(kwargs)
+        if kw.get("constraint") is not None:
+            kw["constraint"] = self.encode_constraint(kw["constraint"])
+        members = [(list(map(int, it.prompt_ids)), int(it.n), int(it.seed),
+                    it.token_sink is not None) for it in items]
+        self._send(("launch", members, kw, poison_rows))
+
+    def call(self, method: str, *args, **kwargs):
+        """Run ``engine.<method>(*args, **kwargs)`` on every rank of the
+        host, in plan order; returns the controller's result."""
+        with self.engine._launch_lock:
+            self._send(("call", method, args, kwargs))
+            return self.guard(getattr(self.engine, method), *args, **kwargs)
+
+    def hook(self, name: str, *args):
+        """Run the registered hook ``name(engine, *args)`` on every rank, in
+        plan order; returns the controller's result."""
+        with self.engine._launch_lock:
+            self._send(("hook", name, args))
+            return self.guard(HOOKS[name], self.engine, *args)
+
+    def guard(self, fn, *args, **kwargs):
+        """Run the controller's part of an announced entry. An exception
+        escaping it leaves the followers inside the entry: the world stops,
+        and the exception becomes the typed 503 (with a follower's recorded
+        error, if one failed)."""
+        try:
+            return fn(*args, **kwargs)
+        except Exception as e:
+            raise self._stop(e) from e
+
+    def close(self) -> None:
+        """End the followers' loops (each follower's client constructor then
+        returns). Idempotent; nothing is sent once the world has stopped."""
+        if self.stopped is not None:
+            return
+        try:
+            self._send(("close",))
+        except BackendUnavailableError:
+            pass
+        self.stopped = BackendUnavailableError("the world was closed")
+
+    def _stop(self, cause: BaseException) -> BackendUnavailableError:
+        if self.stopped is None:
+            fault = _read_fault()
+            kind, message = fault if fault else (type(cause).__name__, str(cause))
+            err_type = FollowerFaultError
+            if kind == "KernelUnavailableError" or message.startswith("CUDA kernel"):
+                from ..ops.paged_attention import KernelUnavailableError
+
+                err_type = KernelUnavailableError
+            what = "a follower failed" if fault else "a launch across the host's ranks failed"
+            self.stopped = err_type(f"{what}; the world is stopped: {kind}: {message}")
+            logger.error("controller: %s", self.stopped)
+        return self.stopped
+
+    # -- a follower -----------------------------------------------------------
+    def serve(self) -> int:
+        """Replay the controller's plans until its ``close()``; returns the
+        number of plans run. A plan that raises ends the process
+        (:data:`FOLLOWER_FAULT_EXIT`) after recording the error."""
+        while True:
+            box: List[Any] = [None]
+            dist.broadcast_object_list(box, src=self.root, group=self.group)
+            plan = box[0]
+            if plan[0] == "close":
+                return self.plans
+            try:
+                self._execute(plan)
+            except BaseException as e:
+                _fault(e)
+            self.plans += 1
+
+    def _execute(self, plan) -> None:
+        engine = self.engine
+        kind = plan[0]
+        if kind == "launch":
+            from ..engine.engine import GenRequestSpec
+
+            _, members, kw, poison_rows = plan
+            # The controller's check of this site ran before it announced;
+            # a follower's fires here (the follower-fault drill).
+            _failpoints.fire("engine.launch")
+            kw = dict(kw)
+            if kw.get("constraint") is not None:
+                kw["constraint"] = self.decode_constraint(kw["constraint"])
+            items = [GenRequestSpec(ids, n, seed, token_sink=_discard if streamed else None)
+                     for ids, n, seed, streamed in members]
+            engine.replay_launch(items, kw, poison_rows)
+        elif kind == "call":
+            _, method, args, kwargs = plan
+            with engine._launch_lock, engine._on_card():
+                getattr(engine, method)(*args, **kwargs)
+        elif kind == "hook":
+            with engine._on_card():
+                HOOKS[plan[1]](engine, *plan[2])
+        else:
+            raise ValueError(f"unknown plan {kind!r}")
+
+
+def _store():
+    from torch.distributed import distributed_c10d
+
+    return distributed_c10d._get_default_store()
+
+
+def _read_fault() -> Optional[tuple]:
+    """(exception type, message) a follower recorded, or None."""
+    try:
+        store = _store()
+        if store.check([FAULT_KEY]):
+            kind, _, message = store.get(FAULT_KEY).decode().partition("\n")
+            return kind, message
+    except Exception:  # a store that is gone has no record
+        logger.debug("controller: no fault record readable", exc_info=True)
+    return None
+
+
+def _fault(e: BaseException) -> None:
+    """Record a follower's error and end its process, closing its
+    connections so that no rank waits on it in a collective."""
+    logger.error("follower rank %d failed a plan; ending the process:\n%s",
+                 dist.get_rank(), traceback.format_exc())
+    try:
+        _store().set(FAULT_KEY, f"{type(e).__name__}\nrank {dist.get_rank()}: {e}")
+    except Exception:
+        logger.exception("follower: could not record the fault")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(FOLLOWER_FAULT_EXIT)

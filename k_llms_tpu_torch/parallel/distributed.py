@@ -7,22 +7,92 @@ package's environment (``KLLMS_COORDINATOR`` as ``host:port``,
 the default ``torch.distributed`` process group over TCP.
 
 The transport is chosen once, here: ``nccl`` when every rank has a card of
-its own (the host's ranks, ``LOCAL_WORLD_SIZE`` as ``torchrun`` sets it, at
-most its card count), ``gloo`` on the CPU and where ranks share a card (NCCL does not
-take two ranks on one device). Under ``gloo`` the work stays on the card and
-only each collective's bytes cross host memory (:mod:`.collectives`).
+its own (the host's ranks at most its card count), ``gloo`` on the CPU and
+where ranks share a card (NCCL does not take two ranks on one device). Under
+``gloo`` the work stays on the card and only each collective's bytes cross
+host memory (:mod:`.collectives`).
+
+The host's ranks are derived before the transport is chosen:
+``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` where ``torchrun`` sets them, else each
+rank's host name exchanged through the coordinator's TCP store, so a world
+started from the ``KLLMS_*`` variables alone on two hosts of four cards
+counts four ranks a host (and takes nccl). :func:`host_ranks` exposes the
+result; the controlling rank of :mod:`.controller` is the host's first.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+import socket
+from datetime import timedelta
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
+
+#: Seconds a rank waits for the others' host names in the coordinator's store.
+HOST_EXCHANGE_TIMEOUT_S = 300.0
+
+
+class HostRanks(NamedTuple):
+    """This rank's place on its host: its index among the host's ranks, their
+    count, and their global ranks in order."""
+
+    local_rank: int
+    local_world: int
+    ranks: List[int]
+
+
+# This process's host ranks, set by initialize_multihost (or the first
+# host_ranks() of a world started elsewhere).
+_HOST: Optional[HostRanks] = None
+
+
+def host_ranks_from_names(names: Sequence[str], rank: int) -> HostRanks:
+    """The ranks whose host name is ``rank``'s, from every rank's host name
+    in rank order."""
+    ranks = [r for r, name in enumerate(names) if name == names[rank]]
+    return HostRanks(ranks.index(rank), len(ranks), ranks)
+
+
+def _host_ranks_from_env(rank: int, world: int) -> Optional[HostRanks]:
+    """``torchrun``'s layout: the host's ranks are the contiguous block of
+    ``LOCAL_WORLD_SIZE`` that holds ``rank`` at ``LOCAL_RANK``."""
+    local_rank, local_world = _int_env("LOCAL_RANK"), _int_env("LOCAL_WORLD_SIZE")
+    if local_rank is None or local_world is None:
+        return None
+    first = rank - local_rank
+    return HostRanks(local_rank, local_world, list(range(first, min(first + local_world, world))))
+
+
+def _exchange_host_names(store, rank: int, world: int) -> List[str]:
+    store.set(f"kllms/host/{rank}", socket.gethostname())
+    keys = [f"kllms/host/{r}" for r in range(world)]
+    store.wait(keys, timedelta(seconds=HOST_EXCHANGE_TIMEOUT_S))
+    return [store.get(k).decode() for k in keys]
+
+
+def host_ranks() -> HostRanks:
+    """This rank's host ranks (:class:`HostRanks`). In a world that
+    :func:`initialize_multihost` did not start, the first call is a
+    collective of the whole world: ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``
+    where set, else one ``all_gather_object`` of the host names."""
+    global _HOST
+    if _HOST is None:
+        if not dist.is_initialized():
+            return HostRanks(0, 1, [0])
+        rank, world = dist.get_rank(), dist.get_world_size()
+        host = _host_ranks_from_env(rank, world)
+        if host is None:
+            names: List[Optional[str]] = [None] * world
+            dist.all_gather_object(names, socket.gethostname())
+            host = host_ranks_from_names(names, rank)
+        _HOST = host
+    return _HOST
+
 
 def initialize_multihost(
     coordinator_address: Optional[str] = None,
@@ -49,41 +119,48 @@ def initialize_multihost(
             "multi-process init needs KLLMS_COORDINATOR (host:port), "
             "KLLMS_NUM_PROCESSES and KLLMS_PROCESS_ID"
         )
+    global _HOST
+    world, rank = int(num_processes), int(process_id)
+    host, port = coordinator_address.rsplit(":", 1)
+    # The coordinator's store, made here so that the host names cross it
+    # before the transport is chosen; the process group then shares it.
+    store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+                          timeout=timedelta(seconds=HOST_EXCHANGE_TIMEOUT_S))
+    _HOST = _host_ranks_from_env(rank, world) or host_ranks_from_names(
+        _exchange_host_names(store, rank, world), rank)
     if device is None:
-        device = local_device(process_id, "cuda" if torch.cuda.is_available() else "cpu")
+        device = local_device(rank, "cuda" if torch.cuda.is_available() else "cpu")
     device = torch.device(device)
-    transport = default_transport(device, local_world_size(int(num_processes)))
+    transport = default_transport(device, _HOST.local_world)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(
-        transport,
-        init_method=f"tcp://{coordinator_address}",
-        world_size=int(num_processes),
-        rank=int(process_id),
-    )
+    dist.init_process_group(transport, store=store, world_size=world, rank=rank)
     logger.info(
-        "torch.distributed initialized: process %s/%s over %s on %s",
-        dist.get_rank(), dist.get_world_size(), transport, device,
+        "torch.distributed initialized: process %s/%s over %s on %s (host ranks %s)",
+        dist.get_rank(), dist.get_world_size(), transport, device, _HOST.ranks,
     )
     return True
 
 
 def local_device(rank: Optional[int] = None, kind: str = "cuda") -> torch.device:
     """The rank's device: ``cuda:{local_rank % device_count}`` (ranks past
-    the card count share cards), or the CPU."""
+    the card count share cards), or the CPU. The local rank is the host's
+    (:data:`_HOST`, once known), else ``LOCAL_RANK``, else ``rank``."""
     if kind != "cuda":
         return torch.device("cpu")
     if rank is None:
         rank = dist.get_rank() if dist.is_initialized() else 0
-    local = _int_env("LOCAL_RANK")
+    local = _HOST.local_rank if _HOST is not None else _int_env("LOCAL_RANK")
     local = rank if local is None else local
     return torch.device("cuda", local % max(1, torch.cuda.device_count()))
 
 
 def local_world_size(world: int) -> int:
-    """This host's ranks: ``LOCAL_WORLD_SIZE``, else the whole world (one
-    host)."""
+    """This host's ranks: ``LOCAL_WORLD_SIZE``, else the host ranks once
+    known, else the whole world (one host)."""
     local = _int_env("LOCAL_WORLD_SIZE")
+    if local is None and _HOST is not None:
+        local = _HOST.local_world
     return world if local is None else local
 
 

@@ -7,8 +7,8 @@ QKV biases sharded on the output feature axis), row-parallel
 out-projections (wo/w_down sharded on the input feature axis, each followed
 by one ``psum`` over ``model``), a vocabulary-sharded embedding and head,
 norms replicated; Mixtral's experts shard over ``model``. KV caches shard
-kv heads over ``model``; their batch rows over ``data`` in JAX, while the
-port keeps the rows whole on every data rank (the same results).
+kv heads over ``model`` and their batch rows over ``data`` (the engine's
+coalesced bodies; the shared prefix stays replicated over ``data``).
 
 A spec is a tuple with one entry per axis of the leaf: an axis name or
 None, as a JAX ``PartitionSpec``. :func:`shard_params` is the weight

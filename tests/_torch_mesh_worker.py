@@ -361,17 +361,162 @@ def case_rank_check(rank, shape, perturb_rank):
 
 def case_client(rank, engine_kwargs, request, rank_check=True):
     """A KLLMs client in every rank (its engine builds the auto mesh of the
-    world), one create() call; returns the texts."""
+    world): the controller (rank 0) makes one create() call and the others
+    serve it (their constructors return after its close()). Returns the
+    controller's texts, and each follower's count of plans run."""
     from k_llms_tpu_torch import KLLMs
 
     client = KLLMs(backend="cuda", device="cpu", **engine_kwargs)
-    client.backend.engine.rank_check = rank_check
+    backend = client.backend
+    if not backend.is_controller:
+        return {"follower": True, "plans": backend.controller.plans}
+    backend.engine.rank_check = rank_check
     try:
         r = client.chat.completions.create(**request)
-        mesh_shape = client.backend.engine.mesh.shape if client.backend.engine.mesh else None
+        mesh_shape = backend.engine.mesh.shape if backend.engine.mesh else None
         return {"texts": [c.message.content for c in r.choices], "mesh": mesh_shape}
     finally:
         client.close()
+
+
+def case_controller(rank, shape, config, params, script, engine_kwargs=None,
+                    backend_kwargs=None, script_kwargs=None):
+    """A port backend on every rank over ``params`` on the world's mesh of
+    ``shape``: rank 0 is the controller and runs ``_ctl_<script>(client,
+    **script_kwargs)`` (and closes the client); every other rank is a
+    follower, served until that close. The controller returns its script's
+    value; a follower its plan count and its engine's last launch stats."""
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.backends.cuda import BackendConfig, CudaBackend
+    from k_llms_tpu_torch.engine.engine import LocalEngine
+    from k_llms_tpu_torch.parallel.controller import register_hook
+
+    _SNAPSHOTS.clear()
+    eng = LocalEngine(config, params=params, device="cpu", mesh=mesh(shape),
+                      **(engine_kwargs or {}))
+    register_hook("snapshot", lambda e: _SNAPSHOTS.append(_stats(e.last_launch_stats)))
+    backend = CudaBackend(config=BackendConfig(model="tiny", device="cpu",
+                                               **(backend_kwargs or {})), engine=eng)
+    if not backend.is_controller:
+        return {"follower": True, "plans": backend.controller.plans,
+                "snapshots": list(_SNAPSHOTS)}
+    client = KLLMs(backend=backend)
+    try:
+        return globals()[f"_ctl_{script}"](client, **(script_kwargs or {}))
+    finally:
+        client.close()
+
+
+# Each rank's engine stats, appended by the "snapshot" hook in plan order.
+_SNAPSHOTS: List[Dict[str, Any]] = []
+
+
+def _stats(st):
+    return {k: v for k, v in st.items() if k not in ("prefill_s", "decode_s")}
+
+
+def _recorded(engine):
+    """Wrap ``engine.generate_many`` to record each launch: its members
+    (prompt ids, n, seed), its kwargs, its results and launch stats."""
+    launches = []
+    inner = engine.generate_many
+
+    def recorded(items, **kw):
+        out = inner(items, **kw)
+        launches.append({
+            "members": [(list(it.prompt_ids), it.n, it.seed) for it in items],
+            "kw": {k: v for k, v in kw.items() if k != "constraint"},
+            "constraint": kw.get("constraint"),
+            "results": [_result(r) if not isinstance(r, BaseException) else repr(r) for r in out],
+            "stats": _stats(engine.last_launch_stats)})
+        return out
+
+    engine.generate_many = recorded
+    return launches
+
+
+def _ctl_coalesce(client, contents, n, seed, max_tokens, temperature):
+    """One create() per content from concurrent threads, started together
+    inside the scheduler's batch window: the launches they made."""
+    import threading
+
+    launches = _recorded(client.backend.engine)
+    out = [None] * len(contents)
+
+    def go(i):
+        r = client.chat.completions.create(
+            messages=[{"role": "user", "content": contents[i]}], n=n, seed=seed + i,
+            max_tokens=max_tokens, temperature=temperature)
+        out[i] = [c.message.content for c in r.choices]
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(contents))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"texts": out, "launches": launches,
+            "plans": client.backend.controller.plans}
+
+
+def _ctl_parse(client, content, n, seed, max_tokens):
+    """One grammar-constrained parse() (a pydantic schema): its parsed
+    record, texts and launch."""
+    import pydantic
+
+    class Item(pydantic.BaseModel):
+        name: str
+        qty: int
+
+    launches = _recorded(client.backend.engine)
+    r = client.chat.completions.parse(
+        messages=[{"role": "user", "content": content}], response_format=Item, n=n,
+        seed=seed, max_tokens=max_tokens, temperature=0.0)
+    return {"texts": [c.message.content for c in r.choices], "launches": launches}
+
+
+class _CancelAfter:
+    """A request budget that cancels itself at its ``polls``-th poll (built
+    lazily: the deadline module is the port's)."""
+
+    def __new__(cls, polls):
+        from k_llms_tpu_torch.reliability.deadline import RequestBudget
+
+        class Budget(RequestBudget):
+            def __init__(self):
+                super().__init__()
+                self.polls = 0
+
+            def should_abort(self):
+                self.polls += 1
+                if self.polls >= polls:
+                    self.cancel()
+                return super().should_abort()
+
+        return Budget()
+
+
+def _ctl_abort(client, prompt, n, seed, max_tokens, polls):
+    """A coalesced launch of two members through the controller's engine;
+    member 0 is cancelled at its ``polls``-th poll (a few steps in). Then
+    one more request serves. Returns the members' outcomes, the launch's
+    stats and the next request's texts."""
+    from k_llms_tpu_torch.engine.engine import GenRequestSpec
+
+    engine = client.backend.engine
+    items = [GenRequestSpec(prompt, n, seed, budget=_CancelAfter(polls)),
+             GenRequestSpec(prompt[::-1], n, seed + 1)]
+    out = engine.generate_many(items, max_new_tokens=max_tokens, temperature=0.7)
+    client.backend.controller.hook("snapshot")
+    stats = _stats(engine.last_launch_stats)
+    nxt = client.chat.completions.create(messages=[{"role": "user", "content": "next"}],
+                                         n=2, seed=5, max_tokens=4)
+    return {"outcomes": [type(r).__name__ if isinstance(r, BaseException) else _result(r)
+                         for r in out],
+            "stats": stats, "next": [c.message.content for c in nxt.choices]}
+
+
+def _eng_param_bytes(eng, whole_tree):
+    return eng.param_footprint_bytes(whole_tree=whole_tree)
 
 
 def case_mesh_shapes(rank):

@@ -313,7 +313,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "    conn.close()\n"
         "assert sse.endswith(b'data: [DONE]\\n\\n') and b'chat.completion.chunk' in sse\n"
         "assert observability.TRACER is not None\n"
-        "from k_llms_tpu_torch.parallel import collectives, distributed, mesh, sharding\n"
+        "from k_llms_tpu_torch.parallel import collectives, controller, distributed, mesh, sharding\n"
         "from k_llms_tpu_torch.ops import ring_attention\n"
         "from k_llms_tpu_torch.engine import long_context\n"
         "assert distributed.initialize_multihost() is False\n"

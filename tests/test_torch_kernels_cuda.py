@@ -1222,25 +1222,66 @@ def _int4_tp4_rank(rank, size, store, outq):
         _ext.reset_launch_counts()
         out = eng.generate(list(range(5, 40)), n=2, max_new_tokens=4, temperature=0.0, seed=1)
         torch.cuda.synchronize()
-        outq.put((rank, {"lm_head": type(eng.params["lm_head"]).__name__,
+        head = eng.params["lm_head"]
+        outq.put((rank, {"lm_head": type(head).__name__, "lm_head_part": head.part,
+                         "lm_head_shape": list(head.shape),
                          "wq": eng.params["layers"]["wq"].part,
                          "tokens": np.asarray(out.tokens).tolist(),
-                         "k4": _ext.LAUNCH_COUNTS["w4_matmul"]}))
+                         "k4": _ext.LAUNCH_COUNTS["w4_matmul"],
+                         "steps": eng.last_launch_stats["decode_steps"]}))
         dist.destroy_process_group()
     except BaseException as e:
         outq.put((rank, f"{type(e).__name__}: {e}"))
 
 
-def test_int4_tp4_keeps_off_kernel_lm_head_int8(cuda_device, tmp_path):
+def test_int4_tp4_keeps_ragged_lm_head_int4(cuda_device, tmp_path):
     """Llama-3-8B int4 at model parallel = 4 (depth cut to two layers): the
-    lm_head shard [4096, 32064] misses K4's blocking, so it stays int8; the
-    other weights take K4 through w4_matmul_tp, and the four ranks serve a
-    request with the same tokens."""
+    lm_head shard [4096, 32064] ends 64 columns into K4's last column tile,
+    which K4 masks, so it stays int4 (as in JAX) and runs through
+    w4_matmul_tp with the other weights: per rank and forward, 7 K4 launches
+    a layer and one for the head; the four ranks serve a request with the
+    same tokens."""
     _ext.build_all()  # once, before the ranks start
     res = _spawn_ranks(_int4_tp4_rank, 4, tmp_path)
     assert all(isinstance(r, dict) for r in res), res
-    assert all(r["lm_head"] == "QTensor" and r["wq"] == "col" and r["k4"] > 0 for r in res)
+    for r in res:
+        assert r["lm_head"] == "Q4Tensor" and r["lm_head_part"] == "col", r
+        assert r["lm_head_shape"] == [4096, 32064] and r["wq"] == "col"
+        # The prefill and each decode step, two layers: 7 * 2 + 1 apiece.
+        assert r["k4"] == (7 * 2 + 1) * (1 + r["steps"]), r
     assert all(r["tokens"] == res[0]["tokens"] for r in res)
+
+
+#: Llama-3-8B's lm_head shards that end inside K4's last column tile, by
+#: model-parallel degree.
+LLAMA3_8B_RAGGED_LM_HEAD = {4: (4096, 32064), 8: (4096, 16032)}
+
+
+@pytest.mark.parametrize("tp", sorted(LLAMA3_8B_RAGGED_LM_HEAD))
+@pytest.mark.parametrize("rows,dtype", [(8, torch.bfloat16), (2048, torch.bfloat16),
+                                        (8, torch.float32), (96, torch.float32)])
+def test_w4_matmul_on_ragged_lm_head_shards(cuda_device, tp, rows, dtype):
+    """K4's masked last column tile on every route (decode, tc, gemv,
+    tiled) at Llama-3-8B's lm_head shards of TP = 4 and 8: within K4's
+    limit of its plain version, every column finite.
+    ``int4_off_kernel_shards`` lists no weight of the config at either
+    degree."""
+    from k_llms_tpu_torch.models.quant import int4_off_kernel_shards
+    from k_llms_tpu_torch.ops import w4matmul as w4
+
+    K, N = LLAMA3_8B_RAGGED_LM_HEAD[tp]
+    assert N % 128 and w4.kernel_supports(K, N)
+    assert int4_off_kernel_shards(get_config("llama-3-8b"), tp) == {}
+    rng = np.random.default_rng(K + N + rows)
+    x, w = _w4_case(rng, rows, K, N, cuda_device)
+    x = x.to(dtype)
+    out = w4.w4_matmul(x, w)
+    torch.cuda.synchronize()
+    assert out.shape == (rows, N) and torch.isfinite(out.float()).all()
+    ref = w4.w4_matmul_plain(x, w).float()
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-6
+    room = tol * ref.abs() + 1e-5 * _w4_group_sums(x, w, absolute=True)
+    assert ((out.float() - ref).abs() <= room).all()
 
 
 # The train phase's bf16 loss limit (chip_smoke.py, TRAIN_BF16_LOSS_RTOL):

@@ -62,7 +62,7 @@ def expected_counts(cfg, shape):
     L = cfg.num_layers
     backward = (3 if cfg.num_experts else 2) * L + 1
     return {"psum": (2 * L + 1 + backward if M > 1 else 0) + (3 if D > 1 else 0),
-            "pmax": 0, "all_gather": int(M > 1), "ppermute": 0, "all_to_all": 0,
+            "pmax": 0, "all_gather": int(M > 1), "ppermute": 0, "all_to_all": 0, "gather": 0,
             "host_staged_bytes": 0}
 
 

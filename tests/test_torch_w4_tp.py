@@ -101,14 +101,13 @@ def test_int4_downgrades_when_groups_would_split(world):
     assert got == ["int8"]
 
 
-@pytest.mark.parametrize("tp,off", [(2, {}), (4, {"lm_head": (4096, 32064)}),
-                                     (8, {"lm_head": (4096, 16032)})])
+@pytest.mark.parametrize("tp,off", [(2, {}), (4, {}), (8, {})])
 def test_llama3_8b_int4_shards_off_the_kernel(tp, off):
     """Llama-3-8B int4 shards over 2, 4 and 8 model ranks without splitting
-    a group (JAX's rule), but at 4 and 8 the lm_head shard misses K4's
-    blocking (N % 128). The JAX package takes it through its dequantize
-    fallback; the port has none, so on a card the engine keeps exactly
-    these weights int8, drawn or quantized, and the rest int4."""
+    a group (JAX's rule), and K4 takes every shard: the lm_head shards at 4
+    and 8 ([4096, 32064], [4096, 16032]) end inside a column tile, which K4
+    masks. So no weight stays int8, drawn or quantized, as in JAX; a weight
+    listed off the kernel (``int8_keys``) would stay int8."""
     import torch
 
     from k_llms_tpu_torch.models.config import get_config as port_get_config
@@ -128,6 +127,14 @@ def test_llama3_8b_int4_shards_off_the_kernel(tp, off):
     for tree in (drawn, quantized):
         assert isinstance(tree["lm_head"], QTensor if off else Q4Tensor)
         assert all(isinstance(tree["layers"][k], Q4Tensor) for k in ("wq", "wo", "w_down"))
+    # The weights the registry still keeps off K4 at TP <= 8 miss K only.
+    from k_llms_tpu_torch.models.config import _REGISTRY
+
+    for name, c in _REGISTRY.items():
+        for k, (K, N) in int4_off_kernel_shards(c, tp).items():
+            assert K % 256 and N % 16 == 0, (name, tp, k, K, N)
+    keep = init_params_quantized(cfg, gen, "cpu", bits=4, int8_keys=frozenset({"lm_head"}))
+    assert isinstance(keep["lm_head"], QTensor)
 
 
 def test_stored_int4_incompatible_mesh_raises(world):

@@ -135,7 +135,10 @@ def test_split_k_fills_the_card_at_decode_rows():
     assert w4.split_k(40, 1024, 768, torch.float32) == 2  # f32 at 40 rows: GEMV, 8 groups
     assert w4.split_k(300, 512, 384, torch.float32) == 1  # f32 tiled: never split
     assert w4.kernel_supports(4096, 1024) and not w4.kernel_supports(128, 1024)
-    assert not w4.kernel_supports(4096, 64)
+    # The last column tile is masked: N need only keep the packed rows
+    # 16-byte aligned (Llama-3-8B's lm_head over 4 and 8 ranks).
+    assert w4.kernel_supports(4096, 64) and w4.kernel_supports(4096, 32064)
+    assert w4.kernel_supports(4096, 16032) and not w4.kernel_supports(4096, 40)
 
 
 # Llama-3-8B's int4 weights (K, N): w_gate/w_up, w_down, wq/wo, wk/wv, lm_head.
