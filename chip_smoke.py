@@ -1876,8 +1876,42 @@ def mesh_register_hooks() -> None:
              "rank_rows": st["rank_rows"],
              "aborted": {int(k): v[0] for k, v in st["aborted"].items()}})
 
+    def rank_loop(engine):
+        """This rank's continuous loop: the controller's own or a
+        follower's replica (the parent's, a world of one, from MESH_STATE)."""
+        hc = engine.host_controller
+        return hc.loop if hc is not None else MESH_STATE["loop"]
+
+    def loop_timer(engine):
+        """Time each of this rank's loop steps (wall ms, the plan's
+        broadcast and rank check included) by its active rows."""
+        loop = rank_loop(engine)
+        inner, steps = loop._step_once, []
+        MESH_STATE["steps"] = steps
+
+        def timed(plan=None):
+            rows = int(loop._active_mask.sum())
+            t0 = time.perf_counter()
+            inner(plan)
+            steps.append((rows, (time.perf_counter() - t0) * 1e3))
+
+        loop._step_once = timed
+
+    def loop_read(engine):
+        loop = rank_loop(engine)
+        del loop._step_once
+        st = loop.stats
+        MESH_STATE["loop_stats"] = {k: st[k] for k in (
+            "steps", "row_steps", "admitted", "joined_in_flight", "prefill_chunks",
+            "completed", "aborted", "restarts")}
+        pool = engine._kv_pool
+        MESH_STATE["pool"] = None if pool is None else {
+            "pages": pool.allocator.total_pages, "bytes": pool.pool_bytes(),
+            "digest": pool.allocator.digest()}
+
     for name, fn in (("reset", reset), ("read", read), ("logits", logits),
-                     ("snapshot", snapshot)):
+                     ("snapshot", snapshot), ("loop_timer", loop_timer),
+                     ("loop_read", loop_read)):
         register_hook(name, fn)
 
 
@@ -2009,6 +2043,154 @@ def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=N
         res["plans"] = ctl.plans
     client.close()
     del client, backend, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def steps_by_rows(steps):
+    """Step wall ms by active rows: {rows: {steps, median_ms}}."""
+    import numpy as np
+
+    by = {}
+    for rows, ms in steps:
+        by.setdefault(rows, []).append(ms)
+    return {str(r): {"steps": len(v), "median_ms": float(np.median(v))}
+            for r, v in sorted(by.items())}
+
+
+def mesh_loop(client_kw, reqs, bias_req, biased_at):
+    """Build ``KLLMs(model="llama-3-8b", **client_kw)`` with the continuous
+    loop and drive the loop phase's traffic through it: each of ``reqs``
+    (label, request, after this many loop steps, via parse()) from a thread
+    of its own, and ``bias_req`` (a logit-bias request: the coalescing path,
+    between loop steps) after ``biased_at`` steps. Every rank's launch and
+    collective counts are reset just before and read just after, and every
+    rank times its loop's steps (the hooks, in the controller's plan order);
+    then, outside the window, the last-position prefill logits of the loop's
+    prompts. In a world of ranks the controller alone drives and each
+    follower's replica replays its loop; in the parent (a world of one) the
+    same calls run unsharded. Returns numpy-free values and arrays."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.parallel.controller import HOOKS
+
+    mesh_register_hooks()
+    MESH_STATE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client = KLLMs(backend="cuda", model="llama-3-8b", **client_kw)
+    backend = client.backend
+    engine = backend.engine
+    mesh = engine.mesh
+
+    def record(role, **kw):
+        return dict(kw, role=role, mesh=None if mesh is None else dict(mesh.shape),
+                    L=engine.config.num_layers, counts=MESH_STATE["counts"],
+                    collectives=MESH_STATE["collectives"], logits=MESH_STATE["logits"],
+                    steps_ms=steps_by_rows(MESH_STATE["steps"]),
+                    loop_stats=MESH_STATE["loop_stats"], pool=MESH_STATE["pool"],
+                    param_bytes=engine.param_footprint_bytes(),
+                    peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                    peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                    session_s=time.perf_counter() - t0)
+
+    if not backend.is_controller:
+        res = record("follower", plans=backend.controller.plans)
+        del client, backend, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+    ctl = backend.controller
+    loop = backend._continuous
+    MESH_STATE["loop"] = loop
+
+    def hook(name, *args):
+        return ctl.hook(name, *args) if ctl is not None else HOOKS[name](engine, *args)
+
+    client.chat.completions.create(messages=[{"role": "user", "content": "warm up"}], n=2,
+                                   max_tokens=4, temperature=0.0, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = dict(loop.stats)
+    subs, launches, embeds, resps, errors = {}, [], [], {}, {}
+    submit, generate_many, embed_tokens = loop.submit, engine.generate_many, engine.embed_tokens
+    current = threading.local()
+
+    def recording_submit(ids, **kw):
+        fut = submit(ids, **kw)
+        subs[current.label] = (list(ids), fut)
+        return fut
+
+    def counted_generate_many(items, **kw):
+        out = generate_many(items, **kw)
+        st = engine.last_launch_stats
+        launches.append({"requests": len(items), "steps": st["decode_steps"], "rows": st["rows"],
+                         "rank_rows": st["rank_rows"], "temperature": kw["temperature"],
+                         "tokens": [np.asarray(r.tokens) for r in out]})
+        return out
+
+    def counted_embed_tokens(token_lists, *a, **kw):
+        embeds.append(len(token_lists))
+        return embed_tokens(token_lists, *a, **kw)
+
+    def run(name, req, parse):
+        current.label = name
+        try:
+            fn = client.chat.completions.parse if parse else client.chat.completions.create
+            resps[name] = fn(**req)
+        except BaseException as e:  # reported below
+            errors[name] = repr(e)
+
+    loop.submit = recording_submit
+    engine.generate_many, engine.embed_tokens = counted_generate_many, counted_embed_tokens
+    hook("reset")
+    hook("loop_timer")
+    t1 = time.perf_counter()
+    threads = []
+    pending = sorted(list(reqs) + [("bias", bias_req, biased_at, False)], key=lambda r: r[2])
+    for name, req, after, parse in pending:
+        while loop._stats["steps"] < after:
+            time.sleep(0.0005)
+        th = threading.Thread(target=run, args=(name, req, parse))
+        th.start()
+        threads.append(th)
+        if after == 0:  # queued in order before the next one
+            while name != "bias" and name not in subs and th.is_alive():
+                time.sleep(0.0005)
+    join_all(threads)
+    wall = time.perf_counter() - t1
+    hook("read")
+    hook("loop_read")
+    del loop.submit, engine.generate_many, engine.embed_tokens
+    if errors:
+        raise AssertionError(f"mesh loop: requests failed: {errors}")
+    st = loop.stats
+    delta = {k: st[k] - before[k] for k in ("steps", "admitted", "joined_in_flight", "completed",
+                                             "prefill_chunks", "prefill_interleaved", "restarts")}
+    labels = sorted(subs)
+    hook("logits", [subs[n][0] for n in labels])
+    mm = backend.memory_model
+    cfg = backend.backend_config
+    res = record(
+        "controller", plans=None if ctl is None else ctl.plans, init_s=init_s, wall_s=wall,
+        delta=delta, launches=launches, embeds=embeds, labels=labels,
+        prompt_tokens={n: len(subs[n][0]) for n in labels},
+        tokens={n: np.asarray(subs[n][1].result().tokens) for n in labels},
+        consensus={n: str(r.choices[0].message.content)[:80] for n, r in resps.items()},
+        width=loop.width, prefill_chunk_tokens=loop.prefill_chunk_tokens,
+        memory_model={"tp": mm.tp, "dp": mm.dp, "width_cap_fanout1": mm.paged_max_rows(
+            cfg.continuous_max_prompt, cfg.continuous_max_new, engine.kv_page_size, fanout=1)})
+    client.close()
+    MESH_STATE.pop("loop")  # it holds the engine: the parent's memory back
+    del client, backend, engine, loop
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2398,8 +2580,8 @@ def mesh_train(layers, B, S, valid_last, steps, seed):
     return res
 
 
-MESH_JOBS = {"serve": mesh_serve, "w4_tp": mesh_w4_tp_check, "psum": mesh_psum_times,
-             "nccl_one": mesh_nccl_one, "train": mesh_train}
+MESH_JOBS = {"serve": mesh_serve, "loop": mesh_loop, "w4_tp": mesh_w4_tp_check,
+             "psum": mesh_psum_times, "nccl_one": mesh_nccl_one, "train": mesh_train}
 
 
 def main(argv=None) -> int:
@@ -5662,9 +5844,27 @@ def main(argv=None) -> int:
         ref_dp2 = mesh_serve(dp2_kw, sched_requests, concurrent=True, parse_req=parse_request)
         ref_dp2_int4 = mesh_serve(dp2_int4_kw, sched_requests, concurrent=True,
                                   parse_req=parse_request)
+        # The continuous loop across the ranks: the loop phase's knobs and
+        # traffic (A and the Record parse() D at once, B after 8 steps, the
+        # chunked C after 16, a logit-bias request through the coalescing
+        # path after 24), unsharded here; the chunk is pinned so that every
+        # client runs the same shapes. The pool holds 256 pages (2 GB a
+        # rank, twice the traffic's need): the loop's own worst-case pool
+        # (1185 pages, 9.3 GB) does not fit twice on the shared card beside
+        # two ranks' weights and the parent's leftovers (first mesh call).
+        mesh_loop_kw = dict(param_seed=args.seed, prefill_chunk_tokens=128, kv_pool_pages=256,
+                            **loop_knobs)
+        mesh_bias_req = dict(messages=[{"role": "user", "content": "Spell a word."}], n=8,
+                             temperature=0.0, max_tokens=32, seed=7, logit_bias=printable)
+        loop_job_args = {"client_kw": mesh_loop_kw, "reqs": loop_requests,
+                         "bias_req": mesh_bias_req, "biased_at": 24}
+        ref_loop = mesh_loop(**loop_job_args)
         log({"phase": "mesh_references", "seconds": time.perf_counter() - t_mesh,
              "int4_serve_s": ref_int4["serve_s"], "bf16_serve_s": ref_bf16["serve_s"],
              "dp2_bf16_serve_s": ref_dp2["serve_s"], "dp2_int4_serve_s": ref_dp2_int4["serve_s"],
+             "loop_wall_s": ref_loop["wall_s"], "loop_stats": ref_loop["delta"],
+             "loop_steps_ms": ref_loop["steps_ms"],
+             "loop_peak_allocated_bytes": ref_loop["peak_allocated_bytes"],
              "int4_peak_bytes": ref_int4["peak_bytes"], "bf16_peak_bytes": ref_bf16["peak_bytes"],
              "dp2_launches": [(ln["requests"], ln["rows"], ln["steps"])
                               for ln in ref_dp2["launches"]]})
@@ -5692,6 +5892,9 @@ def main(argv=None) -> int:
             {"name": "mesh_dp2_int4", "kind": "serve",
              "args": {"client_kw": dp2_int4_kw, "reqs": sched_requests, "concurrent": True,
                       "parse_req": parse_request}},
+            {"name": "mesh_dp2_loop", "kind": "loop", "args": loop_job_args},
+            {"name": "mesh_tp2_loop", "kind": "loop",
+             "args": dict(loop_job_args, client_kw=dict(mesh_loop_kw, model_parallel=2))},
             {"name": "mesh_k4tp_mutants", "kind": "w4_tp",
              "args": {"shapes": [(4096, 4096), (14336, 4096)], "rows_list": [8, 2048]}},
             {"name": "mesh_psum_gloo", "kind": "psum",
@@ -5879,6 +6082,122 @@ def main(argv=None) -> int:
              "loop_tests": dp_tests, "follower_exit_code": ranks["_exitcodes"][1], "ok": serve_ok})
         if not serve_ok:
             raise AssertionError(f"mesh_dp2_serve: {http} / follower {fol_snap}")
+        def loop_expected(ctl, tp):
+            """Each rank's window counts, by formula from the controller's
+            loop counters and coalesced launch: K2 a layer per whole
+            admission, chunk, coalesced prefill and embeddings forward; K1 a
+            layer per loop step and coalesced step (every slot's rows on
+            every rank); a draw per loop step and admission and per sampled
+            coalesced step; under TP the Megatron psums of every forward and
+            one logits gather per forward with a head; over the data axis
+            one gather of the coalesced results."""
+            L, d, lns, E = ctl["L"], ctl["delta"], ctl["launches"], len(ctl["embeds"])
+            chunked = sum(1 for n in ctl["prompt_tokens"].values()
+                          if n > ctl["prefill_chunk_tokens"])
+            whole = d["admitted"] - chunked
+            co_req = sum(ln["requests"] for ln in lns)
+            co_steps = sum(ln["steps"] for ln in lns)
+            headed = whole + d["prefill_chunks"] + d["steps"] + co_req + co_steps
+            return {"flash_attention": L * (whole + d["prefill_chunks"] + co_req + E),
+                    "paged_decode_attention": L * (d["steps"] + co_steps),
+                    "decode_prefix_attention": 0, "w4_matmul": 0,
+                    "threefry_uniform_rows": d["steps"] + d["admitted"] + sum(
+                        ln["steps"] + 1 for ln in lns if ln["temperature"] != 0.0),
+                    "psum": (2 * L + 1) * (headed + E) if tp else 0,
+                    "all_gather": headed if tp else len(lns),
+                    "ppermute": 0, "all_to_all": 0}
+
+        def check_loop(name, tp):
+            """The loop across two ranks against the unsharded loop: on the
+            data axis every loop request's tokens identical (each data rank
+            decodes every slot); under TP first tokens equal and the
+            prompts' last-position logits within MESH_LOGITS_REL_L2; the
+            coalesced request's first tokens equal (its rows split over
+            data: PR 18's rule); every rank's counts by formula, one pmax a
+            loop step (and a coalesced loop test), the same plans and loop
+            counters on both ranks, no restart."""
+            res = ranks[name]
+            ctl = res[0]
+            problems = []
+            if ctl["role"] != "controller" or any(r["role"] != "follower" for r in res[1:]):
+                problems.append(f"roles {[r['role'] for r in res]}")
+            for r in res[1:]:
+                if r["plans"] != ctl["plans"]:
+                    problems.append(f"follower ran {r['plans']} plans, controller sent {ctl['plans']}")
+                if r["loop_stats"] != ctl["loop_stats"]:
+                    problems.append(f"follower loop {r['loop_stats']} != {ctl['loop_stats']}")
+                if r["pool"] != ctl["pool"]:
+                    problems.append(f"follower pool {r['pool']} != {ctl['pool']}")
+            if ctl["delta"]["restarts"] != 0 or ctl["loop_stats"]["restarts"] != 0:
+                problems.append(f"restarts {ctl['delta']['restarts']}")
+            if ctl["labels"] != ref_loop["labels"]:
+                problems.append(f"requests {ctl['labels']} vs {ref_loop['labels']}")
+            per_req = {}
+            for k, label in enumerate(ctl["labels"]):
+                mine, theirs = ctl["tokens"][label], ref_loop["tokens"][label]
+                err = rel_l2(ctl["logits"][k], ref_loop["logits"][k])
+                per_req[label] = {"identical": bool(np.array_equal(mine, theirs)),
+                                  "first_tokens_equal": bool(np.array_equal(mine[:, 0], theirs[:, 0])),
+                                  "token_agreement": float((mine == theirs).mean()),
+                                  "logits_rel_l2": err}
+                if not per_req[label]["first_tokens_equal"]:
+                    problems.append(f"{label}: first tokens differ from the unsharded loop's")
+                if not tp and not per_req[label]["identical"]:
+                    problems.append(f"{label}: tokens differ from the unsharded loop's")
+                if tp and not err <= MESH_LOGITS_REL_L2:
+                    problems.append(f"{label}: logits rel L2 {err} > {MESH_LOGITS_REL_L2}")
+            co = None
+            if len(ctl["launches"]) != 1 or len(ref_loop["launches"]) != 1:
+                problems.append(f"coalesced launches {len(ctl['launches'])}")
+            else:
+                mine, theirs = ctl["launches"][0]["tokens"][0], ref_loop["launches"][0]["tokens"][0]
+                co = {"first_tokens_equal": bool(np.array_equal(mine[:, 0], theirs[:, 0])),
+                      "token_agreement": float((mine == theirs).mean()),
+                      "rows": ctl["launches"][0]["rows"], "rank_rows": ctl["launches"][0]["rank_rows"]}
+                if not co["first_tokens_equal"]:
+                    problems.append("the coalesced request's first tokens differ")
+            expected = loop_expected(ctl, tp)
+            lns = ctl["launches"]
+            co_steps = sum(ln["steps"] for ln in lns)
+            for r in res:
+                got = {key: (r["counts"] | r["collectives"])[key] for key in expected}
+                if got != expected:
+                    problems.append(f"{r['role']} counts {got} != expected {expected}")
+                pm = r["collectives"]["pmax"] - ctl["delta"]["steps"]
+                if not co_steps <= pm <= co_steps + len(lns):
+                    problems.append(f"{r['role']}: {r['collectives']['pmax']} pmax for "
+                                    f"{ctl['delta']['steps']} loop steps")
+            ref_expected = {k: v for k, v in loop_expected(ref_loop, False).items()
+                            if k in ref_loop["counts"]}
+            if {k: ref_loop["counts"][k] for k in ref_expected} != ref_expected:
+                problems.append(f"unsharded counts {ref_loop['counts']} != {ref_expected}")
+            peaks = [r["peak_allocated_bytes"] for r in res]
+            rec = {"phase": name, "mesh": ctl["mesh"], "requests": per_req, "coalesced": co,
+                   "stats": ctl["delta"], "unsharded_stats": ref_loop["delta"],
+                   "width": ctl["width"], "prefill_chunk_tokens": ctl["prefill_chunk_tokens"],
+                   "memory_model": ctl["memory_model"],
+                   "unsharded_memory_model": ref_loop["memory_model"],
+                   "expected_counts": expected, "counts": [r["counts"] for r in res],
+                   "collectives": [r["collectives"] for r in res],
+                   "plans": [r["plans"] for r in res],
+                   "steps_ms_by_active_rows": [r["steps_ms"] for r in res],
+                   "unsharded_steps_ms_by_active_rows": ref_loop["steps_ms"],
+                   "pool": [r["pool"] for r in res],
+                   "rank_peak_allocated_bytes": peaks,
+                   "rank_peak_reserved_bytes": [r["peak_reserved_bytes"] for r in res],
+                   "rank_param_bytes": [r["param_bytes"] for r in res],
+                   "rank_job_s": [r["job_s"] for r in res], "init_s": ctl["init_s"],
+                   "wall_s": ctl["wall_s"], "unsharded_wall_s": ref_loop["wall_s"],
+                   "consensus": ctl["consensus"]}
+            if sum(peaks) >= 80e9:
+                problems.append(f"summed rank peaks {sum(peaks)} >= 80 GB")
+            rec["ok"] = not problems
+            log(rec)
+            if problems:
+                raise AssertionError(f"{name}: {problems}")
+
+        check_loop("mesh_dp2_loop", tp=False)
+        check_loop("mesh_tp2_loop", tp=True)
         # A follower's fault: tiny on two ranks of the card, the follower's
         # first launch raising a kernel error; the controller's request ends
         # as the typed 503 within FAULT_LIMIT_S, the world stays stopped.

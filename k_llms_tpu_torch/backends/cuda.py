@@ -52,7 +52,13 @@ from its rank (``parallel/controller.py``): on each host's first rank it is
 the controller and builds all of the above, announcing every launch and
 embeddings forward to the host's other ranks; on those it is a follower,
 whose constructor replays the controller's plans and returns after the
-controller's ``close()``. ``is_controller`` tells the two apart.
+controller's ``close()``. ``is_controller`` tells the two apart. With
+``continuous_batching`` the controller's loop is sized as in JAX, from the
+memory model's ``tp``/``dp`` terms, and each follower builds a replica of it
+from the controller's first loop plan: every admission, prefill chunk and
+decode step of the loop is announced and replayed on every rank, each data
+rank decoding every slot's whole rows, as JAX's loop does on its mesh. A
+fault that needs an engine rebuild stops the world (the typed 503).
 """
 
 from __future__ import annotations
@@ -494,14 +500,6 @@ class CudaBackend(Backend):
         self._model_config = model_config
         self._mesh = mesh
         self.param_summary: Optional[Dict[str, Any]] = None
-        from ..parallel.distributed import world_size
-
-        if cfg.continuous_batching and world_size() > 1:
-            # Checked on every rank, before any group is made.
-            raise NotImplementedError(
-                "continuous_batching across a world of ranks is not ported: the loop's "
-                "slots are not replayed on the followers"
-            )
         self.engine = engine if engine is not None else self._build_engine()
         from ..parallel.controller import HostController
 
@@ -599,6 +597,11 @@ class CudaBackend(Backend):
         self._continuous = None
         if cfg.continuous_batching:
             self._continuous = self._build_continuous_loop()
+            if self.controller is not None:
+                # Every follower builds the replica its plans drive, of this
+                # loop's geometry.
+                self.controller.loop = self._continuous
+                self.controller.announce_loop("init", self._continuous.geometry())
 
     def _build_continuous_loop(self):
         from ..engine.continuous import ContinuousDecodeLoop

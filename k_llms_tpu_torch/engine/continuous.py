@@ -58,6 +58,25 @@ and the prefix cache take it), then the pool's lock. No path takes the loop
 lock while holding either of the others. The step's dispatch thread takes
 only the pool lock, which a coalesced paged launch holds across its decode,
 so a loop step waits for such a launch, as in the JAX package.
+
+In a world of ranks (``parallel/controller.py``) the loop runs on every rank
+of the host, as JAX's loop runs on every device of its mesh: the heads of the
+pool and the prefill cache over ``model``, and every slot's whole rows on
+every data rank (the JAX loop puts no data-axis placement on its rows). The
+controller's worker runs each operation (an admission, a prefill chunk, a
+decode step, the reset after a worker crash) as one *section*
+(:meth:`ContinuousDecodeLoop._section`): the loop's Condition, then the
+engine's launch lock, held from the operation's plan to its end, so no other
+plan falls between the announcement and its device work on any rank; waiting
+for the launch lock gives the Condition back. The followers hold replicas
+(:meth:`ContinuousDecodeLoop.replica`): no worker, no budgets, no deadlines;
+each replays the controller's operations in plan order through the same
+code, so the slot tables, page allocators, prefix caches and grammar states
+stay identical. The budgets' aborts ride the step's plan, and each step's
+poison verdicts are reduced over the mesh (one ``pmax`` a step on each axis
+larger than one), so every rank retires the same rows at the same step. A
+fault that needs an engine rebuild (a hung step or chunk, a corrupt pool)
+stops the world: the rebuild across ranks is not ported.
 """
 
 from __future__ import annotations
@@ -85,12 +104,15 @@ from ..models.llama import (
 )
 from ..ops.random import threefry_uniform_rows
 from ..ops.sampling import sanitize_logits
+from ..parallel.collectives import pmax
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..reliability import failpoints as _failpoints
 from ..reliability.deadline import RequestBudget
 from ..types.wire import (
     BackendUnavailableError,
     CheckpointCorruptError,
     EngineHungError,
+    RequestCancelledError,
     ServerDrainingError,
 )
 from ..analysis.lockcheck import make_condition, note_device_dispatch, race_exempt
@@ -253,6 +275,10 @@ class _StaleStep(RuntimeError):
 
 class _PoolFault(RuntimeError):
     """Internal: page accounting failed; the pool must be quarantined."""
+
+
+class _LoopStopped(Exception):
+    """Internal: the loop stopped while its worker waited for a section."""
 
 
 class _AdoptEngine(Exception):
@@ -487,6 +513,35 @@ class ContinuousDecodeLoop:
             "prefill_interleaved": 0,
         }
         self._thread: Optional[threading.Thread] = None
+        # In a world of ranks: this host's HostController (the controller's
+        # own on its first rank; a replica's is set by :meth:`replica`).
+        self._world = getattr(engine, "controller", None)
+        self._replica = False
+        # Set while a section's operation has been announced: a fault then
+        # leaves the followers inside it.
+        # kllms: unguarded — the worker thread's own flag, set and read only there
+        self._announced = False
+        race_exempt(self, "_announced")
+
+    @classmethod
+    def replica(cls, engine: Any, controller: Any, **geometry: Any) -> "ContinuousDecodeLoop":
+        """A follower's copy of the controller's loop, of the controller's
+        geometry: it has no worker and takes no submissions; the follower's
+        plan loop drives it through :meth:`replay`."""
+        loop = cls(engine, **geometry)
+        loop._world = controller
+        loop._replica = True
+        return loop
+
+    def geometry(self) -> Dict[str, Any]:
+        """What a follower needs to build this loop's replica."""
+        return {"width": self.width, "max_prompt": self.max_prompt,
+                "max_new": self.max_new, "eos_ids": list(self.eos_ids),
+                "prefill_chunk_tokens": self.prefill_chunk_tokens}
+
+    def _leads(self) -> bool:
+        """Whether this loop announces its operations (the controller's)."""
+        return self._world is not None and not self._replica
 
     def _default_pool_pages(self) -> int:
         """Pool sizing when neither the engine nor the backend pinned one:
@@ -591,6 +646,8 @@ class ContinuousDecodeLoop:
         optional CompiledGrammar (a different schema than the resident one
         while constrained work is queued or in flight raises ValueError, and
         the backend coalesces the request instead)."""
+        if self._replica:
+            raise RuntimeError("a follower's replica loop takes no submissions")
         if self._admission_gate is not None:
             err = self._admission_gate()
             if err is not None:
@@ -763,9 +820,134 @@ class ContinuousDecodeLoop:
 
         return torch.where(g_flags, grammar_advance(dg, tok, g_states), g_states)
 
+    # -- a world of ranks ----------------------------------------------------
+
+    @contextlib.contextmanager
+    def _section(self):
+        """One operation of the controller's loop in a world: the loop's
+        Condition, then the engine's launch lock, held from the operation's
+        plan to its end, so no other plan falls between the announcement and
+        the device work on any rank. Waiting for the launch lock (a
+        coalesced launch decoding) gives the Condition back, and is not
+        timed by the watchdog. A no-op outside a world and on a replica
+        (its follower's plan loop holds both)."""
+        if not self._leads():
+            yield
+            return
+        with self._lock:
+            launch = self.engine._launch_lock
+            while not launch.acquire(blocking=False):
+                self._lock.wait(timeout=0.002)
+            self._announced = False
+            try:
+                if self._stopped:
+                    raise _LoopStopped()
+                yield
+                self._announced = False
+            finally:
+                launch.release()
+
+    def _announce(self, op: str, payload: Any = None) -> None:
+        """Hand this operation to the followers (the controller in a world;
+        a no-op elsewhere)."""
+        if self._leads():
+            self._world.announce_loop(op, payload)
+            self._announced = True
+
+    def _budget_aborts_locked(self) -> set:
+        """The active requests whose budgets are spent, by admission seq
+        (in a world the controller decides them before the step's plan)."""
+        aborts, seen = set(), set()
+        for r in self._active:
+            if r is not None and id(r) not in seen:
+                seen.add(id(r))
+                if r.budget is not None and r.budget.should_abort():
+                    aborts.add(r.seq)
+        return aborts
+
+    @staticmethod
+    def _rows_agree(bad: torch.Tensor, mesh: Any) -> torch.Tensor:
+        """Every rank of a world quarantines the same rows: a row poisoned
+        on any rank is poisoned on all (one ``pmax`` a step over each mesh
+        axis larger than one; a rank that failed surfaces here at once)."""
+        flags = bad.to(torch.int32)
+        for axis in (DATA_AXIS, MODEL_AXIS):
+            if mesh.axis_size(axis) > 1:
+                flags = pmax(flags, axis, mesh)
+        return flags.bool()
+
+    def _check_world(self, what: str) -> None:
+        """With the engine's ``rank_check`` in a world: every rank of the
+        host ends this plan with the same slot mirrors and the same page
+        allocator (free stack and refcounts)."""
+        if self._world is None or not self.engine.rank_check:
+            return
+        with self._lock:
+            digest = None if self._pool is None else self._pool.allocator.digest()
+            state = (what, self._cur.tolist(), self._gen_lens.tolist(),
+                     self._active_mask.tolist(), list(self._free), digest)
+            self._world.agree(state, f"loop state after its {what} plan")
+
+    def replay(self, op: str, payload: Any) -> None:
+        """A replica's run of one operation its controller announced, under
+        the loop's Condition (the follower's plan loop is the engine's only
+        caller; the engine's entries take its launch lock inside, in the
+        lock order). The failpoint sites the controller fires before
+        announcing fire here."""
+        _failpoints.fire("continuous.worker")
+        with self._lock, self._on_card():
+            if op == "admit":
+                self._replay_admit(payload)
+            elif op == "step":
+                _failpoints.fire("continuous.step")
+                self._step_once(payload)
+            elif op == "chunk":
+                if not payload["abort"]:
+                    _failpoints.fire("continuous.prefill")
+                self._prefill_chunk_once(payload)
+            elif op == "reset":
+                self._fail_all(BackendUnavailableError(
+                    "the controller's continuous decode worker crashed"))
+                self._check_world("reset")
+            else:
+                raise ValueError(f"unknown loop plan {op!r}")
+
+    def _replay_admit(self, p: Dict[str, Any]) -> None:
+        grammar = None if p["grammar"] is None else self._world.decode_constraint(p["grammar"])
+        req = _SlotRequest(
+            future=Future(), prompt_len=p["prompt_len"], n=p["n"], max_new=p["max_new"],
+            budget=None, token_sink=None, ids=list(p["ids"]), seed=p["seed"],
+            temperature=p["temperature"], top_p=p["top_p"], seq=p["seq"], grammar=grammar,
+        )
+        rows = list(p["rows"])
+        for r in rows:
+            self._free.remove(r)
+        self._admit_rows_of(req, rows, p["chunked"])
+        self._check_world("admit")
+
+    def _watched(self, fn: Callable[[], Any], what: str) -> Any:
+        """Run ``fn`` on the dispatch thread under the step budget (inline
+        without a budget model). A hang fences the epoch and raises
+        :class:`_StepHung`."""
+        if self.budget_model is None:
+            return fn()
+        try:
+            return self._dispatcher.run(fn, self.budget_model.step_budget())
+        except _StepHung:
+            with self._lock:
+                self._loop_epoch += 1
+            RECOVERY_EVENTS.record("continuous.step_hangs")
+            logger.error(
+                "continuous %s overran its watchdog budget; abandoning the "
+                "dispatch thread and rebuilding", what,
+            )
+            raise
+
     # -- worker ------------------------------------------------------------
 
     def _ensure_worker(self) -> None:
+        if self._replica:
+            return
         if self._thread is None or not self._thread.is_alive():
             self._thread = threading.Thread(
                 target=self._worker, name="kllms-continuous", daemon=True
@@ -783,23 +965,30 @@ class ContinuousDecodeLoop:
             try:
                 self._worker_loop()
                 return
+            except _LoopStopped:
+                return
             except _AdoptEngine as swap:
                 if not self._recover("adopt_engine", new_engine=swap.engine):
                     return
-            except _StepHung:
-                if not self._recover("hung_step"):
+            except _StepHung as e:
+                if not self._recover("hung_step", cause=e):
                     return
-            except (_PoolFault, PageAccountingError):
-                if not self._recover("page_accounting"):
+            except (_PoolFault, PageAccountingError) as e:
+                if not self._recover("page_accounting", cause=e):
                     return
-            except Exception:
+            except Exception as e:
                 logger.exception("continuous decode worker crashed")
                 RECOVERY_EVENTS.record("continuous.worker_crashes")
-                if not self._recover("worker_crash"):
+                if not self._recover("worker_crash", cause=e):
                     return
 
     def _worker_loop(self) -> None:
         while True:
+            with self._lock:
+                if self._stopped:
+                    # A stopped loop's worker (one that slept through its
+                    # stop()) fires no drill meant for a live loop.
+                    return
             # Crash-injection point for the worker itself: OUTSIDE the
             # step-level fault domains.
             _failpoints.fire("continuous.worker")
@@ -831,14 +1020,17 @@ class ContinuousDecodeLoop:
 
     # -- recovery ----------------------------------------------------------
 
-    def _recover(self, reason: str, new_engine: Any = None) -> bool:
+    def _recover(self, reason: str, new_engine: Any = None,
+                 cause: Optional[BaseException] = None) -> bool:
         """Heal the loop after a fault; True when the worker should keep
         running. ``hung_step`` / ``page_accounting``: journal the in-flight
         rows, rebuild the engine via ``rebuild_fn``, re-queue the survivors
         for replay. ``worker_crash``: fail everything typed and restart the
         loop empty. ``adopt_engine``: an external supervisor already rebuilt
         the engine; journal + swap + replay without spending a fault
-        credit."""
+        credit. In a world of ranks only a worker crash between operations
+        heals (every rank resets its loop in plan order); anything else
+        stops the world."""
         counts = reason != "adopt_engine"
         with self._lock:
             self._loop_epoch += 1
@@ -848,6 +1040,13 @@ class ContinuousDecodeLoop:
                 self._consecutive_faults += 1
             attempt = self._consecutive_faults
         RECOVERY_EVENTS.record("continuous.restarts")
+        if self._world is not None and (reason != "worker_crash" or self._announced):
+            # An engine rebuild across the host's ranks is not ported, and a
+            # fault after an announcement leaves the followers inside the
+            # operation: the world stops (the typed 503 from now on).
+            # Followers idle between plans are released.
+            return self._terminal(self._world.stop_world(
+                cause or RuntimeError(reason), release=not self._announced))
         if counts and attempt > self.max_rebuilds:
             return self._terminal(EngineHungError(
                 f"continuous decode loop did not recover after "
@@ -856,10 +1055,21 @@ class ContinuousDecodeLoop:
         if counts and self.on_recovering is not None:
             self.on_recovering(attempt, f"continuous_{reason}")
         if reason == "worker_crash":
-            self._fail_all(BackendUnavailableError(
+            err = BackendUnavailableError(
                 "continuous decode worker crashed; in-flight requests were "
                 "failed and the loop restarted"
-            ))
+            )
+            try:
+                with self._section():
+                    # Every rank's replica fails the same rows, in plan order.
+                    self._announce("reset")
+                    self._fail_all(err)
+                    self._check_world("reset")
+            except _LoopStopped:
+                self._fail_all(err)
+                return False
+            except BackendUnavailableError as e:  # the world stopped meanwhile
+                return self._terminal(e)
         else:
             if new_engine is None and self.rebuild_fn is None:
                 return self._terminal(EngineHungError(
@@ -1021,82 +1231,122 @@ class ContinuousDecodeLoop:
     def _admit_locked(self) -> None:
         """WFQ head-of-line admission: the selected tenant's earliest request
         joins when all n of its slots are free (no skipping past it). Called
-        with the lock held; does the admitted request's prefill."""
+        with the lock held; does the admitted requests' prefills, each as
+        one section in a world."""
         while self._queue:
             idx = self._select_locked()
             if idx is None or len(self._free) < self._queue[idx].n:
                 break
-            req = self._queue[idx]
-            chunked = self._chunk_eligible(req)
-            if chunked and self._prefilling is not None:
-                # One chunked admission at a time: the head waits.
-                break
-            del self._queue[idx]
-            if req.budget is not None and req.budget.should_abort():
-                FAILURE_EVENTS.record("scheduler.shed")
-                req.future.set_exception(req.budget.error("continuous queue"))
-                continue
-            if req.enqueued_at and not req.replays:
-                wait_s = max(0.0, time.monotonic() - req.enqueued_at)
-                LATENCY.observe("scheduler.queue_wait", wait_s)
-                if req.tenant is not None:
-                    LATENCY.observe(
-                        f"scheduler.queue_wait.{_req_tenant_name(req)}", wait_s
-                    )
-                if req.trace is not None:
-                    req.trace.add_phase("queue_wait", wait_s)
-            if not self._built:
-                self._build_device_state()
-            in_flight = self._active_mask.any()
-            rows = [self._free.pop(0) for _ in range(req.n)]
-            req.slots = rows
-            try:
-                _admit_t0 = time.perf_counter()
-                if chunked:
-                    self._begin_prefilling_locked(req, rows)
-                else:
-                    self._admit_device(req, rows)
-                    if req.trace is not None:
-                        req.trace.add_phase(
-                            "prefill", time.perf_counter() - _admit_t0
-                        )
-            except PagePoolExhausted as e:
-                # Pages are a transient resource: in-flight rows free theirs
-                # as they retire, so park the head request and retry after the
-                # next step; with nothing in flight, fail it.
-                for r in rows:
-                    self._free.append(r)
-                req.slots = []
-                if in_flight:
-                    self._queue.appendleft(req)
+            with self._section():
+                if not self._admit_next_locked():
                     break
-                req.future.set_exception(BackendUnavailableError(
-                    f"paged KV pool cannot fit request: {e}"
-                ))
-                continue
-            except Exception as e:
-                for r in rows:
-                    self._free.append(r)
-                req.future.set_exception(e)
-                continue
-            if req.replays:
-                self._stats["replayed_rows"] += req.n
-                RECOVERY_EVENTS.record("continuous.replayed_rows", req.n)
-                if req.trace is not None:
-                    # The same trace survives the rebuild, annotated rather
-                    # than duplicated.
-                    req.trace.annotate("replayed")
-                    req.trace.bump("replayed_rows", req.n)
+
+    def _admit_next_locked(self) -> bool:
+        """Admit the selected request, if it can join now; False when the
+        head must wait."""
+        idx = self._select_locked()
+        if idx is None or len(self._free) < self._queue[idx].n:
+            return False
+        req = self._queue[idx]
+        chunked = self._chunk_eligible(req)
+        if chunked and self._prefilling is not None:
+            # One chunked admission at a time: the head waits.
+            return False
+        del self._queue[idx]
+        if req.budget is not None and req.budget.should_abort():
+            FAILURE_EVENTS.record("scheduler.shed")
+            req.future.set_exception(req.budget.error("continuous queue"))
+            return True
+        if req.enqueued_at and not req.replays:
+            wait_s = max(0.0, time.monotonic() - req.enqueued_at)
+            LATENCY.observe("scheduler.queue_wait", wait_s)
+            if req.tenant is not None:
+                LATENCY.observe(
+                    f"scheduler.queue_wait.{_req_tenant_name(req)}", wait_s
+                )
+            if req.trace is not None:
+                req.trace.add_phase("queue_wait", wait_s)
+        rows = [self._free.pop(0) for _ in range(req.n)]
+        if self._leads():
+            grammar = req.grammar
+            self._announce("admit", {
+                "ids": req.ids, "prompt_len": req.prompt_len, "n": req.n,
+                "max_new": req.max_new, "seed": req.seed,
+                "temperature": req.temperature, "top_p": req.top_p, "seq": req.seq,
+                "grammar": None if grammar is None else self._world.encode_constraint(grammar),
+                "rows": rows, "chunked": chunked,
+            })
+        joined = self._admit_rows_of(req, rows, chunked)
+        self._check_world("admit")
+        if joined is None:
+            # Parked until in-flight rows free their pages.
+            self._queue.appendleft(req)
+            return False
+        if joined and not req.replays:
+            # WFQ pass charge from the floor (an idle tenant re-enters at
+            # the current floor, not at zero).
+            name = _req_tenant_name(req)
+            start = max(self._vtimes.get(name, 0.0), self._vfloor)
+            self._vfloor = start
+            self._vtimes[name] = start + req.n / _req_tenant_weight(req)
+        return True
+
+    def _admit_rows_of(self, req: _SlotRequest, rows: List[int], chunked: bool) -> Optional[bool]:
+        """Place ``req`` on ``rows`` (taken from ``_free``) and prefill it,
+        whole or by its first chunk's set-up: True when it joined, False
+        when it failed (its future set), None when the pool is short while
+        rows are in flight (the rows are returned; the caller parks it).
+        The controller and a replica run it alike."""
+        if not self._built:
+            self._build_device_state()
+        in_flight = self._active_mask.any()
+        req.slots = rows
+        try:
+            _admit_t0 = time.perf_counter()
+            if chunked:
+                self._begin_prefilling_locked(req, rows)
             else:
-                self._stats["admitted"] += 1
-                if in_flight:
-                    self._stats["joined_in_flight"] += 1
-                # WFQ pass charge from the floor (an idle tenant re-enters at
-                # the current floor, not at zero).
-                name = _req_tenant_name(req)
-                start = max(self._vtimes.get(name, 0.0), self._vfloor)
-                self._vfloor = start
-                self._vtimes[name] = start + req.n / _req_tenant_weight(req)
+                self._admit_device(req, rows)
+                if req.trace is not None:
+                    req.trace.add_phase(
+                        "prefill", time.perf_counter() - _admit_t0
+                    )
+        except PagePoolExhausted as e:
+            # Pages are a transient resource: in-flight rows free theirs
+            # as they retire, so park the head request and retry after the
+            # next step; with nothing in flight, fail it.
+            for r in rows:
+                self._free.append(r)
+            req.slots = []
+            if in_flight:
+                return None
+            req.future.set_exception(BackendUnavailableError(
+                f"paged KV pool cannot fit request: {e}"
+            ))
+            return False
+        except Exception as e:
+            for r in rows:
+                self._free.append(r)
+            if self._world is not None:
+                # Every rank's prefill, not one request's: the world's fault.
+                req.future.set_exception(BackendUnavailableError(
+                    f"admission across the host's ranks failed: {e!r}"))
+                raise
+            req.future.set_exception(e)
+            return False
+        if req.replays:
+            self._stats["replayed_rows"] += req.n
+            RECOVERY_EVENTS.record("continuous.replayed_rows", req.n)
+            if req.trace is not None:
+                # The same trace survives the rebuild, annotated rather
+                # than duplicated.
+                req.trace.annotate("replayed")
+                req.trace.bump("replayed_rows", req.n)
+        else:
+            self._stats["admitted"] += 1
+            if in_flight:
+                self._stats["joined_in_flight"] += 1
+        return True
 
     @torch.inference_mode()
     def _admit_device(self, req, rows) -> None:
@@ -1253,19 +1503,35 @@ class ContinuousDecodeLoop:
             run_pages, reserved,
         )
 
-    def _prefill_chunk_once(self) -> None:
+    def _prefill_chunk_once(self, plan: Optional[Dict[str, Any]] = None) -> None:
         """Run ONE prompt chunk for the PREFILLING admission, under the same
         watchdog/epoch-fence discipline as a decode step. The final chunk's
-        logits feed the shared first-token admission tail."""
+        logits feed the shared first-token admission tail. In a world the
+        controller runs it as one section and a replica from its ``plan``."""
+        with self._section():
+            self._chunk(plan)
+
+    def _chunk(self, plan: Optional[Dict[str, Any]]) -> None:
         with self._lock:
             pf = self._prefilling
             if pf is None:
                 return
             req = pf.req
-            if req.budget is not None and req.budget.should_abort():
+            if plan is not None:
+                abort = plan["abort"]
+            else:
+                abort = req.budget is not None and req.budget.should_abort()
+                if self._leads():
+                    if not abort:
+                        # Before the announcement, under the step budget.
+                        self._watched(lambda: _failpoints.fire("continuous.prefill"),
+                                      "prefill chunk")
+                    self._announce("chunk", {"abort": abort})
+            if abort:
                 self._retire_prefilling_locked(
-                    req.budget.error("engine prefill"), abort=True
+                    self._abort_error(req, "engine prefill"), abort=True
                 )
+                self._check_world("chunk")
                 return
             epoch = self._loop_epoch
             C = self.prefill_chunk_tokens
@@ -1290,8 +1556,10 @@ class ContinuousDecodeLoop:
 
         @torch.inference_mode()
         def _dispatch():
-            # Hang-injection point for the chunk itself (``continuous.prefill``).
-            _failpoints.fire("continuous.prefill")
+            # Hang-injection point for the chunk itself (``continuous.prefill``;
+            # in a world it fired before the plan).
+            if self._world is None:
+                _failpoints.fire("continuous.prefill")
             if self._loop_epoch != epoch:
                 raise _StaleStep("prefill chunk fenced before dispatch")
             note_device_dispatch("continuous prefill chunk")
@@ -1317,24 +1585,9 @@ class ContinuousDecodeLoop:
             return logits, new_cache
 
         _chunk_t0 = time.perf_counter()
-        if self.budget_model is not None:
-            try:
-                first_logits, new_cache = self._dispatcher.run(
-                    _dispatch, self.budget_model.step_budget()
-                )
-            except _StepHung:
-                with self._lock:
-                    self._loop_epoch += 1
-                RECOVERY_EVENTS.record("continuous.step_hangs")
-                logger.error(
-                    "continuous prefill chunk overran its watchdog budget; "
-                    "abandoning the dispatch thread and rebuilding"
-                )
-                raise
-            # Not fed to observe_step: a C-token chunk would pollute the
-            # decode loop's per-step EWMA.
-        else:
-            first_logits, new_cache = _dispatch()
+        # Not fed to observe_step: a C-token chunk would pollute the decode
+        # loop's per-step EWMA.
+        first_logits, new_cache = self._watched(_dispatch, "prefill chunk")
         chunk_s = time.perf_counter() - _chunk_t0
         LATENCY.observe("continuous.prefill_chunk", chunk_s)
         with self._lock:
@@ -1355,6 +1608,7 @@ class ContinuousDecodeLoop:
                 with self._on_card():
                     self._finish_prefilling_locked(pf, first_logits)
                 self._lock.notify_all()
+            self._check_world("chunk")
 
     def _finish_prefilling_locked(self, pf: _Prefilling, first_logits) -> None:
         """Transition PREFILLING -> DECODING (lock held): install the fully
@@ -1530,7 +1784,19 @@ class ContinuousDecodeLoop:
             alloc.decref(reserved)
         self._refresh_row_idx(slot, 0)
 
-    def _step_once(self) -> None:
+    def _step_once(self, plan: Optional[Dict[str, Any]] = None) -> None:
+        """One decode step of every active row. In a world the controller
+        runs it as one section and a replica runs it from the controller's
+        ``plan`` (its poison rows and its budgets' aborts)."""
+        with self._section():
+            self._step(plan)
+
+    def _step(self, plan: Optional[Dict[str, Any]]) -> None:
+        leads = self._leads()
+        if leads:
+            # Before the announcement, under the step budget: a hang here
+            # leaves the followers idle between plans.
+            self._watched(lambda: _failpoints.fire("continuous.step"), "step")
         with self._lock:
             epoch = self._loop_epoch
             engine = self.engine
@@ -1563,16 +1829,28 @@ class ContinuousDecodeLoop:
                 host["pidx"] = self._prefix_idx.copy()
                 host["gidx"] = self._gen_idx.copy()
         # None in production; with an active ``engine.logits`` nan failpoint,
-        # a seeded subset of the LIVE rows is poisoned.
-        # kllms: ignore[host-sync-hot-path] — live_rows is np.flatnonzero output (already host memory); this tolist is pure host bookkeeping, not a device readback
-        poison = engine._poison0_array(self.width, live_rows=live_rows.tolist())
+        # a seeded subset of the LIVE rows is poisoned. A replica takes the
+        # controller's rows, and the aborts its budgets decided.
+        aborts: Optional[set] = None
+        if plan is not None:
+            poison_rows, aborts = plan["poison"], set(plan["aborts"])
+        else:
+            # kllms: ignore[host-sync-hot-path] — live_rows is np.flatnonzero output (already host memory); this tolist is pure host bookkeeping, not a device readback
+            poison_rows = engine._poison_rows(live_rows.tolist())
+            if leads:
+                with self._lock:
+                    aborts = self._budget_aborts_locked()
+                self._announce("step", {"poison": poison_rows, "aborts": sorted(aborts)})
+        poison = engine._poison_mask(self.width, poison_rows)
         pad_id = engine.config.pad_token_id
         attn_impl = self._paged_attn_impl
 
         @torch.inference_mode()
         def _dispatch():
-            # Hang-injection point for the step itself (``continuous.step``).
-            _failpoints.fire("continuous.step")
+            # Hang-injection point for the step itself (``continuous.step``;
+            # in a world it fired before the plan).
+            if self._world is None:
+                _failpoints.fire("continuous.step")
             if self._loop_epoch != epoch:
                 raise _StaleStep("continuous step fenced before dispatch")
             with self._on_card():
@@ -1617,6 +1895,8 @@ class ContinuousDecodeLoop:
                 active = t["active"]
                 tok = torch.where(active, tok, pad_id)
                 lp = torch.where(active, lp, 0.0)
+                if self._world is not None and engine.mesh is not None:
+                    bad = self._rows_agree(bad, engine.mesh)
                 outs = [tok, lp, bad & active]
                 if dg is not None:
                     outs.append(self._grammar_advance(dg, tok, t["g_states"], t["g_flags"]))
@@ -1626,25 +1906,10 @@ class ContinuousDecodeLoop:
                 return [o.cpu().numpy() for o in outs]
 
         _step_t0 = time.perf_counter()
-        if self.budget_model is not None:
-            t0 = time.monotonic()
-            try:
-                fetched = self._dispatcher.run(
-                    _dispatch, self.budget_model.step_budget()
-                )
-            except _StepHung:
-                with self._lock:
-                    self._loop_epoch += 1
-                RECOVERY_EVENTS.record("continuous.step_hangs")
-                logger.error(
-                    "continuous step overran its watchdog budget; abandoning "
-                    "the dispatch thread and rebuilding"
-                )
-                raise
-            self.budget_model.observe_step(time.monotonic() - t0)
-        else:
-            fetched = _dispatch()
+        fetched = self._watched(_dispatch, "step")
         step_s = time.perf_counter() - _step_t0
+        if self.budget_model is not None:
+            self.budget_model.observe_step(step_s)
         LATENCY.observe("continuous.step", step_s)
         tok_np, lp_np, bad_np = fetched[0], fetched[1], fetched[2]
         quarantined = 0
@@ -1662,7 +1927,8 @@ class ContinuousDecodeLoop:
             self._stats["max_active_rows"] = max(self._stats["max_active_rows"], active_rows)
             # A completed step is proof of life: recovery credits refill.
             self._consecutive_faults = 0
-            touched = set()
+            # In slot order: every rank of a world retires in the same order.
+            touched: Dict[int, _SlotRequest] = {}
             for slot in range(self.width):
                 req = self._active[slot]
                 if req is None:
@@ -1675,7 +1941,7 @@ class ContinuousDecodeLoop:
                     # Numeric poison: freeze + retire this row only.
                     self._quarantine_row(req, j)
                     quarantined += 1
-                    touched.add(id(req))
+                    touched[id(req)] = req
                     continue
                 tk = int(tok_np[slot])
                 self._cur[slot] = tk
@@ -1687,19 +1953,18 @@ class ContinuousDecodeLoop:
                 elif len(req.tokens[j]) >= req.max_new:
                     req.done[j] = True
                     req.finish[j] = "length"
-                touched.add(id(req))
-            for rid in touched:
-                req = next(
-                    r for r in self._active if r is not None and id(r) == rid
-                )
+                touched[id(req)] = req
+            for req in touched.values():
                 if req.trace is not None:
                     req.trace.add_phase("decode", step_s)
-                if req.budget is not None and req.budget.should_abort():
+                if (req.seq in aborts if aborts is not None
+                        else req.budget is not None and req.budget.should_abort()):
                     self._abort_request(req)
                     continue
                 self._deliver_sink(req)
                 self._retire_finished_rows(req)
                 self._resolve_if_done(req)
+            self._check_world("step")
             self._lock.notify_all()
         # Quarantine accounting + supervisor hook OUTSIDE the loop lock;
         # clean steps report 0 so the escalation window decays.
@@ -1786,7 +2051,15 @@ class ContinuousDecodeLoop:
         self._retire_finished_rows(req)
         self._stats["aborted"] += 1
         if not req.future.done():
-            req.future.set_exception(req.budget.error("engine decode"))
+            req.future.set_exception(self._abort_error(req, "engine decode"))
+
+    @staticmethod
+    def _abort_error(req: _SlotRequest, stage: str) -> Exception:
+        """The typed error of an aborted request (a replica's requests carry
+        no budget: their controller's aborted them)."""
+        if req.budget is not None:
+            return req.budget.error(stage)
+        return RequestCancelledError(f"aborted by the controller during {stage}")
 
     def _fail_all(self, exc: BaseException) -> None:
         with self._lock:

@@ -645,9 +645,12 @@ class LocalEngine:
         # host's other ranks before running it. None elsewhere. ``controlled``
         # marks every rank of such a world: only the controller polls the
         # members' budgets, so its aborts reach the others through the loop
-        # test's reduction.
+        # test's reduction. ``host_controller`` is this rank's
+        # HostController on every rank of such a world (its replica loop on a
+        # follower); None elsewhere.
         self.controller = None
         self.controlled = False
+        self.host_controller = None
         # Runtime twin of the annotations above: the lockset sanitizer
         # (KLLMS_RACECHECK=1) skips exactly the fields the static rule skips.
         race_exempt(
@@ -1615,11 +1618,6 @@ class LocalEngine:
         mask = np.zeros((n_rows,), np.bool_)
         mask[rows] = True
         return torch.as_tensor(mask, device=self.device)
-
-    def _poison0_array(self, n_rows: int, live_rows: Sequence[int]) -> Optional[torch.Tensor]:
-        """First-step poison-injection mask [n_rows] bool (the continuous
-        loop's rows), or None: :meth:`_poison_rows` as a mask."""
-        return self._poison_mask(n_rows, self._poison_rows(live_rows))
 
     def _note_quarantine(self, poisoned: int, total: int) -> None:
         """Per-launch quarantine accounting and the supervisor's hook, called

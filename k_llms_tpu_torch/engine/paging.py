@@ -50,6 +50,7 @@ launch is already a numeric-quarantine event on the dense path too.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -239,6 +240,15 @@ class PageAllocator:
         except PageAccountingError as e:
             return str(e)
         return None
+
+    def digest(self) -> str:
+        """A digest of the free stack (in order) and every refcount: equal
+        on two ranks exactly when their next allocations return the same
+        pages (the loop's rank check across a world)."""
+        with self._lock:
+            h = hashlib.blake2b(np.asarray(self._free, np.int64).tobytes(), digest_size=16)
+            h.update(self._ref.tobytes())
+            return h.hexdigest()
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:

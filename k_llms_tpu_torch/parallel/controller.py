@@ -44,6 +44,21 @@ once, and the controller's launch fails as the typed 503
 (``BackendUnavailableError``, ``KernelUnavailableError`` for a kernel) with
 the follower's error. The world is then stopped, not rebuilt: every later
 request gets the same 503.
+
+The continuous decode loop (``engine/continuous.py``) runs on every rank:
+the controller's loop is the one users submit to, and each follower holds a
+*replica* of it, built from the controller's ``("loop", "init")`` plan with
+the same geometry. Every device operation of the loop is a plan of its own
+(an admission, one prefill chunk, one decode step, a reset after a worker
+crash), announced by the controller's worker under the engine's launch lock
+and replayed by the replicas in plan order, so every rank's slot table, page
+allocator, prefix cache and grammar states stay identical. The budgets stay
+on the controller: its aborts ride the next step's plan. With
+``KLLMS_RANK_CHECK=1`` every loop plan ends with :meth:`HostController.agree`
+over the slot mirrors and the allocator's digest. A fault of the
+controller's own loop that needs an engine rebuild (a hung step, a corrupt
+page pool) stops the world; followers still idle between plans are released
+with the close plan (:meth:`HostController.stop_world`).
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ import torch.distributed as dist
 
 from ..reliability import failpoints as _failpoints
 from ..types.wire import BackendUnavailableError
+from .collectives import RankDivergenceError
 from .distributed import host_ranks
 
 logger = logging.getLogger(__name__)
@@ -109,7 +125,11 @@ class HostController:
         # kllms: unguarded — set once, under the launch lock, when the world stops
         self.stopped: Optional[BackendUnavailableError] = None
         self.plans = 0
+        # The continuous loop on this rank: the controller's own (set by the
+        # backend) or a follower's replica (built by the "init" plan).
+        self.loop = None
         engine.controlled = True
+        engine.host_controller = self
         if self.is_controller:
             engine.controller = self
 
@@ -136,11 +156,49 @@ class HostController:
         if self.stopped is not None:
             raise self.stopped
         with self.engine._launch_lock:
-            try:
-                dist.broadcast_object_list([plan], src=self.root, group=self.group)
-            except Exception as e:
-                raise self._stop(e) from e
-            self.plans += 1
+            self._broadcast(plan)
+
+    def _broadcast(self, plan) -> None:
+        try:
+            dist.broadcast_object_list([plan], src=self.root, group=self.group)
+        except Exception as e:
+            raise self._stop(e) from e
+        self.plans += 1
+
+    def announce_loop(self, op: str, payload: Any = None) -> None:
+        """Hand the followers' replica loops one operation of the
+        controller's continuous loop. The loop's worker calls it inside its
+        operation's section, which holds the launch lock from here to the
+        operation's end."""
+        self._send(("loop", op, payload))
+
+    def agree(self, value: Any, what: str) -> None:
+        """Raise :class:`RankDivergenceError` on every rank of the host
+        unless all hold the same ``value`` (a picklable host value; one
+        ``all_gather_object`` over the plan group, uncounted). Every rank
+        calls it at the same point of the same plan: the loop's rank
+        check."""
+        values: List[Any] = [None] * len(self.ranks)
+        dist.all_gather_object(values, value, group=self.group)
+        differ = [self.ranks[i] for i, v in enumerate(values) if v != values[0]]
+        if differ:
+            raise RankDivergenceError(
+                f"ranks {differ} hold another {what} than rank {self.ranks[0]} "
+                f"(rank {dist.get_rank()} checking)"
+            )
+
+    def stop_world(self, cause: BaseException, release: bool) -> BackendUnavailableError:
+        """Stop the world for a fault of the controller's own loop (the
+        typed 503 from now on). With ``release`` no follower is inside an
+        announced operation, and the close plan ends their serving."""
+        err = self._stop(cause)
+        if release:
+            with self.engine._launch_lock:
+                try:
+                    self._broadcast(("close",))
+                except BackendUnavailableError:
+                    logger.debug("controller: the close plan did not reach the followers")
+        return err
 
     def announce_launch(self, items, kwargs: Dict[str, Any],
                         poison_rows: Optional[List[int]]) -> None:
@@ -242,6 +300,14 @@ class HostController:
         elif kind == "hook":
             with engine._on_card():
                 HOOKS[plan[1]](engine, *plan[2])
+        elif kind == "loop":
+            _, op, payload = plan
+            if op == "init":
+                from ..engine.continuous import ContinuousDecodeLoop
+
+                self.loop = ContinuousDecodeLoop.replica(engine, self, **payload)
+            else:
+                self.loop.replay(op, payload)
         else:
             raise ValueError(f"unknown plan {kind!r}")
 

@@ -45,7 +45,11 @@ class World:
         for p in self._procs:
             p.start()
 
-    def run(self, case: str, **kwargs) -> List[Any]:
+    def run(self, case: str, expect_exit: Dict[int, int] | None = None, **kwargs) -> List[Any]:
+        """Every rank's result of ``case``, in rank order. A rank in
+        ``expect_exit`` must instead end its process with that exit code
+        (its result is the code); the world is then broken, and closed."""
+        expect_exit = expect_exit or {}
         for q in self._in:
             q.put((case, kwargs))
         results: Dict[int, Any] = {}
@@ -55,7 +59,11 @@ class World:
             try:
                 rank, ok, payload = self._out.get(timeout=1.0)
             except queue.Empty:
-                dead = [r for r, p in enumerate(self._procs) if not p.is_alive()]
+                for r, code in expect_exit.items():
+                    if r not in results and self._procs[r].exitcode == code:
+                        results[r] = code
+                dead = [r for r, p in enumerate(self._procs)
+                        if not p.is_alive() and r not in expect_exit]
                 if dead or time.monotonic() > deadline:
                     self.close()
                     raise RuntimeError(
@@ -71,6 +79,8 @@ class World:
             raise RuntimeError(
                 "\n".join(f"rank {r} failed case {case!r}:\n{tb}" for r, tb in errors)
             )
+        if expect_exit:
+            self.close()
         return [results[r] for r in range(self.size)]
 
     def close(self) -> None:
@@ -380,23 +390,35 @@ def case_client(rank, engine_kwargs, request, rank_check=True):
 
 
 def case_controller(rank, shape, config, params, script, engine_kwargs=None,
-                    backend_kwargs=None, script_kwargs=None):
+                    backend_kwargs=None, script_kwargs=None, follower_failpoints=None):
     """A port backend on every rank over ``params`` on the world's mesh of
     ``shape``: rank 0 is the controller and runs ``_ctl_<script>(client,
     **script_kwargs)`` (and closes the client); every other rank is a
-    follower, served until that close. The controller returns its script's
-    value; a follower its plan count and its engine's last launch stats."""
+    follower, served until that close, with ``follower_failpoints`` (site:
+    FailSpec keywords) armed in its process. The controller returns its
+    script's value; a follower its plan count, its engine's last launch
+    stats and its replica loop's stats, as the hooks recorded them."""
+    import contextlib
+
     from k_llms_tpu_torch import KLLMs
     from k_llms_tpu_torch.backends.cuda import BackendConfig, CudaBackend
     from k_llms_tpu_torch.engine.engine import LocalEngine
     from k_llms_tpu_torch.parallel.controller import register_hook
+    from k_llms_tpu_torch.reliability import failpoints as fp
 
     _SNAPSHOTS.clear()
     eng = LocalEngine(config, params=params, device="cpu", mesh=mesh(shape),
                       **(engine_kwargs or {}))
     register_hook("snapshot", lambda e: _SNAPSHOTS.append(_stats(e.last_launch_stats)))
-    backend = CudaBackend(config=BackendConfig(model="tiny", device="cpu",
-                                               **(backend_kwargs or {})), engine=eng)
+    register_hook("loop_snapshot",
+                  lambda e: _SNAPSHOTS.append(_loop_stats(e.host_controller.loop)))
+    armed = contextlib.nullcontext()
+    if rank != 0 and follower_failpoints:
+        armed = fp.failpoints({site: fp.FailSpec(**kw)
+                               for site, kw in follower_failpoints.items()})
+    with armed:
+        backend = CudaBackend(config=BackendConfig(model="tiny", device="cpu",
+                                                   **(backend_kwargs or {})), engine=eng)
     if not backend.is_controller:
         return {"follower": True, "plans": backend.controller.plans,
                 "snapshots": list(_SNAPSHOTS)}
@@ -513,6 +535,142 @@ def _ctl_abort(client, prompt, n, seed, max_tokens, polls):
     return {"outcomes": [type(r).__name__ if isinstance(r, BaseException) else _result(r)
                          for r in out],
             "stats": stats, "next": [c.message.content for c in nxt.choices]}
+
+
+_LOOP_KEYS = ("steps", "row_steps", "admitted", "joined_in_flight", "completed", "aborted",
+              "prefill_chunks", "prefill_interleaved", "active_rows", "free_slots", "width")
+
+
+def _loop_stats(loop):
+    """A loop's counters that every rank of a world must share, its
+    geometry and its pool's digest."""
+    st = loop.stats
+    out = {k: st[k] for k in _LOOP_KEYS}
+    out["prefill_chunk_tokens"] = loop.prefill_chunk_tokens
+    out["pages"] = None if loop._pool is None else loop._pool.allocator.digest()
+    return out
+
+
+def _loop_result(r):
+    if isinstance(r, BaseException):
+        return {"error": type(r).__name__, "status": getattr(r, "status_code", None),
+                "message": str(r)}
+    return {"tokens": np.asarray(r.tokens), "logprobs": np.asarray(r.logprobs),
+            "lengths": np.asarray(r.lengths)}
+
+
+def _wait_steps(loop, steps, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while loop.stats["steps"] < steps:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"the loop did not reach step {steps}")
+        time.sleep(0.001)
+
+
+def _ctl_loop(client, requests, budget_polls=None, bias_at=None, crash_at=None,
+              hang_at=None, after=None):
+    """Requests into the controller's loop, each submitted once the loop has
+    run ``after[i]`` steps (staggered joins), with request ``budget_polls[0]``
+    cancelled at its ``budget_polls[1]``-th poll; a logit-bias create()
+    (the coalescing path) once the loop ran ``bias_at`` steps; the worker's
+    crash failpoint armed at step ``crash_at``, or the step's hang
+    failpoint at ``hang_at``. Then, with the loop idle, one more request
+    (the world's answer to it, or its error). Returns every result, the
+    loop's counters, the controller's plans and the followers' loop
+    counters from the ``loop_snapshot`` hook (taken before the last
+    request)."""
+    import contextlib
+    import threading
+
+    from k_llms_tpu_torch.reliability import failpoints as fp
+
+    backend = client.backend
+    loop, ctl = backend._continuous, backend.controller
+    after = after or [0] * len(requests)
+    futures, results = [None] * len(requests), {}
+    armed = contextlib.ExitStack()
+    for i, (ids, kw) in enumerate(requests):
+        _wait_steps(loop, after[i])
+        budget = None
+        if budget_polls is not None and budget_polls[0] == i:
+            budget = _CancelAfter(budget_polls[1])
+        futures[i] = loop.submit(list(ids), budget=budget, **kw)
+        if i == 0 and crash_at is not None:
+            _wait_steps(loop, crash_at)
+            armed.enter_context(fp.failpoints({"continuous.worker": fp.FailSpec(
+                action="crash", times=1)}))
+        if i == 0 and hang_at is not None:
+            _wait_steps(loop, hang_at)
+            armed.enter_context(fp.failpoints({"continuous.step": fp.FailSpec(
+                action="hang", times=1, delay=3.0)}))
+    biased = None
+    if bias_at is not None:
+        launches = _recorded(backend.engine)
+        _wait_steps(loop, bias_at)
+        steps_at = loop.stats["steps"]
+        out = {}
+
+        def bias():
+            try:
+                r = client.chat.completions.create(
+                    messages=[{"role": "user", "content": "spell"}], n=2, seed=3,
+                    temperature=0.0, max_tokens=6, logit_bias={"65": 5.0})
+                out["texts"] = [c.message.content for c in r.choices]
+            except Exception as e:  # reported below
+                out["error"] = repr(e)
+
+        t = threading.Thread(target=bias)
+        t.start()
+        t.join(120)
+        biased = dict(out, launches=len(launches), steps_at=steps_at,
+                      loop_steps_after=loop.stats["steps"])
+    for i, f in enumerate(futures):
+        try:
+            results[i] = _loop_result(f.result(timeout=120))
+        except Exception as e:
+            results[i] = _loop_result(e)
+    armed.close()
+    stats = _loop_stats(loop)
+    full = dict(loop.stats)
+    snap_error = None
+    try:
+        ctl.hook("loop_snapshot")
+    except Exception as e:
+        snap_error = repr(e)
+    nxt = None
+    if requests:
+        ids, kw = requests[0]
+        try:
+            nxt = _loop_result(loop.submit(list(ids), **kw).result(timeout=120))
+        except Exception as e:
+            nxt = _loop_result(e)
+    return {"results": results, "stats": stats, "restarts": full["restarts"],
+            "last_recovery_reason": full["last_recovery_reason"], "plans": ctl.plans,
+            "biased": biased, "next": nxt, "snapshot_error": snap_error,
+            "stopped": None if ctl.stopped is None else repr(ctl.stopped),
+            "geometry": loop.geometry()}
+
+
+def _ctl_loop_client(client, messages, requests, stream_too=False):
+    """``create()`` calls through the controller (each qualifying one rides
+    the loop): their texts, and with ``stream_too`` each also streamed,
+    its deltas joined per choice. Returns the loop's admissions."""
+    loop = client.backend._continuous
+    out = []
+    for kw in requests:
+        r = client.chat.completions.create(messages=messages, **kw)
+        rec = {"texts": [c.message.content for c in r.choices]}
+        if stream_too:
+            deltas = 0
+            with client.chat.completions.create(messages=messages, stream=True, **kw) as s:
+                for _ in s:
+                    deltas += 1
+            rec["streamed"] = [c.message.content for c in s.response.choices]
+            rec["stream_chunks"] = deltas
+        out.append(rec)
+    client.backend.controller.hook("loop_snapshot")
+    return {"outs": out, "admitted": loop.stats["admitted"], "stats": _loop_stats(loop),
+            "plans": client.backend.controller.plans}
 
 
 def _eng_param_bytes(eng, whole_tree):
