@@ -79,7 +79,9 @@ orderings, asserts the majority medoid election over a cluster and an
 outlier under the card's embeddings and under Levenshtein, and serves one
 seeded sampled request twice: tokens, logprobs, choices and likelihoods
 byte-identical, every launch counted. ``mesh``
-(last) serves Llama-3-8B on a mesh of two ranks spawned on the one card
+(last) serves Llama-3-8B's widths (at 8 of its 32 layers, the TP loop at
+16: ``MESH_LAYERS``)
+on a mesh of two ranks spawned on the one card
 (``torch.multiprocessing``; NCCL refuses two ranks on one device, so the
 ranks talk over gloo, staging each collective's bytes through host
 memory), each rank building the same ``KLLMs`` with the mesh fields and
@@ -112,7 +114,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one card
 and exits non-zero, printing no result, without one. ``--phases`` runs a
 subset (for quick checks, e.g. ``--phases build,k3,k4,tiny``); the default
 runs every phase of the contract. ``--phases 8b,profile`` adds device-time
-breakdowns of a short and the long 8B request.
+breakdowns of a short and the long 8B request; ``flex`` beside ``k2`` times
+``flex_attention`` (compiled) as the softcapped K2 cases' library yardstick.
 
 Timed kernel cases report ``ms`` (CUDA events around back-to-back wrapper
 calls: at decode shapes mostly the host's enqueue) and, at decode shapes,
@@ -130,6 +133,7 @@ name and power limit from nvidia-smi, and last
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import math
@@ -155,8 +159,9 @@ PHASES = ("build", "draws", "consensus", "k2", "k1", "k4", "k3", "tiny", "8b", "
 FAMILY_PHASES = ("gemma9b", "mistral7b", "mixtral_int4")
 FAMILY_DEPTH_DIVISOR = {"mixtral_int4": 2}
 # Opt-in: torch.profiler breakdowns of a short and the long 8B request
-# (needs "8b" or "8b_int4").
-EXTRA_PHASES = ("profile",)
+# (needs "8b" or "8b_int4"); flex_attention, compiled, as the library
+# yardstick of the softcapped K2 cases (needs "k2").
+EXTRA_PHASES = ("profile", "flex")
 
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate,
 # f32 rate outside the tensor cores, and HBM3 bandwidth.
@@ -237,6 +242,59 @@ def nvidia_smi_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_check() -> dict:
+    """The build_sass record: the HMMA/HGMMA instructions of each
+    tensor-core kernel in its library's SASS and the kernels' registers and
+    local memory, read with one ``cuobjdump`` per library and mode, all
+    started together. Raises where a tensor-core kernel has no tensor-core
+    instruction or the K3 kernel spills."""
+    from k_llms_tpu_torch.ops import _ext
+
+    cuobjdump = os.path.join(os.path.dirname(_ext.nvcc_path()), "cuobjdump")
+    libs = ("flash_attention", "w4_matmul", "paged_decode", "decode_prefix")
+    procs = {(lib, mode): subprocess.Popen([cuobjdump, mode, _ext.library_path(lib)],
+                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)
+             for lib in libs for mode in ("-sass", "-res-usage")}
+    out = {}
+    for key, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"cuobjdump {key}: exit {proc.returncode}: {stderr[-2000:]}")
+        out[key] = stdout
+    mma_counts = {}
+    for lib, kernel in (("flash_attention", "flash_attention_tc"), ("w4_matmul", "w4_gemm_tc"),
+                        ("w4_matmul", "w4_decode_tc"), ("paged_decode", "paged_decode_tc"),
+                        ("decode_prefix", "decode_prefix_tc")):
+        fn = None
+        for line in out[(lib, "-sass")].splitlines():
+            if "Function : " in line:
+                fn = line.split("Function : ")[1].strip()
+            elif fn and kernel in fn and ("HMMA" in line or "HGMMA" in line):
+                mma_counts[fn] = mma_counts.get(fn, 0) + 1
+        if not any(kernel in fn for fn in mma_counts):
+            raise AssertionError(f"{kernel}: no HMMA/HGMMA instruction in the SASS of {lib}")
+    # Registers and local memory (spills) of each tensor-core kernel.
+    resources = {}
+    for lib in libs:
+        fn = None
+        for line in out[(lib, "-res-usage")].splitlines():
+            if "Function " in line:
+                fn = line.split("Function ")[1].strip().rstrip(":")
+            elif fn and fn in mma_counts and "REG:" in line:
+                fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+                resources[fn] = {"registers": int(fields.get("REG", -1)),
+                                 "stack_bytes": int(fields.get("STACK", -1)),
+                                 "local_bytes": int(fields.get("LOCAL", -1)),
+                                 "shared_bytes": int(fields.get("SHARED", -1))}
+                fn = None
+    k3_tc = {fn: r for fn, r in resources.items() if "decode_prefix_tc" in fn}
+    if not k3_tc or any(r["local_bytes"] != 0 or r["stack_bytes"] != 0 for r in k3_tc.values()):
+        raise AssertionError(f"decode_prefix_tc: missing or spilling: {k3_tc}")
+    return {"phase": "build_sass", "tensor_core_instructions": mma_counts,
+            "resource_usage": resources}
 
 
 def bound_ms(flops: float, nbytes: float, dtype_peak: float):
@@ -1379,8 +1437,9 @@ def sanitize_8b(client, plain_requests, long_text, log):
     mutants, each of which must add exactly one violation: a K1 launch
     through its wrapper under a checked lock made without
     ``allow_dispatch``, and two threads taking two checked locks in opposite
-    orders. Last, the lint (``python -m k_llms_tpu_torch.analysis --check``)
-    runs once on this machine. Returns the armed window's launch counts."""
+    orders. The lint (``python -m k_llms_tpu_torch.analysis --check``) runs
+    once on this machine, in a process of its own beside the faulted set,
+    and must exit 0. Returns the armed window's launch counts."""
     import threading
 
     import torch
@@ -1591,6 +1650,15 @@ def sanitize_8b(client, plain_requests, long_text, log):
         poisoned = QUARANTINE_EVENTS.get("quarantine.samples")
         loop_poisoned = loop.stats["quarantined_rows"]
         stale = RECOVERY_EVENTS.get("continuous.stale_steps_discarded")
+        # The lint, once on this machine (its Python may differ from the
+        # CPU machine's), in a process of its own (unarmed) while the hangs
+        # are waited out (after the timed walls).
+        lint = subprocess.Popen([sys.executable, "-m", "k_llms_tpu_torch.analysis", "--check"],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                env={k: v for k, v in os.environ.items()
+                                     if k not in ("KLLMS_LOCKCHECK", "KLLMS_RACECHECK")},
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda: lint.poll() is None and lint.kill())
         reset_counts()
         faulted, faulted_wall = run_set(san_client, srv.port, faults={
             "continuous.step": FailSpec(action="hang", times=1, delay=budget + 5.0),
@@ -1713,16 +1781,12 @@ def sanitize_8b(client, plain_requests, long_text, log):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # The lint, once on this machine (its Python may differ from the CPU
-    # machine's).
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "k_llms_tpu_torch.analysis", "--check"],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=300)
-    log({"phase": "sanitize_lint", "exit_code": proc.returncode, "python": sys.version.split()[0],
-         "seconds": time.perf_counter() - t0, "tail": proc.stdout.strip().splitlines()[-1:]})
-    if proc.returncode != 0:
-        raise AssertionError(f"sanitize: the lint exited {proc.returncode}:\n{proc.stdout[-2000:]}")
+    stdout, _ = lint.communicate(timeout=300)
+    log({"phase": "sanitize_lint", "exit_code": lint.returncode, "python": sys.version.split()[0],
+         "waited_s": time.perf_counter() - t0, "tail": stdout.strip().splitlines()[-1:]})
+    if lint.returncode != 0:
+        raise AssertionError(f"sanitize: the lint exited {lint.returncode}:\n{stdout[-2000:]}")
     log({"phase": "sanitize_done", "seconds": time.perf_counter() - t_phase})
     return counts
 
@@ -1746,6 +1810,40 @@ MESH_LOGITS_REL_L2 = 0.05
 #: request as the typed 503 (the follower ends its process, so every
 #: collective waiting on it fails at once; fixed before the first run).
 FAULT_LIMIT_S = 60.0
+#: The mesh_rebuild job's watchdog budget for a launch and a loop step,
+#: fixed after its uninterrupted runs (an 8B int4 launch of 8 rows and 16
+#: tokens on two ranks takes a few seconds; fixed before the first run).
+REBUILD_BUDGET_S = 8.0
+#: Llama-3-8B's depth in each mesh job and in its unsharded reference
+#: (widths as published): 8 of its 32 layers, to keep the smoke near half
+#: its time limit (at 16 and 32 layers the mesh phase took 250-350 s of the
+#: 1200). A job whose first tokens turn on a near tie at one depth (its
+#: check compares them with the unsharded client's) takes another: the TP
+#: loop's sampled request B flips at 8 layers and holds at 16.
+MESH_LAYERS = {"tp2_int4": 8, "tp2_bf16": 8, "sp2": 8, "dp2": 8, "dp2_int4": 8,
+               "dp2_spec": 8, "dp2_loop": 8, "tp2_loop": 16, "rebuild": 8}
+#: The train phase's two-rank TP step (2 layers at Llama-3-8B's widths,
+#: bf16, two steps); it runs in the mesh phase's world when both run.
+TRAIN_TP2_JOB = dict(layers=2, steps=2, B=2, S=256, valid_last=200)
+
+
+def mesh_depth(job: str) -> str:
+    """The model name of ``job``'s depth."""
+    layers = MESH_LAYERS[job]
+    return "llama-3-8b" if layers == 32 else f"llama-3-8b-{layers}l"
+
+
+def mesh_model(name: str) -> str:
+    """``name``, registered first where it is a cut of Llama-3-8B's depth,
+    ``llama-3-8b-<layers>l`` (each process that builds it, the spawned
+    ranks included, registers it)."""
+    base = "llama-3-8b"
+    if name.startswith(base + "-") and name.endswith("l"):
+        from k_llms_tpu_torch.models.config import get_config, register_config
+
+        full = get_config(base)
+        register_config(full.with_(name=name, num_layers=int(name[len(base) + 1:-1])))
+    return name
 
 
 def mesh_host_memory() -> dict:
@@ -1766,8 +1864,9 @@ def mesh_host_memory() -> dict:
     return out
 
 
-def mesh_rank_main(rank, world, store, transport, jobs, outq) -> None:
-    """One rank: join the world, run ``jobs`` in order, put each result."""
+def mesh_rank_main(rank, world, store, transport, jobs, outq, go) -> None:
+    """One rank: join the world, wait for ``go``, run ``jobs`` in order,
+    put each result."""
     import traceback
     from datetime import timedelta
 
@@ -1780,6 +1879,8 @@ def mesh_rank_main(rank, world, store, transport, jobs, outq) -> None:
     dist.init_process_group(transport, init_method=f"file://{store}", rank=rank,
                             world_size=world, timeout=timedelta(seconds=600))
     try:
+        if not go.wait(timeout=1800):
+            raise RuntimeError("the parent never started the jobs")
         for job in jobs:
             t0 = time.perf_counter()
             res = MESH_JOBS[job["kind"]](**job.get("args", {}))
@@ -1792,21 +1893,43 @@ def mesh_rank_main(rank, world, store, transport, jobs, outq) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(world, transport, jobs, store_dir, timeout=900):
-    """Spawn ``world`` ranks on the card, run ``jobs`` in each, and return
-    {job name: [result per rank]}. Every rank is joined (or killed) before
-    this returns; a failed rank raises with its traceback."""
-    import queue
-
+def spawn_ranks(world, transport, jobs, store_dir):
+    """Spawn ``world`` ranks on the card that join their world and wait;
+    :func:`collect_ranks` starts ``jobs`` in each (the ranks' start-up
+    overlaps the parent's work in between). Returns the handle."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    outq = ctx.Queue()
+    outq, go = ctx.Queue(), ctx.Event()
     store = os.path.join(store_dir, f"mesh_store_{transport}_{world}_{time.time_ns()}")
-    procs = [ctx.Process(target=mesh_rank_main, args=(r, world, store, transport, jobs, outq))
+    procs = [ctx.Process(target=mesh_rank_main, args=(r, world, store, transport, jobs, outq, go))
              for r in range(world)]
     for p in procs:
         p.start()
+    return {"procs": procs, "outq": outq, "go": go, "store": store, "jobs": jobs,
+            "world": world}
+
+
+def stop_ranks(handle) -> None:
+    """Join every rank of ``handle`` (at once, killed, where its jobs never
+    started; else within a minute or killed) and remove its store."""
+    for p in handle["procs"]:
+        p.join(timeout=60 if handle["go"].is_set() else 0)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if os.path.exists(handle["store"]):
+        os.remove(handle["store"])
+
+
+def collect_ranks(handle, timeout=900):
+    """Start the jobs of the ranks of ``handle`` and return {job name:
+    [result per rank]}. Every rank is joined (or killed) before this
+    returns; a failed rank raises with its traceback."""
+    import queue
+
+    procs, outq, world, jobs = handle["procs"], handle["outq"], handle["world"], handle["jobs"]
+    handle["go"].set()
     results = {job["name"]: [None] * world for job in jobs}
     pending = world * len(jobs)
     deadline = time.perf_counter() + timeout
@@ -1824,15 +1947,15 @@ def run_ranks(world, transport, jobs, store_dir, timeout=900):
             results[name][rank] = payload
             pending -= 1
     finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        if os.path.exists(store):
-            os.remove(store)
+        stop_ranks(handle)
     results["_exitcodes"] = [p.exitcode for p in procs]
     return results
+
+
+def run_ranks(world, transport, jobs, store_dir, timeout=900):
+    """Spawn ``world`` ranks on the card, run ``jobs`` in each, and return
+    {job name: [result per rank]} (:func:`collect_ranks`)."""
+    return collect_ranks(spawn_ranks(world, transport, jobs, store_dir), timeout)
 
 
 #: What each rank's mesh hooks recorded (each rank is a process of its own).
@@ -1909,15 +2032,22 @@ def mesh_register_hooks() -> None:
             "pages": pool.allocator.total_pages, "bytes": pool.pool_bytes(),
             "digest": pool.allocator.digest()}
 
+    def peak(engine, label):
+        """This rank's peak allocated bytes since the last peak hook (or
+        the job's start), then the peak counter reset."""
+        torch.cuda.synchronize()
+        MESH_STATE.setdefault("peaks", {})[label] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
     for name, fn in (("reset", reset), ("read", read), ("logits", logits),
                      ("snapshot", snapshot), ("loop_timer", loop_timer),
-                     ("loop_read", loop_read)):
+                     ("loop_read", loop_read), ("peak", peak)):
         register_hook(name, fn)
 
 
 def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=None,
-               http=None):
-    """Build ``KLLMs(model="llama-3-8b", **client_kw)`` and serve ``reqs``.
+               http=None, model="llama-3-8b"):
+    """Build ``KLLMs(model=model, **client_kw)`` and serve ``reqs``.
 
     In a world of ranks every rank builds it and the controller (rank 0)
     alone serves: the followers' constructors replay its plans and return
@@ -1952,7 +2082,7 @@ def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=N
     allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    client = KLLMs(backend="cuda", model="llama-3-8b", **client_kw)
+    client = KLLMs(backend="cuda", model=mesh_model(model), **client_kw)
     backend = client.backend
     engine = backend.engine
     mesh = engine.mesh
@@ -2059,8 +2189,8 @@ def steps_by_rows(steps):
             for r, v in sorted(by.items())}
 
 
-def mesh_loop(client_kw, reqs, bias_req, biased_at):
-    """Build ``KLLMs(model="llama-3-8b", **client_kw)`` with the continuous
+def mesh_loop(client_kw, reqs, bias_req, biased_at, model="llama-3-8b"):
+    """Build ``KLLMs(model=model, **client_kw)`` with the continuous
     loop and drive the loop phase's traffic through it: each of ``reqs``
     (label, request, after this many loop steps, via parse()) from a thread
     of its own, and ``bias_req`` (a logit-bias request: the coalescing path,
@@ -2086,7 +2216,7 @@ def mesh_loop(client_kw, reqs, bias_req, biased_at):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    client = KLLMs(backend="cuda", model="llama-3-8b", **client_kw)
+    client = KLLMs(backend="cuda", model=mesh_model(model), **client_kw)
     backend = client.backend
     engine = backend.engine
     mesh = engine.mesh
@@ -2191,6 +2321,136 @@ def mesh_loop(client_kw, reqs, bias_req, biased_at):
     client.close()
     MESH_STATE.pop("loop")  # it holds the engine: the parent's memory back
     del client, backend, engine, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rebuild(client_kw, coalesced_req, loop_req, budget_s, model="llama-3-8b"):
+    """The supervisor's and the loop's rebuilds across the world of ranks at
+    Llama-3-8B's width: ``KLLMs(model=model, **client_kw)`` with the
+    continuous loop, driven by the controller alone. Uninterrupted runs
+    first (``coalesced_req``, a logit-bias request, takes the coalescing
+    path; ``loop_req`` is submitted to the loop), then with every watchdog
+    budget fixed at ``budget_s``: a coalesced launch hung before its plan
+    (``engine.launch``), a poison escalation (every row of a launch
+    poisoned, then the request again, which rebuilds first), and a loop step
+    hung before its plan (``continuous.step``); each hang lasts ``budget_s +
+    2`` s, so its thread outlives the rebuild. Each drill's request must
+    resolve with the uninterrupted run's tokens, byte for byte (the same
+    shapes, seeds and seeded weights). The ``peak`` hook records every
+    rank's peak allocated bytes per drill (the controller holds two engines
+    while a hung thread keeps the old one; a follower drops its engine
+    before it builds the next). Returns numpy-free values."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.reliability import failpoints as fp
+
+    mesh_register_hooks()
+    MESH_STATE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client = KLLMs(backend="cuda", model=mesh_model(model), **client_kw)
+    backend = client.backend
+    ctl = backend.controller
+    if not backend.is_controller:
+        res = {"role": "follower", "plans": ctl.plans, "rebuilds": ctl.rebuilds,
+               "peaks": MESH_STATE.get("peaks", {}), "counts": MESH_STATE.get("counts"),
+               "session_s": time.perf_counter() - t0}
+        del client, backend, ctl
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+    sup, loop = backend.supervisor, backend._continuous
+
+    def coalesced():
+        """create(coalesced_req): its launches' tokens (every launch that
+        returned, replays included) and its texts, or its error."""
+        got = []
+        supervised = backend._supervised
+
+        def recording(launch, rows, max_new_tokens):
+            out = supervised(launch, rows, max_new_tokens)
+            if isinstance(out, list):
+                got.extend(np.asarray(r.tokens) for r in out if not isinstance(r, BaseException))
+            return out
+
+        backend._supervised = recording
+        try:
+            resp = client.chat.completions.create(**coalesced_req)
+            return got, [c.message.content for c in resp.choices], None
+        except Exception as e:
+            return got, None, repr(e)
+        finally:
+            del backend._supervised
+
+    ids = backend.tokenizer.apply_chat_template(loop_req["messages"], add_generation_prompt=True)
+    loop_kw = {k: loop_req[k] for k in ("n", "max_new", "temperature", "top_p", "seed")}
+
+    def looped():
+        return np.asarray(loop.submit(list(ids), **loop_kw).result(timeout=300).tokens)
+
+    clean_tokens, clean_texts, err = coalesced()
+    if err is not None:
+        raise AssertionError(f"mesh_rebuild: the uninterrupted request failed: {err}")
+    clean_loop = looped()
+    init_s = time.perf_counter() - t0
+    for model in (sup.budget_model, loop.budget_model):
+        model.min_budget_s = model.max_budget_s = budget_s
+    ctl.hook("peak", "uninterrupted")
+    ctl.hook("reset")
+    hang = budget_s + 2.0
+    drills = []
+
+    def drill(name, run, equal, t1):
+        st, lst = sup.stats(), loop.stats
+        drills.append({"drill": name, "seconds": time.perf_counter() - t1, "tokens_equal": equal,
+                       "hung_launches": st["hung_launches"], "rebuilds": st["rebuilds"],
+                       "last_rebuild_reason": st["last_rebuild_reason"],
+                       "loop_restarts": lst["restarts"],
+                       "loop_last_recovery_reason": lst["last_recovery_reason"],
+                       "world_rebuilds": ctl.rebuilds, "state": backend.health()["state"],
+                       **run})
+        ctl.hook("peak", name)
+
+    def same(a, b):
+        return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    t1 = time.perf_counter()
+    with fp.failpoints({"engine.launch": fp.FailSpec(action="hang", times=1, delay=hang)}):
+        toks, texts, err = coalesced()
+    drill("hung_launch", {"error": err, "texts_equal": texts == clean_texts},
+          same(toks, clean_tokens), t1)
+    t1 = time.perf_counter()
+    with fp.failpoints({"engine.logits": fp.FailSpec(action="nan", kill=64, seed=0)}):
+        _, _, poisoned = coalesced()
+    toks, texts, err = coalesced()
+    drill("poison_escalation", {"error": err, "poisoned_request": poisoned,
+                                "texts_equal": texts == clean_texts},
+          same(toks, clean_tokens), t1)
+    t1 = time.perf_counter()
+    with fp.failpoints({"continuous.step": fp.FailSpec(action="hang", times=1, delay=hang)}):
+        replayed = looped()
+    drill("loop_hung_step", {"error": None}, bool(np.array_equal(replayed, clean_loop)), t1)
+    # The last hung thread wakes on its retired engine and ends.
+    time.sleep(max(0.0, t1 + hang + 1.0 - time.perf_counter()))
+    ctl.hook("read")
+    res = {"role": "controller", "plans": ctl.plans, "rebuilds": ctl.rebuilds, "drills": drills,
+           "supervisor": sup.stats(), "loop_stats": {k: loop.stats[k] for k in (
+               "steps", "admitted", "completed", "restarts", "replayed_rows")},
+           "peaks": MESH_STATE.get("peaks", {}), "counts": MESH_STATE.get("counts"),
+           "collectives": MESH_STATE.get("collectives"), "init_s": init_s,
+           "param_bytes": backend.engine.param_footprint_bytes(),
+           "session_s": time.perf_counter() - t0, "stopped": None if ctl.stopped is None
+           else repr(ctl.stopped)}
+    client.close()
+    del client, backend, ctl, sup, loop
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2581,7 +2841,8 @@ def mesh_train(layers, B, S, valid_last, steps, seed):
 
 
 MESH_JOBS = {"serve": mesh_serve, "loop": mesh_loop, "w4_tp": mesh_w4_tp_check,
-             "psum": mesh_psum_times, "nccl_one": mesh_nccl_one, "train": mesh_train}
+             "psum": mesh_psum_times, "nccl_one": mesh_nccl_one, "train": mesh_train,
+             "rebuild": mesh_rebuild}
 
 
 def main(argv=None) -> int:
@@ -2609,7 +2870,15 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+
     from k_llms_tpu_torch.ops import _ext
+
+    # The kernels build (one nvcc per source) while the device comes up.
+    background = ThreadPoolExecutor(max_workers=2)
+    build_started = time.perf_counter()
+    build_future = background.submit(_ext.build_all) if "build" in phases else None
+
     from k_llms_tpu_torch.ops import attention as att
     from k_llms_tpu_torch.ops import paged_attention as pa
 
@@ -2681,49 +2950,17 @@ def main(argv=None) -> int:
     kernels = {}
 
     # 2. build
+    sass_future = None
     if "build" in phases:
-        t0 = time.perf_counter()
-        per = _ext.build_all()
+        per = build_future.result()
         for name in _ext.KERNELS:
             _ext.load(name)
-        log({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": per})
-        # The tensor-core kernels must compile to tensor-core instructions.
-        cuobjdump = os.path.join(os.path.dirname(_ext.nvcc_path()), "cuobjdump")
-        mma_counts = {}
-        for lib, kernel in (("flash_attention", "flash_attention_tc"), ("w4_matmul", "w4_gemm_tc"),
-                            ("w4_matmul", "w4_decode_tc"), ("paged_decode", "paged_decode_tc"),
-                            ("decode_prefix", "decode_prefix_tc")):
-            sass = subprocess.run([cuobjdump, "-sass", _ext.library_path(lib)], check=True,
-                                  capture_output=True, text=True, timeout=300).stdout
-            fn = None
-            for line in sass.splitlines():
-                if "Function : " in line:
-                    fn = line.split("Function : ")[1].strip()
-                elif fn and kernel in fn and ("HMMA" in line or "HGMMA" in line):
-                    mma_counts[fn] = mma_counts.get(fn, 0) + 1
-            if not any(kernel in fn for fn in mma_counts):
-                raise AssertionError(f"{kernel}: no HMMA/HGMMA instruction in the SASS of {lib}")
-        # Registers and local memory (spills) of each tensor-core kernel.
-        resources = {}
-        for lib in ("flash_attention", "w4_matmul", "paged_decode", "decode_prefix"):
-            usage = subprocess.run([cuobjdump, "-res-usage", _ext.library_path(lib)], check=True,
-                                   capture_output=True, text=True, timeout=300).stdout
-            fn = None
-            for line in usage.splitlines():
-                if "Function " in line:
-                    fn = line.split("Function ")[1].strip().rstrip(":")
-                elif fn and fn in mma_counts and "REG:" in line:
-                    fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
-                    resources[fn] = {"registers": int(fields.get("REG", -1)),
-                                     "stack_bytes": int(fields.get("STACK", -1)),
-                                     "local_bytes": int(fields.get("LOCAL", -1)),
-                                     "shared_bytes": int(fields.get("SHARED", -1))}
-                    fn = None
-        log({"phase": "build_sass", "tensor_core_instructions": mma_counts,
-             "resource_usage": resources})
-        k3_tc = {fn: r for fn, r in resources.items() if "decode_prefix_tc" in fn}
-        if not k3_tc or any(r["local_bytes"] != 0 or r["stack_bytes"] != 0 for r in k3_tc.values()):
-            raise AssertionError(f"decode_prefix_tc: missing or spilling: {k3_tc}")
+        log({"phase": "build", "seconds": time.perf_counter() - build_started,
+             "per_source_s": per})
+        # The tensor-core kernels must compile to tensor-core instructions:
+        # read from the libraries in the background (one cuobjdump each, all
+        # started together) and checked after the K2 phase.
+        sass_future = background.submit(sass_check)
 
     # 3. The draw kernel: a decode step's uniforms, bit-equal to the plain
     # version and to jax.random's own answers. A coalesced step
@@ -3090,7 +3327,13 @@ def main(argv=None) -> int:
 
                 library = sdpa
                 rec["library_call"] = "scaled_dot_product_attention"
-                if softcap is not None:
+                if softcap is not None and "flex" not in phases:
+                    # SDPA has no softcap; flex_attention's compile takes
+                    # about 40 s of the smoke's clock: opt-in phase "flex".
+                    rec["library_call"] = None
+                    rec["library_note"] = "flex_attention is timed in the opt-in phase flex"
+                    library = None
+                elif softcap is not None:
                     # SDPA has no softcap: flex_attention with a tanh
                     # score_mod and the case's mask, compiled, where it builds.
                     rec["library_call"] = "flex_attention (tanh score_mod, block mask), compiled"
@@ -3291,6 +3534,9 @@ def main(argv=None) -> int:
                                   "library_note", "device_over_bound")}
                              for k, r in family_recs.items()},
         }
+
+    if sass_future is not None:
+        log(sass_future.result())
 
     # 5. K1 paged decode against its plain version
     if "k1" in phases:
@@ -5820,7 +6066,9 @@ def main(argv=None) -> int:
     # talk over the gloo transport (host-staged collectives); each serves
     # the unsharded clients' requests at Llama-3-8B's full width from its
     # shard of the same seeded tree. The unsharded references are computed
-    # here first, each client closed before the ranks start.
+    # here first, each client closed before the ranks (started meanwhile)
+    # serve.
+    train_tp2_ranks = None
     if "mesh" in phases:
         from k_llms_tpu_torch.ops import w4matmul as w4
 
@@ -5833,76 +6081,133 @@ def main(argv=None) -> int:
         sp_kw = dict(param_seed=args.seed, sp_prefill_min_tokens=1024, sp_decode=True,
                      prefix_cache_size=2)
         mesh_reqs = [requests[0], requests[2]]
-        ref_int4 = mesh_serve(int4_kw, mesh_reqs)
-        ref_bf16 = mesh_serve(bf16_kw, mesh_reqs)
+        depth = {job: mesh_depth(job) for job in MESH_LAYERS}
         # The data axis's traffic: the sched phase's four same-config
         # requests (n = 8) sent at once, fused into one launch, then the
         # parse request; unsharded here, then on two data ranks.
         # A half-second batch window: the four threads fuse however they
         # are scheduled.
         dp2_kw, dp2_int4_kw = dict(bf16_kw, batch_window=0.5), dict(int4_kw, batch_window=0.5)
-        ref_dp2 = mesh_serve(dp2_kw, sched_requests, concurrent=True, parse_req=parse_request)
-        ref_dp2_int4 = mesh_serve(dp2_int4_kw, sched_requests, concurrent=True,
-                                  parse_req=parse_request)
+        # Speculation over the data axis: the spec phase's copy case (one
+        # printable byte repeated, a +100 bias on it, greedy, 64 tokens) and
+        # two sched requests fused into one sampled launch, sent at once
+        # through a speculative int4 client (the copy case's bias keeps it a
+        # launch of its own).
+        dp2_spec_kw = dict(dp2_int4_kw, speculative="prompt_lookup", spec_lookahead=SPEC_K)
+        copy_req = dict(messages=[{"role": "user", "content": "x" * 300}], n=8, temperature=0.0,
+                        max_tokens=64, seed=1, logit_bias={str(ord("x")): 100.0})
+        spec_reqs = [copy_req] + sched_requests[:2]
         # The continuous loop across the ranks: the loop phase's knobs and
         # traffic (A and the Record parse() D at once, B after 8 steps, the
         # chunked C after 16, a logit-bias request through the coalescing
         # path after 24), unsharded here; the chunk is pinned so that every
-        # client runs the same shapes. The pool holds 256 pages (2 GB a
-        # rank, twice the traffic's need): the loop's own worst-case pool
-        # (1185 pages, 9.3 GB) does not fit twice on the shared card beside
-        # two ranks' weights and the parent's leftovers (first mesh call).
+        # client runs the same shapes. The pool holds 256 pages (twice the
+        # traffic's need): the loop's own worst-case pool (1185 pages at 32
+        # layers, 9.3 GB) does not fit twice on the shared card beside two
+        # ranks' weights and the parent's leftovers (first mesh call).
         mesh_loop_kw = dict(param_seed=args.seed, prefill_chunk_tokens=128, kv_pool_pages=256,
                             **loop_knobs)
         mesh_bias_req = dict(messages=[{"role": "user", "content": "Spell a word."}], n=8,
                              temperature=0.0, max_tokens=32, seed=7, logit_bias=printable)
         loop_job_args = {"client_kw": mesh_loop_kw, "reqs": loop_requests,
                          "bias_req": mesh_bias_req, "biased_at": 24}
-        ref_loop = mesh_loop(**loop_job_args)
-        log({"phase": "mesh_references", "seconds": time.perf_counter() - t_mesh,
-             "int4_serve_s": ref_int4["serve_s"], "bf16_serve_s": ref_bf16["serve_s"],
-             "dp2_bf16_serve_s": ref_dp2["serve_s"], "dp2_int4_serve_s": ref_dp2_int4["serve_s"],
-             "loop_wall_s": ref_loop["wall_s"], "loop_stats": ref_loop["delta"],
-             "loop_steps_ms": ref_loop["steps_ms"],
-             "loop_peak_allocated_bytes": ref_loop["peak_allocated_bytes"],
-             "int4_peak_bytes": ref_int4["peak_bytes"], "bf16_peak_bytes": ref_bf16["peak_bytes"],
-             "dp2_launches": [(ln["requests"], ln["rows"], ln["steps"])
-                              for ln in ref_dp2["launches"]]})
-        gc.collect()
-        torch.cuda.empty_cache()
-        free_b, total_b = torch.cuda.mem_get_info()
-        log({"phase": "mesh_before_ranks", "device_free_bytes": free_b,
-             "device_total_bytes": total_b, "allocated_bytes": torch.cuda.memory_allocated(),
-             "reserved_bytes": torch.cuda.memory_reserved(), "host": mesh_host_memory()})
         jobs = [
             {"name": "mesh_tp2_int4", "kind": "serve",
-             "args": {"client_kw": dict(int4_kw, model_parallel=2), "reqs": mesh_reqs}},
+             "args": {"client_kw": dict(int4_kw, model_parallel=2), "reqs": mesh_reqs,
+                      "model": depth["tp2_int4"]}},
             {"name": "mesh_tp2_bf16", "kind": "serve",
-             "args": {"client_kw": dict(bf16_kw, model_parallel=2), "reqs": mesh_reqs[:1]}},
+             "args": {"client_kw": dict(bf16_kw, model_parallel=2), "reqs": mesh_reqs[:1],
+                      "model": depth["tp2_bf16"]}},
             {"name": "mesh_sp2", "kind": "serve",
-             "args": {"client_kw": sp_kw, "reqs": mesh_reqs[1:], "repeat_last": True}},
+             "args": {"client_kw": sp_kw, "reqs": mesh_reqs[1:], "repeat_last": True,
+                      "model": depth["sp2"]}},
             {"name": "mesh_sp2_ulysses", "kind": "serve",
-             "args": {"client_kw": dict(sp_kw, sp_attention="ulysses"), "reqs": mesh_reqs[1:]}},
+             "args": {"client_kw": dict(sp_kw, sp_attention="ulysses"), "reqs": mesh_reqs[1:],
+                      "model": depth["sp2"]}},
             {"name": "mesh_dp2", "kind": "serve",
              "args": {"client_kw": dp2_kw, "reqs": sched_requests, "concurrent": True,
-                      "parse_req": parse_request,
+                      "parse_req": parse_request, "model": depth["dp2"],
                       "http": dict(messages=[{"role": "user", "content": "Count to fifty."}],
                                    n=4, temperature=0.8, seed=41, max_tokens=24,
                                    logit_bias=printable)}},
             {"name": "mesh_dp2_int4", "kind": "serve",
              "args": {"client_kw": dp2_int4_kw, "reqs": sched_requests, "concurrent": True,
-                      "parse_req": parse_request}},
-            {"name": "mesh_dp2_loop", "kind": "loop", "args": loop_job_args},
+                      "parse_req": parse_request, "model": depth["dp2_int4"]}},
+            {"name": "mesh_dp2_spec", "kind": "serve",
+             "args": {"client_kw": dp2_spec_kw, "reqs": spec_reqs, "concurrent": True,
+                      "model": depth["dp2_spec"]}},
+            {"name": "mesh_dp2_loop", "kind": "loop",
+             "args": dict(loop_job_args, model=depth["dp2_loop"])},
             {"name": "mesh_tp2_loop", "kind": "loop",
-             "args": dict(loop_job_args, client_kw=dict(mesh_loop_kw, model_parallel=2))},
+             "args": dict(loop_job_args, client_kw=dict(mesh_loop_kw, model_parallel=2),
+                          model=depth["tp2_loop"])},
             {"name": "mesh_k4tp_mutants", "kind": "w4_tp",
              "args": {"shapes": [(4096, 4096), (14336, 4096)], "rows_list": [8, 2048]}},
             {"name": "mesh_psum_gloo", "kind": "psum",
              "args": {"shapes": [(8, 4096), (64, 4096), (2048, 4096)]}},
         ]
-        t0 = time.perf_counter()
-        ranks = run_ranks(2, "gloo", jobs, store_dir)
-        ranks_s = time.perf_counter() - t0
+        if "train" in phases:
+            # The train phase's two-rank step, in this world (one start-up
+            # fewer); the train phase checks it.
+            jobs.append({"name": "train_tp2", "kind": "train",
+                         "args": dict(TRAIN_TP2_JOB, seed=args.seed)})
+        # Last: its hung threads outlive each drill's rebuild.
+        jobs.append(
+            {"name": "mesh_rebuild", "kind": "rebuild",
+             "args": {"client_kw": dict(int4_kw, continuous_batching=True, continuous_width=8,
+                                        continuous_max_prompt=256, continuous_max_new=32,
+                                        prefill_chunk_tokens=128, poison_threshold=0.5),
+                      "coalesced_req": dict(sched_requests[0], max_tokens=16),
+                      "loop_req": dict(messages=[{"role": "user", "content": "Count to ten."}],
+                                       n=4, max_new=16, temperature=0.8, top_p=0.95, seed=9),
+                      "budget_s": REBUILD_BUDGET_S, "model": depth["rebuild"]}})
+        # The ranks start up (spawn, imports, the world's store) while the
+        # unsharded references run here; they wait to serve until every
+        # reference client is closed.
+        handle = spawn_ranks(2, "gloo", jobs, store_dir)
+        try:
+            ref_int4 = mesh_serve(int4_kw, mesh_reqs, model=depth["tp2_int4"])
+            ref_bf16 = mesh_serve(bf16_kw, mesh_reqs[:1], model=depth["tp2_bf16"])
+            ref_sp = mesh_serve(bf16_kw, mesh_reqs[1:], model=depth["sp2"])
+            ref_dp2 = mesh_serve(dp2_kw, sched_requests, concurrent=True, parse_req=parse_request,
+                                 model=depth["dp2"])
+            ref_dp2_int4 = mesh_serve(dp2_int4_kw, sched_requests, concurrent=True,
+                                      parse_req=parse_request, model=depth["dp2_int4"])
+            ref_dp2_spec = mesh_serve(dp2_spec_kw, spec_reqs, concurrent=True,
+                                      model=depth["dp2_spec"])
+            ref_loop = mesh_loop(**loop_job_args, model=depth["dp2_loop"])
+            ref_loop_tp = ref_loop if depth["tp2_loop"] == depth["dp2_loop"] else mesh_loop(
+                **loop_job_args, model=depth["tp2_loop"])
+            log({"phase": "mesh_references", "seconds": time.perf_counter() - t_mesh,
+                 "layers": MESH_LAYERS,
+                 "int4_serve_s": ref_int4["serve_s"], "bf16_serve_s": ref_bf16["serve_s"],
+                 "sp_serve_s": ref_sp["serve_s"],
+                 "dp2_bf16_serve_s": ref_dp2["serve_s"],
+                 "dp2_int4_serve_s": ref_dp2_int4["serve_s"],
+                 "dp2_spec_serve_s": ref_dp2_spec["serve_s"],
+                 "loop_wall_s": ref_loop["wall_s"], "loop_stats": ref_loop["delta"],
+                 "tp_loop_wall_s": ref_loop_tp["wall_s"],
+                 "loop_steps_ms": ref_loop["steps_ms"],
+                 "loop_peak_allocated_bytes": ref_loop["peak_allocated_bytes"],
+                 "int4_peak_bytes": ref_int4["peak_bytes"],
+                 "bf16_peak_bytes": ref_bf16["peak_bytes"],
+                 "dp2_launches": [(ln["requests"], ln["rows"], ln["steps"])
+                                  for ln in ref_dp2["launches"]]})
+            gc.collect()
+            torch.cuda.empty_cache()
+            free_b, total_b = torch.cuda.mem_get_info()
+            log({"phase": "mesh_before_ranks", "device_free_bytes": free_b,
+                 "device_total_bytes": total_b, "allocated_bytes": torch.cuda.memory_allocated(),
+                 "reserved_bytes": torch.cuda.memory_reserved(), "host": mesh_host_memory()})
+            # A follower's fault (tiny, a world of its own) runs beside the
+            # ranks' jobs; it is checked after them.
+            fault_future = background.submit(run_fault_drill, store_dir)
+            t0 = time.perf_counter()
+            ranks = collect_ranks(handle)
+            ranks_s = time.perf_counter() - t0
+        finally:
+            stop_ranks(handle)
+        train_tp2_ranks = ranks.pop("train_tp2", None)
         if ranks["_exitcodes"] != [0, 0]:
             raise AssertionError(f"mesh: the ranks ended with {ranks['_exitcodes']}")
 
@@ -5918,6 +6223,10 @@ def main(argv=None) -> int:
                     out[tuple(ids)] = (j, m, k)
                     k += 1
             return out
+
+        # The serve, loop and rebuild jobs' failures, raised together once
+        # the whole phase is checked.
+        mesh_problems = []
 
         def check_serve(name, ref, n_launches, expected_fn):
             """The controller's first ``n_launches`` launches against the
@@ -5959,7 +6268,7 @@ def main(argv=None) -> int:
                     problems.append(f"{r['role']} counts {got} != expected {expected}")
             peaks = [r["peak_bytes"] for r in res]
             rec = {"phase": name, "mesh": ctl["mesh"], "transport": ctl["transport"],
-                   "requests": per_req, "expected_counts": expected,
+                   "layers": ctl["L"], "requests": per_req, "expected_counts": expected,
                    "counts": [r["counts"] for r in res], "collectives": [r["collectives"] for r in res],
                    "plans": [r["plans"] for r in res],
                    "cache_stats": ctl["cache_stats"], "rank_peak_bytes": peaks,
@@ -5980,8 +6289,8 @@ def main(argv=None) -> int:
                 problems.append(f"summed rank peaks {sum(peaks)} >= 80 GB")
             rec["ok"] = not problems
             log(rec)
-            if problems:
-                raise AssertionError(f"{name}: {problems}")
+            if problems:  # raised once every job is checked
+                mesh_problems.append(f"{name}: {problems}")
             return res
 
         def forwards(res):
@@ -6026,8 +6335,22 @@ def main(argv=None) -> int:
                         "paged_decode_attention": 0, "decode_prefix_attention": 0,
                         "w4_matmul": 0, "psum": sp_prefills,
                         "ppermute": L * (steps + (0 if ulysses else sp_prefills)),
-                        "all_gather": L * steps, "all_to_all": 4 * L * sp_prefills if ulysses else 0}
+                        "all_gather": len(lns), "all_to_all": 4 * L * sp_prefills if ulysses else 0}
             return fn
+
+        def expected_dp2_spec(res):
+            """Each data rank of a speculative int4 client, per launch: K2
+            once a layer per prefill (replicated) and embeddings forward;
+            K4 (7 a layer and the head) per prefill and per verify iteration
+            on its B/2 rows (the route by its verify rows); no K1, no K3
+            (K + 1 queries a row); a draw per sampled iteration and the first
+            token's; one gather of the results and counts a launch."""
+            L, lns, E, prefills, steps = forwards(res)
+            return {"flash_attention": L * (prefills + E), "paged_decode_attention": 0,
+                    "decode_prefix_attention": 0,
+                    "w4_matmul": (7 * L + 1) * (prefills + steps) + 7 * L * E,
+                    "threefry_uniform_rows": draws(lns), "all_gather": len(lns), "gather": 0,
+                    "psum": 0, "ppermute": 0, "all_to_all": 0}
 
         def draws(lns):
             return sum(ln["steps"] + 1 for ln in lns if ln["temperature"] != 0.0)
@@ -6055,12 +6378,20 @@ def main(argv=None) -> int:
 
         tp4 = check_serve("mesh_tp2_int4", ref_int4, 2, expected_tp_int4)
         check_serve("mesh_tp2_bf16", ref_bf16, 1, expected_tp_bf16)
-        sp = check_serve("mesh_sp2", ref_bf16, 1, expected_sp(False))
+        sp = check_serve("mesh_sp2", ref_sp, 1, expected_sp(False))
         sp_outs = sp[0]["outs"]
         if sp[0]["cache_stats"] != {"hits": 1, "partial_hits": 0, "misses": 1} or \
                 sp_outs[1]["texts"] != sp_outs[0]["texts"]:
             raise AssertionError(f"mesh_sp2: the exact hit {sp[0]['cache_stats']} or its texts")
-        check_serve("mesh_sp2_ulysses", ref_bf16, 1, expected_sp(True))
+        sp_u = check_serve("mesh_sp2_ulysses", ref_sp, 1, expected_sp(True))
+        # The ring decode splits its rows over the ring's axis (JAX's q_spec).
+        for name, res in (("mesh_sp2", sp), ("mesh_sp2_ulysses", sp_u)):
+            lns = res[0]["launches"]
+            tests = [loop_tests(res[0], r, name) for r in res]
+            log({"phase": f"{name}_rows", "launch_rows": [(ln["rows"], ln["rank_rows"]) for ln in lns],
+                 "loop_tests": tests})
+            if any(ln["rank_rows"] * 2 != ln["rows"] for ln in lns):
+                raise AssertionError(f"{name}: rows {[(ln['rows'], ln['rank_rows']) for ln in lns]}")
         dp_tests = {}
         for name, ref, int4 in (("mesh_dp2", ref_dp2, False), ("mesh_dp2_int4", ref_dp2_int4, True)):
             res = check_serve(name, ref, len(ref["launches"]), expected_dp2(int4))
@@ -6070,6 +6401,18 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: launches {fused}, rows "
                                      f"{[(ln['rows'], ln['rank_rows']) for ln in ctl['launches']]}")
             dp_tests[name] = [loop_tests(ctl, r, name) for r in res]
+        spec = check_serve("mesh_dp2_spec", ref_dp2_spec, len(ref_dp2_spec["launches"]),
+                           expected_dp2_spec)
+        lns = spec[0]["launches"]
+        spec_tests = [loop_tests(spec[0], r, "mesh_dp2_spec") for r in spec]
+        log({"phase": "mesh_dp2_spec_rows",
+             "launches": [(ln["requests"], ln["rows"], ln["rank_rows"], ln["steps"]) for ln in lns],
+             "unsharded_launches": [(ln["requests"], ln["rows"], ln["steps"])
+                                    for ln in ref_dp2_spec["launches"]],
+             "loop_tests": spec_tests})
+        if sorted(ln["requests"] for ln in lns) != [1, 2] or any(
+                ln["rank_rows"] * 2 != ln["rows"] for ln in lns):
+            raise AssertionError(f"mesh_dp2_spec: launches {[(ln['requests'], ln['rows'], ln['rank_rows']) for ln in lns]}")
         http = ranks["mesh_dp2"][0]["http"]
         fol_snap = ranks["mesh_dp2"][1]["snapshots"]
         serve_ok = (http["concurrent"]["plain_status"] == 200
@@ -6107,7 +6450,7 @@ def main(argv=None) -> int:
                     "all_gather": headed if tp else len(lns),
                     "ppermute": 0, "all_to_all": 0}
 
-        def check_loop(name, tp):
+        def check_loop(name, tp, ref_loop):
             """The loop across two ranks against the unsharded loop: on the
             data axis every loop request's tokens identical (each data rank
             decodes every slot); under TP first tokens equal and the
@@ -6172,7 +6515,8 @@ def main(argv=None) -> int:
             if {k: ref_loop["counts"][k] for k in ref_expected} != ref_expected:
                 problems.append(f"unsharded counts {ref_loop['counts']} != {ref_expected}")
             peaks = [r["peak_allocated_bytes"] for r in res]
-            rec = {"phase": name, "mesh": ctl["mesh"], "requests": per_req, "coalesced": co,
+            rec = {"phase": name, "mesh": ctl["mesh"], "layers": ctl["L"], "requests": per_req,
+                   "coalesced": co,
                    "stats": ctl["delta"], "unsharded_stats": ref_loop["delta"],
                    "width": ctl["width"], "prefill_chunk_tokens": ctl["prefill_chunk_tokens"],
                    "memory_model": ctl["memory_model"],
@@ -6194,14 +6538,14 @@ def main(argv=None) -> int:
             rec["ok"] = not problems
             log(rec)
             if problems:
-                raise AssertionError(f"{name}: {problems}")
+                mesh_problems.append(f"{name}: {problems}")
 
-        check_loop("mesh_dp2_loop", tp=False)
-        check_loop("mesh_tp2_loop", tp=True)
+        check_loop("mesh_dp2_loop", False, ref_loop)
+        check_loop("mesh_tp2_loop", True, ref_loop_tp)
         # A follower's fault: tiny on two ranks of the card, the follower's
         # first launch raising a kernel error; the controller's request ends
         # as the typed 503 within FAULT_LIMIT_S, the world stays stopped.
-        fault, codes = run_fault_drill(store_dir)
+        fault, codes = fault_future.result()
         from k_llms_tpu_torch.parallel.controller import FOLLOWER_FAULT_EXIT
 
         fault_ok = (isinstance(fault, list) and codes == [0, FOLLOWER_FAULT_EXIT]
@@ -6212,6 +6556,39 @@ def main(argv=None) -> int:
              "limit_s": FAULT_LIMIT_S, "ok": fault_ok})
         if not fault_ok:
             raise AssertionError(f"mesh_dp2_fault: {fault} exit codes {codes}")
+        # The rebuilds across the two ranks: each drill's request resolves
+        # with the uninterrupted run's tokens; the supervisor, the loop and
+        # both ranks count every rebuild; both ranks ran every plan.
+        rb_ctl, rb_fol = ranks["mesh_rebuild"]
+        want = {"hung_launch": (1, 1, 0, "hung_launch", 1),
+                "poison_escalation": (1, 2, 0, "poison_rate", 2),
+                "loop_hung_step": (1, 2, 1, "poison_rate", 3)}
+        problems = []
+        for d in rb_ctl["drills"]:
+            got = (d["hung_launches"], d["rebuilds"], d["loop_restarts"], d["last_rebuild_reason"],
+                   d["world_rebuilds"])
+            if got != want[d["drill"]] or not d["tokens_equal"] or d["error"] is not None \
+                    or d["state"] != "ready" or d.get("texts_equal") is False:
+                problems.append(f"{d['drill']}: {d}")
+        if [d["drill"] for d in rb_ctl["drills"]] != list(want):
+            problems.append(f"drills {[d['drill'] for d in rb_ctl['drills']]}")
+        if rb_fol["plans"] != rb_ctl["plans"] or rb_fol["rebuilds"] != rb_ctl["rebuilds"] != 3:
+            problems.append(f"plans {rb_fol['plans']}/{rb_ctl['plans']}, rebuilds "
+                            f"{rb_fol['rebuilds']}/{rb_ctl['rebuilds']}")
+        if rb_ctl["stopped"] is not None:
+            problems.append(f"the world stopped: {rb_ctl['stopped']}")
+        peaks = [r["peaks"] for r in (rb_ctl, rb_fol)]
+        if any(set(p) != {"uninterrupted", *want} for p in peaks):
+            problems.append(f"peaks {peaks}")
+        log({"phase": "mesh_rebuild", "drills": rb_ctl["drills"], "plans": [rb_ctl["plans"],
+             rb_fol["plans"]], "rebuilds": [rb_ctl["rebuilds"], rb_fol["rebuilds"]],
+             "supervisor": rb_ctl["supervisor"], "loop_stats": rb_ctl["loop_stats"],
+             "rank_peak_bytes": peaks, "param_bytes": rb_ctl["param_bytes"],
+             "counts": [rb_ctl["counts"], rb_fol["counts"]], "init_s": rb_ctl["init_s"],
+             "job_s": [rb_ctl["job_s"], rb_fol["job_s"]], "budget_s": REBUILD_BUDGET_S,
+             "ok": not problems})
+        if problems:
+            mesh_problems.append(f"mesh_rebuild: {problems}")
         mut = ranks["mesh_k4tp_mutants"][0]["cases"]
         log({"phase": "mesh_k4tp_mutants", "cases": mut})
         if not all(c["err_over_limit"] <= 1.0 < c["mutant_err_over_limit"] for c in mut):
@@ -6288,6 +6665,8 @@ def main(argv=None) -> int:
             "shard_cases": k4tp_cases,
             "psum_host_ms": {"gloo": psum_gloo, "nccl_world_of_one_2048x4096":
                              nccl["psum_2048x4096_host_ms"]}}
+        if mesh_problems:
+            raise AssertionError("mesh: " + "; ".join(mesh_problems))
         log({"phase": "mesh_done", "seconds": time.perf_counter() - t_mesh, "ranks_s": ranks_s})
 
     # 13. The causal-LM train step (last: it must not move an earlier
@@ -6455,23 +6834,28 @@ def main(argv=None) -> int:
         # column-parallel input (attention, MLP: 2L; the head: 1); one
         # all_gather of the logits. No data axis: nothing else.
         t0 = time.perf_counter()
-        batch_e = dict(B=2, S=256, valid_last=200)
-        cfg_e = train_config(2, "bfloat16")
+        batch_e = {k: TRAIN_TP2_JOB[k] for k in ("B", "S", "valid_last")}
+        cfg_e = train_config(TRAIN_TP2_JOB["layers"], "bfloat16")
         ref_tree = init_params(cfg_e, torch.Generator(device=dev).manual_seed(args.seed), dev)
         tokens, mask = train_batch(cfg_e, batch_e["B"], batch_e["S"], batch_e["valid_last"],
                                    args.seed)
         init_state, step = make_train_step(cfg_e)
         opt_e = init_state(ref_tree)
-        ref_losses = [step(ref_tree, opt_e, tokens, mask)[2].item() for _ in range(2)]
+        ref_losses = [step(ref_tree, opt_e, tokens, mask)[2].item()
+                      for _ in range(TRAIN_TP2_JOB["steps"])]
         del ref_tree, opt_e
         gc.collect()
         torch.cuda.empty_cache()
-        store_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_tmp")
-        os.makedirs(store_dir, exist_ok=True)
-        t1 = time.perf_counter()
-        ranks = run_ranks(2, "gloo", [{"name": "train_tp2", "kind": "train", "args": dict(
-            layers=2, steps=2, seed=args.seed, **batch_e)}], store_dir)["train_tp2"]
-        ranks_s = time.perf_counter() - t1
+        if train_tp2_ranks is not None:  # run in the mesh phase's world
+            ranks = train_tp2_ranks
+            ranks_s = max(r["job_s"] for r in ranks)
+        else:
+            store_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_tmp")
+            os.makedirs(store_dir, exist_ok=True)
+            t1 = time.perf_counter()
+            ranks = run_ranks(2, "gloo", [{"name": "train_tp2", "kind": "train", "args": dict(
+                TRAIN_TP2_JOB, seed=args.seed)}], store_dir)["train_tp2"]
+            ranks_s = time.perf_counter() - t1
         L = cfg_e.num_layers
         expected = {"psum": 4 * L + 2, "pmax": 0, "all_gather": 1, "ppermute": 0,
                     "all_to_all": 0}

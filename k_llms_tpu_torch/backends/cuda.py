@@ -58,11 +58,18 @@ memory model's ``tp``/``dp`` terms, and each follower builds a replica of it
 from the controller's first loop plan: every admission, prefill chunk and
 decode step of the loop is announced and replayed on every rank, each data
 rank decoding every slot's whole rows, as JAX's loop does on its mesh. A
-fault that needs an engine rebuild stops the world (the typed 503).
+fault that needs an engine rebuild (the supervisor's hung launch or poison
+escalation, the loop's hung step or chunk or corrupt pool) rebuilds the
+engine on every rank, on the first engine's mesh
+(:meth:`HostController.rebuild`; a follower's part is
+:meth:`CudaBackend._follow_rebuild`), and the request is replayed; only a
+follower's own fault, or an announced operation that never ends, stops the
+world (the typed 503).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -89,6 +96,7 @@ from ..engine.scheduler import EngineScheduler
 from ..engine.tokenizer import get_tokenizer
 from ..models import loader
 from ..models.config import get_config
+from ..parallel.controller import EngineRetiredError
 from ..reliability.supervisor import EngineSupervisor, LaunchBudgetModel
 from ..reliability.tenancy import TenancyConfig
 from ..types import ChatCompletion
@@ -501,6 +509,10 @@ class CudaBackend(Backend):
         self._mesh = mesh
         self.param_summary: Optional[Dict[str, Any]] = None
         self.engine = engine if engine is not None else self._build_engine()
+        # A rebuild lands on this engine's mesh and its groups, as JAX's
+        # rebuild keeps its mesh: a new auto mesh would be a collective over
+        # the whole world.
+        self._mesh = self.engine.mesh
         from ..parallel.controller import HostController
 
         # Every rank of a world larger than one: the host's first rank
@@ -512,6 +524,7 @@ class CudaBackend(Backend):
         if self.controller is not None:
             self.controller.encode_constraint = self._encode_constraint
             self.controller.decode_constraint = self._decode_constraint
+            self.controller.on_rebuild = self._follow_rebuild
         if not self.is_controller:
             if self.engine.device.type == "cuda":
                 from ..ops import _ext
@@ -519,6 +532,9 @@ class CudaBackend(Backend):
                 _ext.build_all()
             self.default_max_new_tokens = cfg.max_new_tokens
             self._closed = True
+            # A rebuild plan drops the follower's engine: no frame here may
+            # keep it.
+            engine = None
             self.controller.serve()
             return
         if self.engine.device.type == "cuda":
@@ -587,6 +603,9 @@ class CudaBackend(Backend):
         # The thread of the latest supervised launch: a rebuild waits for a
         # hung one to end before it gives the old engine's memory back.
         self._launch_thread: Optional[threading.Thread] = None
+        # The latest launch's watchdog budget: how long a rebuild across the
+        # host waits for an announced operation to end.
+        self._launch_budget_s = self.supervisor.budget_model.budget(1, cfg.max_new_tokens)
         self._wire_engine_hooks()
         # Consensus cache and dispatch stats ride along scheduler health().
         self.scheduler.consensus_stats_provider = self._consensus_stats
@@ -723,22 +742,23 @@ class CudaBackend(Backend):
         hung keeps its thread, and with it the old engine, until the hang
         ends (a kernel wedged on the card cannot be killed from the
         process): its memory goes back once that thread has ended, and
-        until then the card holds both engines' weights."""
-        if self.controller is not None:
-            # A rebuild across the host's ranks is not ported: the world is
-            # stopped instead (the supervisor then answers 503s).
-            raise BackendUnavailableError(
-                "engine rebuild across a world of ranks is not supported; the world is stopped"
-            )
+        until then the card holds both engines' weights. In a world the
+        loop is held between operations while the engine is replaced across
+        the host, so it announces nothing of the old one after the rebuild
+        plan."""
         old = weakref.ref(self.engine)
         launch = self._launch_thread
-        self.engine = self._build_engine()
-        self._wire_engine_hooks()
-        if self._continuous is not None:
-            # The loop holds device KV tied to the old engine: it journals
-            # its in-flight rows, re-prefills on the new engine and replays
-            # each survivor (pinned seeds, self-deterministic row keys).
-            self._continuous.adopt_engine(self.engine)
+        loop = self._continuous
+        held = (loop.paused() if loop is not None and self.controller is not None
+                else contextlib.nullcontext())
+        with held:
+            self._replace_engine()
+            if loop is not None:
+                # The loop holds device KV tied to the old engine: it
+                # journals its in-flight rows, re-prefills on the new engine
+                # and replays each survivor (pinned seeds, self-deterministic
+                # row keys).
+                loop.adopt_engine(self.engine)
         if self.engine.device.type != "cuda":
             return
         if launch is not None and launch.is_alive():
@@ -753,9 +773,35 @@ class CudaBackend(Backend):
         """Continuous-loop rebuild_fn: the same reload as the supervisor's
         path, driven by the loop (which holds its own journal), returning
         the engine for the loop to adopt."""
-        self.engine = self._build_engine()
-        self._wire_engine_hooks()
+        self._replace_engine()
         return self.engine
+
+    def _replace_engine(self) -> None:
+        """A new engine for the backend, built here, or in a world on every
+        rank of the host through the rebuild plan (waiting at most the
+        latest launch's budget for an announced operation to end)."""
+        if self.controller is None:
+            self.engine = self._build_engine()
+        else:
+            self.engine = self.controller.rebuild(self._build_engine, self._launch_budget_s)
+        self._wire_engine_hooks()
+
+    def _follow_rebuild(self) -> None:
+        """A follower's part of the controller's rebuild plan: the replica
+        loop empties, the old engine is dropped and its memory given back
+        (a follower runs no hung thread), then the new engine is built on
+        the same mesh and adopted."""
+        ctl = self.controller
+        if ctl.loop is not None:
+            ctl.loop.reset_replica(None)
+        old, device = weakref.ref(self.engine), self.engine.device
+        self.engine = ctl.engine = None
+        if device.type == "cuda":
+            self._release_after(None, old)
+        self.engine = self._build_engine()
+        ctl.adopt(self.engine)
+        if ctl.loop is not None:
+            ctl.loop.reset_replica(self.engine)
 
     @staticmethod
     def _release_after(thread: Optional[threading.Thread], engine_ref) -> None:
@@ -771,8 +817,19 @@ class CudaBackend(Backend):
 
         def run():
             self._launch_thread = threading.current_thread()
-            return launch(self.engine)
+            epoch = self.supervisor.epoch
+            while True:
+                engine = self.engine
+                try:
+                    return launch(engine)
+                except EngineRetiredError:
+                    # The loop rebuilt the engine across the host before this
+                    # launch was announced: nothing ran, so it runs on the
+                    # new one (a launch the watchdog gave up on does not).
+                    if self.engine is engine or self.supervisor.epoch != epoch:
+                        raise
 
+        self._launch_budget_s = self.supervisor.budget_model.budget(rows, max_new_tokens)
         return self.supervisor.supervised_launch(run, rows=rows, max_new_tokens=max_new_tokens)
 
     # -- chat -------------------------------------------------------------

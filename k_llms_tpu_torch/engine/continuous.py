@@ -76,7 +76,15 @@ stay identical. The budgets' aborts ride the step's plan, and each step's
 poison verdicts are reduced over the mesh (one ``pmax`` a step on each axis
 larger than one), so every rank retires the same rows at the same step. A
 fault that needs an engine rebuild (a hung step or chunk, a corrupt pool)
-stops the world: the rebuild across ranks is not ported.
+rebuilds the engine on every rank: the backend's ``rebuild_fn`` sends the
+controller's rebuild plan, each follower's replica starts empty on its new
+engine (:meth:`ContinuousDecodeLoop.reset_replica`), and the journalled
+survivors are re-admitted through ordinary announced admissions (carrying
+their replay count). A rebuild of the coalesced path's (a hung launch, a
+poison escalation) holds the loop between operations
+(:meth:`ContinuousDecodeLoop.paused`) while the engine is replaced, and the
+loop adopts the new engine before its next operation. A quarantined pool
+runs no further operation on any rank.
 """
 
 from __future__ import annotations
@@ -266,7 +274,12 @@ def _sample_rows(logits: torch.Tensor, uniforms: torch.Tensor, temps: torch.Tens
 
 
 class _StepHung(RuntimeError):
-    """Internal: a step dispatch overran its watchdog budget."""
+    """Internal: a step dispatch overran its watchdog budget. ``done`` is
+    set once the abandoned dispatch ends."""
+
+    def __init__(self, message: str, done: Optional[threading.Event] = None) -> None:
+        super().__init__(message)
+        self.done = done
 
 
 class _StaleStep(RuntimeError):
@@ -354,7 +367,7 @@ class _StepDispatcher:
         self._inbox.put(None)
         self._inbox = _queue_mod.Queue()
         self._thread = None
-        raise _StepHung(f"continuous step exceeded its {budget_s:.2f}s budget")
+        raise _StepHung(f"continuous step exceeded its {budget_s:.2f}s budget", ticket["done"])
 
     def close(self) -> None:
         self._inbox.put(None)
@@ -835,17 +848,48 @@ class ContinuousDecodeLoop:
             yield
             return
         with self._lock:
-            launch = self.engine._launch_lock
-            while not launch.acquire(blocking=False):
+            while True:
+                if self._stopped:
+                    raise _LoopStopped()
+                if self._adopted_engine is not None:
+                    # A rebuild across the host replaced the engine: no
+                    # operation of the retired one is announced.
+                    eng, self._adopted_engine = self._adopted_engine, None
+                    raise _AdoptEngine(eng)
+                if self._pool_fault is not None:
+                    # A quarantined pool runs no further operation on any
+                    # rank: the rebuild comes first.
+                    raise _PoolFault(self._pool_fault)
+                launch = self.engine._launch_lock
+                if launch.acquire(blocking=False):
+                    break
                 self._lock.wait(timeout=0.002)
             self._announced = False
             try:
-                if self._stopped:
-                    raise _LoopStopped()
                 yield
                 self._announced = False
             finally:
                 launch.release()
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Hold the loop between operations (its Condition): the backend
+        retires the engine, sends the rebuild plan and hands the loop the
+        new engine inside, so no operation of the old engine is announced
+        after the plan."""
+        with self._lock:
+            yield
+
+    def reset_replica(self, engine: Any) -> None:
+        """A follower's replica on the controller's rebuild plan: every slot
+        empty and the device state (the old engine's pool and caches)
+        dropped, then carried on ``engine`` (None until the new engine is
+        built)."""
+        with self._lock:
+            self._loop_epoch += 1
+            if self.engine is not None:
+                self._reset_device_state_locked()
+            self.engine = engine
 
     def _announce(self, op: str, payload: Any = None) -> None:
         """Hand this operation to the followers (the controller in a world;
@@ -918,6 +962,7 @@ class ContinuousDecodeLoop:
             future=Future(), prompt_len=p["prompt_len"], n=p["n"], max_new=p["max_new"],
             budget=None, token_sink=None, ids=list(p["ids"]), seed=p["seed"],
             temperature=p["temperature"], top_p=p["top_p"], seq=p["seq"], grammar=grammar,
+            replays=p["replays"],
         )
         rows = list(p["rows"])
         for r in rows:
@@ -1028,9 +1073,15 @@ class ContinuousDecodeLoop:
         for replay. ``worker_crash``: fail everything typed and restart the
         loop empty. ``adopt_engine``: an external supervisor already rebuilt
         the engine; journal + swap + replay without spending a fault
-        credit. In a world of ranks only a worker crash between operations
-        heals (every rank resets its loop in plan order); anything else
-        stops the world."""
+        credit. In a world of ranks every rank heals in plan order: a worker
+        crash with the reset plan, a rebuild with the rebuild plan (the
+        backend's ``rebuild_fn``; each follower's replica starts empty on
+        its new engine and the survivors are re-admitted through announced
+        admissions). A fault after an announcement leaves the followers
+        inside that operation: a hung step or chunk whose abandoned dispatch
+        ends within one step budget is then rebuilt (unless ``rank_check``
+        holds the followers in the plan's own check); otherwise the world
+        stops."""
         counts = reason != "adopt_engine"
         with self._lock:
             self._loop_epoch += 1
@@ -1040,13 +1091,12 @@ class ContinuousDecodeLoop:
                 self._consecutive_faults += 1
             attempt = self._consecutive_faults
         RECOVERY_EVENTS.record("continuous.restarts")
-        if self._world is not None and (reason != "worker_crash" or self._announced):
-            # An engine rebuild across the host's ranks is not ported, and a
-            # fault after an announcement leaves the followers inside the
-            # operation: the world stops (the typed 503 from now on).
-            # Followers idle between plans are released.
-            return self._terminal(self._world.stop_world(
-                cause or RuntimeError(reason), release=not self._announced))
+        if self._world is not None and self._announced:
+            if reason not in ("hung_step", "page_accounting") or not self._op_ended(cause):
+                # The followers are still inside the announced operation:
+                # the world stops (the typed 503 from now on).
+                return self._terminal(self._world.stop_world(cause or RuntimeError(reason)))
+            self._announced = False
         if counts and attempt > self.max_rebuilds:
             return self._terminal(EngineHungError(
                 f"continuous decode loop did not recover after "
@@ -1068,6 +1118,13 @@ class ContinuousDecodeLoop:
             except _LoopStopped:
                 self._fail_all(err)
                 return False
+            except (_AdoptEngine, _PoolFault) as e:
+                # A rebuild across the host is due, which resets every
+                # replica: the worker's next turn runs it.
+                self._fail_all(err)
+                if isinstance(e, _AdoptEngine):
+                    with self._lock:
+                        self._adopted_engine = e.engine
             except BackendUnavailableError as e:  # the world stopped meanwhile
                 return self._terminal(e)
         else:
@@ -1104,6 +1161,16 @@ class ContinuousDecodeLoop:
         if counts and self.on_rebuilt is not None:
             self.on_rebuilt()
         return True
+
+    def _op_ended(self, cause: Optional[BaseException]) -> bool:
+        """Whether a hung operation the followers were handed has ended
+        (its abandoned dispatch returned) within one step budget. With
+        ``rank_check`` the followers wait in that plan's check for the
+        controller's part, which it abandoned: such a world stops."""
+        done = getattr(cause, "done", None)
+        if done is None or self.engine.rank_check or self.budget_model is None:
+            return False
+        return done.wait(self.budget_model.step_budget())
 
     def _terminal(self, err: BaseException) -> bool:
         """The loop is beyond self-healing: pin the terminal error (submit
@@ -1274,7 +1341,7 @@ class ContinuousDecodeLoop:
                 "max_new": req.max_new, "seed": req.seed,
                 "temperature": req.temperature, "top_p": req.top_p, "seq": req.seq,
                 "grammar": None if grammar is None else self._world.encode_constraint(grammar),
-                "rows": rows, "chunked": chunked,
+                "rows": rows, "chunked": chunked, "replays": req.replays,
             })
         joined = self._admit_rows_of(req, rows, chunked)
         self._check_world("admit")

@@ -87,11 +87,13 @@ its mesh; a world of one builds none, and the mesh fields then change
 nothing. Each rank holds its shard of the weights (``parallel.shard_params``;
 the Megatron layout, int4 leaves marked for ``w4_matmul_tp``) and of the KV
 (KVH/TP heads, in the page pool too). n is padded to a multiple of the data
-axis, as the JAX engine pads it, and the coalesced bodies split the decode
-rows over ``data`` (``P(DATA)``'s contiguous blocks, :class:`RowShare`):
-each data rank decodes B/D rows against the replicated prompts, with its
-rows' own draws and per-row state, and the results are gathered once at
-the end of the launch. Prompts of at least
+axis, as the JAX engine pads it, and every body splits the decode rows over
+``data`` (``P(DATA)``'s contiguous blocks, :class:`RowShare`): each data
+rank decodes B/D rows against the replicated prompts (on the ring-decode
+route, against the one prompt's sequence-sharded chunk), with its rows' own
+draws and per-row state, every rank runs the same steps or verify
+iterations (the loop test is one reduction over the mesh, :class:`_LoopTest`),
+and the results are gathered once at the end of the launch. Prompts of at least
 ``sp_prefill_min_tokens`` prefill sequence-parallel over the data axis
 (``engine/long_context.py``, ring or Ulysses attention); with
 ``sp_decode`` a solo request keeps that KV sequence-sharded and decodes
@@ -145,6 +147,7 @@ from ..ops.sampling import draw_noise, model_top_logprobs, sample_logits
 from ..ops.speculative import accept_drafts, propose_prompt_lookup, scatter_rows, scatter_rows_k
 from ..ops.w4matmul import Q4Tensor
 from ..parallel.collectives import all_gather, assert_ranks_agree, gather_to_first, pmax
+from ..parallel.controller import EngineRetiredError
 from ..parallel.distributed import world_size
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, auto_mesh
 from ..parallel.sharding import param_specs, shard_node, shard_params
@@ -380,24 +383,106 @@ class GenRequestSpec(NamedTuple):
     token_sink: Optional[Callable[[int, np.ndarray], None]] = None
 
 
-def _gather_rows(mesh: Mesh, T: int, K: int, toks, lps, done, tt, tl, pois):
+def _gather_rows(mesh: Mesh, T: int, K: int, toks, lps, done, tt, tl, pois, extra=None):
     """A data rank's decode results [Bl, ...] gathered over ``data`` into the
     launch's [B, ...] in row order: one ``all_gather`` of every field packed
-    bit for bit into f32 columns (int32 tokens and ids viewed as f32)."""
+    bit for bit into f32 columns (int32 tokens, ids and the ``extra`` int32
+    columns [Bl, E] viewed as f32). Returns the fields and ``extra``."""
     Bl = toks.shape[0]
     f32 = torch.float32
     parts = [toks.view(f32), lps, done.to(f32)[:, None], pois.to(f32)[:, None]]
     if K:
         parts += [tt.reshape(Bl, T * K).view(f32), tl.reshape(Bl, T * K)]
+    if extra is not None:
+        parts.append(extra.view(f32))
     full = all_gather(torch.cat(parts, dim=1), DATA_AXIS, mesh, dim=0)
     B = full.shape[0]
     toks, lps = full[:, :T].contiguous().view(torch.int32), full[:, T:2 * T].contiguous()
     done, pois = full[:, 2 * T] != 0, full[:, 2 * T + 1] != 0
+    at = 2 * T + 2
     if K:
-        at = 2 * T + 2
         tt = full[:, at: at + T * K].contiguous().view(torch.int32).reshape(B, T, K)
-        tl = full[:, at + T * K:].contiguous().reshape(B, T, K)
-    return toks, lps, done, tt, tl, pois
+        tl = full[:, at + T * K: at + 2 * T * K].contiguous().reshape(B, T, K)
+        at += 2 * T * K
+    if extra is not None:
+        extra = full[:, at:].contiguous().view(torch.int32)
+    return toks, lps, done, tt, tl, pois, extra
+
+
+class _LoopTest:
+    """A decode loop's exit test and abort poller over a launch's rows [lo,
+    hi) of ``r_pad`` members of ``n_per`` rows each. ``reduced`` (a mesh
+    whose ranks hold other rows, or a controller's world) decides the test
+    over the mesh: one max over every rank of [member has a live row here,
+    member aborted here] an iteration, one ``pmax`` on each axis larger than
+    one, so every rank runs the same number of iterations (the collectives
+    inside each one) and a member whose budget one rank saw spent stops on
+    every rank at the same iteration, as JAX's ``while_loop`` on a sharded
+    batch does. Otherwise the test is any row not done, and a spent member's
+    rows fold into ``done`` at the poll. ``aborted`` maps member ->
+    (iteration, host time) at which its rows were folded in."""
+
+    def __init__(self, engine, budgets, r_pad: int, n_per: int, lo: int, hi: int,
+                 reduced: bool):
+        self.engine = engine
+        self.budgets = budgets
+        self.r_pad, self.n_per, self.lo, self.hi = r_pad, n_per, lo, hi
+        self.reduced = reduced
+        self.aborted: Dict[int, Tuple[int, float]] = {}
+        # Members this rank's poller saw spent since the last loop test.
+        self.flips: List[int] = []
+        self.row_member = torch.arange(lo, hi, device=engine.device) // n_per
+
+    def member_rows(self, members) -> torch.Tensor:
+        """[hi - lo] bool on the device: this rank's rows of ``members``."""
+        rows = torch.zeros(self.hi - self.lo, dtype=torch.bool)
+        for j in members:
+            a, b = max(j * self.n_per, self.lo), min((j + 1) * self.n_per, self.hi)
+            if a < b:
+                rows[a - self.lo: b - self.lo] = True
+        return rows.to(self.engine.device)
+
+    def _fold(self, done: torch.Tensor, members, at: int) -> torch.Tensor:
+        seen = time.perf_counter()
+        for j in members:
+            self.aborted[j] = (at, seen)
+        return done | self.member_rows(members)
+
+    def poll(self, done: torch.Tensor, at: int) -> torch.Tensor:
+        """The abort poller after an iteration: the members' budgets read on
+        the host; a spent member is folded in at once, or with ``reduced``
+        at the next loop test."""
+        flipped = [j for j, b in enumerate(self.budgets)
+                   if b is not None and j not in self.aborted and b.should_abort()]
+        if not flipped:
+            return done
+        if self.reduced:
+            self.flips.extend(flipped)
+            return done
+        return self._fold(done, flipped, at)
+
+    def keep_going(self, done: torch.Tensor, at: int) -> Tuple[bool, torch.Tensor]:
+        """(whether the loop runs another iteration, ``done`` with the
+        aborts other ranks saw folded in)."""
+        if not self.reduced:
+            # kllms: ignore[host-sync-hot-path] — port-only: the host loop's exit test, one sync an iteration (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
+            return not bool(done.all()), done
+        mesh, device, r_pad = self.engine.mesh, done.device, self.r_pad
+        live_m = torch.zeros(r_pad, dtype=torch.int32, device=device).index_add_(
+            0, self.row_member, (~done).to(torch.int32)).clamp_(max=1)
+        flagged = torch.zeros(r_pad, dtype=torch.int32)
+        flagged[self.flips] = 1
+        vec = torch.cat([live_m, flagged.to(device)])
+        for axis in (DATA_AXIS, MODEL_AXIS):
+            if mesh.axis_size(axis) > 1:
+                vec = pmax(vec, axis, mesh)
+        # kllms: ignore[host-sync-hot-path] — port-only: the mesh's loop test, the iteration's one sync (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
+        live_g, abort_g = vec.cpu().numpy().reshape(2, r_pad)
+        self.flips.clear()
+        new = [j for j in range(r_pad) if abort_g[j] and j not in self.aborted]
+        if new:
+            done = self._fold(done, new, at)
+        return any(live_g[j] and j not in self.aborted for j in range(r_pad)), done
 
 
 class RowShare(NamedTuple):
@@ -642,7 +727,8 @@ class LocalEngine:
         self._reset_tap_state()
         # The controlling rank's broadcaster (parallel/controller.py): set on
         # a host's first rank of a world, it hands every launch to the
-        # host's other ranks before running it. None elsewhere. ``controlled``
+        # host's other ranks before running it (refused once a rebuild has
+        # retired this engine). None elsewhere. ``controlled``
         # marks every rank of such a world: only the controller polls the
         # members' budgets, so its aborts reach the others through the loop
         # test's reduction. ``host_controller`` is this rank's
@@ -651,6 +737,9 @@ class LocalEngine:
         self.controller = None
         self.controlled = False
         self.host_controller = None
+        # Set (under the controller's plan lock) when a rebuild across the
+        # host's ranks replaces this engine: it announces nothing after.
+        self.retired = False
         # Runtime twin of the annotations above: the lockset sanitizer
         # (KLLMS_RACECHECK=1) skips exactly the fields the static rule skips.
         race_exempt(
@@ -1287,13 +1376,14 @@ class LocalEngine:
         """One launch of ``items``. A solo launch returns its member's
         failure as the list's element (as a coalesced launch does per
         member), except device OOM, which the guard in :meth:`generate_many`
-        must see."""
+        must see, and a retired engine's refusal, which its caller sees
+        (nothing ran)."""
         if len(items) > 1:
             return self._launch(items, **kwargs)
         try:
             return self._launch(items, **kwargs)
         except Exception as e:
-            if is_resource_exhausted(e):
+            if is_resource_exhausted(e) or isinstance(e, EngineRetiredError):
                 raise
             return [e]
 
@@ -1332,7 +1422,7 @@ class LocalEngine:
         ]
         poison_rows = self._poison_rows(self._launch_rows(items)[2])
         if self.controller is not None:
-            self.controller.announce_launch(items, kwargs, poison_rows)
+            self.controller.announce_launch(items, kwargs, poison_rows, self)
             return self.controller.guard(self._run_launch, items, poison_rows, **kwargs)
         return self._run_launch(items, poison_rows, **kwargs)
 
@@ -1373,11 +1463,13 @@ class LocalEngine:
         was spent (its rows froze at the step the abort poller saw it) or
         whose samples an injected fault killed, that member's exception.
 
-        On a mesh with a data axis of D > 1 the coalesced bodies split the
-        rows: data coordinate d decodes rows [d*B/D, (d+1)*B/D) (its
-        :class:`RowShare`) against the replicated prompts, and the tokens,
-        logprobs and flags are gathered over ``data`` once, at the end. The
-        speculative launches and the ring-decode route keep whole rows."""
+        On a mesh with a data axis of D > 1 every body splits the rows: data
+        coordinate d decodes rows [d*B/D, (d+1)*B/D) (its :class:`RowShare`)
+        against the replicated prompts, or on the ring-decode route against
+        the one prompt's sequence-sharded chunk (the queries of JAX's
+        ``ring_decode_prefix``), and the tokens, logprobs, flags and, on a
+        speculative launch, the per-row counts are gathered over ``data``
+        once, at the end."""
         config = self.config
         device = self.device
         t_start = time.perf_counter()
@@ -1407,8 +1499,7 @@ class LocalEngine:
             len(items) == 1 and self.sp_decode and self._use_sp_prefill(*preps[0][1:])
         ) else None
         share = None
-        if (self.data_parallel_size > 1 and ring_mesh is None
-                and self.speculative != "prompt_lookup"):
+        if self.data_parallel_size > 1:
             share = row_share(B, n_per, self.data_parallel_size, self.mesh.axis_index(DATA_AXIS))
 
         def run_loop(step_fn, first_logits):
@@ -1443,11 +1534,11 @@ class LocalEngine:
                     top_logprobs=top_logprobs, frequency_penalty=frequency_penalty,
                     presence_penalty=presence_penalty,
                     bias=self._bias_array(logit_bias) if logit_bias else None,
-                    stops=stops if use_stops else None,
+                    stops=stops if use_stops else None, share=share,
                 )
 
             (*out, count_np, iters_np), t_prefill = self._generate_speculative(
-                preps, r_pad, run_spec, ring_mesh
+                preps, r_pad, run_spec, ring_mesh, share
             )
             spec_np = (count_np, iters_np)
         else:
@@ -1753,15 +1844,15 @@ class LocalEngine:
         ``sp_resident`` route, decoded by ring attention); every row's
         generated KV in a dense ``[L, B, max_new, KVH, D]`` cache. With
         ``share`` the gen cache holds this data rank's B/D rows and the
-        prefix its row groups' prompts. Returns (loop output, prefill end
-        time)."""
+        prefix its row groups' prompts (on the ring route, the one prompt's
+        chunk). Returns (loop output, prefill end time)."""
         config = self.config
         first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad, ring_mesh)
         rows, n_per_gate = r_pad * n_per, None
         if share is not None:
-            idx = torch.as_tensor(share.groups, device=self.device)
-            first_logits, prompt_lens = first_logits[idx], prompt_lens[idx]
-            prefix = KVCache(k=prefix.k.index_select(1, idx), v=prefix.v.index_select(1, idx))
+            if ring_mesh is None:
+                first_logits, prefix, prompt_lens = self._share_groups(
+                    share, first_logits, prefix, prompt_lens)
             rows, n_per_gate = share.hi - share.lo, n_per
         gen_cache = init_cache(self.kv_config, rows, max_new_tokens, self.device)
         self._sync()
@@ -1773,12 +1864,13 @@ class LocalEngine:
 
         return run_loop(step_fn, first_logits), t_prefill
 
-    def _generate_speculative(self, preps, r_pad, run_spec, ring_mesh=None):
+    def _generate_speculative(self, preps, r_pad, run_spec, ring_mesh=None, share=None):
         """The speculative body: the stacked dense prefix of
         :meth:`_dense_prefix` (speculative launches decode dense, as in the
         JAX engine) and each request's prompt table ``[r_pad, P]`` for the
-        drafter, padding requests repeating the last one's. Returns (loop
-        output, prefill end time)."""
+        drafter, padding requests repeating the last one's; with ``share``
+        only its row groups' requests (the ring route's one request keeps its
+        chunk). Returns (loop output, prefill end time)."""
         first_logits, prefix, prompt_lens = self._dense_prefix(preps, r_pad, ring_mesh)
         bucket_max = max(bucket for _, _, bucket in preps)
         table = np.full((r_pad, bucket_max), self.config.pad_token_id, np.int64)
@@ -1786,9 +1878,20 @@ class LocalEngine:
             table[j, :prompt_len] = ids
         table[len(preps):] = table[len(preps) - 1]
         prompt_tokens = torch.as_tensor(table, device=self.device)
+        if share is not None and ring_mesh is None:
+            first_logits, prefix, prompt_lens, prompt_tokens = self._share_groups(
+                share, first_logits, prefix, prompt_lens, prompt_tokens)
         self._sync()
         t_prefill = time.perf_counter()
         return run_spec(first_logits, prefix, prompt_tokens, prompt_lens), t_prefill
+
+    def _share_groups(self, share: RowShare, first_logits, prefix, prompt_lens, *tables):
+        """The request-level inputs of a dense body cut to a data rank's row
+        groups: first logits [groups, V], the stacked prefix, the prompt
+        lengths and any ``tables`` [r_pad, ...]."""
+        idx = torch.as_tensor(share.groups, device=self.device)
+        prefix = KVCache(k=prefix.k.index_select(1, idx), v=prefix.v.index_select(1, idx))
+        return (first_logits[idx], prefix, prompt_lens[idx], *(t[idx] for t in tables))
 
     def _dense_prefix(self, preps, r_pad, ring_mesh=None):
         """Each prompt's KV (through the prefix cache when it is on),
@@ -1951,52 +2054,10 @@ class LocalEngine:
             recent[:, -1] = tok
             done = done | stop_window_match(recent, stops)
 
-        # The abort poller: member -> (step, host time) at which its rows
-        # were folded into done.
-        polled = [b for b in budgets if b is not None]
-        aborted: Dict[int, Tuple[int, float]] = {}
-        # Members the poller saw spent on this rank since the last loop test
-        # (folded in there on a mesh, at once without one).
-        flips: List[int] = []
-
-        def member_rows(members) -> torch.Tensor:
-            """[Bl] bool on the device: this rank's rows of ``members``."""
-            rows = torch.zeros(Bl, dtype=torch.bool)
-            for j in members:
-                a, b = max(j * n_per, lo), min((j + 1) * n_per, hi)
-                if a < b:
-                    rows[a - lo: b - lo] = True
-            return rows.to(device)
-
-        row_member = torch.arange(lo, hi, device=device) // n_per
-
-        def keep_going() -> bool:
-            """The loop test. Without a mesh, any row not done. On a mesh,
-            one max over every rank of [member has a live row here, member
-            aborted here]: a member runs on while some rank holds a live row
-            of it and no rank has seen its budget spent."""
-            nonlocal done
-            if mesh is None or (share is None and not self.controlled):
-                # kllms: ignore[host-sync-hot-path] — port-only: the host loop's exit test, one sync a step (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
-                return not bool(done.all())
-            live_m = torch.zeros(r_pad, dtype=torch.int32, device=device).index_add_(
-                0, row_member, (~done).to(torch.int32)).clamp_(max=1)
-            flagged = torch.zeros(r_pad, dtype=torch.int32)
-            flagged[flips] = 1
-            vec = torch.cat([live_m, flagged.to(device)])
-            for axis in (DATA_AXIS, MODEL_AXIS):
-                if mesh.axis_size(axis) > 1:
-                    vec = pmax(vec, axis, mesh)
-            # kllms: ignore[host-sync-hot-path] — port-only: the mesh's loop test, the step's one sync (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
-            live_g, abort_g = vec.cpu().numpy().reshape(2, r_pad)
-            flips.clear()
-            new = [j for j in range(r_pad) if abort_g[j] and j not in aborted]
-            if new:
-                seen = time.perf_counter()
-                for j in new:
-                    aborted[j] = (step, seen)
-                done = done | member_rows(new)
-            return any(live_g[j] and j not in aborted for j in range(r_pad))
+        # The loop test and the abort poller (member -> (step, host time) at
+        # which its rows were folded into done).
+        test = _LoopTest(self, budgets, r_pad, n_per, lo, hi,
+                         reduced=mesh is not None and (share is not None or self.controlled))
 
         # The streaming tap: each step's tokens go to the host in one
         # non-blocking copy, which the next loop test's sync completes; they
@@ -2018,7 +2079,10 @@ class LocalEngine:
         pending = (0, tap_copy(tok)) if tapped else None
 
         step = 0
-        while step < max_new_tokens - 1 and keep_going():
+        while step < max_new_tokens - 1:
+            going, done = test.keep_going(done, step)
+            if not going:
+                break
             logits, bad = prepare(step_fn(tok, step), done)
             frozen = done | bad
             draw_step += 1
@@ -2041,21 +2105,7 @@ class LocalEngine:
             if stops is not None:
                 recent = torch.cat([recent[:, 1:], nxt[:, None]], dim=1)
                 done = done | stop_window_match(recent, stops)
-            if polled:
-                flipped = [
-                    j for j, b in enumerate(budgets)
-                    if b is not None and j not in aborted and b.should_abort()
-                ]
-                if flipped:
-                    if mesh is not None and (share is not None or self.controlled):
-                        flips.extend(flipped)  # folded in at the loop test
-                    else:
-                        # Token-granularity cancellation: the member's row
-                        # group (rows are request-major) freezes like eos rows.
-                        seen = time.perf_counter()
-                        for j in flipped:
-                            aborted[j] = (step, seen)
-                        done = done | member_rows(flipped)
+            done = test.poll(done, step)
             if tapped:
                 # kllms: ignore[host-sync-hot-path] — port-only: a view of the tap's non-blocking host copy, completed by the step's loop-test sync; no readback of its own (ROADMAP Queue 2 item 2)
                 deliver(pending)
@@ -2075,7 +2125,7 @@ class LocalEngine:
             tt[:, :n_steps] = torch.stack(tt_steps, dim=1).to(torch.int32)
             tl[:, :n_steps] = torch.stack(tl_steps, dim=1)
         if share is not None:
-            toks, lps, done, tt, tl, pois = _gather_rows(
+            toks, lps, done, tt, tl, pois, _ = _gather_rows(
                 mesh, max_new_tokens, K, toks, lps, done, tt, tl, pois)
         self._sync()
         if tapped:
@@ -2087,14 +2137,14 @@ class LocalEngine:
 
         return (
             host(toks), host(lps), host(done), host(tt), host(tl), host(pois), n_steps - 1,
-            aborted,
+            test.aborted,
         )
 
     def _spec_decode(
         self, first_logits, prefix, prompt_tokens, prompt_lens, n_per, r_pad, req_keys, ring_mesh,
         cops,
         budgets, poison0, *, max_new_tokens, temperature, top_p, top_k, eos_t, top_logprobs,
-        frequency_penalty, presence_penalty, bias, stops,
+        frequency_penalty, presence_penalty, bias, stops, share=None,
     ):
         """The prompt-lookup speculative loop over ``B = r_pad * n_per``
         rows, the JAX engine's ``_get_spec_decode_loop`` step for step. Each
@@ -2123,6 +2173,18 @@ class LocalEngine:
         ``max_new + K + 1`` slots and so do the token buffers: a row's count
         never passes ``max_new``, so no write needs JAX's clamp.
 
+        With ``share`` (a data rank's :class:`RowShare`) the loop runs this
+        rank's rows [lo, hi) only, as JAX's ``P(DATA_AXIS, None)`` places
+        them: ``first_logits``, ``prompt_tokens``, ``prompt_lens`` and the
+        prefix hold its row groups' requests (with ``ring_mesh``, the one
+        request's sequence-sharded chunk), ``poison0`` is the launch's [B]
+        mask, and the draws are keyed by each row's global request and index.
+        Every rank runs the same iterations: the loop test is one reduction
+        over the mesh an iteration (:class:`_LoopTest`, which carries a
+        controller's aborts), and a rank whose rows are done iterates on
+        with them frozen. The tokens, logprobs, flags, top logprobs and the
+        per-row counts are gathered over ``data`` once, at the end.
+
         Returns numpy (tokens, logprobs, finish flags, top ids, top
         logprobs, poisoned), the iteration count, the poller's aborts, and
         numpy (emitted counts, verify iterations entered) per row."""
@@ -2131,7 +2193,11 @@ class LocalEngine:
         pad_id = config.pad_token_id
         K = self.spec_lookahead
         K1 = K + 1
-        B = r_pad * n_per
+        lo, hi = (share.lo, share.hi) if share is not None else (0, r_pad * n_per)
+        B = hi - lo  # this rank's rows
+        n_loc = share.n_loc if share is not None else n_per
+        draw_rows = (lo, hi) if share is not None else None
+        mesh = self.mesh
         max_new = max_new_tokens
         BUF = max_new + K1
         V = first_logits.shape[-1]
@@ -2154,24 +2220,24 @@ class LocalEngine:
         def select(cond, a, b):
             return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
 
-        prompt_row = prompt_tokens.repeat_interleave(n_per, dim=0)  # [B, P]
-        plen_row = prompt_lens.to(torch.int64).repeat_interleave(n_per)  # [B]
+        prompt_row = prompt_tokens.repeat_interleave(n_loc, dim=0)  # [B, P]
+        plen_row = prompt_lens.to(torch.int64).repeat_interleave(n_loc)  # [B]
 
         # Step 0: the first token from the prefill's logits.
-        logits0 = first_logits.repeat_interleave(n_per, dim=0)  # [B, V]
+        logits0 = first_logits.repeat_interleave(n_loc, dim=0)  # [B, V]
         if jstate is not None:
             logits0 = mask_logits(jt, logits0, *jstate, eos_t)
         else:
             logits0 = logits0.clone()
         logits0[:, pad_id] += pad_col
         if poison0 is not None:
-            logits0 = torch.where(poison0[:, None], float("nan"), logits0)
+            logits0 = torch.where(poison0[lo:hi, None], float("nan"), logits0)
         bad0 = _poisoned_logits(logits0)
         logits0 = torch.where(bad0[:, None], torch.zeros_like(logits0), logits0)
         noise0 = None
         if req_keys is not None:
             noise0 = draw_noise(req_keys, torch.zeros((), dtype=torch.int32, device=device),
-                                n_per, V)
+                                n_per, V, rows=draw_rows)
         tok0, lp0 = sample(logits0, noise0, -bias[None, :] if bias is not None else None)
         tok0 = torch.where(bad0, torch.full_like(tok0, pad_id), tok0)
         lp0 = torch.where(bad0, torch.zeros_like(lp0), lp0)
@@ -2205,18 +2271,19 @@ class LocalEngine:
         row_iters = torch.zeros((B,), dtype=torch.int64, device=device)
         gen_cache = init_cache(self.kv_config, B, BUF, device)
 
-        # Under a controller the speculative loop keeps whole rows and a
-        # host exit test of its own: only the controller holds budgets, so it
-        # polls none, and a spent member fails at the launch's end
-        # (_apply_decode_faults) rather than mid-loop.
-        polled = [b for b in budgets if b is not None] if not self.controlled else []
-        aborted: Dict[int, Tuple[int, float]] = {}
+        # Split rows differ across data ranks: the check compares the ranks
+        # that hold the same rows (the model axis).
+        check_axis = MODEL_AXIS if share is not None else None
+        test = _LoopTest(self, budgets, r_pad, n_per, lo, hi,
+                         reduced=mesh is not None and (share is not None or self.controlled))
         # The iteration number lives on the device too, so no host value
         # enters a draw.
         it_dev = torch.ones((), dtype=torch.int32, device=device)
         it = 1
-        # kllms: ignore[host-sync-hot-path] — port-only: the host loop's exit test, one sync an iteration (JAX's while_loop tests on the device); ROADMAP Queue 2 item 2
-        while it < max_new and not bool(done.all()):
+        while it < max_new:
+            going, done = test.keep_going(done, it)
+            if not going:
+                break
             row_iters += (~done).to(torch.int64)
             cur = toks.gather(1, (count - 1)[:, None])[:, 0]
             prev = torch.where(
@@ -2228,7 +2295,7 @@ class LocalEngine:
                 prompt_row, plen_row, prev, cur, K, gen=toks, gen_len=count
             ).to(torch.int64)  # [B, K]
             block = torch.cat([cur[:, None], drafts], dim=1)  # [B, K+1]
-            self._check_ranks(block, "speculative block")
+            self._check_ranks(block, "speculative block", check_axis)
             logits, _ = verify_step(
                 config, self.params, block, count - 1, prompt_lens, gen_cache, prefix,
                 ring_mesh=ring_mesh,
@@ -2268,7 +2335,7 @@ class LocalEngine:
                 pen = (-bias)[None, :].expand(B * K1, V)
             noise = None
             if req_keys is not None:
-                noise = threefry_uniform_verify(req_keys, it_dev, n_per, K1, V)
+                noise = threefry_uniform_verify(req_keys, it_dev, n_per, K1, V, rows=draw_rows)
             t_flat, lp_flat = sample(flat, noise, pen)
             sampled = t_flat.reshape(B, K1)
             lp_arr = lp_flat.reshape(B, K1)
@@ -2327,32 +2394,27 @@ class LocalEngine:
             hit_eos_any = hit_eos_any | hit_eos | stop_hit
             done = done | hit_eos | stop_hit | badrow | (count >= max_new)
             pois = pois | badrow
-            if polled:
-                flipped = [
-                    j for j, b in enumerate(budgets)
-                    if b is not None and j not in aborted and b.should_abort()
-                ]
-                if flipped:
-                    seen = time.perf_counter()
-                    frozen = torch.zeros(B, dtype=torch.bool)
-                    for j in flipped:
-                        aborted[j] = (it, seen)
-                        frozen[j * n_per: (j + 1) * n_per] = True
-                    done = done | frozen.to(device)
+            done = test.poll(done, it)
             it += 1
             it_dev += 1
 
+        toks_out = toks[:, :max_new].to(torch.int32)
+        lps_out = lps[:, :max_new]
+        tt_out = None if tt is None else tt[:, :max_new].to(torch.int32)
+        tl_out = None if tlb is None else tlb[:, :max_new]
+        if share is not None:
+            toks_out, lps_out, hit_eos_any, tt_out, tl_out, pois, counts = _gather_rows(
+                mesh, max_new, KT, toks_out, lps_out, hit_eos_any, tt_out, tl_out, pois,
+                extra=torch.stack([count, row_iters], dim=1).to(torch.int32))
+            count, row_iters = counts[:, 0], counts[:, 1]
         self._sync()
 
         def host(t):
             return None if t is None else t.cpu().numpy()
 
-        toks_np = host(toks[:, :max_new]).astype(np.int32)
-        tt_np = None if tt is None else host(tt[:, :max_new]).astype(np.int32)
         return (
-            toks_np, host(lps[:, :max_new]), host(hit_eos_any), tt_np,
-            None if tlb is None else host(tlb[:, :max_new]), host(pois), it - 1, aborted,
-            host(count), host(row_iters),
+            host(toks_out), host(lps_out), host(hit_eos_any), host(tt_out), host(tl_out),
+            host(pois), it - 1, test.aborted, host(count), host(row_iters),
         )
 
     # -- embeddings (similarity side-channel) -----------------------------
@@ -2361,8 +2423,8 @@ class LocalEngine:
         """Mean-pooled final hidden states (announced to the followers first
         under a controller)."""
         if self.controller is not None:
-            return self.controller.call("_embed", [list(map(int, t)) for t in token_lists],
-                                        max_tokens)
+            return self.controller.call(self, "_embed",
+                                        [list(map(int, t)) for t in token_lists], max_tokens)
         return self._embed(token_lists, max_tokens)
 
     @torch.inference_mode()

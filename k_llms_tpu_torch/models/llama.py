@@ -522,11 +522,13 @@ def decode_attention(q, cache_k, cache_v, key_mask, pk, pv, prefix_mask, prefix_
     Shared by the dense and the paged reference step, so the two agree
     operation for operation. With ``ring_mesh`` the prefix is this rank's
     chunk of a single request's SEQUENCE-SHARDED prefix (R = 1) and ring
-    attention scores it (the JAX ``sp_ring_mesh`` arm, any ``Sq``)."""
+    attention scores it (the JAX ``sp_ring_mesh`` arm, any ``Sq``); the B
+    rows are this rank's share of the launch's, as JAX's ``q_spec`` places
+    the queries over the ring's axis."""
     if ring_mesh is not None:
-        from ..ops.ring_attention import ring_prefix_rows
+        from ..ops.ring_attention import ring_verify_prefix
 
-        out_p, m_p, l_p = ring_prefix_rows(
+        out_p, m_p, l_p = ring_verify_prefix(
             ring_mesh, q.transpose(1, 2), pk, pv, prefix_lengths.reshape(-1)[0], sm_scale=scale
         )
         return _merge_prefix_tail(q, cache_k, cache_v, key_mask, scale, out_p, m_p, l_p)

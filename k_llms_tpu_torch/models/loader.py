@@ -29,10 +29,13 @@ float leaf after the load, so that verification must trip.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
+import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -51,7 +54,10 @@ logger = logging.getLogger(__name__)
 NATIVE_METADATA = {"format": "k_llms_tpu_torch.params"}
 NATIVE_FILE = "params.safetensors"
 # Host bytes one step of the checksum moves off the device.
-_CHUNK_BYTES = 1 << 28
+_CHUNK_BYTES = 1 << 26
+# Threads that copy chunks to the host and checksum them (both release the
+# GIL); at most this many chunks are on the host at once.
+_CHECKSUM_WORKERS = min(8, os.cpu_count() or 1)
 
 
 def _tree_leaves(tree: Any, path: str = "") -> List[Tuple[str, torch.Tensor]]:
@@ -76,15 +82,56 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
-def _byte_chunks(t: torch.Tensor):
-    """The tensor's bytes in row-major order, as host uint8 chunks of at
-    most ``_CHUNK_BYTES``."""
-    flat = t.detach().contiguous().reshape(-1)
-    if flat.numel() == 0:
-        return
-    step = max(1, _CHUNK_BYTES // flat.element_size())
-    for lo in range(0, flat.numel(), step):
-        yield flat[lo: lo + step].to("cpu").view(torch.uint8).numpy()
+def _chunk_ranges(t: torch.Tensor) -> List[Tuple[int, int]]:
+    """[lo, hi) element ranges of the flattened tensor, each at most
+    ``_CHUNK_BYTES``, in row-major order."""
+    step = max(1, _CHUNK_BYTES // t.element_size())
+    n = t.numel()
+    return [(lo, min(lo + step, n)) for lo in range(0, n, step)]
+
+
+def _chunk_crc(flat: torch.Tensor, lo: int, hi: int, local: threading.local) -> int:
+    """crc32 (from 0) of elements [lo, hi) of ``flat``; a chunk on a card is
+    copied into the calling thread's reused host buffer first."""
+    part = flat[lo:hi].view(torch.uint8)
+    if part.device.type != "cpu":
+        buf = getattr(local, "buf", None)
+        if buf is None or buf.numel() < part.numel():
+            buf = local.buf = torch.empty(max(part.numel(), _CHUNK_BYTES), dtype=torch.uint8)
+        part = buf[: part.numel()].copy_(part)
+    return zlib.crc32(memoryview(part.numpy()))
+
+
+def _gf2_times(mat: List[int], vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _zeros_operator(nbytes: int) -> Tuple[int, ...]:
+    """The GF(2) matrix that advances a crc32 over ``nbytes`` zero bytes
+    (zlib's ``crc32_combine``, with the operator kept for reuse)."""
+    op = [0xEDB88320] + [1 << n for n in range(31)]  # one zero bit
+    for _ in range(3):  # eight zero bits: one byte
+        op = [_gf2_times(op, op[n]) for n in range(32)]
+    out = None
+    while nbytes:
+        if nbytes & 1:
+            out = op if out is None else [_gf2_times(op, out[n]) for n in range(32)]
+        nbytes >>= 1
+        if nbytes:
+            op = [_gf2_times(op, op[n]) for n in range(32)]
+    return tuple(out if out is not None else [1 << n for n in range(32)])
+
+
+def _crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """crc32 of A + B from crc32(A), crc32(B) and len(B)."""
+    return _gf2_times(_zeros_operator(len2), crc1) ^ crc2
 
 
 def param_summary(params: Any) -> Dict[str, Any]:
@@ -92,18 +139,28 @@ def param_summary(params: Any) -> Dict[str, Any]:
     dtype histogram (leaf counts) and a crc32 content checksum over each
     leaf's path string and bytes in pytree order. On the same weights it
     equals the JAX function's result. Leaves on a card are copied to the
-    host a chunk at a time."""
+    host a chunk at a time; the chunks are checksummed in parallel and their
+    crc32s combined in order."""
     leaves = _tree_leaves(params)
     total = 0
     hist: Dict[str, int] = {}
-    crc = 0
-    for path, leaf in leaves:
+    parts = []  # (leaf index, flat, lo, hi)
+    for i, (_, leaf) in enumerate(leaves):
         total += leaf.numel() * leaf.element_size()
         key = _dtype_name(leaf)
         hist[key] = hist.get(key, 0) + 1
+        flat = leaf.detach().contiguous().reshape(-1)
+        parts += [(i, flat, lo, hi) for lo, hi in _chunk_ranges(flat)]
+    local = threading.local()
+    with ThreadPoolExecutor(max_workers=_CHECKSUM_WORKERS) as pool:
+        crcs = list(pool.map(lambda p: _chunk_crc(*p[1:], local), parts))
+    crc, k = 0, 0
+    for i, (path, _) in enumerate(leaves):
         crc = zlib.crc32(path.encode(), crc)
-        for chunk in _byte_chunks(leaf):
-            crc = zlib.crc32(memoryview(chunk), crc)
+        while k < len(parts) and parts[k][0] == i:
+            _, flat, lo, hi = parts[k]
+            crc = _crc32_combine(crc, crcs[k], (hi - lo) * flat.element_size())
+            k += 1
     return {
         "total_bytes": total,
         "num_leaves": len(leaves),

@@ -140,7 +140,8 @@ def threefry_uniform(req_keys: torch.Tensor, step: torch.Tensor, n_per: int,
 
 
 def threefry_uniform_verify(req_keys: torch.Tensor, iteration: torch.Tensor, n_per: int,
-                            positions: int, V: int) -> torch.Tensor:
+                            positions: int, V: int,
+                            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One speculative verify iteration's uniforms, ``[R * n_per * positions,
     V]`` float32, laid out row-major ``(row, position)`` as the flattened
     verify logits are: position j of sample i of request r takes
@@ -149,22 +150,26 @@ def threefry_uniform_verify(req_keys: torch.Tensor, iteration: torch.Tensor, n_p
     (:func:`threefry_uniform_rows`) with keys ``fold_in(req_keys[r],
     iteration)``, step j and index i: one launch an iteration.
     ``iteration`` is a 0-d int32 tensor on the keys' device, so no host
-    value enters the draw."""
+    value enters the draw. ``rows`` ``(lo, hi)`` draws only the launch's
+    rows [lo, hi) (a data rank's share), keyed by each row's global request
+    and index: the same bits as those rows of the whole draw."""
     if req_keys.dim() != 2 or req_keys.shape[1] != 2 or n_per < 1 or positions < 1:
         raise ValueError(f"threefry_uniform_verify: req_keys must be [R, 2], got "
                          f"{tuple(req_keys.shape)}; n_per={n_per}, positions={positions}")
     R = req_keys.shape[0]
+    lo, hi = rows if rows is not None else (0, R * n_per)
+    if not 0 <= lo < hi <= R * n_per:
+        raise ValueError(f"threefry_uniform_verify: rows {rows} outside the launch's {R * n_per}")
     device = req_keys.device
     # fold_in with the iteration's words already on the device: no host
     # value is copied in, so the call can be captured in a CUDA graph.
     it = iteration.to(torch.int64).reshape(1).expand(R)
     y0, y1 = threefry2x32(req_keys[:, 0], req_keys[:, 1], torch.zeros_like(it), it)
     it_keys = torch.stack([y0, y1], dim=-1)  # [R, 2]
-    keys = it_keys[:, None, :].expand(R, n_per * positions, 2).reshape(-1, 2)
-    j = torch.arange(positions, dtype=torch.int32, device=device)
-    i = torch.arange(n_per, dtype=torch.int32, device=device)
-    steps = j[None, None, :].expand(R, n_per, positions).reshape(-1)
-    index = i[None, :, None].expand(R, n_per, positions).reshape(-1)
+    g = torch.arange(lo, hi, device=device)
+    keys = it_keys[g // n_per].repeat_interleave(positions, dim=0)
+    steps = torch.arange(positions, dtype=torch.int32, device=device).repeat(hi - lo)
+    index = (g % n_per).to(torch.int32).repeat_interleave(positions)
     return threefry_uniform_rows(keys, steps, index, V)
 
 

@@ -164,38 +164,6 @@ def ring_decode_prefix(
     return out[:, :, 0], m[:, :, 0], l[:, :, 0]
 
 
-def ring_prefix_rows(
-    mesh: Mesh,
-    q: torch.Tensor,
-    prefix_k: torch.Tensor,
-    prefix_v: torch.Tensor,
-    prefix_len,
-    *,
-    seq_axis: str = "data",
-    sm_scale: Optional[float] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`ring_verify_prefix` for a step whose rows are whole on every
-    rank (the port's decode layout): this rank runs the ring on its block of
-    rows, as the JAX mesh runs it on the rows of the device, and the blocks
-    are gathered back whole, so every rank holds the same bytes. q: [B, QH,
-    Sq, D] with B divisible by the ring (the engine pads n to the data axis).
-    Returns (out [B, QH, Sq, D], m, l [B, QH, Sq])."""
-    from ..parallel.collectives import all_gather
-
-    B, QH, Sq, D = q.shape
-    p_size = mesh.axis_size(seq_axis)
-    if B % p_size:
-        raise ValueError(f"ring decode: {B} rows do not divide over the ring of {p_size}")
-    blk = B // p_size
-    lo = mesh.axis_index(seq_axis) * blk
-    out, m, l = ring_verify_prefix(
-        mesh, q[lo: lo + blk], prefix_k, prefix_v, prefix_len,
-        seq_axis=seq_axis, sm_scale=sm_scale,
-    )
-    packed = all_gather(torch.cat([out, m[..., None], l[..., None]], dim=-1), seq_axis, mesh)
-    return packed[..., :D], packed[..., D], packed[..., D + 1]
-
-
 def suffix_prefix_attention(
     mesh: Mesh,
     q: torch.Tensor,

@@ -42,8 +42,24 @@ coordinator's store and ends its process (:data:`FOLLOWER_FAULT_EXIT`),
 which closes its connections: every collective the others wait in fails at
 once, and the controller's launch fails as the typed 503
 (``BackendUnavailableError``, ``KernelUnavailableError`` for a kernel) with
-the follower's error. The world is then stopped, not rebuilt: every later
-request gets the same 503.
+the follower's error. The world is then stopped: every later request gets
+the same 503 (a follower's process cannot be started again from inside the
+world).
+
+Plans go out under a lock of their own (``controller.plans``), taken after
+the engine's launch lock where a launch holds both, never before it. A
+fault of the controller's that JAX heals by rebuilding its engine (a hung
+launch, a poison escalation, a hung loop step or chunk, a corrupt loop
+pool) is healed across the host the same way: the controller retires its
+engine and sends the ``("rebuild", epoch)`` plan (:meth:`HostController.
+rebuild`), every follower drops its engine and builds a new one on the same
+mesh (the backend's :attr:`HostController.on_rebuild`), and the
+controller's request is replayed on its new engine, with the supervisor's
+and the loop's bounds. A retired engine announces nothing: a hung thread
+that wakes on it gets :class:`EngineRetiredError` and no follower receives
+its plan. A launch, call or hook announced before its thread hung leaves
+the followers inside it: the rebuild waits for it to end (at most the
+budget the backend gives), and stops the world if it does not.
 
 The continuous decode loop (``engine/continuous.py``) runs on every rank:
 the controller's loop is the one users submit to, and each follower holds a
@@ -55,10 +71,9 @@ and replayed by the replicas in plan order, so every rank's slot table, page
 allocator, prefix cache and grammar states stay identical. The budgets stay
 on the controller: its aborts ride the next step's plan. With
 ``KLLMS_RANK_CHECK=1`` every loop plan ends with :meth:`HostController.agree`
-over the slot mirrors and the allocator's digest. A fault of the
-controller's own loop that needs an engine rebuild (a hung step, a corrupt
-page pool) stops the world; followers still idle between plans are released
-with the close plan (:meth:`HostController.stop_world`).
+over the slot mirrors and the allocator's digest. A rebuild plan empties
+every replica onto the follower's new engine, and the controller's loop
+re-admits its journalled survivors through ordinary announced admissions.
 """
 
 from __future__ import annotations
@@ -66,12 +81,15 @@ from __future__ import annotations
 import logging
 import os
 import sys
+import threading
+import time
 import traceback
 from datetime import timedelta
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch.distributed as dist
 
+from ..analysis.lockcheck import make_rlock, race_exempt
 from ..reliability import failpoints as _failpoints
 from ..types.wire import BackendUnavailableError
 from .collectives import RankDivergenceError
@@ -103,6 +121,14 @@ class FollowerFaultError(BackendUnavailableError):
     code = "follower_fault"
 
 
+class EngineRetiredError(BackendUnavailableError):
+    """An engine the controller has rebuilt tried to announce an operation:
+    nothing was sent and nothing ran (the caller may run it again on the
+    current engine)."""
+
+    code = "engine_retired"
+
+
 def _discard(step, tokens) -> None:
     """A follower's stand-in token sink: it marks the member as streamed so
     the decode loop gathers each step, and drops the tokens."""
@@ -122,12 +148,36 @@ class HostController:
         # schema); identity by default.
         self.encode_constraint: Callable[[Any], Any] = lambda c: ("object", c)
         self.decode_constraint: Callable[[Any], Any] = lambda c: c[1]
-        # kllms: unguarded — set once, under the launch lock, when the world stops
+        # kllms: unguarded — set once, when the world stops; readers raise it
         self.stopped: Optional[BackendUnavailableError] = None
+        # kllms: unguarded — counted by the one thread that sends or serves plans
         self.plans = 0
         # The continuous loop on this rank: the controller's own (set by the
         # backend) or a follower's replica (built by the "init" plan).
         self.loop = None
+        # Plans go out one at a time under a lock of their own, so that a
+        # hung launch holding its engine's launch lock cannot hold back the
+        # rebuild plan.
+        self._plan_lock = make_rlock("controller.plans")
+        # Clear while a launch, call or hook announced to the followers is
+        # still running on the controller (they are inside it).
+        self._idle = threading.Event()
+        self._idle.set()
+        # A follower's part of a rebuild plan (the backend's): drop the
+        # engine, build a new one on the same mesh, adopt it.
+        self.on_rebuild: Optional[Callable[[], None]] = None
+        # kllms: unguarded — the rebuild epoch, written under the plan lock
+        self.rebuilds = 0
+        # kllms: unguarded — swapped by the one rebuilding thread; a retired engine's plans are refused under the plan lock
+        self.engine = None
+        # Runtime twin of the annotations above (KLLMS_RACECHECK=1).
+        race_exempt(self, "stopped", "plans", "rebuilds", "engine")
+        self.adopt(engine)
+
+    def adopt(self, engine) -> None:
+        """Make ``engine`` this rank's: it announces through this controller
+        (on the host's first rank) and marks itself controlled."""
+        self.engine = engine
         engine.controlled = True
         engine.host_controller = self
         if self.is_controller:
@@ -152,11 +202,20 @@ class HostController:
         return cls(engine, group, mine)
 
     # -- the controller -------------------------------------------------------
-    def _send(self, plan) -> None:
+    def _send(self, plan, source=None, opens: bool = False) -> None:
+        """Broadcast ``plan`` under the plan lock. ``source``: the engine the
+        plan comes from; a retired one raises :class:`EngineRetiredError`
+        and sends nothing. ``opens``: the plan starts an operation that runs
+        until its :meth:`guard` ends."""
         if self.stopped is not None:
             raise self.stopped
-        with self.engine._launch_lock:
+        with self._plan_lock:
+            if source is not None and source.retired:
+                raise EngineRetiredError(
+                    "this engine was retired by a rebuild; its operation was not announced")
             self._broadcast(plan)
+            if opens:
+                self._idle.clear()
 
     def _broadcast(self, plan) -> None:
         try:
@@ -170,7 +229,7 @@ class HostController:
         controller's continuous loop. The loop's worker calls it inside its
         operation's section, which holds the launch lock from here to the
         operation's end."""
-        self._send(("loop", op, payload))
+        self._send(("loop", op, payload), source=self.loop.engine)
 
     def agree(self, value: Any, what: str) -> None:
         """Raise :class:`RankDivergenceError` on every rank of the host
@@ -187,53 +246,90 @@ class HostController:
                 f"(rank {dist.get_rank()} checking)"
             )
 
-    def stop_world(self, cause: BaseException, release: bool) -> BackendUnavailableError:
-        """Stop the world for a fault of the controller's own loop (the
-        typed 503 from now on). With ``release`` no follower is inside an
-        announced operation, and the close plan ends their serving."""
-        err = self._stop(cause)
-        if release:
-            with self.engine._launch_lock:
-                try:
-                    self._broadcast(("close",))
-                except BackendUnavailableError:
-                    logger.debug("controller: the close plan did not reach the followers")
-        return err
+    def stop_world(self, cause: BaseException) -> BackendUnavailableError:
+        """Stop the world for a fault of the controller's own loop that left
+        the followers inside an announced operation (the typed 503 from now
+        on)."""
+        return self._stop(cause)
+
+    def rebuild(self, build: Callable[[], Any], wait_s: float):
+        """Rebuild the engine on every rank of the host; returns the
+        controller's new engine from ``build()``. Once no announced launch,
+        call or hook is open (waiting at most ``wait_s`` for one to end), the
+        current engine is retired and the ``("rebuild", epoch)`` plan sent,
+        both under the plan lock; then ``build()`` runs here and the new
+        engine is adopted. An operation still open after ``wait_s`` stops the
+        world: the followers are inside it and cannot read the plan."""
+        deadline = time.monotonic() + wait_s
+        while True:
+            if self.stopped is not None:
+                raise self.stopped
+            with self._plan_lock:
+                if self._idle.is_set():
+                    self.engine.retired = True
+                    self.rebuilds += 1
+                    self._broadcast(("rebuild", self.rebuilds))
+                    break
+            if not self._idle.wait(max(0.0, deadline - time.monotonic())):
+                err = self._stop(RuntimeError(
+                    f"an announced operation did not end within {wait_s:.1f} s of its "
+                    "engine's rebuild; the followers are still inside it"))
+                threading.Thread(target=self._release_when_idle, daemon=True,
+                                 name="kllms-world-release").start()
+                raise err
+        engine = build()
+        self.adopt(engine)
+        return engine
+
+    def _release_when_idle(self) -> None:
+        """Send the stopped world's close plan once the operation the
+        followers are inside ends (never, for a kernel wedged on a card)."""
+        self._idle.wait()
+        with self._plan_lock:
+            try:
+                self._broadcast(("close",))
+            except BackendUnavailableError:
+                logger.debug("controller: the close plan did not reach the followers")
 
     def announce_launch(self, items, kwargs: Dict[str, Any],
-                        poison_rows: Optional[List[int]]) -> None:
-        """Hand the followers a coalesced launch (the engine's ``_launch``
-        calls it under the launch lock, before any device work)."""
+                        poison_rows: Optional[List[int]], source) -> None:
+        """Hand the followers a coalesced launch of ``source`` (the engine's
+        ``_launch`` calls it under the launch lock, before any device work;
+        :meth:`guard` then runs it)."""
         kw = dict(kwargs)
         if kw.get("constraint") is not None:
             kw["constraint"] = self.encode_constraint(kw["constraint"])
         members = [(list(map(int, it.prompt_ids)), int(it.n), int(it.seed),
                     it.token_sink is not None) for it in items]
-        self._send(("launch", members, kw, poison_rows))
+        self._send(("launch", members, kw, poison_rows), source=source, opens=True)
 
-    def call(self, method: str, *args, **kwargs):
+    def call(self, source, method: str, *args, **kwargs):
         """Run ``engine.<method>(*args, **kwargs)`` on every rank of the
-        host, in plan order; returns the controller's result."""
-        with self.engine._launch_lock:
-            self._send(("call", method, args, kwargs))
-            return self.guard(getattr(self.engine, method), *args, **kwargs)
+        host, in plan order, for the engine ``source``; returns the
+        controller's result."""
+        with source._launch_lock:
+            self._send(("call", method, args, kwargs), source=source, opens=True)
+            return self.guard(getattr(source, method), *args, **kwargs)
 
     def hook(self, name: str, *args):
         """Run the registered hook ``name(engine, *args)`` on every rank, in
         plan order; returns the controller's result."""
-        with self.engine._launch_lock:
-            self._send(("hook", name, args))
-            return self.guard(HOOKS[name], self.engine, *args)
+        engine = self.engine
+        with engine._launch_lock:
+            self._send(("hook", name, args), source=engine, opens=True)
+            return self.guard(HOOKS[name], engine, *args)
 
     def guard(self, fn, *args, **kwargs):
-        """Run the controller's part of an announced entry. An exception
-        escaping it leaves the followers inside the entry: the world stops,
-        and the exception becomes the typed 503 (with a follower's recorded
-        error, if one failed)."""
+        """Run the controller's part of an announced entry, which ends the
+        open operation. An exception escaping it leaves the followers inside
+        the entry: the world stops, and the exception becomes the typed 503
+        (with a follower's recorded error, if one failed)."""
         try:
             return fn(*args, **kwargs)
         except Exception as e:
             raise self._stop(e) from e
+        finally:
+            self._idle.set()
 
     def close(self) -> None:
         """End the followers' loops (each follower's client constructor then
@@ -278,8 +374,14 @@ class HostController:
             self.plans += 1
 
     def _execute(self, plan) -> None:
-        engine = self.engine
         kind = plan[0]
+        if kind == "rebuild":
+            # Before any local takes the engine: the follower drops its
+            # last reference before it builds the next one.
+            self.rebuilds = plan[1]
+            self.on_rebuild()
+            return
+        engine = self.engine
         if kind == "launch":
             from ..engine.engine import GenRequestSpec
 

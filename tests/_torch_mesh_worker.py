@@ -390,15 +390,22 @@ def case_client(rank, engine_kwargs, request, rank_check=True):
 
 
 def case_controller(rank, shape, config, params, script, engine_kwargs=None,
-                    backend_kwargs=None, script_kwargs=None, follower_failpoints=None):
+                    backend_kwargs=None, script_kwargs=None, follower_failpoints=None,
+                    seeded=False):
     """A port backend on every rank over ``params`` on the world's mesh of
     ``shape``: rank 0 is the controller and runs ``_ctl_<script>(client,
     **script_kwargs)`` (and closes the client); every other rank is a
     follower, served until that close, with ``follower_failpoints`` (site:
-    FailSpec keywords) armed in its process. The controller returns its
-    script's value; a follower its plan count, its engine's last launch
-    stats and its replica loop's stats, as the hooks recorded them."""
+    FailSpec keywords) armed in its process. A rebuild builds the engine
+    again over ``params`` on the backend's mesh; with ``seeded`` the backend
+    builds its own seeded engines (the world's auto mesh). The controller
+    returns its script's value; a follower its plan count, its rebuild
+    count, its engine's last launch stats and its replica loop's stats, as
+    the hooks recorded them, and every rank how many device meshes it made
+    (``mesh_inits``)."""
     import contextlib
+
+    import torch.distributed.device_mesh as dmesh
 
     from k_llms_tpu_torch import KLLMs
     from k_llms_tpu_torch.backends.cuda import BackendConfig, CudaBackend
@@ -407,8 +414,18 @@ def case_controller(rank, shape, config, params, script, engine_kwargs=None,
     from k_llms_tpu_torch.reliability import failpoints as fp
 
     _SNAPSHOTS.clear()
-    eng = LocalEngine(config, params=params, device="cpu", mesh=mesh(shape),
-                      **(engine_kwargs or {}))
+    inits = []
+    made = dmesh.init_device_mesh
+
+    def counted(*a, **kw):
+        inits.append(a)
+        return made(*a, **kw)
+
+    class Backend(CudaBackend):
+        def _build_engine(self):
+            return LocalEngine(config, params=params, device="cpu", mesh=self._mesh,
+                               **(engine_kwargs or {}))
+
     register_hook("snapshot", lambda e: _SNAPSHOTS.append(_stats(e.last_launch_stats)))
     register_hook("loop_snapshot",
                   lambda e: _SNAPSHOTS.append(_loop_stats(e.host_controller.loop)))
@@ -416,17 +433,31 @@ def case_controller(rank, shape, config, params, script, engine_kwargs=None,
     if rank != 0 and follower_failpoints:
         armed = fp.failpoints({site: fp.FailSpec(**kw)
                                for site, kw in follower_failpoints.items()})
-    with armed:
-        backend = CudaBackend(config=BackendConfig(model="tiny", device="cpu",
-                                                   **(backend_kwargs or {})), engine=eng)
-    if not backend.is_controller:
-        return {"follower": True, "plans": backend.controller.plans,
-                "snapshots": list(_SNAPSHOTS)}
-    client = KLLMs(backend=backend)
+    dmesh.init_device_mesh = counted
     try:
-        return globals()[f"_ctl_{script}"](client, **(script_kwargs or {}))
+        with armed:
+            bcfg = BackendConfig(model="tiny", device="cpu", **(backend_kwargs or {}))
+            if seeded:
+                backend = CudaBackend(config=bcfg)
+            else:
+                eng = LocalEngine(config, params=params, device="cpu", mesh=mesh(shape),
+                                  **(engine_kwargs or {}))
+                backend = Backend(config=bcfg, engine=eng)
+                del eng
+        if not backend.is_controller:
+            return {"follower": True, "plans": backend.controller.plans,
+                    "rebuilds": backend.controller.rebuilds, "snapshots": list(_SNAPSHOTS),
+                    "mesh_inits": len(inits)}
+        client = KLLMs(backend=backend)
+        try:
+            out = globals()[f"_ctl_{script}"](client, **(script_kwargs or {}))
+        finally:
+            client.close()
+        if isinstance(out, dict):
+            out["mesh_inits"] = len(inits)
+        return out
     finally:
-        client.close()
+        dmesh.init_device_mesh = made
 
 
 # Each rank's engine stats, appended by the "snapshot" hook in plan order.
@@ -567,14 +598,85 @@ def _wait_steps(loop, steps, timeout=60.0):
         time.sleep(0.001)
 
 
+def _answer(client, request):
+    """One create(): its texts, or its error's type, status and message."""
+    try:
+        r = client.chat.completions.create(**request)
+        return {"texts": [c.message.content for c in r.choices]}
+    except Exception as e:
+        return {"error": type(e).__name__, "status": getattr(e, "status_code", None),
+                "message": str(e)}
+
+
+def _ctl_rebuild(client, requests, failpoint=None, fault_at=0, wake_s=0.0):
+    """``requests`` (create() keywords) in order, request ``fault_at`` under
+    ``failpoint`` (site, FailSpec keywords), each answered or failed typed;
+    then, ``wake_s`` after the first began (when a hung thread has woken on
+    the retired engine), the plan count again. Returns the answers, the
+    supervisor's stats, the scheduler's state, the controller's plans (after
+    the requests and after the wake) and rebuilds, and whether the first
+    engine was retired and replaced."""
+    import contextlib
+
+    from k_llms_tpu_torch.reliability import failpoints as fp
+
+    backend, ctl = client.backend, client.backend.controller
+    first = backend.engine
+    t0 = time.monotonic()
+    answers = []
+    for i, req in enumerate(requests):
+        armed = contextlib.nullcontext()
+        if i == fault_at and failpoint is not None:
+            armed = fp.failpoints({failpoint[0]: fp.FailSpec(**failpoint[1])})
+        with armed:
+            answers.append(_answer(client, req))
+    plans = ctl.plans
+    time.sleep(max(0.0, t0 + wake_s - time.monotonic()))
+    return {"answers": answers, "supervisor": backend.supervisor.stats(),
+            "state": backend.scheduler.state.value, "plans": plans,
+            "plans_after_wake": ctl.plans, "rebuilds": ctl.rebuilds,
+            "first_retired": first.retired, "replaced": backend.engine is not first,
+            "stopped": None if ctl.stopped is None else repr(ctl.stopped)}
+
+
+def _ctl_retire_race(client, request, sleep_s, rebuild_after_s):
+    """One create() whose launch sleeps at its ``engine.launch`` failpoint
+    (bound to the engine, not yet announced) while the loop's rebuild path
+    (``_rebuild_loop_engine``) replaces the engine across the host after
+    ``rebuild_after_s``. Returns the answer, the rebuild count, the plans
+    and the supervisor's stats."""
+    import threading
+
+    from k_llms_tpu_torch.reliability import failpoints as fp
+
+    backend, ctl = client.backend, client.backend.controller
+    first = backend.engine
+    rebuild = threading.Timer(rebuild_after_s, backend._rebuild_loop_engine)
+    with fp.failpoints({"engine.launch": fp.FailSpec(action="sleep", times=1, delay=sleep_s)}):
+        rebuild.start()
+        answer = _answer(client, request)
+    rebuild.join()
+    return {"answer": answer, "rebuilds": ctl.rebuilds, "plans": ctl.plans,
+            "first_retired": first.retired, "supervisor": backend.supervisor.stats()}
+
+
+def _corrupt_pool(loop):
+    """Drop a page from the controller's pool between loop operations and
+    run the conservation check, which quarantines the pool."""
+    with loop.paused():
+        loop._pool.allocator.leak(1)
+        return loop.stats["pages"]
+
+
 def _ctl_loop(client, requests, budget_polls=None, bias_at=None, crash_at=None,
-              hang_at=None, after=None):
+              hang_at=None, after=None, corrupt_at=None):
     """Requests into the controller's loop, each submitted once the loop has
     run ``after[i]`` steps (staggered joins), with request ``budget_polls[0]``
     cancelled at its ``budget_polls[1]``-th poll; a logit-bias create()
     (the coalescing path) once the loop ran ``bias_at`` steps; the worker's
-    crash failpoint armed at step ``crash_at``, or the step's hang
-    failpoint at ``hang_at``. Then, with the loop idle, one more request
+    crash failpoint armed at step ``crash_at``, the step's hang failpoint
+    at ``hang_at``, or the pool corrupted at step ``corrupt_at``. Then, with
+    the loop idle, one more request
     (the world's answer to it, or its error). Returns every result, the
     loop's counters, the controller's plans and the followers' loop
     counters from the ``loop_snapshot`` hook (taken before the last
@@ -588,6 +690,7 @@ def _ctl_loop(client, requests, budget_polls=None, bias_at=None, crash_at=None,
     loop, ctl = backend._continuous, backend.controller
     after = after or [0] * len(requests)
     futures, results = [None] * len(requests), {}
+    corrupted = None
     armed = contextlib.ExitStack()
     for i, (ids, kw) in enumerate(requests):
         _wait_steps(loop, after[i])
@@ -603,6 +706,9 @@ def _ctl_loop(client, requests, budget_polls=None, bias_at=None, crash_at=None,
             _wait_steps(loop, hang_at)
             armed.enter_context(fp.failpoints({"continuous.step": fp.FailSpec(
                 action="hang", times=1, delay=3.0)}))
+        if i == 0 and corrupt_at is not None:
+            _wait_steps(loop, corrupt_at)
+            corrupted = _corrupt_pool(loop)
     biased = None
     if bias_at is not None:
         launches = _recorded(backend.engine)
@@ -648,7 +754,7 @@ def _ctl_loop(client, requests, budget_polls=None, bias_at=None, crash_at=None,
             "last_recovery_reason": full["last_recovery_reason"], "plans": ctl.plans,
             "biased": biased, "next": nxt, "snapshot_error": snap_error,
             "stopped": None if ctl.stopped is None else repr(ctl.stopped),
-            "geometry": loop.geometry()}
+            "geometry": loop.geometry(), "rebuilds": ctl.rebuilds, "corrupted": corrupted}
 
 
 def _ctl_loop_client(client, messages, requests, stream_too=False):

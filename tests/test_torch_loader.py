@@ -246,6 +246,24 @@ def test_param_summary_equals_jax(bits):
     assert got["num_leaves"] == {None: 12, 8: 20, 4: 20}[bits]
 
 
+@pytest.mark.parametrize("chunk_bytes", [2, 4096, 3 * 1000 + 1])
+def test_param_summary_over_many_chunks_equals_jax(monkeypatch, chunk_bytes):
+    """Leaves split into many chunks (checksummed in parallel, their
+    crc32s combined in order), the last one short: the same summary as the
+    JAX function's one pass."""
+    from k_llms_tpu.models import init_params as jax_init
+
+    jcfg = _eligible(jax_get_config).with_(dtype="bfloat16")
+    pcfg = _eligible(get_config).with_(dtype="bfloat16")
+    host = jax.device_get(jax_init(jcfg, jax.random.key(6)))
+    monkeypatch.setattr(loader, "_CHUNK_BYTES", chunk_bytes)
+    params = params_from_numpy(host, pcfg)
+    if chunk_bytes == 2:  # a chunk of one bf16 element: the final norm alone
+        params = {"final_norm": params["final_norm"]}
+        host = {"final_norm": host["final_norm"]}
+    assert loader.param_summary(params) == jax_loader.param_summary(host)
+
+
 def test_param_summary_of_a_loaded_checkpoint_equals_jax(tmp_path):
     cfg_j = jax_get_config("tiny").with_(dtype="bfloat16", qkv_bias=True)
     cfg_p = get_config("tiny").with_(dtype="bfloat16", qkv_bias=True)

@@ -21,9 +21,10 @@ every rank's slot mirrors and page allocator equal after every loop plan.
 - Faults (twins of ``tests/test_continuous_recovery.py``): a member aborted
   on the controller stops on the follower at the same step; a
   ``continuous.worker`` crash fails the in-flight request typed and resets
-  both ranks; a hung ``continuous.step`` stops the world with the typed 503;
-  a follower's ``continuous.step`` fault reaches the controller as the typed
-  503 and ends the follower with ``FOLLOWER_FAULT_EXIT``.
+  both ranks; a hung ``continuous.step`` rebuilds the engine on both ranks
+  and the request is replayed equal to JAX's; a follower's
+  ``continuous.step`` fault reaches the controller as the typed 503 and ends
+  the follower with ``FOLLOWER_FAULT_EXIT``.
 - The loop's width and chunk equal JAX's backend's on the same mesh.
 """
 
@@ -221,22 +222,24 @@ def test_worker_crash_resets_every_rank_and_serves_on(worlds, jax_backend):
     _assert_same(ctl["next"], ref.submit(REQUESTS[0][0], **REQUESTS[0][1]).result(timeout=120))
 
 
-def test_hung_step_stops_the_world_with_a_typed_503(worlds):
-    """A hung continuous.step (before its plan) on the controller: the
-    watchdog's fault needs an engine rebuild, which a world does not run, so
-    the world stops: the request gets the typed 503 naming it, the next one
-    the stopped scheduler's 503, and the idle follower is released by the
-    close plan."""
+def test_hung_step_stops_the_world_with_a_typed_503(worlds, jax_backend):
+    """A hung continuous.step (before its plan) on the controller, which
+    once stopped the world: the watchdog's fault now rebuilds the engine on
+    both ranks (the rebuild plan), the follower's replica starts empty on
+    its new engine, the journalled request is re-admitted through announced
+    admissions and equals JAX's loop, and the next request is served."""
     ctl, fol = _world_run(worlds, (2, 1), "loop",
                           backend_kwargs=dict(watchdog_min_budget_s=1.0,
                                               watchdog_max_budget_s=1.0),
                           script_kwargs=dict(requests=REQUESTS[:1], hang_at=2))
-    res = ctl["results"][0]
-    assert res["status"] == 503 and "world is stopped" in res["message"], res
-    assert "continuous step exceeded" in res["message"]
-    assert ctl["next"]["status"] == 503, ctl["next"]
-    assert ctl["stopped"] is not None and ctl["snapshot_error"] is not None
-    assert fol["plans"] + 1 == ctl["plans"]  # the close plan is not counted
+    ref = jax_backend((2, 1), **LOOP)._continuous
+    want = ref.submit(REQUESTS[0][0], **REQUESTS[0][1]).result(timeout=120)
+    _assert_same(ctl["results"][0], want)
+    _assert_same(ctl["next"], want)
+    assert ctl["restarts"] == 1 and ctl["last_recovery_reason"] == "hung_step"
+    assert ctl["stopped"] is None and ctl["snapshot_error"] is None
+    assert ctl["rebuilds"] == fol["rebuilds"] == 1
+    _assert_replicas_agree(ctl, [fol])
 
 
 def test_follower_step_fault_is_a_typed_503_and_ends_the_follower(worlds):
