@@ -80,14 +80,17 @@ outlier under the card's embeddings and under Levenshtein, and serves one
 seeded sampled request twice: tokens, logprobs, choices and likelihoods
 byte-identical, every launch counted. ``mesh``
 (last) serves Llama-3-8B's widths (at 8 of its 32 layers, the TP loop at
-16: ``MESH_LAYERS``)
-on a mesh of two ranks spawned on the one card
-(``torch.multiprocessing``; NCCL refuses two ranks on one device, so the
-ranks talk over gloo, staging each collective's bytes through host
-memory), each rank building the same ``KLLMs`` with the mesh fields and
-cutting its shard of the same seeded tree: tensor-parallel (1, 2) int4
-(``8b_int4``'s client: K2 and K3 at 16/4 heads a rank, K4 through
-``w4_matmul_tp``) on requests 0 and 2, tensor-parallel bf16 paged (K2, K1
+16, the spawned TP int4 job at 32: ``MESH_LAYERS``)
+on a mesh of two ranks on the one card (NCCL refuses two ranks on one
+device, so the ranks talk over gloo, staging each collective's bytes
+through host memory), each rank building the same ``KLLMs`` with the mesh
+fields and cutting its shard of the same seeded tree: tensor-parallel
+(1, 2) int4 (``mesh_spawned``: ``8b_int4``'s client built as a plain
+``KLLMs(..., model_parallel=2)`` in this process with
+``KLLMS_LOCAL_RANKS=2``, which starts its follower itself
+(``parallel/launcher.py``); K2 and K3 at 16/4 heads a rank, K4 through
+``w4_matmul_tp``) on requests 0 and 2; then, in ranks started by hand
+(``torch.multiprocessing``), tensor-parallel bf16 paged (K2, K1
 at 4 kv heads a rank) on request 0, and sequence-parallel (2, 1) bf16 on
 request 2 (a ring prefill and ring decode, the prompt again as an exact
 prefix-cache hit, then a Ulysses client whose prefill runs K2 on each
@@ -98,7 +101,11 @@ collective count holds its formula and the ranks' peaks sum under 80 GB;
 then K4 at every TP = 2 shard shape against its plain version (timed),
 ``w4_matmul_tp`` against two mutants across the ranks (a dropped partial,
 a column shard at the other rank's offset), the gloo ``psum``'s host time,
-and an nccl world of one on device tensors. ``train`` (last) drives the
+and an nccl world of one on device tensors. ``mesh_spawned_restart`` (a
+plain process of its own, tiny on two ranks it started) kills a follower
+while idle and one from the first streamed token's sink: the next
+requests equal the first, the killed launch's request gets the typed 503
+within ``FAULT_LIMIT_S``, and ``close()`` ends every child with exit code 0. ``train`` (last) drives the
 causal-LM train step (``engine/training.py``): tiny fp32, three steps on the
 card against the same steps on the CPU; Llama-3-8B's widths at 8 of its 32
 layers in bf16 with the reference attention, five AdamW steps on one
@@ -1819,8 +1826,10 @@ REBUILD_BUDGET_S = 8.0
 #: its time limit (at 16 and 32 layers the mesh phase took 250-350 s of the
 #: 1200). A job whose first tokens turn on a near tie at one depth (its
 #: check compares them with the unsharded client's) takes another: the TP
-#: loop's sampled request B flips at 8 layers and holds at 16.
-MESH_LAYERS = {"tp2_int4": 8, "tp2_bf16": 8, "sp2": 8, "dp2": 8, "dp2_int4": 8,
+#: loop's sampled request B flips at 8 layers and holds at 16. The TP int4
+#: job of a world the smoke's own process starts (``spawned``) runs the
+#: full 32.
+MESH_LAYERS = {"spawned": 32, "tp2_bf16": 8, "sp2": 8, "dp2": 8, "dp2_int4": 8,
                "dp2_spec": 8, "dp2_loop": 8, "tp2_loop": 16, "rebuild": 8}
 #: The train phase's two-rank TP step (2 layers at Llama-3-8B's widths,
 #: bf16, two steps); it runs in the mesh phase's world when both run.
@@ -1961,93 +1970,137 @@ def run_ranks(world, transport, jobs, store_dir, timeout=900):
 #: What each rank's mesh hooks recorded (each rank is a process of its own).
 MESH_STATE: dict = {}
 
+# The hooks every rank runs on its engine in the controller's plan order
+# (``HostController.hook``). Module-level, so that the followers of a world
+# the smoke's own process started import them from this script.
 
-def mesh_register_hooks() -> None:
-    """The hooks every rank runs on its engine in the controller's plan
-    order (``HostController.hook``): the counting window's reset and read,
-    the last-position prefill logits of given prompts, and a snapshot of the
-    last launch's stats."""
+
+def hook_reset(engine):
+    """The counting window's start: every launch and collective count 0."""
     import torch
 
     from k_llms_tpu_torch.ops import _ext
     from k_llms_tpu_torch.parallel import collectives as C
+
+    torch.cuda.synchronize()
+    _ext.reset_launch_counts()
+    C.reset_collective_counts()
+
+
+def hook_read(engine):
+    """The counting window's end: this rank's counts."""
+    import torch
+
+    from k_llms_tpu_torch.ops import _ext
+    from k_llms_tpu_torch.parallel import collectives as C
+
+    torch.cuda.synchronize()
+    MESH_STATE["counts"] = dict(_ext.LAUNCH_COUNTS)
+    MESH_STATE["collectives"] = dict(C.COLLECTIVE_COUNTS)
+
+
+def hook_logits(engine, prompts):
+    """This rank's last-position prefill logits of ``prompts``."""
+    import torch
+
+    out = []
+    with torch.inference_mode():
+        for ids in prompts:
+            ids, plen, bucket = engine._prep_prompt(ids)
+            fl, _ = engine._prefill_full(ids, plen, bucket)
+            out.append(fl[0].float().cpu().numpy())
+    MESH_STATE["logits"] = out
+
+
+def hook_snapshot(engine):
+    """The last launch's stats on this rank."""
+    st = engine.last_launch_stats
+    MESH_STATE.setdefault("snapshots", []).append(
+        {"decode_steps": st["decode_steps"], "rows": st["rows"],
+         "rank_rows": st["rank_rows"],
+         "aborted": {int(k): v[0] for k, v in st["aborted"].items()}})
+
+
+def rank_loop(engine):
+    """This rank's continuous loop: the controller's own or a follower's
+    replica (the parent's, a world of one, from MESH_STATE)."""
+    hc = engine.host_controller
+    return hc.loop if hc is not None else MESH_STATE["loop"]
+
+
+def hook_loop_timer(engine):
+    """Time each of this rank's loop steps (wall ms, the plan's broadcast
+    and rank check included) by its active rows."""
+    loop = rank_loop(engine)
+    inner, steps = loop._step_once, []
+    MESH_STATE["steps"] = steps
+
+    def timed(plan=None):
+        rows = int(loop._active_mask.sum())
+        t0 = time.perf_counter()
+        inner(plan)
+        steps.append((rows, (time.perf_counter() - t0) * 1e3))
+
+    loop._step_once = timed
+
+
+def hook_loop_read(engine):
+    loop = rank_loop(engine)
+    del loop._step_once
+    st = loop.stats
+    MESH_STATE["loop_stats"] = {k: st[k] for k in (
+        "steps", "row_steps", "admitted", "joined_in_flight", "prefill_chunks",
+        "completed", "aborted", "restarts")}
+    pool = engine._kv_pool
+    MESH_STATE["pool"] = None if pool is None else {
+        "pages": pool.allocator.total_pages, "bytes": pool.pool_bytes(),
+        "digest": pool.allocator.digest()}
+
+
+def hook_peak(engine, label):
+    """This rank's peak allocated bytes since the last peak hook (or the
+    job's start), then the peak counter reset."""
+    import torch
+
+    torch.cuda.synchronize()
+    MESH_STATE.setdefault("peaks", {})[label] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def hook_gather(engine):
+    """Every rank's record of the serve job, gathered on each rank over the
+    host's plan group (a world the smoke's process started: its followers
+    return nothing else to the smoke)."""
+    import torch
+
+    hc = engine.host_controller
+    mine = {"role": "controller" if hc.is_controller else "follower",
+            "counts": MESH_STATE.get("counts"), "collectives": MESH_STATE.get("collectives"),
+            "logits": MESH_STATE.get("logits"), "snapshots": MESH_STATE.get("snapshots", []),
+            # Plans run, this one included (the controller counts it sent).
+            "plans": hc.plans + (0 if hc.is_controller else 1),
+            "param_bytes": engine.param_footprint_bytes(),
+            "peak_bytes": torch.cuda.max_memory_allocated(), "allocated_before_bytes": None,
+            "host": mesh_host_memory(), "pid": os.getpid(), "job_s": None}
+    return hc.gather(mine)
+
+
+def mesh_register_hooks() -> None:
+    """Register the mesh hooks by name (every hand-started rank runs this
+    script, so each registers its own)."""
     from k_llms_tpu_torch.parallel.controller import register_hook
 
-    def reset(engine):
-        torch.cuda.synchronize()
-        _ext.reset_launch_counts()
-        C.reset_collective_counts()
-
-    def read(engine):
-        torch.cuda.synchronize()
-        MESH_STATE["counts"] = dict(_ext.LAUNCH_COUNTS)
-        MESH_STATE["collectives"] = dict(C.COLLECTIVE_COUNTS)
-
-    def logits(engine, prompts):
-        out = []
-        with torch.inference_mode():
-            for ids in prompts:
-                ids, plen, bucket = engine._prep_prompt(ids)
-                fl, _ = engine._prefill_full(ids, plen, bucket)
-                out.append(fl[0].float().cpu().numpy())
-        MESH_STATE["logits"] = out
-
-    def snapshot(engine):
-        st = engine.last_launch_stats
-        MESH_STATE.setdefault("snapshots", []).append(
-            {"decode_steps": st["decode_steps"], "rows": st["rows"],
-             "rank_rows": st["rank_rows"],
-             "aborted": {int(k): v[0] for k, v in st["aborted"].items()}})
-
-    def rank_loop(engine):
-        """This rank's continuous loop: the controller's own or a
-        follower's replica (the parent's, a world of one, from MESH_STATE)."""
-        hc = engine.host_controller
-        return hc.loop if hc is not None else MESH_STATE["loop"]
-
-    def loop_timer(engine):
-        """Time each of this rank's loop steps (wall ms, the plan's
-        broadcast and rank check included) by its active rows."""
-        loop = rank_loop(engine)
-        inner, steps = loop._step_once, []
-        MESH_STATE["steps"] = steps
-
-        def timed(plan=None):
-            rows = int(loop._active_mask.sum())
-            t0 = time.perf_counter()
-            inner(plan)
-            steps.append((rows, (time.perf_counter() - t0) * 1e3))
-
-        loop._step_once = timed
-
-    def loop_read(engine):
-        loop = rank_loop(engine)
-        del loop._step_once
-        st = loop.stats
-        MESH_STATE["loop_stats"] = {k: st[k] for k in (
-            "steps", "row_steps", "admitted", "joined_in_flight", "prefill_chunks",
-            "completed", "aborted", "restarts")}
-        pool = engine._kv_pool
-        MESH_STATE["pool"] = None if pool is None else {
-            "pages": pool.allocator.total_pages, "bytes": pool.pool_bytes(),
-            "digest": pool.allocator.digest()}
-
-    def peak(engine, label):
-        """This rank's peak allocated bytes since the last peak hook (or
-        the job's start), then the peak counter reset."""
-        torch.cuda.synchronize()
-        MESH_STATE.setdefault("peaks", {})[label] = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-
-    for name, fn in (("reset", reset), ("read", read), ("logits", logits),
-                     ("snapshot", snapshot), ("loop_timer", loop_timer),
-                     ("loop_read", loop_read), ("peak", peak)):
+    for name, fn in (("reset", hook_reset), ("read", hook_read), ("logits", hook_logits),
+                     ("snapshot", hook_snapshot), ("loop_timer", hook_loop_timer),
+                     ("loop_read", hook_loop_read), ("peak", hook_peak),
+                     ("gather", hook_gather)):
         register_hook(name, fn)
 
 
 def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=None,
-               http=None, model="llama-3-8b"):
-    """Build ``KLLMs(model=model, **client_kw)`` and serve ``reqs``.
+               http=None, model="llama-3-8b", client=None):
+    """Build ``KLLMs(model=model, **client_kw)`` (or take ``client``, built
+    already) and serve ``reqs``.
 
     In a world of ranks every rank builds it and the controller (rank 0)
     alone serves: the followers' constructors replay its plans and return
@@ -2062,7 +2115,10 @@ def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=N
     the controller. In
     the parent process (a world of one) the same calls run unsharded.
     Returns numpy-free values and arrays; a follower returns its own
-    counts, logits, snapshots and plan count."""
+    counts, logits, snapshots and plan count. In a world the client's own
+    process started, the followers' records come back through the
+    ``gather`` hook (``followers``), and ``world_close`` holds each child's
+    exit code after ``close()`` and the pids still alive."""
     import threading
 
     import numpy as np
@@ -2082,7 +2138,8 @@ def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=N
     allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    client = KLLMs(backend="cuda", model=mesh_model(model), **client_kw)
+    if client is None:
+        client = KLLMs(backend="cuda", model=mesh_model(model), **client_kw)
     backend = client.backend
     engine = backend.engine
     mesh = engine.mesh
@@ -2163,15 +2220,23 @@ def mesh_serve(client_kw, reqs, repeat_last=False, concurrent=False, parse_req=N
     cache_stats = dict(engine.prefix_cache_stats)
     scope = launches if concurrent else launches[: len(reqs)]
     hook("logits", [ids for ln in scope for ids in ln["ids"]])
+    world = backend.world
+    followers = hook("gather")[1:] if world is not None else None
     res = dict(common, role="controller", outs=outs, launches=launches, embeds=embeds,
                counts=MESH_STATE["counts"], collectives=MESH_STATE["collectives"],
                logits=MESH_STATE["logits"], cache_stats=cache_stats, init_s=init_s,
                serve_s=serve_s, plans=None if ctl is None else ctl.plans,
                peak_bytes=torch.cuda.max_memory_allocated())
+    if followers is not None:
+        res["followers"] = followers
     if http is not None:
         res["http"] = mesh_http(client, hook, http)
         res["plans"] = ctl.plans
     client.close()
+    if world is not None:
+        res["world_close"] = {"exit_codes": [p.returncode for p in world.procs],
+                              "alive": [e[2] for e in world.ended if pid_alive(e[2])],
+                              "ended": [list(e) for e in world.ended]}
     del client, backend, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2514,6 +2579,147 @@ def mesh_http(client, hook, body):
     finally:
         srv.stop(drain=False)
     return out
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (an exited process not yet reaped counts as
+    ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def spawned_client(client_kw, model, ranks=2):
+    """A plain ``KLLMs(backend="cuda", ...)`` in this process with the
+    forced local rank count at ``ranks``: the backend starts its host's
+    other ranks itself (``k_llms_tpu_torch/parallel/launcher.py``), each on
+    the one card over gloo, and returns once every rank has built its
+    shard."""
+    from k_llms_tpu_torch import KLLMs
+
+    mesh_register_hooks()
+    os.environ["KLLMS_LOCAL_RANKS"] = str(ranks)
+    try:
+        return KLLMs(backend="cuda", model=mesh_model(model), **client_kw)
+    finally:
+        del os.environ["KLLMS_LOCAL_RANKS"]
+
+
+def run_spawned_job(client_kw, reqs, model):
+    """mesh_spawned: :func:`spawned_client`, then :func:`mesh_serve` on it;
+    the controller's record with the client's build seconds, the job's and
+    the host's memory."""
+    t0 = time.perf_counter()
+    client = spawned_client(client_kw, model)
+    init_s = time.perf_counter() - t0
+    res = mesh_serve(client_kw, reqs, model=model, client=client)
+    del client
+    res.update(init_s=init_s, job_s=time.perf_counter() - t0, host=mesh_host_memory())
+    return res
+
+
+def spawned_restart_main(outq) -> None:
+    """The restart drill (``mesh_spawned_restart``) as a plain process: tiny
+    on two ranks (1, 2) it started itself; a follower SIGKILLed while idle,
+    then one killed from the first streamed token's sink, each followed by
+    the next request; then ``close()``. Puts its record or a traceback."""
+    import signal
+    import traceback
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import torch
+
+        torch.cuda.set_device(0)
+        req = dict(messages=[{"role": "user", "content": "Count to twenty."}], n=4, seed=3,
+                   temperature=0.8, max_tokens=24)
+
+        def texts(resp):
+            return [c.message.content for c in resp.choices]
+
+        def allocated():
+            """This process's allocated device bytes (a released engine's
+            memory given back)."""
+            gc.collect()
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated()
+
+        def wait_restarts(world, k, timeout=300):
+            deadline = time.monotonic() + timeout
+            while world.restarts < k:
+                if world.terminal is not None or time.monotonic() > deadline:
+                    raise RuntimeError(f"the world did not restart: {world.stats()}")
+                time.sleep(0.01)
+
+        t0 = time.perf_counter()
+        client = spawned_client(dict(max_new_tokens=24, model_parallel=2), "tiny")
+        world = client.backend.world
+        out = {"init_s": time.perf_counter() - t0, "mesh": dict(client.backend.engine.mesh.shape),
+               "transport": client.backend.engine.mesh.transport}
+        first = texts(client.chat.completions.create(**req))
+        out["allocated_bytes"] = [allocated()]
+        # Killed while idle: the next request costs nothing but the restart.
+        t0 = time.perf_counter()
+        os.kill(world.pids[0], signal.SIGKILL)
+        wait_restarts(world, 1)
+        out["idle_restart_s"] = time.perf_counter() - t0
+        idle = texts(client.chat.completions.create(**req))
+        out["idle_kill_to_served_s"] = time.perf_counter() - t0
+        out["idle_equal"] = idle == first
+        out["allocated_bytes"].append(allocated())
+        # Killed during a launch, from the first streamed token's sink.
+        pid, t_kill, err = world.pids[0], None, None
+        try:
+            for _ in client.chat.completions.create(stream=True, **req):
+                if t_kill is None:
+                    t_kill = time.perf_counter()
+                    os.kill(pid, signal.SIGKILL)
+        except Exception as e:
+            err = {"type": type(e).__name__, "status": getattr(e, "status_code", None),
+                   "seconds": time.perf_counter() - t_kill, "message": str(e)[:300]}
+        out["launch_error"] = err
+        wait_restarts(world, 2)
+        after = texts(client.chat.completions.create(**req))
+        out["launch_kill_to_served_s"] = time.perf_counter() - t_kill
+        out["after_equal"] = after == first
+        out["allocated_bytes"].append(allocated())
+        out["state"] = client.backend.scheduler.state.value
+        out["world"] = world.stats()
+        client.close()
+        out["close"] = {"exit_codes": [p.returncode for p in world.procs],
+                        "alive": [e[2] for e in world.ended if pid_alive(e[2])],
+                        "ended": [list(e) for e in world.ended]}
+        outq.put(("ok", out))
+    except BaseException:
+        outq.put(("error", traceback.format_exc()))
+
+
+def run_spawned_restart_drill(timeout=600):
+    """Run :func:`spawned_restart_main` in a fresh process; returns its
+    record (raises with its traceback, or when it does not answer)."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    proc = ctx.Process(target=spawned_restart_main, args=(outq,))
+    proc.start()
+    try:
+        kind, payload = outq.get(timeout=timeout)
+    except queue.Empty:
+        kind, payload = "error", "the restart drill did not answer"
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if kind != "ok":
+        raise RuntimeError(f"mesh_spawned_restart failed:\n{payload}")
+    payload["exit_code"] = proc.exitcode
+    return payload
 
 
 def mesh_fault_rank(rank, world, store, outq) -> None:
@@ -6112,9 +6318,6 @@ def main(argv=None) -> int:
         loop_job_args = {"client_kw": mesh_loop_kw, "reqs": loop_requests,
                          "bias_req": mesh_bias_req, "biased_at": 24}
         jobs = [
-            {"name": "mesh_tp2_int4", "kind": "serve",
-             "args": {"client_kw": dict(int4_kw, model_parallel=2), "reqs": mesh_reqs,
-                      "model": depth["tp2_int4"]}},
             {"name": "mesh_tp2_bf16", "kind": "serve",
              "args": {"client_kw": dict(bf16_kw, model_parallel=2), "reqs": mesh_reqs[:1],
                       "model": depth["tp2_bf16"]}},
@@ -6163,10 +6366,18 @@ def main(argv=None) -> int:
                       "budget_s": REBUILD_BUDGET_S, "model": depth["rebuild"]}})
         # The ranks start up (spawn, imports, the world's store) while the
         # unsharded references run here; they wait to serve until every
-        # reference client is closed.
+        # reference client is closed. The TP int4 job is a plain client of
+        # this process at 32 layers, which starts its follower itself
+        # (mesh_spawned): once the references are done (a process in a
+        # world builds no unsharded client), its two ranks start, draw their
+        # shards and serve while the hand-started ranks run their jobs, as
+        # the restart drill (a plain process of its own,
+        # mesh_spawned_restart) and the fault drill do.
         handle = spawn_ranks(2, "gloo", jobs, store_dir)
+        mesh_pool = ThreadPoolExecutor(max_workers=4)
+        spawned_kw = dict(int4_kw, model_parallel=2)
         try:
-            ref_int4 = mesh_serve(int4_kw, mesh_reqs, model=depth["tp2_int4"])
+            ref_int4 = mesh_serve(int4_kw, mesh_reqs, model=depth["spawned"])
             ref_bf16 = mesh_serve(bf16_kw, mesh_reqs[:1], model=depth["tp2_bf16"])
             ref_sp = mesh_serve(bf16_kw, mesh_reqs[1:], model=depth["sp2"])
             ref_dp2 = mesh_serve(dp2_kw, sched_requests, concurrent=True, parse_req=parse_request,
@@ -6201,12 +6412,19 @@ def main(argv=None) -> int:
                  "reserved_bytes": torch.cuda.memory_reserved(), "host": mesh_host_memory()})
             # A follower's fault (tiny, a world of its own) runs beside the
             # ranks' jobs; it is checked after them.
-            fault_future = background.submit(run_fault_drill, store_dir)
+            fault_future = mesh_pool.submit(run_fault_drill, store_dir)
+            restart_future = mesh_pool.submit(run_spawned_restart_drill)
+            spawned_future = mesh_pool.submit(run_spawned_job, spawned_kw, mesh_reqs,
+                                              depth["spawned"])
             t0 = time.perf_counter()
             ranks = collect_ranks(handle)
             ranks_s = time.perf_counter() - t0
+            spawned = spawned_future.result(timeout=900)
+            spawned_init_s = spawned["init_s"]
+            ranks["mesh_spawned"] = [spawned] + spawned["followers"]
         finally:
             stop_ranks(handle)
+            mesh_pool.shutdown(wait=False)
         train_tp2_ranks = ranks.pop("train_tp2", None)
         if ranks["_exitcodes"] != [0, 0]:
             raise AssertionError(f"mesh: the ranks ended with {ranks['_exitcodes']}")
@@ -6376,7 +6594,31 @@ def main(argv=None) -> int:
                 return out
             return fn
 
-        tp4 = check_serve("mesh_tp2_int4", ref_int4, 2, expected_tp_int4)
+        tp4 = check_serve("mesh_spawned", ref_int4, 2, expected_tp_int4)
+        spawned_close = spawned["world_close"]
+        spawned_ok = (spawned["mesh"] == {"data": 1, "model": 2}
+                      and spawned["transport"] == "gloo"
+                      and spawned_close["exit_codes"] == [0] and spawned_close["alive"] == []
+                      and spawned["followers"][0]["pid"] != os.getpid())
+        log({"phase": "mesh_spawned_world", "init_s": spawned_init_s,
+             "serve_s": spawned["serve_s"], "job_s": spawned["job_s"],
+             "close": spawned_close, "ok": spawned_ok})
+        if not spawned_ok:
+            raise AssertionError(f"mesh_spawned: {spawned['mesh']} {spawned_close}")
+        # A follower of a world the controller's process started, killed
+        # while idle and during a launch: the world starts again.
+        restart = restart_future.result()
+        launch_error = restart["launch_error"] or {}
+        restart_ok = (restart["idle_equal"] and restart["after_equal"]
+                      and launch_error.get("type") == "FollowerFaultError"
+                      and launch_error.get("status") == 503
+                      and launch_error.get("seconds", FAULT_LIMIT_S + 1) <= FAULT_LIMIT_S
+                      and restart["state"] == "ready" and restart["world"]["restarts"] == 2
+                      and restart["close"]["exit_codes"] == [0] and restart["close"]["alive"] == []
+                      and restart["exit_code"] == 0)
+        log(dict(restart, phase="mesh_spawned_restart", limit_s=FAULT_LIMIT_S, ok=restart_ok))
+        if not restart_ok:
+            raise AssertionError(f"mesh_spawned_restart: {restart}")
         check_serve("mesh_tp2_bf16", ref_bf16, 1, expected_tp_bf16)
         sp = check_serve("mesh_sp2", ref_sp, 1, expected_sp(False))
         sp_outs = sp[0]["outs"]

@@ -47,6 +47,17 @@ app's keep-alive, debug-surface and batch-lane settings are carried too. A
 keyword that names one of the JAX package's other ``BackendConfig`` fields
 raises ``NotImplementedError`` rather than being dropped.
 
+A plain process builds its host's world itself, as JAX's one process drives
+every local chip: where no process group runs, none of the ``KLLMS_*`` world
+variables is set and the host counts more than one rank (one a card, or
+``KLLMS_LOCAL_RANKS``; ``parallel/distributed.py``), the constructor starts
+the other ranks as fresh interpreters (``parallel/launcher.py``) before it
+builds the engine, raising JAX's ``auto_mesh`` error first when
+``model_parallel`` does not divide the rank count. Every follower builds
+this backend from this ``BackendConfig`` and resolved ``ModelConfig``, on its
+own shard of the same weights. A caller passing ``engine=`` or ``mesh=``
+starts nothing.
+
 In a ``torch.distributed`` world larger than one, the backend takes its role
 from its rank (``parallel/controller.py``): on each host's first rank it is
 the controller and builds all of the above, announcing every launch and
@@ -62,9 +73,14 @@ fault that needs an engine rebuild (the supervisor's hung launch or poison
 escalation, the loop's hung step or chunk or corrupt pool) rebuilds the
 engine on every rank, on the first engine's mesh
 (:meth:`HostController.rebuild`; a follower's part is
-:meth:`CudaBackend._follow_rebuild`), and the request is replayed; only a
-follower's own fault, or an announced operation that never ends, stops the
-world (the typed 503).
+:meth:`CudaBackend._follow_rebuild`), and the request is replayed. A fault
+that stops a hand-started world (a follower's own, or an announced
+operation that never ends) stops it for good (the typed 503). A world this
+backend started is started again instead (:meth:`_restart_world`): the
+request in flight gets the typed 503, as a JAX caller gets a launch's error,
+and the next is served on new followers, a new mesh and a new engine on
+every rank; ``max_rebuilds`` restarts without a good launch in between end
+in ``STOPPED``.
 """
 
 from __future__ import annotations
@@ -96,7 +112,7 @@ from ..engine.scheduler import EngineScheduler
 from ..engine.tokenizer import get_tokenizer
 from ..models import loader
 from ..models.config import get_config
-from ..parallel.controller import EngineRetiredError
+from ..parallel.controller import EngineRetiredError, FollowerFaultError, HostController
 from ..reliability.supervisor import EngineSupervisor, LaunchBudgetModel
 from ..reliability.tenancy import TenancyConfig
 from ..types import ChatCompletion
@@ -464,6 +480,7 @@ class CudaBackend(Backend):
         config: Optional[BackendConfig] = None,
         engine: Optional[LocalEngine] = None,
         mesh=None,
+        model_config=None,
         **kwargs: Any,
     ):
         unported = sorted(UNPORTED_FIELDS.intersection(kwargs))
@@ -483,19 +500,8 @@ class CudaBackend(Backend):
         cfg = config or BackendConfig(model=model or "tiny", **kwargs)
         self.backend_config = cfg
         self.model_name = cfg.model
-        try:
-            model_config = get_config(cfg.model)
-        except KeyError:
-            # Not a registered architecture name: a local HF checkpoint
-            # directory carries its own config.json.
-            model_config = (
-                loader.config_from_hf(cfg.checkpoint_path) if cfg.checkpoint_path else None
-            )
-            if model_config is None:
-                raise
-        overrides = {k: getattr(cfg, k) for k in _MODEL_OVERRIDES if getattr(cfg, k) is not None}
-        if overrides:
-            model_config = model_config.with_(**overrides)
+        if model_config is None:
+            model_config = self._resolve_model_config(cfg)
         if cfg.quantization not in (None, "int8", "int4"):
             raise ValueError(
                 f"Unsupported quantization {cfg.quantization!r}; use 'int8' or 'int4'"
@@ -508,23 +514,35 @@ class CudaBackend(Backend):
         self._model_config = model_config
         self._mesh = mesh
         self.param_summary: Optional[Dict[str, Any]] = None
-        self.engine = engine if engine is not None else self._build_engine()
-        # A rebuild lands on this engine's mesh and its groups, as JAX's
-        # rebuild keeps its mesh: a new auto mesh would be a collective over
-        # the whole world.
-        self._mesh = self.engine.mesh
-        from ..parallel.controller import HostController
+        # The world this backend started (a plain process on a host of
+        # several ranks), or None.
+        self.world = None
+        # kllms: unguarded — restarts since the last good launch; written by the watcher and the launch thread
+        self._world_restarts = 0
+        if engine is None and mesh is None:
+            from ..parallel.distributed import spawns_world
 
-        # Every rank of a world larger than one: the host's first rank
-        # controls, the others follow (a follower's constructor serves the
-        # controller's plans until its close() and owns nothing else).
-        self.controller = HostController.for_world(self.engine)
-        self.is_controller = self.controller is None or self.controller.is_controller
+            size = spawns_world(cfg.device)
+            if size:
+                self._start_world(size)
         self._schemas: Dict[str, Any] = {}
-        if self.controller is not None:
-            self.controller.encode_constraint = self._encode_constraint
-            self.controller.decode_constraint = self._decode_constraint
-            self.controller.on_rebuild = self._follow_rebuild
+        try:
+            self.engine = engine if engine is not None else self._build_engine()
+            # A rebuild lands on this engine's mesh and its groups, as JAX's
+            # rebuild keeps its mesh: a new auto mesh would be a collective
+            # over the whole world.
+            self._mesh = self.engine.mesh
+            # Every rank of a world larger than one: the host's first rank
+            # controls, the others follow (a follower's constructor serves
+            # the controller's plans until its close() and owns nothing
+            # else).
+            self.controller = self._control(HostController.for_world(self.engine))
+        except BaseException as e:
+            if self.world is not None:
+                # No follower outlives a constructor that failed.
+                self.world.fail(e)
+            raise
+        self.is_controller = self.controller is None or self.controller.is_controller
         if not self.is_controller:
             if self.engine.device.type == "cuda":
                 from ..ops import _ext
@@ -621,6 +639,125 @@ class CudaBackend(Backend):
                 # loop's geometry.
                 self.controller.loop = self._continuous
                 self.controller.announce_loop("init", self._continuous.geometry())
+        if self.world is not None:
+            self.world.watch()
+
+    @staticmethod
+    def _resolve_model_config(cfg: "BackendConfig"):
+        """The registered model of ``cfg.model`` (or a checkpoint's
+        ``config.json``) with the config's overrides."""
+        try:
+            model_config = get_config(cfg.model)
+        except KeyError:
+            # Not a registered architecture name: a local HF checkpoint
+            # directory carries its own config.json.
+            model_config = (
+                loader.config_from_hf(cfg.checkpoint_path) if cfg.checkpoint_path else None
+            )
+            if model_config is None:
+                raise
+        overrides = {k: getattr(cfg, k) for k in _MODEL_OVERRIDES if getattr(cfg, k) is not None}
+        return model_config.with_(**overrides) if overrides else model_config
+
+    # -- the world this backend started ----------------------------------------
+    def _start_world(self, size: int) -> None:
+        """Start the host's other ``size - 1`` ranks and join their world as
+        its rank 0, before the engine is built. JAX's ``auto_mesh`` error is
+        raised before any child starts; on a card every kernel is built
+        first, so the followers find the build."""
+        from ..parallel.distributed import local_device
+        from ..parallel.launcher import SpawnedWorld
+
+        cfg = self.backend_config
+        mp = cfg.model_parallel or 1
+        if size % mp != 0:
+            raise ValueError(f"model_parallel={mp} does not divide device count {size}")
+        device = resolve_device(cfg.device)
+        if device.type == "cuda":
+            from ..ops import _ext
+
+            _ext.build_all()
+        self.world = SpawnedWorld(
+            size, {"config": cfg, "model_config": self._model_config},
+            device=local_device(0, device.type), on_lost=self._restart_world)
+        self.world.start()
+
+    def _control(self, controller):
+        """Wire ``controller`` (None in a world of one) to this backend: the
+        constraint codec, a follower's rebuild, and the world's owner."""
+        if controller is not None:
+            controller.encode_constraint = self._encode_constraint
+            controller.decode_constraint = self._decode_constraint
+            controller.on_rebuild = self._follow_rebuild
+            if self.world is not None:
+                controller.owner = self.world
+                controller.generation = self.world.generation
+        return controller
+
+    def _restart_world(self, reason: str) -> None:
+        """The world's watcher lost a rank (``reason``): start the world
+        again. The lost world announces nothing more (its engine retired)
+        and the operation in flight, which fails at once, leaves the launch
+        lock; then the surviving followers and the process group end, and a
+        new store, new followers, a new controller and mesh and a new engine
+        on every rank take their place (the continuous loop restarts on it
+        from a fresh ``("loop", "init")`` plan). Launches wait meanwhile.
+        The scheduler sees RECOVERING, then READY; ``max_rebuilds`` restarts
+        without a good launch in between give the world up: STOPPED and
+        typed 503s."""
+        world, cfg, loop = self.world, self.backend_config, self._continuous
+        world.pause()
+        old_engine = self.engine
+        self.controller.lose(reason)
+        lock = old_engine._launch_lock
+        if lock.acquire(timeout=self._launch_budget_s):
+            lock.release()
+        while True:
+            self._world_restarts += 1
+            attempt = self._world_restarts
+            if attempt > cfg.max_rebuilds:
+                err = FollowerFaultError(
+                    f"the host's world did not recover after {cfg.max_rebuilds} restart(s) "
+                    f"without a good launch; last: {reason}")
+                logger.error("%s", err)
+                world.fail(err)
+                if loop is not None:
+                    loop.adopt_world(None, err)
+                self.scheduler.note_rebuild_failed(err)
+                return
+            self.scheduler.note_recovering(attempt, "follower_lost")
+            t0 = time.perf_counter()
+            try:
+                world.restart()
+                self._mesh = None
+                engine = self._build_engine()
+                controller = self._control(HostController.for_world(engine))
+            except Exception as e:
+                logger.exception("starting the host's world again failed")
+                reason = f"the restart failed: {type(e).__name__}: {e}"
+                continue
+            self._mesh = engine.mesh
+            self.controller, self.engine = controller, engine
+            self._wire_engine_hooks()
+            if loop is not None:
+                loop.adopt_world(engine)
+            world.resume()
+            self.scheduler.note_rebuilt()
+            logger.warning("the host's world serves again (restart %d, %.1f s)",
+                           world.restarts, time.perf_counter() - t0)
+            break
+        if old_engine.device.type == "cuda":
+            old = weakref.ref(old_engine)
+            del old_engine
+            self._release_after(None, old)
+
+    def _serving_engine(self):
+        """The current engine, once the world this backend started serves
+        (a restart in progress is waited for; a world given up raises its
+        typed error)."""
+        if self.world is not None:
+            self.world.wait_serving()
+        return self.engine
 
     def _build_continuous_loop(self):
         from ..engine.continuous import ContinuousDecodeLoop
@@ -783,8 +920,25 @@ class CudaBackend(Backend):
         if self.controller is None:
             self.engine = self._build_engine()
         else:
-            self.engine = self.controller.rebuild(self._build_engine, self._launch_budget_s)
+            old = self.engine
+            try:
+                self.engine = self.controller.rebuild(self._build_engine, self._launch_budget_s)
+            except BackendUnavailableError:
+                if self.world is None:
+                    raise
+                # The rebuild stopped a world this backend started (an
+                # operation hung after its plan): its restart builds the
+                # new engine on every rank.
+                self._await_restart(old)
+                return
         self._wire_engine_hooks()
+
+    def _await_restart(self, old) -> None:
+        """Wait until the world's restart has replaced ``old`` and serves
+        (its typed error once it is given up)."""
+        while self.engine is old and self.world.terminal is None:
+            time.sleep(0.01)
+        self.world.wait_serving()
 
     def _follow_rebuild(self) -> None:
         """A follower's part of the controller's rebuild plan: the replica
@@ -818,18 +972,27 @@ class CudaBackend(Backend):
         def run():
             self._launch_thread = threading.current_thread()
             epoch = self.supervisor.epoch
+            engine = self.engine
             while True:
-                engine = self.engine
                 try:
-                    return launch(engine)
+                    out = launch(engine)
+                    if not (isinstance(out, list)
+                            and any(isinstance(r, BaseException) for r in out)):
+                        self._world_restarts = 0
+                    return out
                 except EngineRetiredError:
-                    # The loop rebuilt the engine across the host before this
-                    # launch was announced: nothing ran, so it runs on the
-                    # new one (a launch the watchdog gave up on does not).
-                    if self.engine is engine or self.supervisor.epoch != epoch:
+                    # The loop rebuilt the engine across the host, or the
+                    # world was started again, before this launch was
+                    # announced: nothing ran, so it runs on the new one (a
+                    # launch the watchdog gave up on does not).
+                    if self.supervisor.epoch != epoch or self._serving_engine() is engine:
                         raise
+                    engine = self.engine
 
         self._launch_budget_s = self.supervisor.budget_model.budget(rows, max_new_tokens)
+        # A restart of the world in progress is waited for outside the
+        # watchdog's budget.
+        self._serving_engine()
         return self.supervisor.supervised_launch(run, rows=rows, max_new_tokens=max_new_tokens)
 
     # -- chat -------------------------------------------------------------
@@ -1081,7 +1244,7 @@ class CudaBackend(Backend):
             and self._continuous.qualifies(len(prompt_ids), rows, max_new)
         ):
             try:
-                return self._continuous.submit(
+                out = self._continuous.submit(
                     list(prompt_ids),
                     n=rows,
                     max_new=max_new,
@@ -1093,6 +1256,8 @@ class CudaBackend(Backend):
                     grammar=loop_grammar,
                     tenant=tenant_ctx,
                 ).result()
+                self._world_restarts = 0
+                return out
             except ValueError:
                 # The prompt outgrew the loop's bounds, or the loop is busy
                 # under a different grammar: coalescing path.
@@ -1253,6 +1418,8 @@ class CudaBackend(Backend):
         snap["params"] = self.param_summary
         if self._continuous is not None:
             snap["continuous"] = dict(self._continuous.stats)
+        if self.world is not None:
+            snap["world"] = self.world.stats()
         hbm: Dict[str, Any] = {
             "param_bytes": self.memory_model.param_bytes,
             "kv_bytes_per_token": self.memory_model.kv_bytes_per_token,
@@ -1289,13 +1456,20 @@ class CudaBackend(Backend):
     def close(self) -> None:
         if not self.is_controller:
             return  # a follower's world ended with its controller's close()
-        if self._closed and self.scheduler.state.value == "stopped":
-            return
-        self.drain()
-        if self._continuous is not None:
-            self._continuous.stop()
+        if not (self._closed and self.scheduler.state.value == "stopped"):
+            self.drain()
+            if self._continuous is not None:
+                self._continuous.stop()
+        if self.world is not None:
+            # A restart in progress ends first; the children's exits from
+            # here on are the close plan's.
+            self.world.closing()
         if self.controller is not None:
             self.controller.close()
+        if self.world is not None:
+            # Each follower's constructor returns on the close plan and its
+            # process exits 0; close() returns once every child has.
+            self.world.close()
 
     # -- the controller's constraint codec ----------------------------------
     def _encode_constraint(self, constraint):

@@ -40,7 +40,9 @@ Design, as in the JAX loop:
   under a watchdog budget; a hung one is abandoned behind an epoch fence,
   the engine rebuilt and the journal replayed; a page-accounting fault
   quarantines the pool; any other worker fault fails the in-flight requests
-  typed and restarts the loop.
+  typed and restarts the loop. In a world the controller's process started,
+  a lost follower fails the in-flight requests typed and the loop restarts
+  on the world started in its place (:meth:`ContinuousDecodeLoop.adopt_world`).
 
 Threads and streams: the worker and the dispatch threads enter the engine's
 card (``torch.cuda.device``) and issue on its legacy default stream, as the
@@ -294,6 +296,15 @@ class _LoopStopped(Exception):
     """Internal: the loop stopped while its worker waited for a section."""
 
 
+class _WorldLost(Exception):
+    """Internal: the world the loop announces to lost a rank and is being
+    started again by its owner."""
+
+    def __init__(self, world: Any) -> None:
+        super().__init__("the host's world lost a rank")
+        self.world = world
+
+
 class _AdoptEngine(Exception):
     """Internal: an externally rebuilt engine is waiting to be adopted."""
 
@@ -528,13 +539,17 @@ class ContinuousDecodeLoop:
         self._thread: Optional[threading.Thread] = None
         # In a world of ranks: this host's HostController (the controller's
         # own on its first rank; a replica's is set by :meth:`replica`).
+        # kllms: unguarded — swapped under the loop lock only by a world's restart (adopt_world); the worker reads it between operations
         self._world = getattr(engine, "controller", None)
         self._replica = False
         # Set while a section's operation has been announced: a fault then
         # leaves the followers inside it.
         # kllms: unguarded — the worker thread's own flag, set and read only there
         self._announced = False
-        race_exempt(self, "_announced")
+        # The world the last announced operation went to.
+        # kllms: unguarded — the worker thread's own record, set and read only there
+        self._op_world = None
+        race_exempt(self, "_announced", "_op_world", "_world")
 
     @classmethod
     def replica(cls, engine: Any, controller: Any, **geometry: Any) -> "ContinuousDecodeLoop":
@@ -851,6 +866,10 @@ class ContinuousDecodeLoop:
             while True:
                 if self._stopped:
                     raise _LoopStopped()
+                if self._world.stopped is not None and self._world.restartable:
+                    # Its owner is starting the world again: nothing more
+                    # is announced on this one.
+                    raise _WorldLost(self._world)
                 if self._adopted_engine is not None:
                     # A rebuild across the host replaced the engine: no
                     # operation of the retired one is announced.
@@ -895,6 +914,7 @@ class ContinuousDecodeLoop:
         """Hand this operation to the followers (the controller in a world;
         a no-op elsewhere)."""
         if self._leads():
+            self._op_world = self._world
             self._world.announce_loop(op, payload)
             self._announced = True
 
@@ -1012,6 +1032,9 @@ class ContinuousDecodeLoop:
                 return
             except _LoopStopped:
                 return
+            except _WorldLost as lost:
+                if not self._await_world(lost.world):
+                    return
             except _AdoptEngine as swap:
                 if not self._recover("adopt_engine", new_engine=swap.engine):
                     return
@@ -1082,6 +1105,9 @@ class ContinuousDecodeLoop:
         ends within one step budget is then rebuilt (unless ``rank_check``
         holds the followers in the plan's own check); otherwise the world
         stops."""
+        lost = self._lost_world(reason, cause)
+        if lost is not None:
+            return self._await_world(lost)
         counts = reason != "adopt_engine"
         with self._lock:
             self._loop_epoch += 1
@@ -1161,6 +1187,70 @@ class ContinuousDecodeLoop:
         if counts and self.on_rebuilt is not None:
             self.on_rebuilt()
         return True
+
+    def _lost_world(self, reason: str, cause: Optional[BaseException]) -> Optional[Any]:
+        """The world this fault ends where its owner starts it again (a
+        world the controller's process started), else None: one already
+        stopped, one whose announced operation failed (the followers are
+        inside it: it is stopped here, which asks the owner for a new one),
+        or one the backend already replaced under this operation."""
+        if self._replica or not self._leads():
+            return None
+        world = self._op_world if self._announced else self._world
+        if world is None or world.owner is None:
+            return None
+        if world is not self._world or world.stopped is not None:
+            return world
+        if self._announced and (reason not in ("hung_step", "page_accounting")
+                                or not self._op_ended(cause)):
+            if world.restartable:
+                world.stop_world(cause or RuntimeError(reason))
+                return world
+        return None
+
+    def _await_world(self, world: Any) -> bool:
+        """A lost ``world``'s rows: every in-flight request fails with its
+        typed error, the device state is dropped, and the worker waits for
+        the backend to hand it the world started in its place
+        (:meth:`adopt_world`); queued requests wait with it. False once the
+        loop stopped (the world was given up)."""
+        with self._lock:
+            self._announced = False
+            if self._world is world:
+                err = world.stopped or BackendUnavailableError(
+                    "a rank of the host's world was lost")
+                self._loop_epoch += 1
+                self._stats["restarts"] += 1
+                self._last_recovery_reason = "world_lost"
+                self._fail_all(err, queued=False)
+                self._reset_device_state_locked()
+                RECOVERY_EVENTS.record("continuous.restarts")
+            while self._world is world and not self._stopped:
+                self._lock.wait(timeout=0.05)
+            return not self._stopped
+
+    def adopt_world(self, engine: Any, error: Optional[BaseException] = None) -> None:
+        """The backend's restart of the world this loop announces to: the
+        loop carries on, empty, on ``engine`` and its new controller, whose
+        followers build their replicas from a fresh ``("loop", "init")``
+        plan sent here. Requests still in flight on the lost world fail
+        typed. ``error``: the world was given up, and the loop stops with
+        it."""
+        if error is not None:
+            self._terminal(error)
+            return
+        with self._lock:
+            old = self._world
+            self._fail_all(old.stopped or BackendUnavailableError(
+                "a rank of the host's world was lost"), queued=False)
+            self._loop_epoch += 1
+            self._reset_device_state_locked()
+            self.engine = engine
+            self._adopted_engine = None
+            self._world = engine.controller
+            self._world.loop = self
+            self._world.announce_loop("init", self.geometry())
+            self._lock.notify_all()
 
     def _op_ended(self, cause: Optional[BaseException]) -> bool:
         """Whether a hung operation the followers were handed has ended
@@ -2128,7 +2218,9 @@ class ContinuousDecodeLoop:
             return req.budget.error(stage)
         return RequestCancelledError(f"aborted by the controller during {stage}")
 
-    def _fail_all(self, exc: BaseException) -> None:
+    def _fail_all(self, exc: BaseException, queued: bool = True) -> None:
+        """Fail every in-flight request with ``exc`` (and, with ``queued``,
+        every queued one)."""
         with self._lock:
             reqs = {id(r): r for r in self._active if r is not None}
             for req in reqs.values():
@@ -2153,8 +2245,9 @@ class ContinuousDecodeLoop:
                     req.future.set_exception(exc)
             if self._prefilling is not None:
                 self._retire_prefilling_locked(exc)
-            for req in self._queue:
-                if not req.future.done():
-                    req.future.set_exception(exc)
-            self._queue.clear()
+            if queued:
+                for req in self._queue:
+                    if not req.future.done():
+                        req.future.set_exception(exc)
+                self._queue.clear()
             self._lock.notify_all()

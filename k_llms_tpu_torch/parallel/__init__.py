@@ -4,7 +4,10 @@ Counterpart of ``k_llms_tpu/parallel/``. JAX drives a whole mesh from one
 process; here every rank is a process that builds the same engine, holds
 its own shard of the weights and of the KV, and runs the same launches in
 the same order: each host's first rank controls them and the others replay
-its plans (:mod:`.controller`). The ``(data, model)`` axes keep the JAX
+its plans (:mod:`.controller`). On one host a plain process starts the
+other ranks itself and restarts a lost one (:mod:`.launcher`,
+:mod:`.follower`), as JAX's one process drives every local chip. The
+``(data, model)`` axes keep the JAX
 names: samples (decode rows) and sequence chunks ride ``data``, the
 Megatron weight split rides ``model``. The collectives of JAX's
 ``shard_map`` bodies are in :mod:`.collectives`.

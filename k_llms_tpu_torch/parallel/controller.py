@@ -42,9 +42,13 @@ coordinator's store and ends its process (:data:`FOLLOWER_FAULT_EXIT`),
 which closes its connections: every collective the others wait in fails at
 once, and the controller's launch fails as the typed 503
 (``BackendUnavailableError``, ``KernelUnavailableError`` for a kernel) with
-the follower's error. The world is then stopped: every later request gets
-the same 503 (a follower's process cannot be started again from inside the
-world).
+the follower's error. A world started rank by rank is then stopped: every
+later request gets the same 503 (its followers' processes cannot be started
+again from inside the world). A world the controller's own process started
+(:mod:`.launcher`, its :attr:`HostController.owner`) is started again
+instead: the controller asks its owner for a restart whenever it would stop
+(a follower that failed or was killed, an announced operation that never
+ended), and the owner builds a new world, controller and engine.
 
 Plans go out under a lock of their own (``controller.plans``), taken after
 the engine's launch lock where a launch holds both, never before it. A
@@ -150,6 +154,11 @@ class HostController:
         self.decode_constraint: Callable[[Any], Any] = lambda c: c[1]
         # kllms: unguarded — set once, when the world stops; readers raise it
         self.stopped: Optional[BackendUnavailableError] = None
+        # The world's owner where this process started it (a
+        # launcher.SpawnedWorld, asked for a restart where a hand-started
+        # world stops) and the world's generation there.
+        self.owner = None
+        self.generation = 0
         # kllms: unguarded — counted by the one thread that sends or serves plans
         self.plans = 0
         # The continuous loop on this rank: the controller's own (set by the
@@ -183,6 +192,12 @@ class HostController:
         if self.is_controller:
             engine.controller = self
 
+    @property
+    def restartable(self) -> bool:
+        """Whether a stop of this world is healed by starting a new one (the
+        controller's process started it and has not given it up)."""
+        return self.owner is not None and self.owner.terminal is None
+
     @classmethod
     def for_world(cls, engine) -> Optional["HostController"]:
         """The controller (on each host's first rank) or follower for
@@ -207,12 +222,14 @@ class HostController:
         plan comes from; a retired one raises :class:`EngineRetiredError`
         and sends nothing. ``opens``: the plan starts an operation that runs
         until its :meth:`guard` ends."""
-        if self.stopped is not None:
-            raise self.stopped
         with self._plan_lock:
+            # A retired engine's caller may run again on the current one,
+            # which a restarted world's stopped one is not.
             if source is not None and source.retired:
                 raise EngineRetiredError(
                     "this engine was retired by a rebuild; its operation was not announced")
+            if self.stopped is not None:
+                raise self.stopped
             self._broadcast(plan)
             if opens:
                 self._idle.clear()
@@ -231,14 +248,20 @@ class HostController:
         operation's end."""
         self._send(("loop", op, payload), source=self.loop.engine)
 
-    def agree(self, value: Any, what: str) -> None:
-        """Raise :class:`RankDivergenceError` on every rank of the host
-        unless all hold the same ``value`` (a picklable host value; one
-        ``all_gather_object`` over the plan group, uncounted). Every rank
-        calls it at the same point of the same plan: the loop's rank
-        check."""
+    def gather(self, value: Any) -> List[Any]:
+        """Every rank's ``value`` (picklable), in the host's rank order: one
+        ``all_gather_object`` over the plan group, uncounted. Every rank
+        calls it at the same point of the same plan."""
         values: List[Any] = [None] * len(self.ranks)
         dist.all_gather_object(values, value, group=self.group)
+        return values
+
+    def agree(self, value: Any, what: str) -> None:
+        """Raise :class:`RankDivergenceError` on every rank of the host
+        unless all hold the same ``value`` (:meth:`gather`). Every rank
+        calls it at the same point of the same plan: the loop's rank
+        check."""
+        values = self.gather(value)
         differ = [self.ranks[i] for i, v in enumerate(values) if v != values[0]]
         if differ:
             raise RankDivergenceError(
@@ -313,11 +336,24 @@ class HostController:
 
     def hook(self, name: str, *args):
         """Run the registered hook ``name(engine, *args)`` on every rank, in
-        plan order; returns the controller's result."""
+        plan order; returns the controller's result. In a world this
+        process started, a module-level hook travels as its reference and
+        its followers import it (:func:`.launcher.resolve_function`)."""
         engine = self.engine
+        fn = HOOKS[name]
+        plan = ("hook", name, args)
+        if self.owner is not None:
+            from .launcher import function_ref
+
+            ref = function_ref(fn)
+            if ref is None:
+                raise ValueError(
+                    f"hook {name!r} is a closure; the followers this process started "
+                    "import their hooks, so it must be a module-level function")
+            plan += (ref,)
         with engine._launch_lock:
-            self._send(("hook", name, args), source=engine, opens=True)
-            return self.guard(HOOKS[name], engine, *args)
+            self._send(plan, source=engine, opens=True)
+            return self.guard(fn, engine, *args)
 
     def guard(self, fn, *args, **kwargs):
         """Run the controller's part of an announced entry, which ends the
@@ -342,7 +378,16 @@ class HostController:
             pass
         self.stopped = BackendUnavailableError("the world was closed")
 
-    def _stop(self, cause: BaseException) -> BackendUnavailableError:
+    def lose(self, reason: str) -> BackendUnavailableError:
+        """The owner's part when a rank of its world is lost: the engine is
+        retired and the world stopped (the typed error, with a follower's
+        recorded one), so that nothing more is announced on it."""
+        with self._plan_lock:
+            if self.engine is not None:
+                self.engine.retired = True
+        return self._stop(RuntimeError(reason), "a follower was lost")
+
+    def _stop(self, cause: BaseException, what: Optional[str] = None) -> BackendUnavailableError:
         if self.stopped is None:
             fault = _read_fault()
             kind, message = fault if fault else (type(cause).__name__, str(cause))
@@ -351,9 +396,14 @@ class HostController:
                 from ..ops.paged_attention import KernelUnavailableError
 
                 err_type = KernelUnavailableError
-            what = "a follower failed" if fault else "a launch across the host's ranks failed"
-            self.stopped = err_type(f"{what}; the world is stopped: {kind}: {message}")
+            if fault:
+                what = "a follower failed"
+            what = what or "a launch across the host's ranks failed"
+            then = "the world is started again" if self.restartable else "the world is stopped"
+            self.stopped = err_type(f"{what}; {then}: {kind}: {message}")
             logger.error("controller: %s", self.stopped)
+        if self.restartable:
+            self.owner.request_restart(self.generation, str(self.stopped))
         return self.stopped
 
     # -- a follower -----------------------------------------------------------
@@ -400,8 +450,13 @@ class HostController:
             with engine._launch_lock, engine._on_card():
                 getattr(engine, method)(*args, **kwargs)
         elif kind == "hook":
+            fn = HOOKS.get(plan[1])
+            if len(plan) > 3 and plan[3] is not None:
+                from .launcher import resolve_function
+
+                fn = resolve_function(plan[3])
             with engine._on_card():
-                HOOKS[plan[1]](engine, *plan[2])
+                fn(engine, *plan[2])
         elif kind == "loop":
             _, op, payload = plan
             if op == "init":

@@ -18,6 +18,13 @@ rank's host name exchanged through the coordinator's TCP store, so a world
 started from the ``KLLMS_*`` variables alone on two hosts of four cards
 counts four ranks a host (and takes nccl). :func:`host_ranks` exposes the
 result; the controlling rank of :mod:`.controller` is the host's first.
+
+A plain process starts its host's world itself, as JAX's one process drives
+every local chip: :func:`local_rank_count` is the host's rank count (one a
+card, or the forced :data:`LOCAL_RANKS_ENV`), :func:`spawns_world` says
+whether a backend built here starts the others (:mod:`.launcher`), and
+:func:`initialize_local_world` joins the controlling process to the world it
+started. :func:`end_world` forgets a world so that another can start.
 """
 
 from __future__ import annotations
@@ -35,6 +42,12 @@ logger = logging.getLogger(__name__)
 
 #: Seconds a rank waits for the others' host names in the coordinator's store.
 HOST_EXCHANGE_TIMEOUT_S = 300.0
+#: The variables of a world started rank by rank.
+WORLD_ENV = ("KLLMS_COORDINATOR", "KLLMS_NUM_PROCESSES", "KLLMS_PROCESS_ID")
+#: The forced count of this host's ranks: the port's counterpart of
+#: ``--xla_force_host_platform_device_count`` (ranks on the CPU, or ranks
+#: that share a card).
+LOCAL_RANKS_ENV = "KLLMS_LOCAL_RANKS"
 
 
 class HostRanks(NamedTuple):
@@ -100,12 +113,15 @@ def initialize_multihost(
     process_id: Optional[int] = None,
     *,
     device=None,
+    store=None,
 ) -> bool:
     """Start the default process group from the arguments or the
     environment. Returns True when a group was started (or one already
     runs), False for a single process (neither a coordinator nor a process
     count given). The transport is :func:`default_transport` for
-    ``device`` (the rank's device, default :func:`local_device`)."""
+    ``device`` (the rank's device, default :func:`local_device`).
+    ``store``: the coordinator's store, already reached (a follower its
+    controller started), instead of a new connection to it."""
     coordinator_address = coordinator_address or os.getenv("KLLMS_COORDINATOR")
     num_processes = num_processes or _int_env("KLLMS_NUM_PROCESSES")
     process_id = process_id if process_id is not None else _int_env("KLLMS_PROCESS_ID")
@@ -121,13 +137,28 @@ def initialize_multihost(
         )
     global _HOST
     world, rank = int(num_processes), int(process_id)
-    host, port = coordinator_address.rsplit(":", 1)
-    # The coordinator's store, made here so that the host names cross it
-    # before the transport is chosen; the process group then shares it.
-    store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
-                          timeout=timedelta(seconds=HOST_EXCHANGE_TIMEOUT_S))
+    if store is None:
+        host, port = coordinator_address.rsplit(":", 1)
+        # The coordinator's store, made here so that the host names cross it
+        # before the transport is chosen; the process group then shares it.
+        store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+                              timeout=timedelta(seconds=HOST_EXCHANGE_TIMEOUT_S))
     _HOST = _host_ranks_from_env(rank, world) or host_ranks_from_names(
         _exchange_host_names(store, rank, world), rank)
+    _init_group(store, world, rank, device)
+    return True
+
+
+def initialize_local_world(store, local_ranks: int, device=None) -> None:
+    """Join the world this process started as its rank 0: ``local_ranks``
+    ranks, all on this host, meeting at ``store`` (the master this process
+    serves). The controller's side of :func:`initialize_multihost`."""
+    global _HOST
+    _HOST = HostRanks(0, int(local_ranks), list(range(int(local_ranks))))
+    _init_group(store, int(local_ranks), 0, device)
+
+
+def _init_group(store, world: int, rank: int, device) -> None:
     if device is None:
         device = local_device(rank, "cuda" if torch.cuda.is_available() else "cpu")
     device = torch.device(device)
@@ -139,7 +170,40 @@ def initialize_multihost(
         "torch.distributed initialized: process %s/%s over %s on %s (host ranks %s)",
         dist.get_rank(), dist.get_world_size(), transport, device, _HOST.ranks,
     )
-    return True
+
+
+def end_world() -> None:
+    """Destroy the default group, and with it every group made from it, and
+    forget this process's host ranks: a world started again in this process
+    (:mod:`.launcher`'s restart) derives everything anew."""
+    global _HOST
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _HOST = None
+
+
+def local_rank_count(device) -> int:
+    """This host's rank count as a plain process sees it, the way JAX counts
+    its local devices: :data:`LOCAL_RANKS_ENV` where set, else one rank a
+    card for a ``cuda`` device, else one."""
+    forced = _int_env(LOCAL_RANKS_ENV)
+    if forced is not None:
+        return forced
+    device = torch.device(device) if device is not None else None
+    if (device is None or device.type == "cuda") and torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return 1
+
+
+def spawns_world(device) -> int:
+    """The rank count of the world a backend built in this process starts
+    (:mod:`.launcher`), or 0 where it starts none: a process group already
+    runs, a ``KLLMS_*`` world variable is set (a rank started by hand, or a
+    follower), or the host counts one rank."""
+    if dist.is_initialized() or any(os.getenv(v) for v in WORLD_ENV):
+        return 0
+    n = local_rank_count(device)
+    return n if n > 1 else 0
 
 
 def local_device(rank: Optional[int] = None, kind: str = "cuda") -> torch.device:

@@ -71,7 +71,9 @@ def make_mesh(data: int, model: int, devices: Optional[Sequence[int]] = None) ->
     """The ``(data, model)`` mesh over the world's ranks. Every rank of the
     world must call it, in the same order as its other group calls.
     ``devices`` (ranks, default the whole world) is checked as the JAX
-    function checks its device list; the mesh covers the whole world."""
+    function checks its device list; the mesh covers the whole world. A
+    mesh belongs to the world it was made in: a world started again in
+    this process (:mod:`.launcher`) makes its own."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = len(devices) if devices is not None else world
     if data * model > n:

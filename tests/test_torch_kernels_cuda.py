@@ -1200,6 +1200,42 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda_device, tmp_path):
     assert any(isinstance(r, str) and "Duplicate GPU" in r for r in res), res
 
 
+def _pid_alive(pid):
+    """Whether ``pid`` runs (an exited process not yet reaped counts as
+    ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def test_spawned_world_serves_on_the_card_and_close_leaves_no_child(cuda_device, monkeypatch):
+    """A plain ``KLLMs(backend="cuda", model_parallel=2)`` with the forced
+    local rank count at 2 starts its follower itself
+    (``parallel/launcher.py``): both ranks on the one card over gloo, a
+    tensor-parallel (1, 2) mesh, one request served through both ranks'
+    kernels, and ``close()`` ends the follower with exit code 0."""
+    from k_llms_tpu_torch import KLLMs
+
+    monkeypatch.setenv("KLLMS_LOCAL_RANKS", "2")
+    client = KLLMs(backend="cuda", model="tiny", model_parallel=2, max_new_tokens=8)
+    world = client.backend.world
+    try:
+        assert world is not None and len(world.pids) == 1
+        mesh = client.backend.engine.mesh
+        assert mesh.shape == {"data": 1, "model": 2} and mesh.transport == "gloo"
+        _ext.reset_launch_counts()
+        resp = client.chat.completions.create(
+            messages=[{"role": "user", "content": "hi"}], n=2, seed=1)
+        assert len(resp.choices) == 3
+        assert sum(_ext.LAUNCH_COUNTS.values()) > 0
+    finally:
+        client.close()
+    assert [p.returncode for p in world.procs] == [0]
+    assert not any(_pid_alive(pid) for _, _, pid, _ in world.ended)
+
+
 def _int4_tp4_rank(rank, size, store, outq):
     import os
     import sys
