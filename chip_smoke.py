@@ -80,16 +80,27 @@ outlier under the card's embeddings and under Levenshtein, and serves one
 seeded sampled request twice: tokens, logprobs, choices and likelihoods
 byte-identical, every launch counted. ``mesh``
 (last) serves Llama-3-8B's widths (at 8 of its 32 layers, the TP loop at
-16, the spawned TP int4 job at 32: ``MESH_LAYERS``)
-on a mesh of two ranks on the one card (NCCL refuses two ranks on one
+16, the multi-process job at 32: ``MESH_LAYERS``)
+on meshes of ranks on the one card (NCCL refuses two ranks on one
 device, so the ranks talk over gloo, staging each collective's bytes
 through host memory), each rank building the same ``KLLMs`` with the mesh
-fields and cutting its shard of the same seeded tree: tensor-parallel
-(1, 2) int4 (``mesh_spawned``: ``8b_int4``'s client built as a plain
-``KLLMs(..., model_parallel=2)`` in this process with
-``KLLMS_LOCAL_RANKS=2``, which starts its follower itself
-(``parallel/launcher.py``); K2 and K3 at 16/4 heads a rank, K4 through
-``w4_matmul_tp``) on requests 0 and 2; then, in ranks started by hand
+fields and cutting its shard of the same seeded tree: JAX's multi-process
+start (``mesh_hosts``: two host processes, each with the three
+``KLLMS_*`` variables on loopback and ``KLLMS_LOCAL_RANKS=2``, call
+``initialize_multihost()``, which starts each host's follower into one
+world of four ranks, and build ``8b_int4``'s client with
+``model_parallel=2``: a (2, 2) mesh, the model axis inside a host and
+``data`` across the hosts; K2 and K3 at 16/4 heads a rank on its data
+rank's rows, K4 through ``w4_matmul_tp``) on requests 0 and 2, both hosts'
+responses equal, and its fault drill (``mesh_hosts_fault``, tiny: a
+follower killed on one host during a streamed launch fails that launch on
+both hosts and stops the world within ``HOSTS_STOP_LIMIT_S``, typed 503s;
+each host's world, which outlives its clients, closed after its job);
+tensor-parallel (1, 2) int4
+(``mesh_spawned``: the same client built as a plain ``KLLMs(...,
+model_parallel=2)`` in this process with ``KLLMS_LOCAL_RANKS=2``, which
+starts its follower itself, ``parallel/launcher.py``) on the same
+requests; then, in ranks started by hand
 (``torch.multiprocessing``), tensor-parallel bf16 paged (K2, K1
 at 4 kv heads a rank) on request 0, and sequence-parallel (2, 1) bf16 on
 request 2 (a ring prefill and ring decode, the prompt again as an exact
@@ -1827,10 +1838,17 @@ REBUILD_BUDGET_S = 8.0
 #: 1200). A job whose first tokens turn on a near tie at one depth (its
 #: check compares them with the unsharded client's) takes another: the TP
 #: loop's sampled request B flips at 8 layers and holds at 16. The TP int4
-#: job of a world the smoke's own process starts (``spawned``) runs the
-#: full 32.
-MESH_LAYERS = {"spawned": 32, "tp2_bf16": 8, "sp2": 8, "dp2": 8, "dp2_int4": 8,
+#: job of JAX's multi-process start (``hosts``: two host processes of two
+#: ranks each) runs the full 32; the world the smoke's own process starts
+#: (``spawned``) runs 8, as the hand-started jobs do.
+MESH_LAYERS = {"hosts": 32, "spawned": 8, "tp2_bf16": 8, "sp2": 8, "dp2": 8, "dp2_int4": 8,
                "dp2_spec": 8, "dp2_loop": 8, "tp2_loop": 16, "rebuild": 8}
+#: JAX's multi-process start on the one card (``mesh_hosts``): host
+#: processes, each with ``HOST_RANKS`` ranks over gloo.
+HOSTS, HOST_RANKS = 2, 2
+#: Seconds within which a follower lost on one host stops the world on
+#: every host (``mesh_hosts_fault``).
+HOSTS_STOP_LIMIT_S = 10.0
 #: The train phase's two-rank TP step (2 layers at Llama-3-8B's widths,
 #: bf16, two steps); it runs in the mesh phase's world when both run.
 TRAIN_TP2_JOB = dict(layers=2, steps=2, B=2, S=256, valid_last=200)
@@ -2720,6 +2738,148 @@ def run_spawned_restart_drill(timeout=600):
         raise RuntimeError(f"mesh_spawned_restart failed:\n{payload}")
     payload["exit_code"] = proc.exitcode
     return payload
+
+
+def hosts_fault(pid: int) -> dict:
+    """``mesh_hosts_fault`` on one host: tiny on the (2, 2) world; after a
+    first request every host streams the same request, and host 0 (the
+    data axis's first rank, which delivers every data rank's streamed
+    tokens) kills the last host's follower from its first streamed token's
+    sink: each host's launch in flight gets the typed 503, its scheduler
+    stops, and the next request gets the typed 503 too."""
+    import signal
+
+    from k_llms_tpu_torch import KLLMs
+    from k_llms_tpu_torch.types.wire import BackendUnavailableError
+
+    req = dict(messages=[{"role": "user", "content": "Count to twenty."}], n=4, seed=3,
+               temperature=0.8, max_tokens=48)
+    client = KLLMs(backend="cuda", model="tiny", max_new_tokens=48, model_parallel=2)
+    backend = client.backend
+    world = backend.world
+    store = world.host.store
+    first = [c.message.content for c in client.chat.completions.create(**req).choices]
+    if pid == HOSTS - 1:
+        store.set("smoke/victim", str(world.pids[0]))
+    victim = int(store.get("smoke/victim"))
+
+    def error_of(fn):
+        try:
+            fn()
+        except Exception as e:
+            return {"type": type(e).__name__, "status": getattr(e, "status_code", None),
+                    "typed": isinstance(e, BackendUnavailableError), "at": time.time(),
+                    "message": str(e)[:300]}
+        return None
+
+    killed = {}
+
+    def stream():
+        for _ in client.chat.completions.create(stream=True, **req):
+            if pid == 0 and not killed:
+                killed["at"] = time.time()
+                os.kill(victim, signal.SIGKILL)
+
+    error = error_of(stream)
+    deadline = time.monotonic() + 4 * HOSTS_STOP_LIMIT_S
+    while backend.health()["state"] != "stopped" and time.monotonic() < deadline:
+        time.sleep(0.01)
+    stopped_at = time.time()
+    t0 = time.perf_counter()
+    after = error_of(lambda: client.chat.completions.create(**req))
+    after_s = time.perf_counter() - t0
+    state = backend.health()["state"]
+    client.close()
+    return {"first": first, "killed_at": killed.get("at"), "stopped_at": stopped_at,
+            "error": error, "after": after, "after_s": after_s, "state": state}
+
+
+def host_main(pid, port, job, outq) -> None:
+    """One host of JAX's multi-process start (``mesh_hosts`` and its fault
+    drill): the three ``KLLMS_*`` variables on a loopback coordinator and
+    ``KLLMS_LOCAL_RANKS``, then ``initialize_multihost()``, which starts
+    this host's follower into the world of every process (host-major
+    ranks), then ``job``: ``serve`` (:func:`mesh_serve` of a client built
+    here: it hands the follower its configuration) or ``fault``
+    (:func:`hosts_fault`). Puts (pid, "ok", record) or (pid, "error",
+    traceback)."""
+    import traceback
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import torch
+        import torch.distributed as dist
+
+        os.environ.update(KLLMS_COORDINATOR=f"127.0.0.1:{port}", KLLMS_NUM_PROCESSES=str(HOSTS),
+                          KLLMS_PROCESS_ID=str(pid), KLLMS_LOCAL_RANKS=str(HOST_RANKS))
+        torch.cuda.set_device(0)
+        from k_llms_tpu_torch.parallel.distributed import host_ranks, initialize_multihost
+
+        mesh_register_hooks()
+        t0 = time.perf_counter()
+        initialize_multihost()
+        place = {"world": dist.get_world_size(), "rank": dist.get_rank(),
+                 "host_ranks": host_ranks().ranks, "transport": dist.get_backend(),
+                 "start_s": time.perf_counter() - t0}
+        if job["kind"] == "serve":
+            res = mesh_serve(job["client_kw"], job["reqs"], model=job["model"])
+        else:
+            res = hosts_fault(pid)
+        # The world outlives its clients, as JAX's distributed runtime does;
+        # closed here (the process's exit would close it) to read each
+        # follower's exit.
+        from k_llms_tpu_torch.parallel.launcher import host_world
+
+        world = host_world()
+        world.close()
+        res["world_close"] = {"exit_codes": [p.returncode for p in world.procs],
+                              "alive": [e[2] for e in world.ended if pid_alive(e[2])],
+                              "ended": [list(e) for e in world.ended]}
+        res.update(place=place, job_s=time.perf_counter() - t0, host=mesh_host_memory())
+        outq.put((pid, "ok", res))
+    except BaseException:
+        outq.put((pid, "error", traceback.format_exc()))
+
+
+def run_hosts(job, timeout=900):
+    """:func:`host_main` on ``HOSTS`` fresh processes (one a host); returns
+    their records in process order, each with its exit code (raises with a
+    host's traceback, or when one does not answer)."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    procs = [ctx.Process(target=host_main, args=(p, port, job, outq)) for p in range(HOSTS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + timeout
+        while len(got) < HOSTS:
+            try:
+                pid, kind, payload = outq.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise RuntimeError(f"hosts {sorted(set(range(HOSTS)) - set(got))} did not "
+                                   f"answer {job['kind']} in {timeout} s") from None
+            if kind != "ok":
+                raise RuntimeError(f"host {pid} failed {job['kind']}:\n{payload}")
+            got[pid] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for pid, p in enumerate(procs):
+        got[pid]["exit_code"] = p.exitcode
+    return [got[p] for p in range(HOSTS)]
 
 
 def mesh_fault_rank(rank, world, store, outq) -> None:
@@ -6367,16 +6527,18 @@ def main(argv=None) -> int:
         # The ranks start up (spawn, imports, the world's store) while the
         # unsharded references run here; they wait to serve until every
         # reference client is closed. The TP int4 job is a plain client of
-        # this process at 32 layers, which starts its follower itself
-        # (mesh_spawned): once the references are done (a process in a
-        # world builds no unsharded client), its two ranks start, draw their
-        # shards and serve while the hand-started ranks run their jobs, as
-        # the restart drill (a plain process of its own,
-        # mesh_spawned_restart) and the fault drill do.
+        # this process, which starts its follower itself (mesh_spawned):
+        # once the references are done (a process in a world builds no
+        # unsharded client), its two ranks start, draw their shards and
+        # serve while the hand-started ranks run their jobs, as the two host
+        # processes of JAX's multi-process start (mesh_hosts, at 32 layers,
+        # and its fault drill), the restart drill (a plain process of its
+        # own, mesh_spawned_restart) and the fault drill do.
         handle = spawn_ranks(2, "gloo", jobs, store_dir)
-        mesh_pool = ThreadPoolExecutor(max_workers=4)
+        mesh_pool = ThreadPoolExecutor(max_workers=6)
         spawned_kw = dict(int4_kw, model_parallel=2)
         try:
+            ref_hosts = mesh_serve(int4_kw, mesh_reqs, model=depth["hosts"])
             ref_int4 = mesh_serve(int4_kw, mesh_reqs, model=depth["spawned"])
             ref_bf16 = mesh_serve(bf16_kw, mesh_reqs[:1], model=depth["tp2_bf16"])
             ref_sp = mesh_serve(bf16_kw, mesh_reqs[1:], model=depth["sp2"])
@@ -6391,6 +6553,7 @@ def main(argv=None) -> int:
                 **loop_job_args, model=depth["tp2_loop"])
             log({"phase": "mesh_references", "seconds": time.perf_counter() - t_mesh,
                  "layers": MESH_LAYERS,
+                 "hosts_serve_s": ref_hosts["serve_s"],
                  "int4_serve_s": ref_int4["serve_s"], "bf16_serve_s": ref_bf16["serve_s"],
                  "sp_serve_s": ref_sp["serve_s"],
                  "dp2_bf16_serve_s": ref_dp2["serve_s"],
@@ -6400,6 +6563,7 @@ def main(argv=None) -> int:
                  "tp_loop_wall_s": ref_loop_tp["wall_s"],
                  "loop_steps_ms": ref_loop["steps_ms"],
                  "loop_peak_allocated_bytes": ref_loop["peak_allocated_bytes"],
+                 "hosts_peak_bytes": ref_hosts["peak_bytes"],
                  "int4_peak_bytes": ref_int4["peak_bytes"],
                  "bf16_peak_bytes": ref_bf16["peak_bytes"],
                  "dp2_launches": [(ln["requests"], ln["rows"], ln["steps"])
@@ -6413,6 +6577,13 @@ def main(argv=None) -> int:
             # A follower's fault (tiny, a world of its own) runs beside the
             # ranks' jobs; it is checked after them.
             fault_future = mesh_pool.submit(run_fault_drill, store_dir)
+            # JAX's multi-process start: two host processes of two ranks
+            # (the int4 TP job at 32 layers on a (2, 2) mesh), and its fault
+            # drill at tiny.
+            hosts_future = mesh_pool.submit(
+                run_hosts, {"kind": "serve", "client_kw": spawned_kw, "reqs": mesh_reqs,
+                            "model": depth["hosts"]})
+            hosts_fault_future = mesh_pool.submit(run_hosts, {"kind": "fault"}, 300)
             restart_future = mesh_pool.submit(run_spawned_restart_drill)
             spawned_future = mesh_pool.submit(run_spawned_job, spawned_kw, mesh_reqs,
                                               depth["spawned"])
@@ -6422,6 +6593,9 @@ def main(argv=None) -> int:
             spawned = spawned_future.result(timeout=900)
             spawned_init_s = spawned["init_s"]
             ranks["mesh_spawned"] = [spawned] + spawned["followers"]
+            hosts = hosts_future.result(timeout=900)
+            for pid, host in enumerate(hosts):
+                ranks[f"mesh_hosts_{pid}"] = [host] + host["followers"]
         finally:
             stop_ranks(handle)
             mesh_pool.shutdown(wait=False)
@@ -6573,6 +6747,16 @@ def main(argv=None) -> int:
         def draws(lns):
             return sum(ln["steps"] + 1 for ln in lns if ln["temperature"] != 0.0)
 
+        def expected_hosts(res):
+            """Each rank of the (2, 2) world of two host processes: the TP
+            int4 counts on its data rank's B/2 rows (K3 where the gate takes
+            them), a draw per sampled step, and one result gather over
+            ``data`` a launch beside the model axis's logits gathers."""
+            L, lns, E, prefills, steps = forwards(res)
+            out = expected_tp_int4(res)
+            out.update(all_gather=prefills + steps + len(lns), threefry_uniform_rows=draws(lns))
+            return out
+
         def expected_dp2(int4):
             """Each data rank, per launch of B rows: K2 once a layer per
             prefill (replicated) and per embeddings forward; on its B/2 rows
@@ -6594,7 +6778,7 @@ def main(argv=None) -> int:
                 return out
             return fn
 
-        tp4 = check_serve("mesh_spawned", ref_int4, 2, expected_tp_int4)
+        check_serve("mesh_spawned", ref_int4, 2, expected_tp_int4)
         spawned_close = spawned["world_close"]
         spawned_ok = (spawned["mesh"] == {"data": 1, "model": 2}
                       and spawned["transport"] == "gloo"
@@ -6605,6 +6789,70 @@ def main(argv=None) -> int:
              "close": spawned_close, "ok": spawned_ok})
         if not spawned_ok:
             raise AssertionError(f"mesh_spawned: {spawned['mesh']} {spawned_close}")
+        # JAX's multi-process start: each host's ranks by formula against
+        # the unsharded 32-layer client, both hosts' responses equal, the
+        # world host-major, every close exit 0.
+        hosts_problems = []
+        hosts_checked = []
+        for pid, host in enumerate(hosts):
+            res = check_serve(f"mesh_hosts_{pid}", ref_hosts, 2, expected_hosts)
+            hosts_checked.append(res)
+            lns = host["launches"]
+            steps = sum(ln["steps"] for ln in lns)
+            for r in res:
+                # The loop test's pmax: one over each axis a step.
+                if not 2 * steps <= r["collectives"]["pmax"] <= 2 * (steps + len(lns)):
+                    hosts_problems.append(f"host {pid}: {r['collectives']['pmax']} pmax for "
+                                          f"{steps} steps")
+            place = host["place"]
+            if (place["world"] != HOSTS * HOST_RANKS or place["rank"] != pid * HOST_RANKS
+                    or place["host_ranks"] != list(range(pid * HOST_RANKS, (pid + 1) * HOST_RANKS))
+                    or place["transport"] != "gloo" or host["mesh"] != {"data": 2, "model": 2}):
+                hosts_problems.append(f"host {pid}: place {place}, mesh {host['mesh']}")
+            if any(ln["rank_rows"] * 2 != ln["rows"] for ln in lns):
+                hosts_problems.append(f"host {pid}: rows {[(ln['rows'], ln['rank_rows']) for ln in lns]}")
+            close = host["world_close"]
+            if close["exit_codes"] != [0] or close["alive"] or host["exit_code"] != 0:
+                hosts_problems.append(f"host {pid}: close {close}, exit {host['exit_code']}")
+        if [o["texts"] for o in hosts[0]["outs"]] != [o["texts"] for o in hosts[1]["outs"]]:
+            hosts_problems.append("the hosts' responses differ")
+        log({"phase": "mesh_hosts_world", "layers": hosts[0]["L"],
+             "start_s": [h["place"]["start_s"] for h in hosts],
+             "init_s": [h["init_s"] for h in hosts], "serve_s": [h["serve_s"] for h in hosts],
+             "job_s": [h["job_s"] for h in hosts],
+             "decode_ms_per_step": [[ln["decode_s"] * 1e3 / max(ln["steps"], 1)
+                                     for ln in h["launches"]] for h in hosts],
+             "unsharded_decode_ms_per_step": [ln["decode_s"] * 1e3 / max(ln["steps"], 1)
+                                              for ln in ref_hosts["launches"]],
+             "rank_peak_bytes": [[r["peak_bytes"] for r in [h] + h["followers"]] for h in hosts],
+             "close": [h["world_close"] for h in hosts],
+             "exit_codes": [h["exit_code"] for h in hosts], "ok": not hosts_problems})
+        if hosts_problems:
+            raise AssertionError(f"mesh_hosts: {hosts_problems}")
+        hosts_fault_rec = hosts_fault_future.result(timeout=300)
+        killed_at = hosts_fault_rec[0]["killed_at"]
+        fault_ok = (killed_at is not None
+                    and hosts_fault_rec[0]["first"] == hosts_fault_rec[1]["first"])
+        for h in hosts_fault_rec:
+            err, after = h["error"] or {}, h["after"] or {}
+            h["error_s"] = err.get("at", float("inf")) - (killed_at or 0.0)
+            h["stop_s"] = h["stopped_at"] - (killed_at or 0.0)
+            fault_ok = fault_ok and (h["state"] == "stopped" and h["stop_s"] <= HOSTS_STOP_LIMIT_S
+                                     and err.get("typed") and err.get("status") == 503
+                                     and h["error_s"] <= HOSTS_STOP_LIMIT_S
+                                     and after.get("typed") and after.get("status") == 503
+                                     and h["world_close"]["alive"] == [] and h["exit_code"] == 0)
+        log({"phase": "mesh_hosts_fault", "limit_s": HOSTS_STOP_LIMIT_S,
+             "error_s": [h["error_s"] for h in hosts_fault_rec],
+             "stop_s": [h["stop_s"] for h in hosts_fault_rec],
+             "errors": [h["error"] for h in hosts_fault_rec],
+             "after": [h["after"] for h in hosts_fault_rec],
+             "after_s": [h["after_s"] for h in hosts_fault_rec],
+             "states": [h["state"] for h in hosts_fault_rec],
+             "close": [h["world_close"] for h in hosts_fault_rec],
+             "exit_codes": [h["exit_code"] for h in hosts_fault_rec], "ok": fault_ok})
+        if not fault_ok:
+            raise AssertionError(f"mesh_hosts_fault: {hosts_fault_rec}")
         # A follower of a world the controller's process started, killed
         # while idle and during a launch: the world starts again.
         restart = restart_future.result()
@@ -6897,7 +7145,8 @@ def main(argv=None) -> int:
         kernels["w4_matmul_tp"] = {
             "name": "w4_matmul_tp", "route": "cuda", "source": "k_llms_tpu_torch/csrc/w4_matmul.cu",
             "replaces": "k_llms_tpu/ops/w4matmul.py:223",
-            "launches": tp4[0]["counts"]["w4_matmul"],  # K4 in the TP int4 window
+            # K4 a rank in the window of JAX's multi-process start.
+            "launches": hosts_checked[0][0]["counts"]["w4_matmul"],
             "max_abs_err": max(c["max_abs_err"] for c in k4tp_cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

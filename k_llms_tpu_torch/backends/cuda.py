@@ -48,13 +48,16 @@ keyword that names one of the JAX package's other ``BackendConfig`` fields
 raises ``NotImplementedError`` rather than being dropped.
 
 A plain process builds its host's world itself, as JAX's one process drives
-every local chip: where no process group runs, none of the ``KLLMS_*`` world
-variables is set and the host counts more than one rank (one a card, or
-``KLLMS_LOCAL_RANKS``; ``parallel/distributed.py``), the constructor starts
-the other ranks as fresh interpreters (``parallel/launcher.py``) before it
-builds the engine, raising JAX's ``auto_mesh`` error first when
-``model_parallel`` does not divide the rank count. Every follower builds
-this backend from this ``BackendConfig`` and resolved ``ModelConfig``, on its
+every local chip: where no process group runs, ``LOCAL_RANK`` is unset and
+the host counts more than one rank (one a card, or ``KLLMS_LOCAL_RANKS``;
+``parallel/distributed.py``), the constructor starts the other ranks as
+fresh interpreters (``parallel/launcher.py``) before it builds the engine,
+raising JAX's ``auto_mesh`` error first when ``model_parallel`` does not
+divide the rank count. After JAX's multi-process start
+(``initialize_multihost()`` with the ``KLLMS_*`` variables, which starts
+each host's followers into one world across the hosts) the constructor
+hands the host's followers their task instead. Every follower builds this
+backend from this ``BackendConfig`` and resolved ``ModelConfig``, on its
 own shard of the same weights. A caller passing ``engine=`` or ``mesh=``
 starts nothing.
 
@@ -75,12 +78,14 @@ engine on every rank, on the first engine's mesh
 (:meth:`HostController.rebuild`; a follower's part is
 :meth:`CudaBackend._follow_rebuild`), and the request is replayed. A fault
 that stops a hand-started world (a follower's own, or an announced
-operation that never ends) stops it for good (the typed 503). A world this
-backend started is started again instead (:meth:`_restart_world`): the
-request in flight gets the typed 503, as a JAX caller gets a launch's error,
-and the next is served on new followers, a new mesh and a new engine on
-every rank; ``max_rebuilds`` restarts without a good launch in between end
-in ``STOPPED``.
+operation that never ends) stops it for good (the typed 503), and so does
+one of several processes, on every host (:meth:`_stop_world`, as a JAX job
+stops with a lost process). A world of one host this backend started is
+started again instead (:meth:`_restart_world`): the request in flight gets
+the typed 503, as a JAX caller gets a launch's error, and the next is
+served on new followers, a new mesh and a new engine on every rank;
+``max_rebuilds`` restarts without a good launch in between end in
+``STOPPED``.
 """
 
 from __future__ import annotations
@@ -514,17 +519,26 @@ class CudaBackend(Backend):
         self._model_config = model_config
         self._mesh = mesh
         self.param_summary: Optional[Dict[str, Any]] = None
-        # The world this backend started (a plain process on a host of
-        # several ranks), or None.
+        # The world whose followers serve this backend (one this backend
+        # started, of its process alone, or the one initialize_multihost
+        # started), or None.
         self.world = None
+        self._owns_world = False
         # kllms: unguarded — restarts since the last good launch; written by the watcher and the launch thread
         self._world_restarts = 0
         if engine is None and mesh is None:
             from ..parallel.distributed import spawns_world
+            from ..parallel.launcher import host_world
 
-            size = spawns_world(cfg.device)
-            if size:
-                self._start_world(size)
+            world = host_world()
+            if world is not None:
+                # initialize_multihost started this host's followers into
+                # the world of every process: they build this backend.
+                self._start_world(world.size, world)
+            else:
+                followers = spawns_world(cfg.device)
+                if followers:
+                    self._start_world(followers + 1)
         self._schemas: Dict[str, Any] = {}
         try:
             self.engine = engine if engine is not None else self._build_engine()
@@ -539,8 +553,11 @@ class CudaBackend(Backend):
             self.controller = self._control(HostController.for_world(self.engine))
         except BaseException as e:
             if self.world is not None:
-                # No follower outlives a constructor that failed.
+                # No follower outlives a constructor that failed (in a world
+                # of several processes, none does on any host).
                 self.world.fail(e)
+                if self._owns_world:
+                    self.world.close()
             raise
         self.is_controller = self.controller is None or self.controller.is_controller
         if not self.is_controller:
@@ -660,27 +677,40 @@ class CudaBackend(Backend):
         return model_config.with_(**overrides) if overrides else model_config
 
     # -- the world this backend started ----------------------------------------
-    def _start_world(self, size: int) -> None:
-        """Start the host's other ``size - 1`` ranks and join their world as
-        its rank 0, before the engine is built. JAX's ``auto_mesh`` error is
-        raised before any child starts; on a card every kernel is built
-        first, so the followers find the build."""
+    def _start_world(self, size: int, world=None) -> None:
+        """Hand the host's other ``size - 1`` ranks this backend, before the
+        engine is built: a world of this process alone is started here (and
+        ends with this client); ``world``, one that
+        :func:`.parallel.distributed.initialize_multihost` started across
+        several processes (and that outlives its clients), is handed its
+        task. JAX's ``auto_mesh`` error is raised before any follower
+        builds; on a card every kernel is built first, so the followers find
+        the build."""
         from ..parallel.distributed import local_device
-        from ..parallel.launcher import SpawnedWorld
+        from ..parallel.launcher import SpawnedWorld, local_place
 
         cfg = self.backend_config
         mp = cfg.model_parallel or 1
-        if size % mp != 0:
-            raise ValueError(f"model_parallel={mp} does not divide device count {size}")
+        owned = world is None
+        ranks = size if owned else world.host.world
+        if ranks % mp != 0:
+            raise ValueError(f"model_parallel={mp} does not divide device count {ranks}")
         device = resolve_device(cfg.device)
         if device.type == "cuda":
             from ..ops import _ext
 
             _ext.build_all()
-        self.world = SpawnedWorld(
-            size, {"config": cfg, "model_config": self._model_config},
-            device=local_device(0, device.type), on_lost=self._restart_world)
-        self.world.start()
+        if owned:
+            world = SpawnedWorld(size, local_device(0, device.type),
+                                 local_place(size, device.type), self._restart_world,
+                                 restartable=True)
+            world.start()
+        elif world.terminal is not None:
+            raise world.terminal
+        world.serve_backend({"config": cfg, "model_config": self._model_config})
+        if not owned:
+            world.on_lost = self._stop_world
+        self.world, self._owns_world = world, owned
 
     def _control(self, controller):
         """Wire ``controller`` (None in a world of one) to this backend: the
@@ -721,6 +751,7 @@ class CudaBackend(Backend):
                     f"without a good launch; last: {reason}")
                 logger.error("%s", err)
                 world.fail(err)
+                world.close()
                 if loop is not None:
                     loop.adopt_world(None, err)
                 self.scheduler.note_rebuild_failed(err)
@@ -750,6 +781,24 @@ class CudaBackend(Backend):
             old = weakref.ref(old_engine)
             del old_engine
             self._release_after(None, old)
+
+    def _stop_world(self, reason: str) -> None:
+        """A world of several processes lost a rank (``reason``: here, or
+        the stop mark of another process): as a JAX job cannot survive a
+        lost process, it stops on every host. The engine retires, this
+        host's followers end, and the launch in flight and every later
+        request get the typed 503; the scheduler is ``STOPPED``."""
+        err = FollowerFaultError(f"a rank of the world was lost; the world is stopped: {reason}")
+        controller = getattr(self, "controller", None)
+        if controller is not None:
+            controller.lose(reason)
+        scheduler = getattr(self, "scheduler", None)
+        if scheduler is not None:
+            scheduler.note_rebuild_failed(err)
+        loop = getattr(self, "_continuous", None)
+        if loop is not None:
+            loop.adopt_world(None, err)
+        self.world.fail(err)
 
     def _serving_engine(self):
         """The current engine, once the world this backend started serves
@@ -993,6 +1042,11 @@ class CudaBackend(Backend):
         # A restart of the world in progress is waited for outside the
         # watchdog's budget.
         self._serving_engine()
+        if self.world is not None and not self.world.restartable:
+            # A world of several processes: the caller gets the stop's 503
+            # even while the launch waits on another host's rank.
+            return self.world.until_stopped(self.supervisor.supervised_launch, run,
+                                            rows=rows, max_new_tokens=max_new_tokens)
         return self.supervisor.supervised_launch(run, rows=rows, max_new_tokens=max_new_tokens)
 
     # -- chat -------------------------------------------------------------
@@ -1460,16 +1514,22 @@ class CudaBackend(Backend):
             self.drain()
             if self._continuous is not None:
                 self._continuous.stop()
-        if self.world is not None:
+        world = self.world
+        if world is not None and self._owns_world:
             # A restart in progress ends first; the children's exits from
-            # here on are the close plan's.
-            self.world.closing()
+            # here on are the close's.
+            world.closing()
         if self.controller is not None:
             self.controller.close()
-        if self.world is not None:
-            # Each follower's constructor returns on the close plan and its
-            # process exits 0; close() returns once every child has.
-            self.world.close()
+        if world is not None:
+            # Each follower's constructor returns on the close plan. A world
+            # this client started ends with it (every child exits 0 before
+            # close() returns); one of several processes waits for the next
+            # client.
+            if self._owns_world:
+                world.close()
+            else:
+                world.release_backend()
 
     # -- the controller's constraint codec ----------------------------------
     def _encode_constraint(self, constraint):

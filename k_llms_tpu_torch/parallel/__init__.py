@@ -4,9 +4,11 @@ Counterpart of ``k_llms_tpu/parallel/``. JAX drives a whole mesh from one
 process; here every rank is a process that builds the same engine, holds
 its own shard of the weights and of the KV, and runs the same launches in
 the same order: each host's first rank controls them and the others replay
-its plans (:mod:`.controller`). On one host a plain process starts the
-other ranks itself and restarts a lost one (:mod:`.launcher`,
-:mod:`.follower`), as JAX's one process drives every local chip. The
+its plans (:mod:`.controller`). Each process starts its host's
+other ranks itself (:mod:`.launcher`, :mod:`.follower`), as JAX's one
+process drives every local chip: a plain process when its client is built
+(and it restarts a lost one), a process of JAX's multi-process start in
+``initialize_multihost``. The
 ``(data, model)`` axes keep the JAX
 names: samples (decode rows) and sequence chunks ride ``data``, the
 Megatron weight split rides ``model``. The collectives of JAX's
@@ -19,11 +21,9 @@ from .sharding import batch_spec, cache_specs, param_specs, shard_params
 __all__ = [
     "DATA_AXIS",
     "MODEL_AXIS",
-    "Mesh",
     "auto_mesh",
     "make_mesh",
     "param_specs",
     "cache_specs",
     "batch_spec",
-    "shard_params",
 ]

@@ -44,11 +44,14 @@ once, and the controller's launch fails as the typed 503
 (``BackendUnavailableError``, ``KernelUnavailableError`` for a kernel) with
 the follower's error. A world started rank by rank is then stopped: every
 later request gets the same 503 (its followers' processes cannot be started
-again from inside the world). A world the controller's own process started
-(:mod:`.launcher`, its :attr:`HostController.owner`) is started again
-instead: the controller asks its owner for a restart whenever it would stop
+again from inside the world). A world of one host the controller's own
+process started (:mod:`.launcher`, its :attr:`HostController.owner`) is
+started again instead: the controller asks its owner for a restart whenever it would stop
 (a follower that failed or was killed, an announced operation that never
-ended), and the owner builds a new world, controller and engine.
+ended), and the owner builds a new world, controller and engine. The hosts'
+followers of a world of several processes (JAX's ``initialize_multihost``)
+are started by each host's process too, and its owner stops the world on
+every host instead, as a JAX job stops with a lost process.
 
 Plans go out under a lock of their own (``controller.plans``), taken after
 the engine's launch lock where a launch holds both, never before it. A
@@ -155,8 +158,9 @@ class HostController:
         # kllms: unguarded — set once, when the world stops; readers raise it
         self.stopped: Optional[BackendUnavailableError] = None
         # The world's owner where this process started it (a
-        # launcher.SpawnedWorld, asked for a restart where a hand-started
-        # world stops) and the world's generation there.
+        # launcher.SpawnedWorld, asked for a restart, or for the stop on
+        # every process, where a hand-started world stops) and the world's
+        # generation there.
         self.owner = None
         self.generation = 0
         # kllms: unguarded — counted by the one thread that sends or serves plans
@@ -195,8 +199,10 @@ class HostController:
     @property
     def restartable(self) -> bool:
         """Whether a stop of this world is healed by starting a new one (the
-        controller's process started it and has not given it up)."""
-        return self.owner is not None and self.owner.terminal is None
+        controller's process started a world of its host alone and has not
+        given it up)."""
+        return (self.owner is not None and self.owner.restartable
+                and self.owner.terminal is None)
 
     @classmethod
     def for_world(cls, engine) -> Optional["HostController"]:
@@ -402,7 +408,9 @@ class HostController:
             then = "the world is started again" if self.restartable else "the world is stopped"
             self.stopped = err_type(f"{what}; {then}: {kind}: {message}")
             logger.error("controller: %s", self.stopped)
-        if self.restartable:
+        if self.owner is not None and self.owner.terminal is None:
+            # The owner starts a world of its host again, or stops one of
+            # several processes on every host.
             self.owner.request_restart(self.generation, str(self.stopped))
         return self.stopped
 

@@ -1,34 +1,44 @@
-"""Multi-process initialisation: one process per rank.
+"""Multi-process initialisation: JAX's processes, each driving its host's
+ranks.
 
-Counterpart of ``k_llms_tpu/parallel/distributed.py``. Every rank calls
+Counterpart of ``k_llms_tpu/parallel/distributed.py``. Every process calls
 :func:`initialize_multihost` before it builds an engine; it reads the JAX
 package's environment (``KLLMS_COORDINATOR`` as ``host:port``,
 ``KLLMS_NUM_PROCESSES``, ``KLLMS_PROCESS_ID``) or its arguments and starts
-the default ``torch.distributed`` process group over TCP.
+the default ``torch.distributed`` process group over TCP. As in JAX, the
+variables count *processes*, and each process drives every rank of its host
+(:func:`local_rank_count`: one a card it sees, or :data:`LOCAL_RANKS_ENV`):
+the processes exchange their counts through the coordinator's store, the
+world's size is their sum, and the ranks are host-major (process ``p``'s
+follow those of the processes before it, as ``jax.devices()`` orders
+devices by process), so ``auto_mesh(model_parallel=m)`` keeps the model axis
+inside a host. A process of several ranks starts its followers here
+(:class:`.launcher.SpawnedWorld`), into the global world, and is its host's
+rank 0; its client hands them its configuration later.
+
+A process counts as one rank where ``LOCAL_RANK`` is set (``torchrun``, and
+the followers a process started), and a world whose every process counts
+one rank is started rank by rank, as before: the host's ranks from
+``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` or each rank's host name exchanged
+through the coordinator's store. :func:`host_ranks` exposes the result; the
+controlling rank of :mod:`.controller` is the host's first.
 
 The transport is chosen once, here: ``nccl`` when every rank has a card of
-its own (the host's ranks at most its card count), ``gloo`` on the CPU and
-where ranks share a card (NCCL does not take two ranks on one device). Under
-``gloo`` the work stays on the card and only each collective's bytes cross
-host memory (:mod:`.collectives`).
+its own (the host's ranks at most its card count, on every host), ``gloo``
+on the CPU and where ranks share a card (NCCL does not take two ranks on one
+device). Under ``gloo`` the work stays on the card and only each
+collective's bytes cross host memory (:mod:`.collectives`).
 
-The host's ranks are derived before the transport is chosen:
-``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` where ``torchrun`` sets them, else each
-rank's host name exchanged through the coordinator's TCP store, so a world
-started from the ``KLLMS_*`` variables alone on two hosts of four cards
-counts four ranks a host (and takes nccl). :func:`host_ranks` exposes the
-result; the controlling rank of :mod:`.controller` is the host's first.
-
-A plain process starts its host's world itself, as JAX's one process drives
-every local chip: :func:`local_rank_count` is the host's rank count (one a
-card, or the forced :data:`LOCAL_RANKS_ENV`), :func:`spawns_world` says
-whether a backend built here starts the others (:mod:`.launcher`), and
-:func:`initialize_local_world` joins the controlling process to the world it
+A plain process (no ``KLLMS_*`` world) starts its host's world when its
+client is built, as JAX's one process drives every local chip:
+:func:`spawns_world` says how many followers a process starts, and
+:func:`join_host_world` joins the controlling process to the world it
 started. :func:`end_world` forgets a world so that another can start.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import socket
@@ -42,8 +52,9 @@ logger = logging.getLogger(__name__)
 
 #: Seconds a rank waits for the others' host names in the coordinator's store.
 HOST_EXCHANGE_TIMEOUT_S = 300.0
-#: The variables of a world started rank by rank.
-WORLD_ENV = ("KLLMS_COORDINATOR", "KLLMS_NUM_PROCESSES", "KLLMS_PROCESS_ID")
+#: Where each process of a multi-process world leaves its host name, rank
+#: count and transport in the coordinator's store (its process id appended).
+PROCESS_KEY = "kllms/process/"
 #: The forced count of this host's ranks: the port's counterpart of
 #: ``--xla_force_host_platform_device_count`` (ranks on the CPU, or ranks
 #: that share a card).
@@ -81,13 +92,6 @@ def _host_ranks_from_env(rank: int, world: int) -> Optional[HostRanks]:
     return HostRanks(local_rank, local_world, list(range(first, min(first + local_world, world))))
 
 
-def _exchange_host_names(store, rank: int, world: int) -> List[str]:
-    store.set(f"kllms/host/{rank}", socket.gethostname())
-    keys = [f"kllms/host/{r}" for r in range(world)]
-    store.wait(keys, timedelta(seconds=HOST_EXCHANGE_TIMEOUT_S))
-    return [store.get(k).decode() for k in keys]
-
-
 def host_ranks() -> HostRanks:
     """This rank's host ranks (:class:`HostRanks`). In a world that
     :func:`initialize_multihost` did not start, the first call is a
@@ -114,14 +118,17 @@ def initialize_multihost(
     *,
     device=None,
     store=None,
+    transport: Optional[str] = None,
 ) -> bool:
     """Start the default process group from the arguments or the
     environment. Returns True when a group was started (or one already
     runs), False for a single process (neither a coordinator nor a process
-    count given). The transport is :func:`default_transport` for
-    ``device`` (the rank's device, default :func:`local_device`).
-    ``store``: the coordinator's store, already reached (a follower its
-    controller started), instead of a new connection to it."""
+    count given). ``device``: this process's device (default
+    :func:`local_device`; its type is every local rank's). A process of
+    several ranks (:func:`spawns_world`) starts its followers into the world
+    before it joins, and raises, with every process of the world, when one
+    cannot start. ``store`` and ``transport``: a follower's, already reached
+    and agreed (with ``LOCAL_RANK`` set, the process is one rank)."""
     coordinator_address = coordinator_address or os.getenv("KLLMS_COORDINATOR")
     num_processes = num_processes or _int_env("KLLMS_NUM_PROCESSES")
     process_id = process_id if process_id is not None else _int_env("KLLMS_PROCESS_ID")
@@ -135,34 +142,89 @@ def initialize_multihost(
             "multi-process init needs KLLMS_COORDINATOR (host:port), "
             "KLLMS_NUM_PROCESSES and KLLMS_PROCESS_ID"
         )
+    one_rank = _int_env("LOCAL_RANK") is not None
+    if not one_rank and device is None and not torch.cuda.is_available():
+        raise RuntimeError("this process sees no CUDA device: pass device='cpu' to start a "
+                           "world on the CPU")
     global _HOST
-    world, rank = int(num_processes), int(process_id)
+    processes, pid = int(num_processes), int(process_id)
     if store is None:
         host, port = coordinator_address.rsplit(":", 1)
-        # The coordinator's store, made here so that the host names cross it
-        # before the transport is chosen; the process group then shares it.
-        store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+        # The coordinator's store, made here so that the processes' counts
+        # cross it before the world is laid out; the process group then
+        # shares it.
+        store = dist.TCPStore(host, int(port), processes, is_master=pid == 0,
                               timeout=timedelta(seconds=HOST_EXCHANGE_TIMEOUT_S))
-    _HOST = _host_ranks_from_env(rank, world) or host_ranks_from_names(
-        _exchange_host_names(store, rank, world), rank)
-    _init_group(store, world, rank, device)
+    if one_rank:
+        # One rank of a world started rank by rank (torchrun, or a follower).
+        _HOST = _host_ranks_from_env(pid, processes)
+        _init_group(store, processes, pid, device, transport)
+        return True
+    kind = "cuda" if device is None else torch.device(device).type
+    count = spawns_world(kind) + 1
+    places = _exchange_places(store, pid, processes, count, default_transport(kind, count))
+    if all(p[1] == 1 for p in places):
+        # Every process one rank: the world started rank by rank, the
+        # host's ranks from the host names.
+        _HOST = host_ranks_from_names([p[0] for p in places], pid)
+        _init_group(store, processes, pid, device)
+        return True
+    offset = sum(p[1] for p in places[:pid])
+    transport = "nccl" if all(p[2] == "nccl" for p in places) else "gloo"
+    from .launcher import SpawnedWorld, adopt_host_world
+
+    spawned = SpawnedWorld(count, local_device(0, kind),
+                           HostPlace(coordinator_address, store, pid, processes, offset,
+                                     sum(p[1] for p in places), transport))
+    spawned.start()
+    adopt_host_world(spawned)
     return True
 
 
-def initialize_local_world(store, local_ranks: int, device=None) -> None:
-    """Join the world this process started as its rank 0: ``local_ranks``
-    ranks, all on this host, meeting at ``store`` (the master this process
-    serves). The controller's side of :func:`initialize_multihost`."""
+class HostPlace(NamedTuple):
+    """A process's place in the world it starts its followers into: the
+    coordinator's address and store, the process's id among ``processes``,
+    its first global rank (``offset``), the world's rank count and its
+    transport. A plain process's world is one of a single process, on a
+    loopback store of its own (:func:`.launcher.local_place`)."""
+
+    coordinator: str
+    store: object
+    process_id: int
+    processes: int
+    offset: int
+    world: int
+    transport: str
+
+
+def _exchange_places(store, pid: int, processes: int, count: int,
+                     transport: str) -> List[tuple]:
+    """Every process's (host name, rank count, transport), in process order,
+    through the coordinator's store."""
+    store.set(f"{PROCESS_KEY}{pid}", json.dumps([socket.gethostname(), count, transport]))
+    keys = [f"{PROCESS_KEY}{p}" for p in range(processes)]
+    store.wait(keys, timedelta(seconds=HOST_EXCHANGE_TIMEOUT_S))
+    return [tuple(json.loads(store.get(k))) for k in keys]
+
+
+def join_host_world(place: "HostPlace", local_ranks: int, device) -> None:
+    """Join the world at ``place`` as the first of this process's
+    ``local_ranks`` ranks, whose followers (:mod:`.launcher`) hold the
+    others. The controlling process's side of a world it started."""
     global _HOST
-    _HOST = HostRanks(0, int(local_ranks), list(range(int(local_ranks))))
-    _init_group(store, int(local_ranks), 0, device)
+    _HOST = HostRanks(0, int(local_ranks), list(range(place.offset, place.offset + local_ranks)))
+    try:
+        _init_group(place.store, place.world, place.offset, device, place.transport)
+    except BaseException:
+        _HOST = None
+        raise
 
 
-def _init_group(store, world: int, rank: int, device) -> None:
+def _init_group(store, world: int, rank: int, device, transport: Optional[str] = None) -> None:
     if device is None:
         device = local_device(rank, "cuda" if torch.cuda.is_available() else "cpu")
     device = torch.device(device)
-    transport = default_transport(device, _HOST.local_world)
+    transport = transport or default_transport(device, _HOST.local_world)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(transport, store=store, world_size=world, rank=rank)
@@ -196,14 +258,15 @@ def local_rank_count(device) -> int:
 
 
 def spawns_world(device) -> int:
-    """The rank count of the world a backend built in this process starts
-    (:mod:`.launcher`), or 0 where it starts none: a process group already
-    runs, a ``KLLMS_*`` world variable is set (a rank started by hand, or a
-    follower), or the host counts one rank."""
-    if dist.is_initialized() or any(os.getenv(v) for v in WORLD_ENV):
+    """How many followers this process starts (:mod:`.launcher`): its
+    host's rank count less one, or 0 where it starts none: a process group
+    already runs, ``LOCAL_RANK`` is set (one rank of a world started rank by
+    rank: ``torchrun``, or a follower), or the host counts one rank. A
+    process of a multi-process world starts them in
+    :func:`initialize_multihost`, a plain one when its backend is built."""
+    if dist.is_initialized() or _int_env("LOCAL_RANK") is not None:
         return 0
-    n = local_rank_count(device)
-    return n if n > 1 else 0
+    return max(0, local_rank_count(device) - 1)
 
 
 def local_device(rank: Optional[int] = None, kind: str = "cuda") -> torch.device:

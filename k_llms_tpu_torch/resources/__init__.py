@@ -1,1 +1,3 @@
 from .completions import AsyncCompletions, Completions
+
+__all__ = ["Completions", "AsyncCompletions"]

@@ -11,10 +11,10 @@ its own shard). On (1, 2), (2, 1) and (2, 2) the greedy tokens equal the JAX
 mesh engine's exactly and the logprobs and every rank's prefill logits stay
 within 1e-5; ``close()`` ends every follower with exit code 0. A model
 registered only in the controlling process (a cut depth) is served on every
-rank. A process started with the ``KLLMS_*`` variables or inside a process
-group spawns nothing (the hand-started twins, unchanged, are the end-to-end
-check), and a ``model_parallel`` that does not divide the rank count raises
-JAX's ``auto_mesh`` error before any child starts.
+rank. A process of a world started rank by rank (``LOCAL_RANK`` set) or
+inside a process group spawns nothing (the hand-started twins, unchanged,
+are the end-to-end check), and a ``model_parallel`` that does not divide
+the rank count raises JAX's ``auto_mesh`` error before any child starts.
 """
 
 import jax
@@ -97,21 +97,26 @@ def test_model_parallel_must_divide_the_local_ranks(monkeypatch):
 
 
 def test_only_a_plain_process_spawns(monkeypatch):
-    """The forced count starts a world; a rank started by hand (any
-    ``KLLMS_*`` world variable), a forced count of one, or the CPU without
-    a forced count start none."""
+    """A process counts its host's ranks as JAX counts its devices: the
+    forced count of 4 starts 3 followers, with or without the ``KLLMS_*``
+    variables of a world of several processes (each process drives its
+    host's ranks); a rank started rank by rank (``LOCAL_RANK`` set, as
+    ``torchrun`` and the launcher's own followers have it), a forced count of
+    one, or the CPU without a forced count start none."""
     from k_llms_tpu_torch.parallel.distributed import local_rank_count, spawns_world
 
     for name in ("KLLMS_LOCAL_RANKS", "KLLMS_COORDINATOR", "KLLMS_NUM_PROCESSES",
-                 "KLLMS_PROCESS_ID"):
+                 "KLLMS_PROCESS_ID", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
         monkeypatch.delenv(name, raising=False)
     assert local_rank_count("cpu") == 1 and spawns_world("cpu") == 0
     monkeypatch.setenv("KLLMS_LOCAL_RANKS", "4")
-    assert spawns_world("cpu") == 4
+    assert spawns_world("cpu") == 3
     for name, value in (("KLLMS_COORDINATOR", "127.0.0.1:1"), ("KLLMS_NUM_PROCESSES", "2"),
                         ("KLLMS_PROCESS_ID", "1")):
         monkeypatch.setenv(name, value)
-        assert spawns_world("cpu") == 0
-        monkeypatch.delenv(name)
+        assert spawns_world("cpu") == 3
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert spawns_world("cpu") == 0
+    monkeypatch.delenv("LOCAL_RANK")
     monkeypatch.setenv("KLLMS_LOCAL_RANKS", "1")
     assert spawns_world("cpu") == 0
